@@ -1,0 +1,98 @@
+#!/usr/bin/env python3
+"""Where one constraint step's time goes on the card.
+
+    python3 benchmarks_torch/profile_step.py [--steps 5] [--seed 0]
+
+Runs the port's main path — ``orthogonal("pogo", use_kernel=True,
+base_optimizer=chain(trace(0.9)))`` + ``constraint_step`` — on the
+SmolLM-360M q/k stack (640 x (64, 960)) and on 2048 x (16, 256), traces
+``--steps`` steps after three warm-up steps with ``torch.profiler``, and
+prints, per shape, the wall time per step, the device time of every
+kernel by name, and the device's busy share (kernel time over wall
+time). Needs one CUDA card; exits 2 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def profile(shapes, label, steps, seed):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from repro_torch.core import api, stiefel
+    from repro_torch.optim import chain, trace
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = {k: stiefel.random_stiefel(gen, s, device="cuda") for k, s in shapes.items()}
+    cs = api.ConstraintSet.from_tree(params)
+    opt = api.orthogonal("pogo", learning_rate=0.1, use_kernel=True,
+                         base_optimizer=chain(trace(0.9)))
+    state = opt.init(cs)
+    step = api.constraint_step(opt)
+    grads = [api.ConstraintSet(cs.plan, [5e-4 * torch.randn(s.shape, generator=gen,
+                                                            device="cuda")
+                                         for s in cs.stacks])
+             for _ in range(steps + 3)]
+    for gs in grads[:3]:
+        cs, state, health = step(cs, state, gs)
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for gs in grads[3:]:
+            cs, state, health = step(cs, state, gs)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = defaultdict(lambda: [0, 0.0])
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            entry = by_name[evt.name]
+            entry[0] += 1
+            entry[1] += evt.time_range.elapsed_us()
+    if not bool(health.finite):
+        raise SystemExit(f"{label}: non-finite step")
+    device_us = sum(us for _, us in by_name.values())
+    print(f"{label}: {steps} steps, wall {wall_us / steps:.1f} us/step, device "
+          f"{device_us / steps:.1f} us/step, busy share "
+          + (f"{device_us / wall_us:.3f}" if device_us else "not measured"), flush=True)
+    for name, (count, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
+        print(f"  {us / steps:10.1f} us/step  {count // steps:3d}x/step  {name[:90]}",
+              flush=True)
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_step: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs import smollm_360m
+    from repro_torch.models import ortho
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    shapes = ortho.orthogonal_leaf_shapes(smollm_360m.config())
+    profile(shapes, "smollm-360m q/k 640x(64,960)", args.steps, args.seed)
+    profile({"w": (2048, 16, 256)}, "2048x(16,256)", args.steps, args.seed)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,81 @@
+"""Stiefel-manifold primitives on tensors, batched over leading dims.
+
+``St(p, n) = {X : X X^T = I_p}`` with ``p <= n`` (row-orthonormal wide
+matrices), as in ``repro.core.stiefel``. Random draws come from a
+``torch.Generator``; they cannot reproduce JAX's threefry streams, so they
+are checked by property (``X X^T = I``), never elementwise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .._device import resolve_device
+
+
+def gram(x: torch.Tensor) -> torch.Tensor:
+    """``X X^H`` — the (p, p) Gram matrix of the rows."""
+    return x @ x.transpose(-1, -2).conj()
+
+
+def manifold_distance(x: torch.Tensor) -> torch.Tensor:
+    """Frobenius distance ``||X X^H - I||_F`` per batched matrix."""
+    g = gram(x)
+    r = g - torch.eye(x.shape[-2], dtype=g.dtype, device=g.device)
+    return torch.sqrt(torch.sum(r.abs() ** 2, dim=(-2, -1)))
+
+
+def masked_eye(p: int, pv: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """``I_{pv}`` embedded in a padded ``(..., p, p)`` block: rows at or
+    beyond ``pv`` (valid-row counts, any leading shape) hold zero."""
+    pv = torch.as_tensor(pv)
+    eye = torch.eye(p, dtype=dtype, device=pv.device)
+    row = torch.arange(p, device=pv.device)
+    mask = row < pv[..., None]  # (..., p)
+    return eye * mask[..., None].to(dtype)
+
+
+def manifold_distance_masked(x: torch.Tensor, pv: torch.Tensor) -> torch.Tensor:
+    """``||X X^H - I_{pv}||_F`` per matrix of a zero-padded ragged batch."""
+    g = gram(x)
+    r = g - masked_eye(x.shape[-2], pv.to(g.device), g.dtype)
+    return torch.sqrt(torch.sum(r.abs() ** 2, dim=(-2, -1)))
+
+
+def random_stiefel(
+    generator: torch.Generator,
+    shape: tuple[int, ...],
+    dtype=torch.float32,
+    device="cuda",
+) -> torch.Tensor:
+    """Haar sample from St(p, n) via QR of a Gaussian; ``shape`` is
+    ``(..., p, n)`` with ``p <= n``. The Gaussian is drawn on the
+    generator's device and the sample lands on ``device``."""
+    *batch, p, n = shape
+    if p > n:
+        raise ValueError(f"St(p,n) requires p <= n, got {(p, n)}")
+    device = resolve_device(device)
+    a = torch.randn((*batch, n, p), generator=generator, dtype=dtype,
+                    device=generator.device).to(device)
+    q, r = torch.linalg.qr(a)  # q: (..., n, p) column-orthonormal
+    d = torch.diagonal(r, dim1=-2, dim2=-1)
+    phase = d / torch.where(d.abs() == 0, torch.ones_like(d), d.abs())
+    q = q * phase.conj()[..., None, :]
+    return q.transpose(-1, -2).conj().contiguous()
+
+
+def random_stiefel_stacked(
+    generators: list[torch.Generator],
+    shape: tuple[int, ...],
+    dtype=torch.float32,
+    device="cuda",
+) -> torch.Tensor:
+    """One independent Haar draw per stacked matrix: ``shape`` is
+    ``(B, p, n)`` and ``generators`` holds ``B`` generators, so the sample
+    a matrix sees does not depend on how the batch was assembled."""
+    b = shape[0]
+    if len(generators) != b:
+        raise ValueError(f"{len(generators)} generators for a batch of {b}")
+    return torch.stack(
+        [random_stiefel(gen, shape[1:], dtype, device) for gen in generators]
+    )

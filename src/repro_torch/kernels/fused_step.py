@@ -1,0 +1,195 @@
+"""Wrappers of the fused POGO group-step kernels (``csrc/fused_step.cu``).
+
+``fused_step_whole`` replaces ``repro/kernels/fused_step.py:175``
+(``_fused_whole_kernel``): one CTA per matrix with X and the transformed
+gradient resident in shared memory. ``fused_step_tiled`` replaces
+``repro/kernels/fused_step.py:608`` (``_t1_kernel``, ``_t2_pogo_kernel``,
+``pogo_update._phase3_kernel`` and the telemetry products left to XLA): one
+CTA per matrix sweeping n-tiles three times, with the (p, p) grams in
+shared memory. Both are IEEE fp32 on the CUDA cores.
+
+Both wrappers take the arguments of ``ref.fused_group_step_ref`` and return
+its ``(x', mu', nu', dist, finite)``. On a CPU tensor they run that plain
+version; on a CUDA tensor they check device, dtype, shape and contiguity,
+launch on the current stream, and raise if the launch fails. There is no
+fallback. ``inplace=True`` writes X' over ``x``, mu' over ``mu`` and nu'
+over ``nu`` (safe: each CTA owns its matrix and never re-reads an element
+it has overwritten). Each wrapper counts its launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build, ref
+
+_BASE_KINDS = {"none": 0, "trace": 1, "vadam": 2}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("fused_step")
+    if not getattr(lib, "_typed", False):
+        common = [_P] * 10 + [_I] * 5
+        lib.fused_step_whole.argtypes = common + [_P]
+        lib.fused_step_tiled.argtypes = common + [_I, _P]
+        lib.fused_whole_smem_bytes.argtypes = [_I, _I]
+        lib.fused_tiled_smem_bytes.argtypes = [_I, _I]
+        for fn in (lib.fused_step_whole, lib.fused_step_tiled,
+                   lib.fused_whole_smem_bytes, lib.fused_tiled_smem_bytes):
+            fn.restype = _I
+        lib._typed = True
+    return lib
+
+
+def pack_scal(eta, lam, *, base_kind, hyper, post_scale, count, device):
+    """The kernels' fp32 scalar vector ``[eta, lam, post_scale, h0..h4]``,
+    packed as ``repro/kernels/ops.py:361-371`` packs it: ``h0 = decay``
+    for trace, ``(b1, b2, eps, c1, c2)`` for vadam with the bias
+    corrections from ``count + 1``. Python numbers travel in one
+    non-blocking copy; a tensor ``eta`` and the vadam corrections are
+    filled in on the device, so packing never waits for the card."""
+    h = [0.0] * 5
+    if base_kind == "trace":
+        h[0] = float(hyper[0])
+    elif base_kind == "vadam":
+        h[:3] = [float(v) for v in hyper]
+    eta_host = float(eta) if isinstance(eta, (int, float)) else 0.0
+    host = torch.tensor([eta_host, float(lam), float(post_scale), *h],
+                        dtype=torch.float32)
+    scal = host.to(device, non_blocking=True)
+    if not isinstance(eta, (int, float)):
+        scal[0:1].copy_(torch.as_tensor(eta, dtype=torch.float32).reshape(1))
+    if base_kind == "vadam":
+        t = (count + 1).to(device=device, dtype=torch.float32)
+        scal[6:8] = 1.0 - torch.pow(scal[3:5], t)
+    return scal
+
+
+def _check(name, t, shape, dtype, device):
+    if t is None:
+        raise ValueError(f"{name} is required for this base kind")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, the kernel takes {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def run_plain(x, g, eta, *, inplace=False, **kw):
+    """The plain version on any device, with the wrappers' ``inplace``."""
+    out = ref.fused_group_step_ref(x, g, eta, **kw)
+    if not inplace:
+        return out
+    x2, mu2, nu2, dist, finite = out
+    x.copy_(x2)
+    if mu2 is not None:
+        kw["mu"].copy_(mu2)
+    if nu2 is not None:
+        kw["nu"].copy_(nu2)
+    return x, kw["mu"] if mu2 is not None else None, \
+        kw["nu"] if nu2 is not None else None, dist, finite
+
+
+def _launch(entry, x, g, eta, *, method, lam, base_kind, hyper, post_scale,
+            mu, nu, count, pv, inplace, extra=()):
+    if method != "pogo":
+        raise NotImplementedError(
+            f"fused method {method!r} has no CUDA kernel yet "
+            "(ROADMAP: Landing's fused branches)"
+        )
+    if base_kind not in _BASE_KINDS:
+        raise ValueError(f"unknown base kind {base_kind!r}")
+    dev = x.device
+    if x.dim() != 3:
+        raise ValueError(f"x must be a (B, p, n) stack, got {tuple(x.shape)}")
+    bsz, p, n = x.shape
+    _check("x", x, (bsz, p, n), torch.float32, dev)
+    _check("g", g, (bsz, p, n), torch.float32, dev)
+    if base_kind != "none":
+        _check("mu", mu, (bsz, p, n), torch.float32, dev)
+    if base_kind == "vadam":
+        _check("nu", nu, (bsz,), torch.float32, dev)
+        if count is None:
+            raise ValueError("count is required for the vadam base")
+    if pv is not None:
+        _check("pv", pv, (bsz,), torch.int32, dev)
+    nesterov = bool(hyper[1]) if base_kind == "trace" else False
+    scal = pack_scal(eta, lam, base_kind=base_kind, hyper=hyper,
+                     post_scale=post_scale, count=count, device=dev)
+    has_mu = base_kind != "none"
+    has_nu = base_kind == "vadam"
+    if inplace:
+        x_out, mu_out, nu_out = x, mu, nu
+    else:
+        x_out = torch.empty_like(x)
+        mu_out = torch.empty_like(mu) if has_mu else None
+        nu_out = torch.empty_like(nu) if has_nu else None
+    dist = torch.empty((bsz,), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = entry(
+            ptr(x), ptr(g), ptr(mu) if has_mu else None,
+            ptr(nu) if has_nu else None, ptr(scal), ptr(pv), ptr(x_out),
+            ptr(mu_out), ptr(nu_out), ptr(dist),
+            bsz, p, n, _BASE_KINDS[base_kind], int(nesterov), *extra, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"fused step kernel launch failed for (B, p, n) = {(bsz, p, n)}: "
+            f"cudaError {err}"
+        )
+    return x_out, mu_out, nu_out, dist, torch.isfinite(dist)
+
+
+def fused_step_whole(x, g, eta, *, method="pogo", lam, base_kind="none",
+                     hyper=(), post_scale=1.0, mu=None, nu=None, count=None,
+                     pv=None, inplace=False):
+    """Whole-matrix fused step: one CTA per ``(p, n)`` matrix, X and the
+    transformed gradient in shared memory (``ops.whole_smem_bytes``)."""
+    kw = dict(method=method, lam=lam, base_kind=base_kind, hyper=hyper,
+              post_scale=post_scale, mu=mu, nu=nu, count=count, pv=pv)
+    if x.device.type == "cpu":
+        return run_plain(x, g, eta, inplace=inplace, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    out = _launch(_lib().fused_step_whole, x, g, eta, inplace=inplace, **kw)
+    fused_step_whole.launches += 1
+    return out
+
+
+def fused_step_tiled(x, g, eta, *, method="pogo", lam, base_kind="none",
+                     hyper=(), post_scale=1.0, mu=None, nu=None, count=None,
+                     pv=None, inplace=False, tile_n=64):
+    """Tiled fused step: one CTA per matrix sweeping ``tile_n``-wide column
+    tiles (moments + A, Bp; then M + C; then X'), grams in shared memory
+    (``ops.tiled_smem_bytes``)."""
+    kw = dict(method=method, lam=lam, base_kind=base_kind, hyper=hyper,
+              post_scale=post_scale, mu=mu, nu=nu, count=count, pv=pv)
+    if x.device.type == "cpu":
+        return run_plain(x, g, eta, inplace=inplace, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    out = _launch(_lib().fused_step_tiled, x, g, eta, inplace=inplace,
+                  extra=(int(tile_n),), **kw)
+    fused_step_tiled.launches += 1
+    return out
+
+
+fused_step_whole.launches = 0
+fused_step_tiled.launches = 0
+
+
+def reset_launches() -> None:
+    fused_step_whole.launches = 0
+    fused_step_tiled.launches = 0

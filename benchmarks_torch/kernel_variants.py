@@ -51,9 +51,10 @@ def _build(label, path, caps, build):
     cu, so = os.path.join(OUT, f"{tag}.cu"), os.path.join(OUT, f"lib{tag}.so")
     with open(cu, "w") as f:
         f.write(src)
-    res = subprocess.run(
+    res = subprocess.run(  # -I: the headers beside the original source
         [build.nvcc_path(), *build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-         "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", so, cu],
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+         f"-I{os.path.dirname(os.path.abspath(path))}", "-o", so, cu],
         capture_output=True, text=True,
     )
     if res.returncode != 0:

@@ -3,13 +3,19 @@
 
     python3 benchmarks_torch/profile_step.py [--steps 5] [--seed 0]
 
-Runs the port's main path — ``orthogonal("pogo", use_kernel=True,
-base_optimizer=chain(trace(0.9)))`` + ``constraint_step`` — on the
-SmolLM-360M q/k stack (640 x (64, 960)) and on 2048 x (16, 256), traces
-``--steps`` steps after three warm-up steps with ``torch.profiler``, and
-prints, per shape, the wall time per step, the device time of every
-kernel by name, and the device's busy share (kernel time over wall
-time). Needs one CUDA card; exits 2 without one.
+Runs each of the port's main paths (``--paths``, all by default) with
+``constraint_step`` on the SmolLM-360M q/k stack (640 x (64, 960)) and on
+2048 x (16, 256). The paths and their optimizers are ``chip_smoke.py``'s
+(``chip_smoke.make_opt``): ``fused`` (the fused group step),
+``pogo_adam`` (the two-stage step through the POGO update kernels) and
+``landing`` (the paper's Landing: the landing-field kernels and the safe
+step).
+
+It traces ``--steps`` steps after three warm-up steps with
+``torch.profiler`` and prints, per path and shape, the wall time per
+step, the device time of every kernel by name, and the device's busy
+share (kernel time over wall time). Needs one CUDA card; exits 2 without
+one.
 """
 
 from __future__ import annotations
@@ -24,22 +30,21 @@ from collections import defaultdict
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def profile(shapes, label, steps, seed):
+def profile(path, shapes, label, steps, seed):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
+    from chip_smoke import GRAD_SCALE, make_opt
     from repro_torch.core import api, stiefel
-    from repro_torch.optim import chain, trace
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = {k: stiefel.random_stiefel(gen, s, device="cuda") for k, s in shapes.items()}
     cs = api.ConstraintSet.from_tree(params)
-    opt = api.orthogonal("pogo", learning_rate=0.1, use_kernel=True,
-                         base_optimizer=chain(trace(0.9)))
+    opt = make_opt(path)
     state = opt.init(cs)
     step = api.constraint_step(opt)
-    grads = [api.ConstraintSet(cs.plan, [5e-4 * torch.randn(s.shape, generator=gen,
+    grads = [api.ConstraintSet(cs.plan, [GRAD_SCALE * torch.randn(s.shape, generator=gen,
                                                             device="cuda")
                                          for s in cs.stacks])
              for _ in range(steps + 3)]
@@ -64,7 +69,7 @@ def profile(shapes, label, steps, seed):
     print(f"{label}: {steps} steps, wall {wall_us / steps:.1f} us/step, device "
           f"{device_us / steps:.1f} us/step, busy share "
           + (f"{device_us / wall_us:.3f}" if device_us else "not measured"), flush=True)
-    for name, (count, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
+    for name, (count, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
         print(f"  {us / steps:10.1f} us/step  {count // steps:3d}x/step  {name[:90]}",
               flush=True)
 
@@ -75,11 +80,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--paths", default="fused,pogo_adam,landing")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]  # the package; chip_smoke's paths
     from repro_torch.configs import smollm_360m
     from repro_torch.models import ortho
 
@@ -89,8 +95,11 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
     shapes = ortho.orthogonal_leaf_shapes(smollm_360m.config())
-    profile(shapes, "smollm-360m q/k 640x(64,960)", args.steps, args.seed)
-    profile({"w": (2048, 16, 256)}, "2048x(16,256)", args.steps, args.seed)
+    for path in args.paths.split(","):
+        profile(path, shapes, f"{path} smollm-360m q/k 640x(64,960)", args.steps,
+                args.seed)
+        profile(path, {"w": (2048, 16, 256)}, f"{path} 2048x(16,256)", args.steps,
+                args.seed)
     return 0
 
 

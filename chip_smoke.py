@@ -3,16 +3,30 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each kernel against its plain PyTorch version on the card, then drives the
-port's main path — ``orthogonal("pogo", use_kernel=True, base_optimizer=
-chain(trace(0.9)))`` + ``constraint_step`` — at the full width of
-SmolLM-360M's constrained q/k projections (one 640 x (64, 960) stack), and
-at the many-matrices shape 2048 x (16, 256). Any failure exits non-zero.
-The second-to-last line is a JSON record of every kernel (launches on the
-main path, error against the plain version, times and bounds); the last
-line is the device record. Without a CUDA card it exits 2 and prints no
-result.
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+``nvcc`` per source, all at once), holds each kernel against its plain
+PyTorch version on the card, then drives the port's three main paths with
+``constraint_step`` at the full width of SmolLM-360M's constrained q/k
+projections (one 640 x (64, 960) stack, the tiled kernels) and at the
+many-matrices shape 2048 x (16, 256) (the whole kernels):
+
+* the fused group step, ``orthogonal("pogo", use_kernel=True,
+  base_optimizer=chain(trace(0.9)))``;
+* POGO over Adam on the two-stage step, ``orthogonal("pogo",
+  learning_rate=1e-3, base_optimizer=chain(scale_by_adam()),
+  use_kernel=True)``. Adam's output has unit scale per entry, so lr 0.1
+  diverges at (64, 960) in both packages
+  (``tests/test_torch_two_stage.py::test_pogo_adam_step_size_at_smollm_width``);
+* the paper's Landing on the two-stage step, ``orthogonal("landing",
+  learning_rate=0.25, base_optimizer=chain(trace(0.1)), use_kernel=True)``
+  (lam 1, eps 0.5, exact safe step).
+
+Each path's kernels must launch once per step, its first step must agree
+with the plain route, and its feasibility must hold. Any failure exits
+non-zero. The second-to-last line is a JSON record of every kernel
+(launches on the main path, error against the plain version, times and
+bounds); the last line is the device record. Without a CUDA card it exits
+2 and prints no result.
 """
 
 from __future__ import annotations
@@ -32,9 +46,26 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 WHOLE_TOL = dict(atol=2e-5, rtol=1e-4)  # tests/test_fused_step.py:67
 TILED_TOL = dict(atol=3e-5, rtol=1e-4)  # tests/test_fused_step.py:95
+# tests/test_kernels.py:34-50 (whole, atol 1e-6) and :65-75 (tiled).
+TWO_STAGE_WHOLE_TOL = dict(atol=1e-6, rtol=1e-6)
+TWO_STAGE_TILED_TOL = dict(atol=2e-5, rtol=1e-4)
 LR = 0.1
 GRAD_SCALE = 5e-4  # per-entry gradient std: keeps eta ||R|| near 1e-2
 SMOLLM_STEPS = 10
+MANY = {"w": (2048, 16, 256)}
+# kernel -> (its source, the TPU kernel it replaces)
+KERNELS = {
+    "fused_step_whole": ("fused_step", "src/repro/kernels/fused_step.py:175"),
+    "fused_step_tiled": ("fused_step", "src/repro/kernels/fused_step.py:608"),
+    "pogo_update_whole": ("two_stage", "src/repro/kernels/pogo_update.py:64"),
+    "pogo_update_tiled": ("two_stage", "src/repro/kernels/pogo_update.py:143"),
+    "landing_field": ("two_stage", "src/repro/kernels/landing_field.py:42"),
+    "landing_field_tiled": ("two_stage", "src/repro/kernels/landing_field.py:79"),
+}
+# Two-stage kernel -> its flops per matrix over p^2 n: six p x p x n
+# products for the POGO update, five for the field.
+TWO_STAGE_FLOPS = {"pogo_update_whole": 12, "pogo_update_tiled": 12,
+                   "landing_field": 10, "landing_field_tiled": 10}
 
 
 def _card() -> str:
@@ -89,16 +120,20 @@ def _time_in_turns(kernel, plain, rounds=3):
     return statistics.median(ks), statistics.median(ps)
 
 
-def _bound(b, p, n, base_kind):
-    """Least time for one fused step: 5 HBM passes of the (B, p, n) fp32
-    operands (read X, g, mu; write X', mu') plus the per-matrix scalars,
-    against six p x p x n products (12 p^2 n flops per matrix)."""
-    passes = 5 if base_kind != "none" else 3
-    scalars = (3 if base_kind == "vadam" else 1) * b * 4
-    bytes_ = passes * b * p * n * 4 + scalars
-    flops = 12 * p * p * n * b
+def _bound_ms(bytes_, flops):
+    """Least time for the work: the larger of its bytes over the HBM rate
+    and its fp32 operations over the fp32 rate, and which one bounds it."""
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _bound(b, p, n, base_kind):
+    """One fused step: 5 HBM passes of the (B, p, n) fp32 operands (read X,
+    g, mu; write X', mu') plus the per-matrix scalars, against six
+    p x p x n products (12 p^2 n flops per matrix)."""
+    passes = 5 if base_kind != "none" else 3
+    scalars = (3 if base_kind == "vadam" else 1) * b * 4
+    return _bound_ms(passes * b * p * n * 4 + scalars, 12 * p * p * n * b)
 
 
 def _operands(gen, b, p, n):
@@ -113,8 +148,8 @@ def _operands(gen, b, p, n):
     return x, g, mu, nu
 
 
-def phase_kernels(gen):
-    """Each kernel against the plain version at the main-path shapes."""
+def phase_fused_kernels(gen):
+    """Each fused kernel against the plain version at the main-path shapes."""
     import torch
 
     from repro_torch.kernels import fused_step as fs
@@ -164,22 +199,117 @@ def phase_kernels(gen):
     return records
 
 
-def drive_main_path(gen, shapes, label, steps, card):
-    """orthogonal(...) + constraint_step on a ConstraintSet of random
-    Stiefel leaves: 2 warm-up steps, then ``steps`` counted steps. Returns
-    the launches of each kernel during the counted steps."""
+def phase_two_stage_kernels(gen):
+    """Each two-stage kernel against its plain version at its main-path
+    shape (timed, with its bound) and at a ragged shape, 7 x (10, 250).
+    X is a Stiefel draw plus 0.01 randn, and the check first shows that
+    dropping lam's term would break the tolerance."""
+    import torch
+
+    from repro_torch.kernels import landing_field as lf
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import pogo_update as pu
+
+    records = {}
+    for name in TWO_STAGE_FLOPS:
+        pogo = name.startswith("pogo")
+        tiled = name.endswith("tiled")
+        planner = ops.plan_pogo_update if pogo else ops.plan_landing_field
+        b, p, n = (640, 64, 960) if tiled else (2048, 16, 256)
+        kind, tile_n = planner(p, n)
+        if (kind == "tiled") != tiled:
+            raise SystemExit(f"the planner picks {kind} for ({p}, {n}), not {name}")
+        wrapper = getattr(pu if pogo else lf, name)
+        if tiled:
+            wrapper = functools.partial(wrapper, tile_n=tile_n)
+        if pogo:
+            def run(x, g, wrapper=wrapper):
+                return wrapper(x, g, LR, 0.5)
+
+            def plain(x, g, lam=0.5):
+                return ref.pogo_update_ref(x, g, LR, lam)
+        else:
+            def run(x, g, wrapper=wrapper):
+                return wrapper(x, g, 1.0)
+
+            def plain(x, g, lam=1.0):
+                return ref.landing_field_ref(x, g, lam)
+        tol = TWO_STAGE_TILED_TOL if tiled else TWO_STAGE_WHOLE_TOL
+        for shape in ((b, p, n), (7, 10, 250)):
+            x, g, _, _ = _operands(gen, *shape)
+            # Off the manifold, so that lam's term (the land stage's
+            # lam (M M^T - I) M, the field's lam (A X - X)) is visible.
+            x += 0.01 * torch.randn(shape, generator=gen, device="cuda")
+            got = run(x, g)
+            torch.cuda.synchronize()
+            want = plain(x, g)
+            without = plain(x, g, lam=0.0)
+            if _errors((without,), (want,), tol)[2]:
+                raise SystemExit(f"{name} {shape}: the check cannot see lam's term")
+            max_abs, max_rel, ok = _errors((got,), (want,), tol)
+            print(f"kernel {name} {shape[0]}x{shape[1:]} tile_n {tile_n}: max_abs "
+                  f"{max_abs:.3e} max_rel {max_rel:.3e} (atol {tol['atol']}, rtol "
+                  f"{tol['rtol']}; lam's term up to {float((want - without).abs().max()):.1e}) "
+                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+            if not ok:
+                raise SystemExit(f"{name} disagrees with its plain version")
+            if name not in records:  # the main-path shape comes first
+                ms, plain_ms = _time_in_turns(lambda: run(x, g), lambda: plain(x, g))
+                # Read X and G, write one result.
+                bound_ms, bound_by = _bound_ms(3 * b * p * n * 4,
+                                               TWO_STAGE_FLOPS[name] * p * p * n * b)
+                print(f"  {name} ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+                      f"{bound_ms:.4f} ({bound_by})", flush=True)
+                records[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bound_ms, bound_by=bound_by)
+            else:
+                records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                                   max_abs)
+            del x, g, got, want, without
+    return records
+
+
+def make_opt(path, use_kernel=True):
+    """The optimizer of main path ``path`` (``fused``, ``pogo_adam`` or
+    ``landing``); ``benchmarks_torch/profile_step.py`` traces the same."""
+    from repro_torch.core import api
+    from repro_torch.optim import chain, scale_by_adam, trace
+
+    if path == "fused":
+        return api.orthogonal("pogo", learning_rate=LR, use_kernel=use_kernel,
+                              base_optimizer=chain(trace(0.9)))
+    if path == "pogo_adam":
+        return api.orthogonal("pogo", learning_rate=1e-3, use_kernel=use_kernel,
+                              base_optimizer=chain(scale_by_adam()))
+    if path == "landing":
+        return api.orthogonal("landing", learning_rate=0.25, use_kernel=use_kernel,
+                              base_optimizer=chain(trace(0.1)))
+    raise ValueError(f"unknown path {path!r}")
+
+
+def _clone_state(state):
+    from repro_torch import tree
+
+    return state._replace(count=state.count.clone(),
+                          base_state=tree.tree_map(lambda t: t.clone(),
+                                                   state.base_state))
+
+
+def drive_main_path(gen, shapes, label, steps, card, make_opt, max_dist):
+    """``make_opt(True)`` + ``constraint_step`` on a ConstraintSet of random
+    Stiefel leaves: 2 warm-up steps, then ``steps`` counted steps. The first
+    counted step is held against the plain route, ``make_opt(False)``'s
+    out-of-place update from the same state. Returns the launches of each
+    kernel during the counted steps."""
     import torch
 
     from repro_torch.core import api, stiefel
-    from repro_torch.kernels import fused_step as fs
-    from repro_torch.kernels import ref
-    from repro_torch.optim import chain, trace
+    from repro_torch.kernels import ops
 
     params = {k: stiefel.random_stiefel(gen, s, device="cuda") for k, s in shapes.items()}
     cs = api.ConstraintSet.from_tree(params)
     del params
-    opt = api.orthogonal("pogo", learning_rate=LR, use_kernel=True,
-                         base_optimizer=chain(trace(0.9)))
+    opt = make_opt(True)
     state = opt.init(cs)
     step = api.constraint_step(opt)
     grads = [
@@ -193,12 +323,17 @@ def drive_main_path(gen, shapes, label, steps, card):
         cs, state, health = step(cs, state, gs)
     torch.cuda.synchronize()
 
-    # Hold the first counted step against the plain version at full width.
-    x0 = [s.clone() for s in cs.stacks]
-    mu0 = [s.clone() for s in state.base_state[0].momentum.stacks]
+    # The plain route's first counted step, from the same state.
+    plain = make_opt(False)
+    cs0 = api.ConstraintSet(cs.plan, [s.clone() for s in cs.stacks])
+    upd, plain_state = plain.update(grads[2], _clone_state(state), cs0)
+    want_x = [x + u for x, u in zip(cs0.stacks, upd.stacks)]
+    want_d = plain_state.last_distance.per_group
+    del cs0, upd, plain_state
+    torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
-    fs.reset_launches()
+    ops.reset_launches()
     times, dists = [], []
     for i, gs in enumerate(grads[2:]):
         start = torch.cuda.Event(enable_timing=True)
@@ -210,24 +345,18 @@ def drive_main_path(gen, shapes, label, steps, card):
         times.append(start.elapsed_time(end))
         dist = float(api.max_distance(state))
         dists.append(dist)
-        if not bool(health.finite) or not dist <= 1e-5:
+        if not bool(health.finite) or not dist <= max_dist:
             raise SystemExit(f"{label} step {i}: finite={bool(health.finite)} "
-                             f"max_distance={dist}")
+                             f"max_distance={dist} (limit {max_dist})")
         if i == 0:
-            for x, mu, xs, ms, g in zip(x0, mu0, cs.stacks,
-                                        state.base_state[0].momentum.stacks,
-                                        gs.stacks):
-                want = ref.fused_group_step_ref(x, g, LR, method="pogo", lam=0.5,
-                                                base_kind="trace",
-                                                hyper=(0.9, False), mu=mu)
-                max_abs, _, ok = _errors((xs, ms), want[:2], TILED_TOL)
-                print(f"{label} step 0 vs plain: max_abs {max_abs:.3e} "
-                      f"{'ok' if ok else 'MISMATCH'}", flush=True)
-                if not ok:
-                    raise SystemExit(f"{label}: main path disagrees with plain")
-            del x0, mu0
-    launches = {"fused_step_whole": fs.fused_step_whole.launches,
-                "fused_step_tiled": fs.fused_step_tiled.launches}
+            got = tuple(cs.stacks) + tuple(state.last_distance.per_group)
+            max_abs, _, ok = _errors(got, tuple(want_x) + tuple(want_d), TILED_TOL)
+            print(f"{label} step 0 vs plain route: max_abs {max_abs:.3e} "
+                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+            if not ok:
+                raise SystemExit(f"{label}: main path disagrees with the plain route")
+            del want_x, want_d
+    launches = ops.launches()
     for s in cs.stacks:
         if not bool(torch.isfinite(s).all()):
             raise SystemExit(f"{label}: non-finite stack")
@@ -237,6 +366,13 @@ def drive_main_path(gen, shapes, label, steps, card):
           f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
           f"launches {launches} [{card}]", flush=True)
     return launches
+
+
+def _expect_launches(label, launches, kernel, steps):
+    """``kernel`` launched once per step, and no other kernel."""
+    want = {name: (steps if name == kernel else 0) for name in launches}
+    if launches != want:
+        raise SystemExit(f"{label}: launches {launches}, expected {want}")
 
 
 def main() -> int:
@@ -249,6 +385,7 @@ def main() -> int:
     from repro_torch.configs import smollm_360m
     from repro_torch.kernels import build
     from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import pogo_update as pu
     from repro_torch.models import ortho
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -261,33 +398,39 @@ def main() -> int:
     with ThreadPoolExecutor(len(sources)) as ex:  # one nvcc per source, together
         list(ex.map(build.compile_source, sources))
     fs._lib()
+    pu.lib()
     for name in sources:
         for line in build.PTXAS_LOG.get(name, "").splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"ptxas[{name}] {line.strip()}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    records = phase_kernels(gen)
+    records = phase_fused_kernels(gen)
+    records.update(phase_two_stage_kernels(gen))
 
-    shapes = ortho.orthogonal_leaf_shapes(smollm_360m.config())
-    smollm = drive_main_path(gen, shapes, "smollm-360m q/k", SMOLLM_STEPS, card)
-    if smollm["fused_step_tiled"] != SMOLLM_STEPS:
-        raise SystemExit(f"tiled kernel launched {smollm['fused_step_tiled']} times "
-                         f"in {SMOLLM_STEPS} steps")
-    many = drive_main_path(gen, {"w": (2048, 16, 256)}, "2048x(16,256)", 10, card)
-    if many["fused_step_whole"] != 10:
-        raise SystemExit(f"whole kernel launched {many['fused_step_whole']} times")
+    smollm = ortho.orthogonal_leaf_shapes(smollm_360m.config())
+    paths = [  # (label, shapes, steps, path, feasibility limit, kernel)
+        ("fused smollm-360m q/k", smollm, SMOLLM_STEPS, "fused", 1e-5,
+         "fused_step_tiled"),
+        ("fused 2048x(16,256)", MANY, 10, "fused", 1e-5, "fused_step_whole"),
+        ("pogo+adam smollm-360m q/k", smollm, 10, "pogo_adam", 1e-5,
+         "pogo_update_tiled"),
+        ("pogo+adam 2048x(16,256)", MANY, 10, "pogo_adam", 1e-5, "pogo_update_whole"),
+        ("landing smollm-360m q/k", smollm, 10, "landing", 0.5, "landing_field_tiled"),
+        ("landing 2048x(16,256)", MANY, 10, "landing", 0.5, "landing_field"),
+    ]
+    launches = {}
+    for label, shapes, steps, path, max_dist, kernel in paths:
+        counts = drive_main_path(gen, shapes, label, steps, card,
+                                 functools.partial(make_opt, path), max_dist)
+        _expect_launches(label, counts, kernel, steps)
+        launches[kernel] = counts[kernel]
 
-    sources_of = "src/repro_torch/kernels/csrc/fused_step.cu"
     kernels = [
-        dict(name="fused_step_whole", route="cuda", source=sources_of,
-             replaces="src/repro/kernels/fused_step.py:175",
-             launches=many["fused_step_whole"], library_ms=None,
-             **records["fused_step_whole"]),
-        dict(name="fused_step_tiled", route="cuda", source=sources_of,
-             replaces="src/repro/kernels/fused_step.py:608",
-             launches=smollm["fused_step_tiled"], library_ms=None,
-             **records["fused_step_tiled"]),
+        dict(name=name, route="cuda",
+             source=f"src/repro_torch/kernels/csrc/{source}.cu", replaces=replaces,
+             launches=launches[name], library_ms=None, **records[name])
+        for name, (source, replaces) in KERNELS.items()
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,8 +12,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import tree
 from .core.api import ConstraintSet, GroupedDistances, OrthoState
-from .optim import fused as optim_fused
 from .optim.transform import GradientTransformation
 
 
@@ -28,16 +28,18 @@ def state_from_jax(
 
     ``params`` is the param tree both sides stacked with
     ``grouping="auto"`` (its shapes fix the group plan). ``arrays`` holds
-    numpy arrays, one entry per constraint group where a list is asked for:
+    numpy arrays:
 
-    * ``stacks``: the JAX ``ConstraintSet.stacks``;
+    * ``stacks``: the JAX ``ConstraintSet.stacks``, one per group;
     * ``count``: ``OrthoState.count``;
     * ``last_distance``: ``OrthoState.last_distance.per_group``;
-    * ``mu``, ``nu``, ``base_count``: the base optimizer's moment stacks,
-      per-matrix second moments and step counter, where it has them
-      (``repro.optim.fused.resolve_fused_base(base).get_slots``).
+    * ``base_state``: every leaf of ``OrthoState.base_state`` in
+      ``jax.tree.leaves`` order (e.g. ``count, mu stacks, nu stacks`` of
+      a ``ScaleByAdamState``; a chain's links one after another). The
+      port's base state has the same leaves in the same order.
 
     ``base_optimizer`` is the port's counterpart of the JAX base optimizer.
+    The state is the same for POGO and Landing: neither keeps extras.
     """
     cs = ConstraintSet.from_tree(params, device=device)
     dev = cs.stacks[0].device if cs.stacks else torch.device(device)
@@ -47,18 +49,18 @@ def state_from_jax(
 
     cs = ConstraintSet(cs.plan, [tensor(s) for s in arrays["stacks"]])
     base_state = base_optimizer.init(cs) if base_optimizer is not None else ()
-    fused_base = optim_fused.resolve_fused_base(base_optimizer)
-    if fused_base is None:
-        raise ValueError("the base optimizer has no fused slot layout")
-    mu_tree, nu_tree, base_count = fused_base.get_slots(base_state)
-    if mu_tree is not None:
-        for dst, src in zip(mu_tree.stacks, arrays["mu"]):
-            dst.copy_(tensor(src))
-    if nu_tree is not None:
-        for dst, src in zip(nu_tree.stacks, arrays["nu"]):
-            dst.copy_(tensor(src))
-    if base_count is not None:
-        base_count.fill_(int(np.asarray(arrays["base_count"])))
+    dst = tree.leaves(base_state)
+    src = arrays.get("base_state", [])
+    if len(src) != len(dst):
+        raise ValueError(
+            f"the JAX base state has {len(src)} leaves, the port's "
+            f"{len(dst)}: the base optimizers differ"
+        )
+    for d, a in zip(dst, src):
+        if tuple(d.shape) != np.shape(a):
+            raise ValueError(f"base-state leaf of shape {np.shape(a)} where "
+                             f"the port has {tuple(d.shape)}")
+        d.copy_(tensor(a))
     state = OrthoState(
         count=tensor(arrays["count"], torch.int32),
         base_state=base_state,

@@ -1,9 +1,10 @@
 """Manifold primitives, constraint-group scheduling and the orthoptimizer."""
 
-from . import stiefel
+from . import quartic, stiefel
 from .api import (
     ConstraintSet,
     GroupedDistances,
+    Landing,
     OrthoState,
     Pogo,
     constraint_step,
@@ -16,7 +17,7 @@ from .schedule import GroupMember, GroupPlan, GroupSpec, plan_groups
 
 __all__ = [
     "ConstraintSet", "GroupMember", "GroupPlan", "GroupSpec",
-    "GroupedDistances", "OrthoState", "Pogo", "constraint_step",
+    "GroupedDistances", "Landing", "OrthoState", "Pogo", "constraint_step",
     "leaf_distances", "max_distance", "orthogonal", "plan_groups",
-    "step_health", "stiefel",
+    "quartic", "step_health", "stiefel",
 ]

@@ -13,16 +13,55 @@ import torch
 from .._device import resolve_device
 
 
+def _ht(x: torch.Tensor) -> torch.Tensor:
+    """Batched conjugate (Hermitian) transpose of the last two dims."""
+    return x.transpose(-1, -2).conj()
+
+
+def sym(a: torch.Tensor) -> torch.Tensor:
+    """Hermitian part: ``Sym(A) = (A + A^H)/2``."""
+    return 0.5 * (a + _ht(a))
+
+
+def skew(a: torch.Tensor) -> torch.Tensor:
+    """Skew-Hermitian part: ``Skew(A) = (A - A^H)/2``."""
+    return 0.5 * (a - _ht(a))
+
+
 def gram(x: torch.Tensor) -> torch.Tensor:
     """``X X^H`` — the (p, p) Gram matrix of the rows."""
-    return x @ x.transpose(-1, -2).conj()
+    return x @ _ht(x)
+
+
+def gram_residual(x: torch.Tensor) -> torch.Tensor:
+    """``X X^H - I_p`` — zero exactly on St(p, n)."""
+    g = gram(x)
+    return g - torch.eye(x.shape[-2], dtype=g.dtype, device=g.device)
 
 
 def manifold_distance(x: torch.Tensor) -> torch.Tensor:
     """Frobenius distance ``||X X^H - I||_F`` per batched matrix."""
-    g = gram(x)
-    r = g - torch.eye(x.shape[-2], dtype=g.dtype, device=g.device)
+    r = gram_residual(x)
     return torch.sqrt(torch.sum(r.abs() ** 2, dim=(-2, -1)))
+
+
+def penalty_grad(x: torch.Tensor) -> torch.Tensor:
+    """``grad N(X) = (X X^H - I) X`` — the normal-direction field."""
+    return gram_residual(x) @ x
+
+
+def riemannian_gradient(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``X Skew(X^H G) = 1/2 (X X^H G - X G^H X)`` without the (n, n)
+    matrix: two (p, p) gram-type products, then two (p, p) x (p, n)."""
+    a = x @ _ht(g)  # (p, p):  X G^H
+    b = gram(x)  # (p, p):  X X^H
+    return 0.5 * (b @ g - a @ x)
+
+
+def tangent_project(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Euclidean-metric projection of an ambient direction ``v`` onto the
+    tangent space at ``x``: ``P_X(V) = V - Sym(V X^H) X``."""
+    return v - sym(v @ _ht(x)) @ x
 
 
 def masked_eye(p: int, pv: torch.Tensor, dtype=torch.float32) -> torch.Tensor:

@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` file compiles, at first use, into a shared library with
 a plain C interface under ``<checkout>/build/repro_torch/`` (``nvcc
 -gencode arch=compute_90a,code=sm_90a -O3 -shared``), named by a hash of
-its source so an edited kernel never loads a stale build. The library is
+its source and the shared ``csrc/*.cuh`` headers, so an edited kernel
+never loads a stale build. The library is
 loaded with ``ctypes``; nothing here includes PyTorch's headers, so a
 build takes seconds. Kernels are IEEE fp32: no ``--use_fast_math``.
 """
@@ -45,6 +46,8 @@ def compile_source(name: str) -> Path:
     sources at once, one process each."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(ARCH_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):  # the sources' shared blocks
+        digest.update(header.read_bytes())
     out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out

@@ -69,7 +69,7 @@ def pack_scal(eta, lam, *, base_kind, hyper, post_scale, count, device):
     return scal
 
 
-def _check(name, t, shape, dtype, device):
+def check_operand(name, t, shape, dtype, device):
     if t is None:
         raise ValueError(f"{name} is required for this base kind")
     if t.device != device:
@@ -110,16 +110,16 @@ def _launch(entry, x, g, eta, *, method, lam, base_kind, hyper, post_scale,
     if x.dim() != 3:
         raise ValueError(f"x must be a (B, p, n) stack, got {tuple(x.shape)}")
     bsz, p, n = x.shape
-    _check("x", x, (bsz, p, n), torch.float32, dev)
-    _check("g", g, (bsz, p, n), torch.float32, dev)
+    check_operand("x", x, (bsz, p, n), torch.float32, dev)
+    check_operand("g", g, (bsz, p, n), torch.float32, dev)
     if base_kind != "none":
-        _check("mu", mu, (bsz, p, n), torch.float32, dev)
+        check_operand("mu", mu, (bsz, p, n), torch.float32, dev)
     if base_kind == "vadam":
-        _check("nu", nu, (bsz,), torch.float32, dev)
+        check_operand("nu", nu, (bsz,), torch.float32, dev)
         if count is None:
             raise ValueError("count is required for the vadam base")
     if pv is not None:
-        _check("pv", pv, (bsz,), torch.int32, dev)
+        check_operand("pv", pv, (bsz,), torch.int32, dev)
     nesterov = bool(hyper[1]) if base_kind == "trace" else False
     scal = pack_scal(eta, lam, base_kind=base_kind, hyper=hyper,
                      post_scale=post_scale, count=count, device=dev)
@@ -188,8 +188,3 @@ def fused_step_tiled(x, g, eta, *, method="pogo", lam, base_kind="none",
 
 fused_step_whole.launches = 0
 fused_step_tiled.launches = 0
-
-
-def reset_launches() -> None:
-    fused_step_whole.launches = 0
-    fused_step_tiled.launches = 0

@@ -1,18 +1,22 @@
-"""Public fused group step with the Hopper shared-memory planner.
+"""Public kernel entry points with the Hopper shared-memory planner.
 
-Port of ``repro/kernels/ops.py:355-477``. The TPU planner's VMEM budget
-and live-buffer counts become the per-block shared-memory footprint of
-the two CUDA kernels, mirrored here from ``csrc/fused_step.cu``:
+Port of ``repro/kernels/ops.py``: the fused group step (``:355-477``),
+the two-stage POGO update (``:209-257``) and the landing field
+(``:281-314``). The TPU planner's VMEM budget and live-buffer counts
+become the per-block shared-memory footprint of each CUDA kernel,
+mirrored here from ``csrc/fused_step.cu`` and ``csrc/two_stage.cu``:
 
-* ``whole`` when X and the transformed gradient of one matrix plus the
-  (p, p) grams A, B, C fit in one block's 227 KB;
+* ``whole`` when X and the (transformed) gradient of one matrix plus the
+  kernel's (p, p) grams fit in one block's 227 KB;
 * ``tiled`` otherwise, with the column tile that lets the most blocks
   share an SM (they hide each other's loads and barriers), the widest of
   those;
-* a ``ValueError`` naming the shape and the limit when even the three
-  (p, p) grams and the narrowest tiles do not fit (large p is later work).
+* a ``ValueError`` naming the shape and the limit when even the grams
+  and the narrowest tiles do not fit (large p is later work).
 
 The ragged n-edge is masked inside the kernels, so no operand is padded.
+Each entry point runs the plain version on a CPU tensor and the planned
+kernel, or an error, on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from __future__ import annotations
 import torch
 
 from . import fused_step as _fs
+from . import landing_field as _lf
+from . import pogo_update as _pu
 
 # Dynamic shared memory one H100 block may use (232,448 bytes), and what
 # one SM holds for all its resident blocks, each of which reserves 1 KB.
@@ -42,40 +48,129 @@ def _tile_ld(p4: int) -> int:
     return p4 + 4 if (p4 // 4) % 2 == 0 else p4
 
 
+def _whole_bytes(p: int, n: int, grams: int, scratch: int) -> int:
+    p4 = _round4(p)
+    return 4 * (2 * _round4(n) * _tile_ld(p4) + grams * p4 * p4 + scratch)
+
+
+def _tiled_bytes(p: int, tile_n: int, grams: int, tiles: int, scratch: int) -> int:
+    p4 = _round4(p)
+    return 4 * (grams * p4 * p4 + tiles * tile_n * _tile_ld(p4) + scratch)
+
+
 def whole_smem_bytes(p: int, n: int) -> int:
-    """Shared memory of one whole-kernel block: X (then M) and the
+    """Shared memory of one fused whole-kernel block: X (then M) and the
     transformed gradient (k-major, n rounded up to 4), the grams A, B and
     C, and the block-reduction scratch."""
-    p4 = _round4(p)
-    return 4 * (2 * _round4(n) * _tile_ld(p4) + 3 * p4 * p4 + _THREADS // 32)
+    return _whole_bytes(p, n, 3, _THREADS // 32)
 
 
 def tiled_smem_bytes(p: int, tile_n: int) -> int:
-    """Shared memory of one tiled-kernel block: A, B and C, and the k-major
-    X, transformed-gradient and M tiles."""
-    p4 = _round4(p)
-    return 4 * (3 * p4 * p4 + 3 * tile_n * _tile_ld(p4) + _THREADS // 32)
+    """Shared memory of one fused tiled-kernel block: A, B and C, and the
+    k-major X, transformed-gradient and M tiles."""
+    return _tiled_bytes(p, tile_n, 3, 3, _THREADS // 32)
+
+
+def pogo_whole_smem_bytes(p: int, n: int) -> int:
+    """``pogo_update_whole``: X (then M), G, and the grams A, B, C."""
+    return _whole_bytes(p, n, 3, 0)
+
+
+def pogo_tiled_smem_bytes(p: int, tile_n: int) -> int:
+    """``pogo_update_tiled``: A, B, C and the X, G and M tiles."""
+    return _tiled_bytes(p, tile_n, 3, 3, 0)
+
+
+def landing_whole_smem_bytes(p: int, n: int) -> int:
+    """``landing_field``: X, G and the grams A, B."""
+    return _whole_bytes(p, n, 2, 0)
+
+
+def landing_tiled_smem_bytes(p: int, tile_n: int) -> int:
+    """``landing_field_tiled``: A, B and the X and G tiles."""
+    return _tiled_bytes(p, tile_n, 2, 2, 0)
+
+
+def _blocks_per_sm(smem: int) -> int:
+    """Tiled-kernel blocks that fit one SM, by shared memory and registers."""
+    return min(_TILED_BLOCKS_PER_SM, SM_SMEM_BYTES // (smem + _BLOCK_RESERVED_BYTES))
 
 
 def tiled_blocks_per_sm(p: int, tile_n: int) -> int:
-    """Tiled-kernel blocks that fit one SM, by shared memory and registers."""
-    per_block = tiled_smem_bytes(p, tile_n) + _BLOCK_RESERVED_BYTES
-    return min(_TILED_BLOCKS_PER_SM, SM_SMEM_BYTES // per_block)
+    """Fused tiled-kernel blocks that fit one SM."""
+    return _blocks_per_sm(tiled_smem_bytes(p, tile_n))
+
+
+def _plan(what: str, p: int, n: int, whole_bytes, tiled_bytes) -> tuple[str, int]:
+    if whole_bytes(p, n) <= SMEM_LIMIT_BYTES:
+        return "whole", 0
+    fits = [t for t in _TILE_NS if tiled_bytes(p, t) <= SMEM_LIMIT_BYTES]
+    if fits:
+        return "tiled", max(fits, key=lambda t: (_blocks_per_sm(tiled_bytes(p, t)), t))
+    raise ValueError(
+        f"{what}: p={p} (n={n}) needs {tiled_bytes(p, _TILE_NS[-1])} bytes of "
+        f"shared memory for its (p, p) grams and tiles, over the "
+        f"{SMEM_LIMIT_BYTES}-byte limit of one block; large-p groups are not "
+        "ported yet"
+    )
 
 
 def plan(p: int, n: int) -> tuple[str, int]:
-    """``("whole", 0)`` or ``("tiled", tile_n)`` for ``(p, n)`` matrices."""
-    if whole_smem_bytes(p, n) <= SMEM_LIMIT_BYTES:
-        return "whole", 0
-    fits = [t for t in _TILE_NS if tiled_smem_bytes(p, t) <= SMEM_LIMIT_BYTES]
-    if fits:
-        return "tiled", max(fits, key=lambda t: (tiled_blocks_per_sm(p, t), t))
-    raise ValueError(
-        f"fused group step: p={p} (n={n}) needs "
-        f"{tiled_smem_bytes(p, _TILE_NS[-1])} bytes of shared memory for its "
-        f"(p, p) grams and tiles, over the {SMEM_LIMIT_BYTES}-byte limit of "
-        "one block; large-p groups are not ported yet"
-    )
+    """``("whole", 0)`` or ``("tiled", tile_n)`` of the fused group step."""
+    return _plan("fused group step", p, n, whole_smem_bytes, tiled_smem_bytes)
+
+
+def plan_pogo_update(p: int, n: int) -> tuple[str, int]:
+    """``("whole", 0)`` or ``("tiled", tile_n)`` of the POGO update."""
+    return _plan("pogo update", p, n, pogo_whole_smem_bytes, pogo_tiled_smem_bytes)
+
+
+def plan_landing_field(p: int, n: int) -> tuple[str, int]:
+    """``("whole", 0)`` or ``("tiled", tile_n)`` of the landing field."""
+    return _plan("landing field", p, n, landing_whole_smem_bytes,
+                 landing_tiled_smem_bytes)
+
+
+def pogo_update(x, g, eta, lam=0.5, *, inplace: bool = False):
+    """Two-stage POGO update of one ``(B, p, n)`` stack:
+    ``X' = (1 + lam) M - lam (M M^T) M``, ``M = X - eta/2 (A G - B X)``
+    (``repro.kernels.ops.pogo_update`` without ``find_root``).
+    ``inplace=True`` writes X' over ``x``."""
+    if x.is_complex():
+        raise ValueError("pogo_update is real-only (caller must gate)")
+    if x.device.type == "cpu":  # the wrappers' plain version, any p
+        return _pu.pogo_update_whole(x, g, eta, lam, inplace=inplace)
+    kind, tile_n = plan_pogo_update(*x.shape[-2:])
+    if kind == "whole":
+        return _pu.pogo_update_whole(x, g, eta, lam, inplace=inplace)
+    return _pu.pogo_update_tiled(x, g, eta, lam, tile_n=tile_n, inplace=inplace)
+
+
+def landing_field(x, g, lam=1.0):
+    """Landing's field ``1/2 (A G - B X) + lam (A X - X)`` of one
+    ``(B, p, n)`` stack (``repro.kernels.ops.landing_field``)."""
+    if x.is_complex():
+        raise ValueError("landing_field is real-only (caller must gate)")
+    if x.device.type == "cpu":  # the wrappers' plain version, any p
+        return _lf.landing_field(x, g, lam)
+    kind, tile_n = plan_landing_field(*x.shape[-2:])
+    if kind == "whole":
+        return _lf.landing_field(x, g, lam)
+    return _lf.landing_field_tiled(x, g, lam, tile_n=tile_n)
+
+
+KERNELS = (_fs.fused_step_whole, _fs.fused_step_tiled, _pu.pogo_update_whole,
+           _pu.pogo_update_tiled, _lf.landing_field, _lf.landing_field_tiled)
+
+
+def launches() -> dict:
+    """Launches of every kernel wrapper since the last reset, by name."""
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
 
 
 def fused_group_step(

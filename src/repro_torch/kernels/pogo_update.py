@@ -1,0 +1,121 @@
+"""Wrappers of the two-stage POGO update kernels (``csrc/two_stage.cu``).
+
+``pogo_update_whole`` replaces ``repro/kernels/pogo_update.py:64``
+(``_pogo_whole_kernel``): one CTA per matrix with X and G resident in
+shared memory. ``pogo_update_tiled`` replaces ``repro/kernels/
+pogo_update.py:143`` (``_phase1/2/3_kernel``, three launches on the TPU):
+one launch, one CTA per matrix sweeping its column tiles three times, M
+parked in the output between the last two sweeps. Both are IEEE fp32 on
+the CUDA cores.
+
+Both take a ``(B, p, n)`` fp32 stack ``x`` and transformed gradient ``g``
+and return ``X' = (1 + lam) M - lam (M M^T) M`` with ``M = X - eta/2
+(X X^T G - X G^T X)``. On a CPU tensor they run the plain version
+``ref.pogo_update_ref``; on a CUDA tensor they check the operands, launch
+on the current stream and raise if the launch fails. There is no
+fallback. ``inplace=True`` writes X' over ``x``. Each wrapper counts its
+launches in ``.launches``. The landing-field wrappers
+(``landing_field.py``) share this module's library and launcher.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import build, ref
+from .fused_step import check_operand
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+METHODS = {"pogo": 0, "landing": 1}  # two_stage.cu's Method
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded ``two_stage.cu`` library, built on first use."""
+    lib_ = build.load("two_stage")
+    if not getattr(lib_, "_typed", False):
+        for fn in (lib_.pogo_update_whole, lib_.landing_field_whole):
+            fn.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+        for fn in (lib_.pogo_update_tiled, lib_.landing_field_tiled):
+            fn.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+        lib_.two_stage_whole_smem_bytes.argtypes = [_I] * 3
+        lib_.two_stage_tiled_smem_bytes.argtypes = [_I] * 3
+        for fn in (lib_.pogo_update_whole, lib_.pogo_update_tiled,
+                   lib_.landing_field_whole, lib_.landing_field_tiled,
+                   lib_.two_stage_whole_smem_bytes,
+                   lib_.two_stage_tiled_smem_bytes):
+            fn.restype = _I
+        lib_._typed = True
+    return lib_
+
+
+@functools.lru_cache(maxsize=64)
+def _scal(eta: float, lam: float, device: torch.device) -> torch.Tensor:
+    """The kernels' fp32 scalar vector ``[eta, lam]`` on ``device``, made
+    once per value, so that a step with a constant learning rate copies
+    nothing to the card. The kernels only read it."""
+    return torch.tensor([eta, lam], dtype=torch.float32, device=device)
+
+
+def launch(entry: str, x, g, eta, lam, out, *extra) -> torch.Tensor:
+    """Launch ``entry`` of ``two_stage.cu`` on CUDA tensors: ``out`` gets
+    the result (it may be ``x``, never ``g``)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if x.dim() != 3:
+        raise ValueError(f"x must be a (B, p, n) stack, got {tuple(x.shape)}")
+    dev = x.device
+    shape = tuple(x.shape)
+    for name, t in (("x", x), ("g", g), ("out", out)):
+        check_operand(name, t, shape, torch.float32, dev)
+    if out.data_ptr() == g.data_ptr():
+        raise ValueError("out must not alias g")
+    if isinstance(eta, (int, float)):
+        scal = _scal(float(eta), float(lam), dev)
+    else:  # a learning rate already on the card: one device op, no copy
+        eta = torch.as_tensor(eta, dtype=torch.float32, device=dev).reshape(1)
+        scal = torch.cat((eta, _scal(0.0, float(lam), dev)[1:]))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib(), entry)(x.data_ptr(), g.data_ptr(), scal.data_ptr(),
+                                    out.data_ptr(), *shape, *extra, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{entry} kernel launch failed for (B, p, n) = {shape}: "
+            f"cudaError {err}"
+        )
+    return out
+
+
+def _update(entry, x, g, eta, lam, inplace, *extra):
+    if x.device.type == "cpu":
+        out = ref.pogo_update_ref(x, g, eta, lam)
+        return x.copy_(out) if inplace else out
+    return launch(entry, x, g, eta, lam, x if inplace else torch.empty_like(x),
+                  *extra)
+
+
+def pogo_update_whole(x, g, eta, lam, *, inplace=False):
+    """Whole-matrix POGO update: one CTA per ``(p, n)`` matrix, X and G in
+    shared memory (``ops.pogo_whole_smem_bytes``)."""
+    out = _update("pogo_update_whole", x, g, eta, lam, inplace)
+    if x.device.type == "cuda":
+        pogo_update_whole.launches += 1
+    return out
+
+
+def pogo_update_tiled(x, g, eta, lam, *, tile_n=64, inplace=False):
+    """Tiled POGO update: one CTA per matrix sweeping ``tile_n``-wide column
+    tiles (A, B; then M and C; then X'), grams in shared memory
+    (``ops.pogo_tiled_smem_bytes``)."""
+    out = _update("pogo_update_tiled", x, g, eta, lam, inplace, int(tile_n))
+    if x.device.type == "cuda":
+        pogo_update_tiled.launches += 1
+    return out
+
+
+pogo_update_whole.launches = 0
+pogo_update_tiled.launches = 0

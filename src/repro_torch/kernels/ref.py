@@ -1,9 +1,13 @@
 """Plain PyTorch versions of the port's kernels.
 
-``fused_group_step_ref`` is the plain version of both CUDA kernels in
-``csrc/fused_step.cu``: the CPU path of ``ops.fused_group_step`` and what
-``chip_smoke.py`` holds the kernels against on the card. It mirrors
-``repro.kernels.ref`` (the JAX oracle) line for line, in fp32.
+Each is the CPU path of its kernel's wrapper and what ``chip_smoke.py``
+holds the kernel against on the card, and mirrors ``repro.kernels.ref``
+(the JAX oracle) line for line, in fp32:
+
+* ``fused_group_step_ref``: both kernels of ``csrc/fused_step.cu``;
+* ``pogo_update_ref``: ``pogo_update_whole``/``_tiled`` of ``csrc/two_stage.cu``;
+* ``landing_field_ref``: ``landing_field``/``_tiled`` of ``csrc/two_stage.cu``;
+* ``manifold_distance_ref``: the telemetry of the two-stage step.
 """
 
 from __future__ import annotations
@@ -15,6 +19,46 @@ from ..core import stiefel
 
 def _bt(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(-1, -2)
+
+
+def pogo_update_ref(x: torch.Tensor, g: torch.Tensor, eta, lam) -> torch.Tensor:
+    """POGO update, fp32 accumulation, ``(..., p, n)`` batched.
+
+    A = X X^T; B = X G^T; R = 1/2 (A G - B X); M = X - eta R
+    C = M M^T; X' = (1 + lam) M - lam C M
+    """
+    xf = x.to(torch.float32)
+    gf = g.to(torch.float32)
+    eta = torch.as_tensor(eta, dtype=torch.float32, device=xf.device)
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=xf.device)
+    a = xf @ _bt(xf)
+    b = xf @ _bt(gf)
+    r = 0.5 * (a @ gf - b @ xf)
+    m = xf - eta * r
+    c = m @ _bt(m)
+    out = (1.0 + lam) * m - lam * (c @ m)
+    return out.to(x.dtype)
+
+
+def landing_field_ref(x: torch.Tensor, g: torch.Tensor, lam) -> torch.Tensor:
+    """Landing field: ``Lambda = 1/2 (A G - B X) + lam (A - I) X``."""
+    xf = x.to(torch.float32)
+    gf = g.to(torch.float32)
+    a = xf @ _bt(xf)
+    b = xf @ _bt(gf)
+    r = 0.5 * (a @ gf - b @ xf)
+    eye = torch.eye(x.shape[-2], dtype=torch.float32, device=xf.device)
+    n_field = (a - eye) @ xf
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=xf.device)
+    return (r + lam * n_field).to(x.dtype)
+
+
+def manifold_distance_ref(x: torch.Tensor) -> torch.Tensor:
+    """``||X X^T - I||_F`` per matrix."""
+    xf = x.to(torch.float32)
+    eye = torch.eye(x.shape[-2], dtype=torch.float32, device=xf.device)
+    r = xf @ _bt(xf) - eye
+    return torch.sqrt(torch.sum(r * r, dim=(-2, -1)))
 
 
 def pogo_gram_identity_ref(c: torch.Tensor, lam) -> torch.Tensor:

@@ -1,11 +1,36 @@
-"""Base optimizers of the port (the linear ones the fused step replays)."""
+"""Base optimizers of the port: the linear ones the fused step replays
+(trace, VAdam) and the opaque ones the two-stage step runs first (Adam,
+AdamW, schedules)."""
 
-from .alias import ScaleByVAdamState, TraceState, scale_by_vadam, trace
+from .alias import (
+    AddDecayedWeightsState,
+    ScaleByAdamState,
+    ScaleByVAdamState,
+    TraceState,
+    adam,
+    adamw,
+    add_decayed_weights,
+    scale_by_adam,
+    scale_by_vadam,
+    sgd,
+    trace,
+)
 from .fused import FusedBase, resolve_fused_base
-from .transform import GradientTransformation, chain, identity, scale
+from .transform import (
+    GradientTransformation,
+    ScaleByScheduleState,
+    chain,
+    identity,
+    scale,
+    scale_by_learning_rate,
+    scale_by_schedule,
+)
 
 __all__ = [
-    "FusedBase", "GradientTransformation", "ScaleByVAdamState", "TraceState",
-    "chain", "identity", "resolve_fused_base", "scale", "scale_by_vadam",
+    "AddDecayedWeightsState", "FusedBase", "GradientTransformation",
+    "ScaleByAdamState", "ScaleByScheduleState", "ScaleByVAdamState",
+    "TraceState", "adam", "adamw", "add_decayed_weights", "chain",
+    "identity", "resolve_fused_base", "scale", "scale_by_adam",
+    "scale_by_learning_rate", "scale_by_schedule", "scale_by_vadam", "sgd",
     "trace",
 ]

@@ -20,8 +20,8 @@ structural ``tag`` (set by ``optim.trace`` / ``optim.scale_by_vadam`` /
 ``optim.chain`` / ...) and returns a :class:`FusedBase` describing the
 kind, hyperparameters, a trailing scalar factor, and two accessors that
 map between the base optimizer's state pytree and the orthoptimizer's flat
-(mu tree, nu tree) slot view. ``None`` means the base is opaque; the
-port has no unfused two-phase path yet, so ``orthogonal`` refuses such a base.
+(mu tree, nu tree) slot view. ``None`` means the base is opaque: the
+orthoptimizer then runs it first and takes the two-stage group step.
 
 Chain rules: every link must be tagged; at most one stateful link
 (``trace`` | ``vadam``); ``scale`` links are folded into ``post_scale``

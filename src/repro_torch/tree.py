@@ -63,30 +63,32 @@ def _count(td: TreeDef) -> int:
     return sum(_count(c) for c in td.children)
 
 
+def _build(d: TreeDef, it) -> Any:
+    if d.kind == "leaf":
+        return next(it)
+    if d.kind == "none":
+        return None
+    children = [_build(c, it) for c in d.children]
+    if d.kind == "dict":
+        return dict(zip(d.aux, children))
+    if d.kind == "namedtuple":
+        return d.aux(*children)
+    if d.kind == "tuple":
+        return tuple(children)
+    if d.kind == "list":
+        return children
+    cls, aux = d.aux
+    return cls.tree_unflatten(aux, children)
+
+
 def unflatten(td: TreeDef, leaves) -> Any:
+    # A module-level function: a nested recursive one would sit in a
+    # reference cycle with its leaf iterator and keep every leaf alive
+    # until the garbage collector runs.
     leaves = list(leaves)
     if len(leaves) != _count(td):
         raise ValueError(f"{len(leaves)} leaves for a tree of {_count(td)}")
-    it = iter(leaves)
-
-    def build(d: TreeDef):
-        if d.kind == "leaf":
-            return next(it)
-        if d.kind == "none":
-            return None
-        children = [build(c) for c in d.children]
-        if d.kind == "dict":
-            return dict(zip(d.aux, children))
-        if d.kind == "namedtuple":
-            return d.aux(*children)
-        if d.kind == "tuple":
-            return tuple(children)
-        if d.kind == "list":
-            return children
-        cls, aux = d.aux
-        return cls.tree_unflatten(aux, children)
-
-    return build(td)
+    return _build(td, iter(leaves))
 
 
 def tree_map(fn: Callable, tree, *rest) -> Any:

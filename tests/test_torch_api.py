@@ -81,6 +81,7 @@ def _jax_arrays(cs, state, base):
         "mu": None if mu is None else [np.asarray(s) for s in mu.stacks],
         "nu": None if nu is None else [np.asarray(s) for s in nu.stacks],
         "base_count": None if bcount is None else np.asarray(bcount),
+        "base_state": [np.asarray(a) for a in jax.tree.leaves(state.base_state)],
     }
 
 
@@ -268,19 +269,40 @@ def test_cuda_entry_points_raise_without_a_card():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(method="landing", use_kernel=True), "Landing's fused branches"),
+    (dict(method="landing", use_kernel=True, safe_step=False),
+     "Landing's fused branches"),
     (dict(method="rgd", use_kernel=True), "remaining methods"),
-    (dict(method="pogo", use_kernel=False), "unfused kernels"),
+    (dict(method="landing_pc", use_kernel=False), "remaining methods"),
     (dict(method="pogo", use_kernel=True, watchdog=object()), "self-healing"),
     (dict(method="pogo", use_kernel=True, tp_compress=True), "sharded schedules"),
     (dict(method="pogo", use_kernel=True, grouping="padded"), "ragged megagroups"),
     (dict(method="pogo", use_kernel=True, safety_project_every=5), "Newton-Schulz"),
     (dict(method="pogo", use_kernel=True, find_root=True), "quartic"),
-    (dict(method="pogo", use_kernel=True,
-          base_optimizer=topt.GradientTransformation(lambda p: (), None)),
-     "unfused kernels"),
+    (dict(method="landing", use_kernel=True, safe_step=False,
+          base_optimizer=topt.chain(topt.trace(0.1))),
+     "Landing's fused branches"),
 ])
 def test_unported_combinations_raise(kwargs, match):
     method = kwargs.pop("method")
     with pytest.raises(NotImplementedError, match=match):
         tapi.orthogonal(method, **kwargs)
+
+
+def test_unflatten_keeps_no_leaf_alive():
+    """A step's temporaries die with their last reference: ``tree.unflatten``
+    builds no reference cycle, so no garbage collection is needed to free a
+    stack (the card's peak memory counts only live tensors)."""
+    import gc
+    import weakref
+
+    leaf = torch.zeros(4)
+    ref = weakref.ref(leaf)
+    _, td = tree.flatten({"a": [torch.zeros(1), (torch.zeros(1),)], "b": None})
+    gc.disable()
+    try:
+        out = tree.unflatten(td, [leaf, torch.ones(1)])
+        assert out["a"][0] is leaf
+        del out, leaf
+        assert ref() is None
+    finally:
+        gc.enable()

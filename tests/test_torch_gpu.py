@@ -5,10 +5,15 @@ never at import). Run them on the card with
 (``--noconftest``: the shared conftest imports JAX, which the card's
 machine need not have).
 
-Tolerances are those the JAX tests hold the Pallas kernels to
-(``tests/test_fused_step.py:67,95``): atol 2e-5 / rtol 1e-4 whole,
-atol 3e-5 / rtol 1e-4 tiled.
+Tolerances are those the JAX tests hold the Pallas kernels to: for the
+fused kernels (``tests/test_fused_step.py:67,95``) atol 2e-5 / rtol 1e-4
+whole, atol 3e-5 / rtol 1e-4 tiled; for the two-stage kernels
+(``tests/test_kernels.py:34-75``) atol 1e-6 whole and 2e-5 / rtol 1e-4
+tiled, each case saying where it differs.
 """
+
+import importlib.util
+import pathlib
 
 import numpy as np
 import pytest
@@ -17,7 +22,9 @@ import torch
 from repro_torch import optim as topt
 from repro_torch.core import api as tapi
 from repro_torch.kernels import fused_step as tfs
+from repro_torch.kernels import landing_field as tlf
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import pogo_update as tpu
 from repro_torch.kernels import ref as tref
 
 pytestmark = pytest.mark.gpu
@@ -150,3 +157,153 @@ def test_constraint_step_on_card_matches_cpu(cuda, base):
     for a, b in zip(out["cpu"][1].last_distance.per_group,
                     out["cuda"][1].last_distance.per_group):
         torch.testing.assert_close(b.cpu(), a, atol=3e-5, rtol=1e-4)
+
+
+# ------------------------------------------------------ two-stage kernels
+
+TWO_STAGE = [(tpu.pogo_update_whole, 0), (tpu.pogo_update_tiled, 32),
+             (tlf.landing_field, 0), (tlf.landing_field_tiled, 32),
+             (tlf.landing_field_tiled, 64)]
+
+
+def _two_stage_call(wrapper, tile_n, x, g, **kw):
+    extra = {"tile_n": tile_n} if tile_n else {}
+    if wrapper in (tpu.pogo_update_whole, tpu.pogo_update_tiled):
+        return wrapper(x, g, 0.1, 0.5, **extra, **kw)
+    return wrapper(x, g, 1.0, **extra)
+
+
+def _two_stage_plain(wrapper, x, g, lam=None):
+    if wrapper in (tpu.pogo_update_whole, tpu.pogo_update_tiled):
+        return tref.pogo_update_ref(x, g, 0.1, 0.5 if lam is None else lam)
+    return tref.landing_field_ref(x, g, 1.0 if lam is None else lam)
+
+
+def _off_manifold_operands(shape, device, seed):
+    """A Stiefel draw plus 0.01 randn, so that lam's term (the land
+    stage's, the field's lam (A X - X)) is far above the tolerances."""
+    x, g, _, _ = _operands(shape, device, seed)
+    noise = np.random.default_rng(seed + 100).standard_normal(shape)
+    return x + torch.tensor(0.01 * noise, dtype=torch.float32, device=device), g
+
+
+@pytest.mark.parametrize("shape", [(64, 16, 256), (7, 10, 250), (3, 1, 33),
+                                   (4, 64, 300)])
+@pytest.mark.parametrize("wrapper,tile_n", TWO_STAGE)
+def test_two_stage_kernels_match_plain(cuda, shape, wrapper, tile_n):
+    """atol 1e-6 whole, 2e-5 / rtol 1e-4 tiled, as ``tests/test_kernels.py``
+    holds the Pallas kernels; the whole kernels get rtol 1e-5 here, since
+    cuBLAS sums their products in another order. (64, 300) is the widest
+    of these a whole-kernel block holds. X lies off the manifold: a kernel
+    that dropped lam's term would fail."""
+    x, g = _off_manifold_operands(shape, cuda, seed=4)
+    before = wrapper.launches
+    got = _two_stage_call(wrapper, tile_n, x, g)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    tol = dict(atol=2e-5, rtol=1e-4) if tile_n else dict(atol=1e-6, rtol=1e-5)
+    want = _two_stage_plain(wrapper, x, g)
+    assert not torch.allclose(_two_stage_plain(wrapper, x, g, lam=0.0), want, **tol)
+    torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.parametrize("wrapper,tile_n", TWO_STAGE[:2])
+def test_pogo_update_kernels_in_place(cuda, wrapper, tile_n):
+    x, g = _off_manifold_operands((5, 24, 300), cuda, seed=5)
+    want = tref.pogo_update_ref(x, g, 0.1, 0.5)
+    got = _two_stage_call(wrapper, tile_n, x, g, inplace=True)
+    torch.cuda.synchronize()
+    assert got is x
+    torch.testing.assert_close(x, want, atol=2e-5, rtol=1e-4)
+
+
+def test_two_stage_planner_matches_the_kernels_smem(cuda):
+    lib = tpu.lib()
+    for p, n in [(16, 256), (64, 960), (5, 40), (120, 4096)]:
+        assert lib.two_stage_whole_smem_bytes(0, p, n) == tops.pogo_whole_smem_bytes(p, n)
+        assert lib.two_stage_whole_smem_bytes(1, p, n) == tops.landing_whole_smem_bytes(p, n)
+        for t in (32, 64):
+            assert lib.two_stage_tiled_smem_bytes(0, p, t) == tops.pogo_tiled_smem_bytes(p, t)
+            assert lib.two_stage_tiled_smem_bytes(1, p, t) == \
+                tops.landing_tiled_smem_bytes(p, t)
+
+
+def test_two_stage_kernels_reject_bad_operands(cuda):
+    x, g, _, _ = _operands((2, 4, 16), cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        tpu.pogo_update_whole(x.double(), g.double(), 0.1, 0.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        tlf.landing_field(x.transpose(1, 2).contiguous().transpose(1, 2), g, 1.0)
+    with pytest.raises(ValueError, match="alias"):
+        tpu.launch("pogo_update_whole", x, g, 0.1, 0.5, g)
+
+
+@pytest.mark.parametrize("method,base,kw,gscale,steps", [
+    ("pogo", lambda: topt.chain(topt.scale_by_adam()), dict(learning_rate=1e-3),
+     0.3, 3),
+    ("landing", lambda: topt.chain(topt.trace(0.1)), dict(learning_rate=0.25),
+     0.03, 3),
+    ("landing", lambda: topt.scale_by_adam(), dict(learning_rate=1e-3, eps=0.05),
+     0.3, 3),
+    ("landing", lambda: topt.chain(topt.trace(0.1)), dict(learning_rate=0.25),
+     0.3, 1),
+])
+def test_two_stage_step_on_card_matches_cpu(cuda, method, base, kw, gscale, steps):
+    """In-place ``constraint_step``s on the card (whole and tiled kernels:
+    p = 16 and p = 64 groups) against the plain route on the CPU. The
+    last case's safe step binds: one step only, since from the eps-sphere
+    the next step's "already violating" test compares two numbers equal
+    to rounding, and the two devices may take different branches; the
+    next test follows binding steps further."""
+    rng = np.random.default_rng(6)
+    params = {"q": np.swapaxes(np.linalg.qr(rng.standard_normal((6, 300, 16)))[0],
+                               -1, -2).astype(np.float32),
+              "k": np.linalg.qr(rng.standard_normal((2, 960, 64)))[0].astype(np.float32)}
+    grads = {k: (gscale * rng.standard_normal(v.shape)).astype(np.float32)
+             for k, v in params.items()}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        opt = tapi.orthogonal(method, use_kernel=True, base_optimizer=base(), **kw)
+        cs = tapi.ConstraintSet.from_tree(params, device=dev)
+        gs = tapi.ConstraintSet.from_tree(grads, device=dev)
+        st = opt.init(cs)
+        step = tapi.constraint_step(opt)
+        for _ in range(steps):
+            cs, st, health = step(cs, st, gs)
+        assert bool(health.finite)
+        out[dev] = (cs, st)
+    for a, b in zip(out["cpu"][0].stacks, out["cuda"][0].stacks):
+        torch.testing.assert_close(b.cpu(), a, atol=3e-5, rtol=1e-4)
+    for a, b in zip(out["cpu"][1].last_distance.per_group,
+                    out["cuda"][1].last_distance.per_group):
+        torch.testing.assert_close(b.cpu(), a, atol=3e-5, rtol=1e-4)
+
+
+def _safe_step_ties():
+    """``benchmarks_torch/safe_step_ties.py``: Landing runs that record a0
+    and eta per step, and where two runs part."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "benchmarks_torch" / \
+        "safe_step_ties.py"
+    spec = importlib.util.spec_from_file_location("safe_step_ties", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("case,offset", [("landing_trace", 0.003),
+                                         ("landing_adam_lr0.1", 0.0005)])
+def test_landing_on_card_parts_from_cpu_only_after_ties(cuda, case, offset):
+    """Three Landing steps whose safe step binds, on the card and on the
+    CPU. A binding step leaves X on the eps-sphere, where the next step's
+    a0 = ||X X^T - I||^2 - eps^2 is zero to rounding, and its sign picks
+    the safe step's branch or root. Each matrix must agree at atol 3e-5 /
+    rtol 1e-4 after every step, up to a step at which both devices saw a0
+    at rounding and chose other etas. X starts ``offset`` randn off the
+    manifold (inside the eps-ball), so step 0, where no tie can be, also
+    holds the field's lam term."""
+    ties = _safe_step_ties()
+    eps = ties.CASES[case][1].get("eps", 0.5)
+    cpu = ties.run(case, "cpu", "float32", 3, offset)
+    card = ties.run(case, "cuda", "float32", 3, offset)
+    untied = {k: v for k, v in ties.partings(cpu, card, eps).items() if v and not v[1]}
+    assert not untied, f"(group, matrix): (step, tie) parted without a tie: {untied}"

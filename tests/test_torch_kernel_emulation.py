@@ -1,13 +1,17 @@
 """The port's CUDA kernels, run on the CPU, against their plain version.
 
-No ``nvcc`` is needed: ``tests/cuda_emu/harness.cpp`` compiles
-``src/repro_torch/kernels/csrc/fused_step.cu`` with the host C++ compiler
-against ``tests/cuda_emu/cuda_runtime.h``, which runs each block as 256
-threads with ``std::barrier`` for ``__syncthreads``. That checks the
-kernels' indexing, edge masking, barriers and in-place aliasing at small
-shapes; the card checks them again (``tests/test_torch_gpu.py``,
-``chip_smoke.py``). Tolerance: atol 3e-5 / rtol 1e-4, the tiled-kernel
-tolerance of ``tests/test_fused_step.py`` (fp32 sums in another order).
+No ``nvcc`` is needed: ``tests/cuda_emu/harness.cpp`` and
+``tests/cuda_emu/two_stage_harness.cpp`` compile
+``src/repro_torch/kernels/csrc/fused_step.cu`` and ``two_stage.cu`` with
+the host C++ compiler against ``tests/cuda_emu/cuda_runtime.h``, which
+runs each block as 256 threads with ``std::barrier`` for
+``__syncthreads``. That checks the kernels' indexing, edge masking,
+barriers and in-place aliasing at small shapes; the card checks them
+again (``tests/test_torch_gpu.py``, ``chip_smoke.py``). Tolerance: atol
+3e-5 / rtol 1e-4 for the fused kernels, the tiled-kernel tolerance of
+``tests/test_fused_step.py``; for the two-stage kernels the tolerances of
+``tests/test_kernels.py``, atol 1e-6 / rtol 1e-6 whole and 2e-5 / 1e-4
+tiled (fp32 sums in another order).
 """
 
 import shutil
@@ -28,19 +32,28 @@ TOL = dict(atol=3e-5, rtol=1e-4)
 KINDS = {"none": 0, "trace": 1, "vadam": 2}
 
 
-@pytest.fixture(scope="module")
-def harness(tmp_path_factory):
+def _compile(tmp_path_factory, source):
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++20 compiler")
-    out = tmp_path_factory.mktemp("cuda_emu") / "harness"
+    out = tmp_path_factory.mktemp("cuda_emu") / source.removesuffix(".cpp")
     res = subprocess.run(
         [cxx, "-std=c++20", "-O1", "-pthread", f"-I{EMU}", f"-I{CSRC}",
-         "-o", str(out), str(EMU / "harness.cpp")],
+         "-o", str(out), str(EMU / source)],
         capture_output=True, text=True,
     )
     assert res.returncode == 0, res.stderr
     return out
+
+
+@pytest.fixture(scope="module")
+def harness(tmp_path_factory):
+    return _compile(tmp_path_factory, "harness.cpp")
+
+
+@pytest.fixture(scope="module")
+def two_stage_harness(tmp_path_factory):
+    return _compile(tmp_path_factory, "two_stage_harness.cpp")
 
 
 def _run(harness, tmp_path, kind, shape, base_kind, hyper, tile_n=0,
@@ -117,3 +130,64 @@ def test_kernels_emulated_in_place_ragged(harness, tmp_path, kind, tile_n):
     _run(harness, tmp_path, kind, (4, 8, 200), "vadam", (0.9, 0.999, 1e-8),
          tile_n=tile_n, inplace=True, pv=[8, 5, 1, 0])
 
+
+def _run_two_stage(harness, tmp_path, kind, method, shape, tile_n=0,
+                   inplace=False, seed=0):
+    """One two-stage kernel through the emulator against its plain version."""
+    rng = np.random.default_rng(seed)
+    b, p, n = shape
+    q, _ = np.linalg.qr(rng.standard_normal((b, n, p)))
+    x = np.swapaxes(q, -1, -2) + 0.01 * rng.standard_normal(shape)
+    g = 0.2 * rng.standard_normal(shape)
+    x, g = (np.ascontiguousarray(a, np.float32) for a in (x, g))
+    for name, a in (("x", x), ("g", g), ("scal", np.array([0.1, 0.5], np.float32))):
+        a.tofile(tmp_path / f"{name}.bin")
+    subprocess.run(
+        [str(harness), str(tmp_path), str(kind), str(method), str(b), str(p),
+         str(n), str(tile_n), str(int(inplace))],
+        check=True, timeout=120,
+    )
+    t = torch.from_numpy
+    if method == 0:
+        want = tref.pogo_update_ref(t(x), t(g), 0.1, 0.5)
+    else:
+        want = tref.landing_field_ref(t(x), t(g), 0.5)
+    got = np.fromfile(tmp_path / "out.bin", np.float32).reshape(shape)
+    tol = dict(atol=1e-6, rtol=1e-6) if kind == 0 else dict(atol=2e-5, rtol=1e-4)
+    np.testing.assert_allclose(got, want.numpy(), **tol)
+
+
+@pytest.mark.parametrize("method", [0, 1], ids=["pogo_update", "landing_field"])
+@pytest.mark.parametrize("shape", [
+    (2, 16, 256),  # the many-matrices shape, fewer of them
+    (2, 10, 250),  # ragged n
+    (3, 1, 33),
+    (1, 64, 300),  # M written over X in five passes
+    (2, 32, 200),  # grams split 4 ways over k
+])
+def test_two_stage_whole_kernels_emulated(two_stage_harness, tmp_path, method, shape):
+    _run_two_stage(two_stage_harness, tmp_path, 0, method, shape)
+
+
+@pytest.mark.parametrize("method", [0, 1], ids=["pogo_update", "landing_field"])
+@pytest.mark.parametrize("shape,tile_n", [
+    ((2, 64, 960), 32),  # SmolLM's (p, n), POGO's planned tile
+    ((1, 64, 960), 64),  # the field's planned tile
+    ((2, 10, 250), 32),  # ragged last tile
+    ((1, 70, 150), 32),
+    ((2, 7, 33), 32),
+])
+def test_two_stage_tiled_kernels_emulated(two_stage_harness, tmp_path, method,
+                                          shape, tile_n):
+    _run_two_stage(two_stage_harness, tmp_path, 1, method, shape, tile_n=tile_n)
+
+
+@pytest.mark.parametrize("kind,tile_n", [(0, 0), (1, 32)], ids=["whole", "tiled"])
+@pytest.mark.parametrize("method", [0, 1], ids=["pogo_update", "landing_field"])
+def test_two_stage_kernels_emulated_in_place(two_stage_harness, tmp_path, kind,
+                                             tile_n, method):
+    """The output written over X: the whole kernels read all of X first;
+    the tiled POGO kernel parks M in the output (here X) tile by tile and
+    writes X' over it, and the field writes each tile after reading it."""
+    _run_two_stage(two_stage_harness, tmp_path, kind, method, (3, 12, 130),
+                   tile_n=tile_n, inplace=True)

@@ -22,8 +22,15 @@ many-matrices shape 2048 x (16, 256) (the whole kernels):
   (lam 1, eps 0.5, exact safe step).
 
 Each path's kernels must launch once per step, its first step must agree
-with the plain route, and its feasibility must hold. Any failure exits
-non-zero. The second-to-last line is a JSON record of every kernel
+with the plain route, and its feasibility must hold. The Newton-Schulz
+kernels are held against their plain version with half the matrices
+masked off. Then the trainer: SmolLM-360M at full width (32 layers),
+batch 8 x 512 tokens, through ``make_train_step`` and ``train`` as the
+launcher builds them (POGO's fused kernel over VAdam on the q/k group,
+AdamW elsewhere, the feasibility watchdog on), 8 steps, the q/k leaves
+scaled by 1.5 just before step 5 so that the watchdog's Newton-Schulz
+repair fires on all 640 matrices; a resume from the step-4 checkpoint
+must replay steps 5 and 6 bit for bit. Any failure exits non-zero. The second-to-last line is a JSON record of every kernel
 (launches on the main path, error against the plain version, times and
 bounds); the last line is the device record. Without a CUDA card it exits
 2 and prints no result.
@@ -37,6 +44,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -61,7 +69,20 @@ KERNELS = {
     "pogo_update_tiled": ("two_stage", "src/repro/kernels/pogo_update.py:143"),
     "landing_field": ("two_stage", "src/repro/kernels/landing_field.py:42"),
     "landing_field_tiled": ("two_stage", "src/repro/kernels/landing_field.py:79"),
+    "newton_schulz": ("newton_schulz", "src/repro/kernels/newton_schulz.py:37"),
 }
+NS_ITERS = 12
+NS_TOL = dict(atol=1e-6, rtol=0.0)  # tests/test_kernels.py:54-61
+# The trainer phase: the launcher's defaults (src/repro_torch/launch/train.py)
+# but POGO's lr. At the default 0.5 VAdam's unit-norm first step lands a
+# q/k matrix ~3e-3 off the manifold (past the watchdog's soft 1e-3, so it
+# would escalate and repair before any drift); 0.05 keeps the undrifted
+# steps within the 1e-5 feasibility bound.
+TRAIN_STEPS = 8
+TRAIN_BATCH = 8
+TRAIN_SEQ = 512
+TRAIN_POGO_LR = 0.05
+DRIFT_STEP = 5  # the q/k leaves are scaled by 1.5 just before this step
 # Two-stage kernel -> its flops per matrix over p^2 n: six p x p x n
 # products for the POGO update, five for the field.
 TWO_STAGE_FLOPS = {"pogo_update_whole": 12, "pogo_update_tiled": 12,
@@ -269,6 +290,227 @@ def phase_two_stage_kernels(gen):
     return records
 
 
+def phase_newton_schulz(gen):
+    """Each Newton-Schulz kernel against the plain version on the watchdog's
+    input, 1.5 x Stiefel + 0.05 randn, 12 iterations, with half the
+    matrices masked off (they must come out bit-unchanged, distances too),
+    at 640 x (64, 960) (tiled), 2048 x (16, 256) (whole) and 7 x (10, 250);
+    then timed unmasked at the first two shapes."""
+    import torch
+
+    from repro_torch.core import stiefel
+    from repro_torch.kernels import newton_schulz as ns
+    from repro_torch.kernels import ops, ref
+
+    record = {}
+    for shape in ((640, 64, 960), (2048, 16, 256), (7, 10, 250)):
+        b, p, n = shape
+        x = 1.5 * stiefel.random_stiefel(gen, shape, device="cuda")
+        x += 0.05 * torch.randn(shape, generator=gen, device="cuda")
+        dist = torch.where(torch.arange(b, device="cuda") % 2 == 0, 2.0, 0.0).float()
+        x0, d0 = x.clone(), dist.clone()
+        rep = ops.newton_schulz_repair(x, dist, torch.tensor(0.1, device="cuda"),
+                                       NS_ITERS)
+        torch.cuda.synchronize()
+        want = ref.newton_schulz_ref(x0[rep], NS_ITERS)
+        want_d = ref.manifold_distance_ref(want)
+        max_abs, _, ok = _errors((x[rep],), (want,), NS_TOL)
+        kept = torch.equal(x[~rep], x0[~rep]) and torch.equal(dist[~rep], d0[~rep])
+        kind, tile_n = ops.plan_newton_schulz(p, n)
+        print(f"kernel newton_schulz_{kind} {b}x({p},{n}) tile_n {tile_n}: repaired "
+              f"{int(rep.sum())}, max_abs {max_abs:.3e} (atol {NS_TOL['atol']}), "
+              f"distance kernel {float(dist[rep].max()):.3e} plain "
+              f"{float(want_d.max()):.3e}, masked-off bit-unchanged {kept} "
+              f"{'ok' if ok and kept else 'MISMATCH'}", flush=True)
+        if not (ok and kept and int(rep.sum()) == (b + 1) // 2
+                and float(dist[rep].max()) < 1e-2):
+            raise SystemExit(f"newton_schulz {shape} disagrees with its plain version")
+        record["max_abs_err"] = max(record.get("max_abs_err", 0.0), max_abs)
+        if b == 7:
+            continue
+        out = torch.empty_like(x0)
+        wrapper = getattr(ns, f"newton_schulz_{kind}")
+        if kind == "tiled":
+            wrapper = functools.partial(wrapper, tile_n=tile_n)
+        ms, plain_ms = _time_in_turns(lambda: wrapper(x0, NS_ITERS, out=out),
+                                      lambda: ref.newton_schulz_ref(x0, NS_ITERS))
+        # Read X, write Y; 4 p^2 n flops per matrix per iteration.
+        bound_ms, bound_by = _bound_ms(2 * b * p * n * 4, 4 * NS_ITERS * p * p * n * b)
+        # The watchdog launches the repair every step; with no matrix past
+        # the threshold every CTA exits at once.
+        idle, thresh = torch.zeros(b, device="cuda"), torch.tensor(0.1, device="cuda")
+        idle_ms = _time_ms(lambda: ops.newton_schulz_repair(x0, idle, thresh, NS_ITERS), 20)
+        print(f"  newton_schulz_{kind} {b}x({p},{n}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"bound_ms {bound_ms:.4f} ({bound_by}); repair with no matrix past the "
+              f"threshold {idle_ms:.4f} ms", flush=True)
+        if kind == "tiled":  # the trainer's shape is the kernel's main-path shape
+            record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        del x, x0, out
+    return {"newton_schulz": record}
+
+
+def _is_qk(path: str) -> bool:
+    return "q_proj" in path or "k_proj" in path
+
+
+def _timed(transform, events):
+    """``transform`` with every ``update`` bracketed by two CUDA events."""
+    import torch
+
+    from repro_torch.optim import GradientTransformation
+
+    def update(grads, state, params=None):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = transform.update(grads, state, params)
+        end.record()
+        events.append((start, end))
+        return out
+
+    return GradientTransformation(transform.init, update, tag=transform.tag)
+
+
+def phase_trainer(card, workdir):
+    """SmolLM-360M at full width through the launcher's ``make_train_step``
+    and ``train``; returns the main path's kernel launches."""
+    import shutil
+    import time
+
+    import torch
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.core import api
+    from repro_torch.data.pipeline import DataConfig, DataIterator
+    from repro_torch.kernels import ops
+    from repro_torch.models import ortho
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import partition
+    from repro_torch.train.loop import LoopConfig, drift, train
+    from repro_torch.train.train_step import TrainConfig, make_optimizer, make_train_step
+    from repro_torch import tree
+
+    cfg = get_config("smollm-360m")
+    wd = api.WatchdogConfig()
+    tc = TrainConfig(pogo_learning_rate=TRAIN_POGO_LR, pogo_use_kernel=True,
+                     ortho_watchdog=wd, warmup_steps=min(20, TRAIN_STEPS // 5 + 1),
+                     decay_steps=TRAIN_STEPS)
+    opt = make_optimizer(cfg, tc)
+    transforms = dict(opt.tag[1])  # the orthoptimizer's updates, timed
+    ortho_events: list = []
+    transforms["orthogonal"] = _timed(transforms["orthogonal"], ortho_events)
+    opt = partition(transforms, lambda p: ortho.label_tree(p, cfg))
+    step_fn, _ = make_train_step(cfg, tc, optimizer=opt)
+
+    def fresh(seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = ortho.project_init(tfm.init_params(gen, cfg, "cuda"), cfg)
+        data = DataIterator(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0),
+                            device="cuda")
+        return params, opt.init(params), data
+
+    per_step: dict = {}
+
+    def stepper(data):
+        def run(p, o, b):
+            k = data.step  # this step's number, 1-based
+            if k == DRIFT_STEP:
+                p = drift(p, 0.5, select=_is_qk)
+            before = ops.launches()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            n_events = len(ortho_events)
+            start.record()
+            p, o, m = step_fn(p, o, b)
+            end.record()
+            torch.cuda.synchronize()
+            o_start, o_end = ortho_events[n_events]
+            after = ops.launches()
+            per_step[k] = dict(
+                metrics={name: float(v) for name, v in m.items()},
+                summary=api.watchdog_summary(o),
+                launches={n: after[n] - before[n] for n in after if after[n] != before[n]},
+                ms=start.elapsed_time(end), ortho_ms=o_start.elapsed_time(o_end))
+            return p, o, m
+        return run
+
+    ck1, ck2 = os.path.join(workdir, "run"), os.path.join(workdir, "resume")
+    params, state, data = fresh(0)
+    n_params = sum(x.numel() for x in tree.leaves(params))
+    print(f"trainer: {cfg.name}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e6:.1f} M params, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"pogo lr {TRAIN_POGO_LR}, watchdog {wd}", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.monotonic()
+    params, state, step, _ = train(
+        stepper(data), params, state, data,
+        LoopConfig(total_steps=TRAIN_STEPS, save_every=2, keep_last=8,
+                   checkpoint_dir=ck1, log_every=1))
+    wall = time.monotonic() - t0
+    launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    run1 = dict(per_step)
+    for k in sorted(run1):
+        r = run1[k]
+        print(f"trainer step {k}: {r['metrics']} ms {r['ms']:.1f} ortho_ms "
+              f"{r['ortho_ms']:.3f} repairs {r['summary']['repairs']} launches "
+              f"{r['launches']}", flush=True)
+    if step != TRAIN_STEPS:
+        raise SystemExit(f"trainer stopped at step {step}")
+    for k, r in run1.items():
+        m = r["metrics"]
+        if not (m["health_finite"] == 1.0 and m["loss"] == m["loss"] < float("inf")):
+            raise SystemExit(f"trainer step {k}: not finite {m}")
+        # One fused step and one repair launch per step: the repair's CTAs
+        # exit at once for matrices that did not trip, so only the drift
+        # step repairs (the counter says which).
+        if r["launches"] != {"fused_step_tiled": 1, "newton_schulz_tiled": 1}:
+            raise SystemExit(f"trainer step {k}: launches {r['launches']}")
+        repairs = 640 if k >= DRIFT_STEP else 0
+        if r["summary"]["repairs"] != repairs:
+            raise SystemExit(f"trainer step {k}: {r['summary']}, expected {repairs} repairs")
+        if k == DRIFT_STEP:
+            if not m["ortho_distance"] < wd.hard / 2:
+                raise SystemExit(f"trainer drift step: distance {m['ortho_distance']} "
+                                 f"(limit {wd.hard / 2})")
+        elif m["ortho_distance"] > 1e-5:
+            raise SystemExit(f"trainer step {k}: ortho_distance {m['ortho_distance']}")
+    want = {n: TRAIN_STEPS if n in ("fused_step_tiled", "newton_schulz_tiled") else 0
+            for n in launches}
+    if launches != want:
+        raise SystemExit(f"trainer: launches {launches}, expected {want}")
+
+    # Resume from the step-4 checkpoint (other weights in memory) and replay.
+    shutil.copytree(os.path.join(ck1, "step_000000004"),
+                    os.path.join(ck2, "step_000000004"))
+    per_step.clear()
+    p2, s2, d2 = fresh(1)
+    p2, s2, step2, _ = train(stepper(d2), p2, s2, d2,
+                             LoopConfig(total_steps=6, save_every=100,
+                                        checkpoint_dir=ck2, log_every=1))
+    same = all(per_step[k]["metrics"] == run1[k]["metrics"] for k in (5, 6))
+    want6 = ckpt.restore(ck1, 6, (p2, s2))
+    same_state = all(torch.equal(a, b) for a, b in
+                     zip(tree.leaves(want6), tree.leaves((p2, s2))))
+    print(f"trainer resume from step 4: steps 5-6 metrics identical {same}, "
+          f"params and optimizer state at step 6 identical {same_state}", flush=True)
+    if step2 != 6 or not (same and same_state):
+        raise SystemExit("trainer: the resumed run does not replay steps 5-6")
+
+    steady = [r for k, r in run1.items() if k > 1]  # step 1 warms the caches
+    step_ms = statistics.median(r["ms"] for r in steady)
+    ortho_ms = statistics.median(r["ortho_ms"] for r in steady)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"trainer: median step {step_ms:.2f} ms, {1e3 * tokens / step_ms:.0f} tokens/s, "
+          f"orthoptimizer {ortho_ms:.3f} ms ({ortho_ms / step_ms:.4f} of the step; "
+          f"drift step {run1[DRIFT_STEP]['ortho_ms']:.3f} ms), peak "
+          f"{peak:.1f} MiB, {TRAIN_STEPS} steps in {wall:.1f} s wall [{card}]", flush=True)
+    return launches
+
+
 def make_opt(path, use_kernel=True):
     """The optimizer of main path ``path`` (``fused``, ``pogo_adam`` or
     ``landing``); ``benchmarks_torch/profile_step.py`` traces the same."""
@@ -385,6 +627,7 @@ def main() -> int:
     from repro_torch.configs import smollm_360m
     from repro_torch.kernels import build
     from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import newton_schulz as ns
     from repro_torch.kernels import pogo_update as pu
     from repro_torch.models import ortho
 
@@ -399,6 +642,7 @@ def main() -> int:
         list(ex.map(build.compile_source, sources))
     fs._lib()
     pu.lib()
+    ns.lib()
     for name in sources:
         for line in build.PTXAS_LOG.get(name, "").splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
@@ -407,6 +651,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = phase_fused_kernels(gen)
     records.update(phase_two_stage_kernels(gen))
+    records.update(phase_newton_schulz(gen))
 
     smollm = ortho.orthogonal_leaf_shapes(smollm_360m.config())
     paths = [  # (label, shapes, steps, path, feasibility limit, kernel)
@@ -425,6 +670,9 @@ def main() -> int:
                                  functools.partial(make_opt, path), max_dist)
         _expect_launches(label, counts, kernel, steps)
         launches[kernel] = counts[kernel]
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
+        counts = phase_trainer(card, workdir)
+    launches["newton_schulz"] = counts["newton_schulz_whole"] + counts["newton_schulz_tiled"]
 
     kernels = [
         dict(name=name, route="cuda",

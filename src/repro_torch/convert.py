@@ -1,8 +1,10 @@
-"""Load the JAX package's constraint-step state into the port.
+"""Load the JAX package's weights and optimizer states into the port.
 
 The JAX side hands over plain numpy arrays, so this module imports
 neither package's arrays: a caller converts with ``np.asarray`` and both
-packages then compute the same step from the same state.
+packages then compute the same step from the same state. Tree order is
+shared (dict keys sorted, sequences in order), so a state's leaves in
+``jax.tree.leaves`` order are the port's in ``tree.leaves`` order.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from . import tree
+from ._device import resolve_device
 from .core.api import ConstraintSet, GroupedDistances, OrthoState
 from .optim.transform import GradientTransformation
 
@@ -64,7 +67,7 @@ def state_from_jax(
     state = OrthoState(
         count=tensor(arrays["count"], torch.int32),
         base_state=base_state,
-        rng=0,
+        rng=tensor(arrays.get("rng", (0, 0)), torch.int64),
         last_distance=GroupedDistances(
             plan=cs.stacked_plan(),
             per_group=tuple(tensor(d, torch.float32)
@@ -72,3 +75,30 @@ def state_from_jax(
         ),
     )
     return cs, state
+
+
+def params_from_jax(numpy_tree, *, device="cuda"):
+    """A JAX param tree of numpy arrays (``jax.tree.map(np.asarray,
+    params)``) as the port's tree of tensors on ``device``."""
+    device = resolve_device(device)
+    return tree.tree_map(
+        lambda a: torch.as_tensor(np.array(a), device=device), numpy_tree)
+
+
+def train_state_from_jax(leaves, like):
+    """``like`` (a port tree: an optimizer state, or ``(params,
+    opt_state)``) filled with ``leaves``, the numpy leaves of the JAX
+    package's counterpart in ``jax.tree.leaves`` order, each cast to the
+    port leaf's dtype and device (e.g. the uint32 PRNG key to int64)."""
+    dst, td = tree.flatten(like)
+    if len(leaves) != len(dst):
+        raise ValueError(f"the JAX state has {len(leaves)} leaves, the port's "
+                         f"{len(dst)}: the optimizers differ")
+    out = []
+    for i, (a, d) in enumerate(zip(leaves, dst)):
+        a = np.asarray(a)
+        if tuple(d.shape) != a.shape:
+            raise ValueError(f"leaf {i}: JAX shape {a.shape}, port {tuple(d.shape)}")
+        out.append(torch.as_tensor(a.astype(np.int64) if a.dtype == np.uint32 else a)
+                   .to(device=d.device, dtype=d.dtype))
+    return tree.unflatten(td, out)

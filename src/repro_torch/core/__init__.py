@@ -5,19 +5,25 @@ from .api import (
     ConstraintSet,
     GroupedDistances,
     Landing,
+    OrthoConfig,
     OrthoState,
     Pogo,
+    WatchdogConfig,
+    WatchdogState,
     constraint_step,
     leaf_distances,
     max_distance,
+    method_overrides,
     orthogonal,
     step_health,
+    watchdog_summary,
 )
 from .schedule import GroupMember, GroupPlan, GroupSpec, plan_groups
 
 __all__ = [
     "ConstraintSet", "GroupMember", "GroupPlan", "GroupSpec",
-    "GroupedDistances", "Landing", "OrthoState", "Pogo", "constraint_step",
-    "leaf_distances", "max_distance", "orthogonal", "plan_groups",
-    "quartic", "step_health", "stiefel",
+    "GroupedDistances", "Landing", "OrthoConfig", "OrthoState", "Pogo",
+    "WatchdogConfig", "WatchdogState", "constraint_step", "leaf_distances",
+    "max_distance", "method_overrides", "orthogonal", "plan_groups",
+    "quartic", "step_health", "stiefel", "watchdog_summary",
 ]

@@ -23,12 +23,19 @@ through one of two routes, chosen as the JAX package chooses them
 :func:`constraint_step` updates its stacks and the optimizer moments in
 place.
 
+The feasibility watchdog (``watchdog=WatchdogConfig(...)``) escalates a
+group whose previous residual crossed ``soft`` and repairs every matrix
+whose post-step residual exceeds the repair threshold with Newton-Schulz,
+in place; with ``use_kernel`` on a card that is the kernel of
+``csrc/newton_schulz.cu``, gated per matrix by a device mask (no host
+sync). POGO's ``find_root`` lands with the quartic-root lambda, and
+``safety_project_every`` re-projects every k-th step.
+
 Combinations this slice does not port raise ``NotImplementedError`` naming
 the ROADMAP entry that holds them: Landing's fixed-step fused branch
 (``safe_step=False`` with a linear base and ``use_kernel=True``), methods
-other than POGO and Landing, POGO's ``find_root``, complex groups, the
-feasibility watchdog, Newton-Schulz safety projection, tensor parallelism
-and padded megagroups.
+other than POGO and Landing, complex groups, tensor parallelism and
+padded megagroups.
 """
 
 from __future__ import annotations
@@ -48,9 +55,10 @@ from .schedule import GroupMember, GroupPlan, GroupSpec, plan_groups
 
 __all__ = [
     "ConstraintSet", "FusedSlots", "GroupMember", "GroupPlan", "GroupSpec",
-    "GroupedDistances", "Landing", "Method", "OrthoState", "Pogo", "StepCtx",
-    "constraint_step", "leaf_distances", "max_distance", "orthogonal",
-    "plan_groups", "step_health",
+    "GroupedDistances", "Landing", "Method", "OrthoConfig", "OrthoState",
+    "Pogo", "StepCtx", "WatchdogConfig", "WatchdogState", "constraint_step",
+    "leaf_distances", "max_distance", "method_overrides", "orthogonal",
+    "plan_groups", "step_health", "watchdog_summary",
 ]
 
 
@@ -217,8 +225,9 @@ class StepCtx:
     """Per-group context of one step: the fp32 stacked group in manifold
     orientation, the learning rate (a method may rescale it per matrix,
     as Landing's safe step does), the step count, whether kernels run,
-    and ``pv`` (per-matrix valid rows; ``None`` for the uniform groups of
-    this slice)."""
+    ``pv`` (per-matrix valid rows; ``None`` for the uniform groups of
+    this slice), and ``scratch``, what one stage hands the next (the
+    watchdog's blend operands and repair mask)."""
 
     x: torch.Tensor
     g: torch.Tensor
@@ -226,6 +235,7 @@ class StepCtx:
     count: torch.Tensor
     use_kernel: bool = False
     pv: Optional[torch.Tensor] = None
+    scratch: dict = dataclasses.field(default_factory=dict)
 
 
 class FusedSlots(NamedTuple):
@@ -268,6 +278,20 @@ class Method:
         """Instance-level gate for the fused group step."""
         return self.fused_stage is not None
 
+    def escalated(self) -> Optional["Method"]:
+        """The careful sibling the feasibility watchdog escalates a
+        drifting group to, or ``None`` (the repair threshold tightens to
+        ``soft`` instead)."""
+        return None
+
+    def careful_blend(self) -> bool:
+        """True if the careful sibling folds into this method's own land
+        stage as per-matrix scalars (``ctx.scratch['wd_blend']``), so the
+        driver needs neither a sibling branch nor the Newton-Schulz
+        repair; the method records the repair mask in
+        ``ctx.scratch['wd_repaired']``."""
+        return False
+
     def fused_step(self, x, g, ctx: StepCtx, slots: FusedSlots,
                    inplace: bool = False):
         """``(x_next, mu', nu', dist, finite)`` of one group; with
@@ -291,24 +315,57 @@ class Pogo(Method):
     fused_stage = "pogo"
 
     def __init__(self, lam: float = 0.5, find_root: bool = False):
-        if find_root:
-            raise NotImplementedError(
-                "POGO find_root (quartic land) is not ported "
-                "(ROADMAP: remaining methods + quartic)"
-            )
         self.lam = lam
+        self.find_root = find_root
+
+    def fused_ready(self) -> bool:
+        return not self.find_root  # the quartic root has no fused form
+
+    def escalated(self) -> Optional["Method"]:
+        return None if self.find_root else Pogo(lam=self.lam, find_root=True)
+
+    def careful_blend(self) -> bool:
+        return not self.find_root
 
     def direction(self, x, g, ctx):
         return stiefel.riemannian_gradient(x, g)
 
     def land(self, m, ctx):
         c = stiefel.gram(m)
-        return (1.0 + self.lam) * m - self.lam * (c @ m)
+        wd_blend = None if self.find_root else ctx.scratch.get("wd_blend")
+        if self.find_root:
+            lam = quartic.optimal_lambda(m, fallback=self.lam, pv=ctx.pv)
+            lam = lam[..., None, None].to(m.real.dtype)
+        elif wd_blend is not None:
+            lam = self._blend_lambda(m, c, ctx, wd_blend)
+        else:
+            lam = self.lam
+        return (1.0 + lam) * m - lam * (c @ m)
+
+    def _blend_lambda(self, m, c, ctx, wd_blend):
+        """Watchdog-blended per-matrix land lambda
+        (``repro/core/api.py:515-560``): matrices of an escalated group, or
+        whose pre-land gram diagonal ``||diag(C) - 1||`` exceeds ``hard``,
+        land with the quartic-root lambda of their gram; the rest keep
+        ``self.lam``. JAX skips the solve under a ``lax.cond`` when no
+        matrix needs it; here it always runs (small (B, p, p) operands)
+        and a ``where`` selects, so nothing waits for the card."""
+        esc, hard = wd_blend
+        eye = torch.eye(m.shape[-2], dtype=c.dtype, device=c.device)
+        diag_dev = torch.diagonal(c - eye, dim1=-2, dim2=-1).real
+        dist_m = torch.sqrt(torch.sum(diag_dev * diag_dev, dim=-1))
+        rep = torch.isfinite(dist_m) & (dist_m > hard)
+        need = esc | rep
+        ctx.scratch["wd_repaired"] = rep
+        lam_vec = quartic.optimal_lambda_from_gram(c - eye, fallback=self.lam)
+        lam_vec = torch.where(need, lam_vec, torch.full_like(lam_vec, self.lam))
+        return lam_vec[..., None, None].to(m.real.dtype)
 
     def kernel_update(self, x, g, ctx, inplace=False):
         from ..kernels import ops as kops
 
-        return kops.pogo_update(x, g, ctx.eta, lam=self.lam, inplace=inplace)
+        return kops.pogo_update(x, g, ctx.eta, lam=self.lam,
+                                find_root=self.find_root, inplace=inplace)
 
 
 def _safe_eta(x, direction, eta0, eps):
@@ -367,6 +424,11 @@ class Landing(Method):
         # it has no in-kernel form, so only the fixed-step variant fuses.
         return not self.safe_step
 
+    def escalated(self) -> Optional["Method"]:
+        if self.safe_step:
+            return None  # already the careful variant
+        return Landing(lam=self.lam, eps=self.eps, safe_step=True)
+
     def _field(self, x, g, ctx):
         if ctx.use_kernel:
             from ..kernels import ops as kops
@@ -381,6 +443,53 @@ class Landing(Method):
         return d
 
 
+# ------------------------------------------------------------------- configs
+
+
+@dataclasses.dataclass(frozen=True)
+class WatchdogConfig:
+    """Feasibility watchdog and drift repair (``repro/core/api.py:813``).
+
+    ``soft``: a group whose previous residual crossed it runs the method's
+    careful sibling (:meth:`Method.escalated`) until the residual drops
+    below ``soft * release``; methods without one, and fused groups,
+    tighten the repair threshold to ``soft`` instead. ``hard``: every
+    matrix whose post-step residual exceeds it (finite only) is
+    re-orthonormalised by ``ns_iters`` Newton-Schulz iterations in the
+    same step."""
+
+    soft: float = 1e-3
+    hard: float = 1e-1
+    release: float = 0.25
+    ns_iters: int = 12
+
+
+class WatchdogState(NamedTuple):
+    """Per-group watchdog telemetry in ``OrthoState.extras``: the
+    escalation latch (0-d bool) and cumulative repair and escalation
+    counts (0-d int32), all on the card; :func:`watchdog_summary` reads
+    them on the host."""
+
+    escalated: tuple
+    repairs: tuple
+    escalations: tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class OrthoConfig:
+    """Driver-level knobs shared by every method: the fields of
+    ``repro.core.api.OrthoConfig`` that no method declares."""
+
+    learning_rate: Any = 1e-2
+    base_optimizer: Optional[GradientTransformation] = None
+    use_kernel: bool = False
+    safety_project_every: int = 0
+    seed: int = 0
+    grouping: str = "auto"
+    watchdog: Optional[WatchdogConfig] = None
+    tp_compress: bool = False
+
+
 # -------------------------------------------------------------- orthoptimizer
 
 
@@ -389,6 +498,17 @@ def _not_ported(what: str, entry: str):
 
 
 _METHODS = {"pogo": Pogo, "landing": Landing}
+_METHOD_FIELDS = {"pogo": ("lam", "find_root"),
+                  "landing": ("lam", "eps", "safe_step")}
+
+
+def method_overrides(method: str, **candidates) -> dict:
+    """Filter kwargs down to those ``method`` declares, dropping ``None``
+    (``repro.core.api.method_overrides``)."""
+    if method not in _METHODS:
+        raise _not_ported(f"orthoptimizer {method!r}", "remaining methods + quartic")
+    fields = _METHOD_FIELDS[method]
+    return {k: v for k, v in candidates.items() if v is not None and k in fields}
 
 
 def orthogonal(
@@ -400,7 +520,7 @@ def orthogonal(
     safety_project_every: int = 0,
     seed: int = 0,
     grouping: str = "auto",
-    watchdog: Any = None,
+    watchdog: Optional[WatchdogConfig] = None,
     tp_compress: bool = False,
     **method_kwargs,
 ) -> GradientTransformation:
@@ -411,10 +531,8 @@ def orthogonal(
     naming its ROADMAP entry."""
     if method not in _METHODS:
         raise _not_ported(f"orthoptimizer {method!r}", "remaining methods + quartic")
-    if watchdog is not None:
-        raise _not_ported("the feasibility watchdog", "self-healing training")
-    if safety_project_every:
-        raise _not_ported("Newton-Schulz safety projection", "Newton-Schulz")
+    if watchdog is not None and not isinstance(watchdog, WatchdogConfig):
+        raise TypeError(f"watchdog must be a WatchdogConfig, got {type(watchdog).__name__}")
     if tp_compress:
         raise _not_ported("tensor-parallel compression", "sharded schedules")
     if grouping == "padded":
@@ -431,19 +549,39 @@ def orthogonal(
         raise _not_ported(
             f"the fused group step of {method!r} (safe_step=False with a base "
             "the kernel replays)", "Landing's fused branches")
-    return _build(meth, fused_base if fused else None, base_optimizer,
-                  learning_rate, seed, grouping, use_kernel)
+    cfg = OrthoConfig(learning_rate=learning_rate, base_optimizer=base_optimizer,
+                      use_kernel=use_kernel,
+                      safety_project_every=safety_project_every, seed=seed,
+                      grouping=grouping, watchdog=watchdog)
+    return _build(meth, fused_base if fused else None, cfg)
 
 
-def _build(method: Method, fused_base, base, learning_rate, seed, grouping,
-           use_kernel) -> GradientTransformation:
+def _fresh_watchdog_state(plan: GroupPlan, device) -> WatchdogState:
+    def zeros(dtype):
+        return tuple(torch.zeros((), dtype=dtype, device=device) for _ in plan.groups)
+
+    return WatchdogState(escalated=zeros(torch.bool), repairs=zeros(torch.int32),
+                         escalations=zeros(torch.int32))
+
+
+def _build(method: Method, fused_base, cfg: OrthoConfig) -> GradientTransformation:
     """The orthoptimizer: the fused group step when ``fused_base`` is
-    given, else the two-stage group step."""
+    given, else the two-stage group step; with ``cfg.watchdog`` the
+    watchdog's escalation and repair around each group step
+    (``repro/core/api.py:1483-1566, 1590-1625``)."""
+    base = cfg.base_optimizer
+    use_kernel = cfg.use_kernel
+    wd = cfg.watchdog
+    careful = method.escalated() if wd is not None else None
+    # Escalation and repair fold into the land stage (no sibling branch,
+    # no Newton-Schulz) where the land stage runs.
+    blend_careful = (careful is not None and method.careful_blend()
+                     and not (use_kernel and method.kernel_update is not None))
 
     def make_plan(params, leaves, treedef) -> GroupPlan:
         if isinstance(params, ConstraintSet):
             return params.stacked_plan()
-        return plan_groups(leaves, treedef, grouping)
+        return plan_groups(leaves, treedef, cfg.grouping)
 
     def init(params):
         base_state = base.init(params) if base else ()
@@ -456,7 +594,10 @@ def _build(method: Method, fused_base, base, learning_rate, seed, grouping,
         ))
         return OrthoState(
             count=torch.zeros((), dtype=torch.int32, device=device),
-            base_state=base_state, rng=seed, last_distance=dist,
+            base_state=base_state,
+            rng=torch.tensor([0, cfg.seed], dtype=torch.int64, device=device),
+            last_distance=dist,
+            extras=_fresh_watchdog_state(plan, device) if wd is not None else (),
         )
 
     def stacks(group, leaves, gleaves, inplace):
@@ -472,7 +613,27 @@ def _build(method: Method, fused_base, base, learning_rate, seed, grouping,
         g32 = _gather_group(group, gleaves).to(x32.dtype).contiguous()
         return xg, x32, g32
 
-    def fused_groups(plan, leaves, state, grads, eta0, inplace):
+    def project_due(state) -> bool:
+        """Whether this step runs the safety projection (JAX's ``lax.cond``
+        on ``count % k``; one host read of the step counter)."""
+        k = cfg.safety_project_every
+        return bool(k) and (int(state.count) + 1) % k == 0
+
+    def repair(x_next, dist, thresh):
+        """Newton-Schulz repair of the matrices with ``isfinite(dist) &
+        (dist > thresh)``, in place on ``x_next`` and ``dist``: the kernel
+        with ``use_kernel`` (the plain version on a CPU tensor), else the
+        plain projection. Returns the ``(B,)`` repair mask."""
+        from ..kernels import newton_schulz as kns
+        from ..kernels import ops as kops
+
+        if use_kernel:
+            return kops.newton_schulz_repair(x_next, dist, thresh, wd.ns_iters)
+        rep = torch.isfinite(dist) & (dist > thresh)
+        kns.run_plain(x_next, wd.ns_iters, out=x_next, mask=rep, dist=dist)
+        return rep
+
+    def fused_groups(plan, leaves, state, grads, eta0, inplace, escs, project):
         """Every group through the fused step (base moments in-kernel)."""
         gleaves = tree.leaves(grads)
         mu_tree, nu_tree, base_count = fused_base.get_slots(state.base_state)
@@ -481,7 +642,7 @@ def _build(method: Method, fused_base, base, learning_rate, seed, grouping,
         mu_out: list = [None] * len(leaves)
         nu_out: list = [None] * len(leaves)
         results = []
-        for group in plan.groups:
+        for group, esc in zip(plan.groups, escs):
             xg, x32, g32 = stacks(group, leaves, gleaves, inplace)
             mug = (_gather_group(group, mu_leaves).contiguous()
                    if mu_leaves is not None else None)
@@ -495,7 +656,15 @@ def _build(method: Method, fused_base, base, learning_rate, seed, grouping,
             x_next, mu2, nu2, dist, _ = method.fused_step(
                 x32, g32, ctx, slots, inplace=inplace
             )
-            results.append((group, xg, x32, x_next, dist))
+            if project:
+                y = stiefel.project_newton_schulz(x_next)
+                x_next = x_next.copy_(y) if inplace else y
+                dist = stiefel.manifold_distance(x_next).to(torch.float32)
+            rep = None
+            if wd is not None:
+                thresh = torch.where(esc, wd.soft, wd.hard)
+                rep = repair(x_next, dist, thresh)
+            results.append((group, xg, x32, x_next, dist, rep))
             if mu2 is not None:
                 _scatter_group(group, mu2, mu_out)
             if nu2 is not None:
@@ -506,9 +675,11 @@ def _build(method: Method, fused_base, base, learning_rate, seed, grouping,
             if nu_leaves is not None else None
         return results, fused_base.set_slots(state.base_state, mu_tree2, nu_tree2)
 
-    def two_stage_groups(plan, leaves, params, state, grads, eta0, inplace):
+    def two_stage_groups(plan, leaves, params, state, grads, eta0, inplace,
+                         escs, project):
         """The base optimizer first, then each group through
-        ``group_step`` (``repro/core/api.py:1296-1299, 1324-1383``)."""
+        ``group_step`` (``repro/core/api.py:1296-1299, 1324-1383``), under
+        the watchdog's dispatch (``:1520-1549``) when it is on."""
         if base is None:
             g, base_state = grads, ()
         elif inplace and base.update_inplace is not None:
@@ -517,24 +688,60 @@ def _build(method: Method, fused_base, base, learning_rate, seed, grouping,
             g, base_state = base.update(grads, state.base_state, params)
         gleaves = tree.leaves(g)
         results = []
-        for group in plan.groups:
+        for group, esc in zip(plan.groups, escs):
             xg, x32, g32 = stacks(group, leaves, gleaves, inplace)
-            x_next = group_step(x32, g32, eta0, state.count, inplace)
-            results.append((group, xg, x32, x_next, None))
+            meth, scratch, thresh = method, {}, None
+            if wd is not None and blend_careful:
+                scratch["wd_blend"] = (esc, wd.hard)
+            elif wd is not None and careful is not None:
+                # A per-group branch on a device flag: one host read.
+                meth = careful if bool(esc) else method
+                thresh = wd.hard
+            elif wd is not None:
+                thresh = torch.where(esc, wd.soft, wd.hard)
+            x_next = group_step(meth, x32, g32, eta0, state.count, inplace, scratch)
+            if project:
+                y = stiefel.project_newton_schulz(x_next)
+                x_next = x_next.copy_(y) if inplace else y
+            dist, rep = None, scratch.get("wd_repaired")
+            if wd is not None and rep is None:
+                dist = stiefel.manifold_distance(x_next).to(torch.float32)
+                rep = repair(x_next, dist, thresh)
+            results.append((group, xg, x32, x_next, dist, rep))
         return results, base_state
 
-    def group_step(x32, g32, eta, count, inplace):
+    def group_step(meth, x32, g32, eta, count, inplace, scratch):
         """One batched two-stage update of a group: the method's
         ``kernel_update`` on the kernel path, else direction, leap and
         land. With ``inplace`` X' ends up in ``x32``."""
-        ctx = StepCtx(x=x32, g=g32, eta=eta, count=count, use_kernel=use_kernel)
-        if use_kernel and method.kernel_update is not None:
-            return method.kernel_update(x32, g32, ctx, inplace=inplace)
-        d = method.direction(x32, g32, ctx)
+        ctx = StepCtx(x=x32, g=g32, eta=eta, count=count, use_kernel=use_kernel,
+                      scratch=scratch)
+        if use_kernel and meth.kernel_update is not None:
+            return meth.kernel_update(x32, g32, ctx, inplace=inplace)
+        d = meth.direction(x32, g32, ctx)
         d.mul_(ctx.eta)  # direction() hands over a tensor of its own
         m = x32.sub_(d) if inplace else x32 - d
-        x_next = method.land(m, ctx)
+        x_next = meth.land(m, ctx)
         return x32.copy_(x_next) if inplace and x_next is not x32 else x_next
+
+    def escalations(plan, state):
+        """Per group, whether it runs escalated this step: decided from
+        the previous step's residual with hysteresis (a NaN residual
+        compares False on both thresholds), on the card."""
+        wstate = state.extras
+        if (not isinstance(wstate, WatchdogState)
+                or len(wstate.escalated) != len(plan.groups)):
+            wstate = _fresh_watchdog_state(plan, state.count.device)
+        prev = state.last_distance
+        use_prev = (isinstance(prev, GroupedDistances)
+                    and len(prev.per_group) == len(plan.groups))
+        escs = []
+        for gi, esc_prev in enumerate(wstate.escalated):
+            prev_max = (prev.per_group[gi].max().to(torch.float32) if use_prev
+                        else torch.zeros((), device=esc_prev.device))
+            escs.append(prev_max > torch.where(esc_prev, wd.soft * wd.release,
+                                               wd.soft))
+        return wstate, escs
 
     def run(params, state, grads, inplace):
         """Every group through its step. Returns ``(group, stored stack,
@@ -546,16 +753,22 @@ def _build(method: Method, fused_base, base, learning_rate, seed, grouping,
         if any(grp.dtype.is_complex for grp in plan.groups):
             raise _not_ported("complex constraint groups",
                               "remaining methods + quartic")
-        eta0 = (learning_rate(state.count) if callable(learning_rate)
-                else learning_rate)
+        eta0 = (cfg.learning_rate(state.count) if callable(cfg.learning_rate)
+                else cfg.learning_rate)
+        wstate = None
+        escs = [None] * len(plan.groups)
+        if wd is not None:
+            wstate, escs = escalations(plan, state)
+        project = project_due(state)
         if fused_base is not None:
             results, base_state = fused_groups(plan, leaves, state, grads,
-                                               eta0, inplace)
+                                               eta0, inplace, escs, project)
         else:
             results, base_state = two_stage_groups(plan, leaves, params, state,
-                                                   grads, eta0, inplace)
+                                                   grads, eta0, inplace, escs,
+                                                   project)
         dists = []
-        for _, xg, x32, x_next, dist in results:
+        for _, xg, x32, x_next, dist, _ in results:
             if dist is None or xg.dtype != x32.dtype:
                 # The telemetry gram (JAX's ``_measure``), of the stored
                 # iterate: a reduced-precision stack after its cast.
@@ -563,10 +776,19 @@ def _build(method: Method, fused_base, base, learning_rate, seed, grouping,
                     (xg + (x_next - x32).to(xg.dtype)).to(x32.dtype)
                 dist = stiefel.manifold_distance(y)
             dists.append(dist.to(torch.float32))
+        extras = state.extras
+        if wd is not None:
+            extras = WatchdogState(
+                escalated=tuple(escs),
+                repairs=tuple(r + rep.sum(dtype=torch.int32) for r, (*_, rep)
+                              in zip(wstate.repairs, results)),
+                escalations=tuple(e + (esc & ~prev).to(torch.int32) for e, esc, prev
+                                  in zip(wstate.escalations, escs, wstate.escalated)),
+            )
         new_state = OrthoState(
             count=state.count + 1, base_state=base_state, rng=state.rng,
             last_distance=GroupedDistances(plan=plan, per_group=tuple(dists)),
-            extras=state.extras,
+            extras=extras,
         )
         return [r[:4] for r in results], treedef, len(leaves), new_state
 
@@ -638,3 +860,23 @@ def leaf_distances(state: OrthoState):
         for m in group.members:
             out[m.leaf] = arr[m.offset:m.offset + m.count].max()
     return tree.unflatten(plan.treedef, out)
+
+
+def watchdog_summary(opt_state) -> Optional[dict]:
+    """Host-side snapshot of the watchdog's counters: total ``repairs``,
+    ``escalations`` and the per-group ``escalated`` latches, or ``None``
+    when no state carries a :class:`WatchdogState`."""
+    repairs = escalations = 0
+    escalated: list = []
+    found = False
+    for s in ortho_states(opt_state):
+        w = s.extras
+        if not isinstance(w, WatchdogState):
+            continue
+        found = True
+        repairs += sum(int(r) for r in w.repairs)
+        escalations += sum(int(e) for e in w.escalations)
+        escalated.extend(bool(e) for e in w.escalated)
+    if not found:
+        return None
+    return {"repairs": repairs, "escalations": escalations, "escalated": escalated}

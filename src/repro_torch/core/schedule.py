@@ -50,12 +50,21 @@ class GroupSpec:
 
 @dataclasses.dataclass(frozen=True)
 class GroupPlan:
-    """Bucketing of a param tree into constraint groups."""
+    """Bucketing of a param tree into constraint groups. A tree node with
+    no leaves (JAX's static node), so states that carry a plan flatten to
+    the same leaves in both packages."""
 
     groups: tuple[GroupSpec, ...]
     treedef: Any
     n_leaves: int
     n_matrices: int
+
+    def tree_flatten(self):
+        return (), self
+
+    @classmethod
+    def tree_unflatten(cls, aux, children):
+        return aux
 
 
 def plan_groups(leaves, treedef, grouping: str = "auto") -> GroupPlan:

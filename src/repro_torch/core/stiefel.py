@@ -81,6 +81,35 @@ def manifold_distance_masked(x: torch.Tensor, pv: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(r.abs() ** 2, dim=(-2, -1)))
 
 
+def project_qr(x: torch.Tensor) -> torch.Tensor:
+    """Project onto St(p, n) via QR of X^H (row-orthonormalize)."""
+    q, r = torch.linalg.qr(_ht(x))
+    d = torch.diagonal(r, dim1=-2, dim2=-1)
+    phase = d / torch.where(d.abs() == 0, torch.ones_like(d), d.abs())
+    return _ht(q * phase.conj()[..., None, :])
+
+
+def project_polar(x: torch.Tensor) -> torch.Tensor:
+    """Polar projection ``(X X^H)^{-1/2} X``, the closest point on St, via
+    the eigendecomposition of the small (p, p) Hermitian gram."""
+    w, v = torch.linalg.eigh(gram(x))
+    w = torch.clamp_min(w, 1e-12)
+    inv_sqrt = (v * (w ** -0.5)[..., None, :].to(v.dtype)) @ _ht(v)
+    return inv_sqrt.to(x.dtype) @ x
+
+
+def project_newton_schulz(x: torch.Tensor, iters: int = 12) -> torch.Tensor:
+    """Polar projection via Newton-Schulz (matmul only):
+    ``Y <- 1.5 Y - 0.5 (Y Y^H) Y`` from ``Y = X / ||X||_F`` (the Frobenius
+    prescale bounds the spectral norm by 1, so the iteration contracts).
+    The plain version of the kernels in ``csrc/newton_schulz.cu``."""
+    fro = torch.sqrt(torch.sum(x.abs() ** 2, dim=(-2, -1), keepdim=True))
+    y = x / torch.clamp_min(fro, 1e-30)
+    for _ in range(iters):
+        y = 1.5 * y - 0.5 * (gram(y) @ y)
+    return y
+
+
 def random_stiefel(
     generator: torch.Generator,
     shape: tuple[int, ...],

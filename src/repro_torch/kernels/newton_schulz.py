@@ -1,0 +1,120 @@
+"""Wrappers of the Newton-Schulz kernels (``csrc/newton_schulz.cu``).
+
+``newton_schulz_whole`` and ``newton_schulz_tiled`` replace
+``repro/kernels/newton_schulz.py:37`` (``_ns_kernel``): one CTA per
+``(p, n)`` matrix, with Y resident in shared memory (whole) or swept in
+column tiles through the output buffer (tiled).
+
+Both take a ``(B, p, n)`` fp32 stack ``x`` and write
+``NS_iters(x / ||x||_F)`` to ``out`` (a new tensor, or ``x`` itself).
+``mask`` (a ``(B,)`` bool tensor, with ``out=x``) limits the work to the
+matrices it selects: the others keep their values and their ``dist``
+entries bit for bit. ``dist`` (``(B,)`` fp32), where given, receives ``||Y Y^T - I||_F``
+of every processed matrix. On a CPU tensor they run the plain version
+(``ref.newton_schulz_ref``); on a CUDA tensor they check the operands,
+launch on the current stream and raise if the launch fails. There is no
+fallback. Each wrapper counts its launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build, ref
+from .fused_step import check_operand
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded ``newton_schulz.cu`` library, built on first use."""
+    lib_ = build.load("newton_schulz")
+    if not getattr(lib_, "_typed", False):
+        lib_.newton_schulz_whole.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+        lib_.newton_schulz_tiled.argtypes = [_P] * 4 + [_I] * 5 + [_P]
+        lib_.ns_whole_smem_bytes.argtypes = [_I, _I]
+        lib_.ns_tiled_smem_bytes.argtypes = [_I, _I]
+        for fn in (lib_.newton_schulz_whole, lib_.newton_schulz_tiled,
+                   lib_.ns_whole_smem_bytes, lib_.ns_tiled_smem_bytes):
+            fn.restype = _I
+        lib_._typed = True
+    return lib_
+
+
+def run_plain(x, iters, *, out, mask=None, dist=None):
+    """The plain version with the wrappers' ``out``/``mask``/``dist``."""
+    y = ref.newton_schulz_ref(x, iters)
+    d = ref.manifold_distance_ref(y) if dist is not None else None
+    if mask is not None:
+        y = torch.where(mask[:, None, None], y, x)
+        if d is not None:
+            d = torch.where(mask, d, dist)
+    out.copy_(y)
+    if d is not None:
+        dist.copy_(d)
+    return out
+
+
+def _launch(entry, x, iters, out, mask, dist, *extra):
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if x.dim() != 3:
+        raise ValueError(f"x must be a (B, p, n) stack, got {tuple(x.shape)}")
+    dev = x.device
+    bsz = x.shape[0]
+    check_operand("x", x, tuple(x.shape), torch.float32, dev)
+    check_operand("out", out, tuple(x.shape), torch.float32, dev)
+    if mask is not None:
+        check_operand("mask", mask, (bsz,), torch.bool, dev)
+    if dist is not None:
+        check_operand("dist", dist, (bsz,), torch.float32, dev)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib(), entry)(ptr(x), ptr(out), ptr(mask), ptr(dist),
+                                    *x.shape, int(iters), *extra, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{entry} kernel launch failed for (B, p, n) = {tuple(x.shape)}: "
+            f"cudaError {err}"
+        )
+    return out
+
+
+def _run(entry, x, iters, out, mask, dist, *extra):
+    out = torch.empty_like(x) if out is None else out
+    if mask is not None and out is not x:
+        raise ValueError("a mask needs out=x: masked-off matrices keep x")
+    if x.device.type == "cpu":
+        return run_plain(x, iters, out=out, mask=mask, dist=dist)
+    return _launch(entry, x, iters, out, mask, dist, *extra)
+
+
+def newton_schulz_whole(x, iters=12, *, out=None, mask=None, dist=None):
+    """Whole-matrix Newton-Schulz: one CTA per ``(p, n)`` matrix, Y in
+    shared memory for all iterations (``ops.ns_whole_smem_bytes``)."""
+    res = _run("newton_schulz_whole", x, iters, out, mask, dist)
+    if x.device.type == "cuda":
+        newton_schulz_whole.launches += 1
+    return res
+
+
+def newton_schulz_tiled(x, iters=12, *, tile_n=64, out=None, mask=None,
+                        dist=None):
+    """Tiled Newton-Schulz: one CTA per matrix sweeping ``tile_n``-wide
+    column tiles of Y in place, once per iteration, with two (p, p) grams
+    in shared memory (``ops.ns_tiled_smem_bytes``)."""
+    res = _run("newton_schulz_tiled", x, iters, out, mask, dist, int(tile_n))
+    if x.device.type == "cuda":
+        newton_schulz_tiled.launches += 1
+    return res
+
+
+newton_schulz_whole.launches = 0
+newton_schulz_tiled.launches = 0

@@ -1,10 +1,11 @@
 """Public kernel entry points with the Hopper shared-memory planner.
 
 Port of ``repro/kernels/ops.py``: the fused group step (``:355-477``),
-the two-stage POGO update (``:209-257``) and the landing field
-(``:281-314``). The TPU planner's VMEM budget and live-buffer counts
+the two-stage POGO update (``:209-257``), the landing field
+(``:281-314``) and Newton-Schulz (``:700-725``). The TPU planner's VMEM budget and live-buffer counts
 become the per-block shared-memory footprint of each CUDA kernel,
-mirrored here from ``csrc/fused_step.cu`` and ``csrc/two_stage.cu``:
+mirrored here from ``csrc/fused_step.cu``, ``csrc/two_stage.cu`` and
+``csrc/newton_schulz.cu``:
 
 * ``whole`` when X and the (transformed) gradient of one matrix plus the
   kernel's (p, p) grams fit in one block's 227 KB;
@@ -25,7 +26,9 @@ import torch
 
 from . import fused_step as _fs
 from . import landing_field as _lf
+from . import newton_schulz as _ns
 from . import pogo_update as _pu
+from . import ref
 
 # Dynamic shared memory one H100 block may use (232,448 bytes), and what
 # one SM holds for all its resident blocks, each of which reserves 1 KB.
@@ -91,6 +94,19 @@ def landing_tiled_smem_bytes(p: int, tile_n: int) -> int:
     return _tiled_bytes(p, tile_n, 2, 2, 0)
 
 
+def ns_whole_smem_bytes(p: int, n: int) -> int:
+    """``newton_schulz_whole``: Y (k-major, all n columns), the gram G
+    and the block-reduction scratch."""
+    p4 = _round4(p)
+    return 4 * (_round4(n) * _tile_ld(p4) + p4 * p4 + _THREADS // 32)
+
+
+def ns_tiled_smem_bytes(p: int, tile_n: int) -> int:
+    """``newton_schulz_tiled``: two grams (this iterate's and the next),
+    the Y and new-Y tiles, and the block-reduction scratch."""
+    return _tiled_bytes(p, tile_n, 2, 2, _THREADS // 32)
+
+
 def _blocks_per_sm(smem: int) -> int:
     """Tiled-kernel blocks that fit one SM, by shared memory and registers."""
     return min(_TILED_BLOCKS_PER_SM, SM_SMEM_BYTES // (smem + _BLOCK_RESERVED_BYTES))
@@ -131,11 +147,25 @@ def plan_landing_field(p: int, n: int) -> tuple[str, int]:
                  landing_tiled_smem_bytes)
 
 
-def pogo_update(x, g, eta, lam=0.5, *, inplace: bool = False):
+def plan_newton_schulz(p: int, n: int) -> tuple[str, int]:
+    """``("whole", 0)`` or ``("tiled", tile_n)`` of Newton-Schulz."""
+    return _plan("newton-schulz", p, n, ns_whole_smem_bytes, ns_tiled_smem_bytes)
+
+
+def pogo_update(x, g, eta, lam=0.5, *, find_root: bool = False,
+                inplace: bool = False):
     """Two-stage POGO update of one ``(B, p, n)`` stack:
     ``X' = (1 + lam) M - lam (M M^T) M``, ``M = X - eta/2 (A G - B X)``
-    (``repro.kernels.ops.pogo_update`` without ``find_root``).
-    ``inplace=True`` writes X' over ``x``."""
+    (``repro.kernels.ops.pogo_update``). ``find_root`` lands with the
+    quartic-root lambda per matrix, in plain PyTorch on any device as the
+    JAX package runs it in jnp. ``inplace=True`` writes X' over ``x``."""
+    if find_root:
+        from ..core import quartic, stiefel
+
+        m = x - eta * stiefel.riemannian_gradient(x, g)
+        lam_v = quartic.optimal_lambda(m)[..., None, None]
+        out = (1.0 + lam_v) * m - lam_v * (stiefel.gram(m) @ m)
+        return x.copy_(out) if inplace else out
     if x.is_complex():
         raise ValueError("pogo_update is real-only (caller must gate)")
     if x.device.type == "cpu":  # the wrappers' plain version, any p
@@ -159,8 +189,43 @@ def landing_field(x, g, lam=1.0):
     return _lf.landing_field_tiled(x, g, lam, tile_n=tile_n)
 
 
+def newton_schulz(x, iters: int = 12):
+    """Batched Newton-Schulz polar projection of a ``(..., p, n)`` stack
+    (``repro.kernels.ops.newton_schulz``), in a new tensor. The ragged
+    p and n are masked in the kernels, so nothing is padded."""
+    if x.is_complex() or x.device.type == "cpu":
+        return ref.newton_schulz_ref(x, iters)
+    *lead, p, n = x.shape
+    xb = x.reshape(-1, p, n).to(torch.float32).contiguous()
+    out = _ns_launch(xb, iters, torch.empty_like(xb), None, None)
+    return out.reshape(*lead, p, n).to(x.dtype)
+
+
+def newton_schulz_repair(x, dist, thresh, iters: int = 12):
+    """The feasibility watchdog's drift repair on one ``(B, p, n)`` fp32
+    stack, in place: every matrix with ``isfinite(dist) & (dist >
+    thresh)`` is replaced by its Newton-Schulz projection and its entry of
+    ``dist`` by the projection's ``||Y Y^T - I||_F``; the others keep
+    their bits. ``thresh`` may be a tensor on the stack's device, so
+    nothing waits for the card. Returns the ``(B,)`` bool repair mask."""
+    mask = torch.isfinite(dist) & (dist > thresh)
+    _ns_launch(x, iters, x, mask, dist)
+    return mask
+
+
+def _ns_launch(x, iters, out, mask, dist):
+    if x.device.type == "cpu":
+        return _ns.run_plain(x, iters, out=out, mask=mask, dist=dist)
+    kind, tile_n = plan_newton_schulz(*x.shape[-2:])
+    if kind == "whole":
+        return _ns.newton_schulz_whole(x, iters, out=out, mask=mask, dist=dist)
+    return _ns.newton_schulz_tiled(x, iters, tile_n=tile_n, out=out, mask=mask,
+                                   dist=dist)
+
+
 KERNELS = (_fs.fused_step_whole, _fs.fused_step_tiled, _pu.pogo_update_whole,
-           _pu.pogo_update_tiled, _lf.landing_field, _lf.landing_field_tiled)
+           _pu.pogo_update_tiled, _lf.landing_field, _lf.landing_field_tiled,
+           _ns.newton_schulz_whole, _ns.newton_schulz_tiled)
 
 
 def launches() -> dict:

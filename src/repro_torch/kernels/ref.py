@@ -7,7 +7,8 @@ holds the kernel against on the card, and mirrors ``repro.kernels.ref``
 * ``fused_group_step_ref``: both kernels of ``csrc/fused_step.cu``;
 * ``pogo_update_ref``: ``pogo_update_whole``/``_tiled`` of ``csrc/two_stage.cu``;
 * ``landing_field_ref``: ``landing_field``/``_tiled`` of ``csrc/two_stage.cu``;
-* ``manifold_distance_ref``: the telemetry of the two-stage step.
+* ``manifold_distance_ref``: the telemetry of the two-stage step;
+* ``newton_schulz_ref``: both kernels of ``csrc/newton_schulz.cu``.
 """
 
 from __future__ import annotations
@@ -59,6 +60,17 @@ def manifold_distance_ref(x: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(x.shape[-2], dtype=torch.float32, device=xf.device)
     r = xf @ _bt(xf) - eye
     return torch.sqrt(torch.sum(r * r, dim=(-2, -1)))
+
+
+def newton_schulz_ref(x: torch.Tensor, iters: int = 12) -> torch.Tensor:
+    """Batched Newton-Schulz polar projection: ``Y = X / ||X||_F``, then
+    ``iters`` times ``Y <- 1.5 Y - 0.5 (Y Y^T) Y``."""
+    xf = x.to(torch.float32)
+    fro = torch.sqrt(torch.sum(xf * xf, dim=(-2, -1), keepdim=True))
+    y = xf / torch.clamp_min(fro, 1e-30)
+    for _ in range(iters):
+        y = 1.5 * y - 0.5 * ((y @ _bt(y)) @ y)
+    return y.to(x.dtype)
 
 
 def pogo_gram_identity_ref(c: torch.Tensor, lam) -> torch.Tensor:

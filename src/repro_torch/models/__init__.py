@@ -1,1 +1,2 @@
-"""Model-side helpers of the port."""
+"""The dense decoder of the port: layers, attention, the transformer and
+the orthogonality helpers."""

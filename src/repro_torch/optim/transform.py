@@ -77,6 +77,17 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
     )
 
 
+def apply_updates(params, updates):
+    """``params + updates`` leaf by leaf, in each param's dtype."""
+    return tree.tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
+
+
+def global_norm(updates) -> torch.Tensor:
+    """``sqrt(sum ||leaf||^2)`` over a tree, in fp32."""
+    leaves = tree.leaves(updates)
+    return torch.sqrt(sum(torch.sum(x.float().abs() ** 2) for x in leaves))
+
+
 def scale(factor: float) -> GradientTransformation:
     def init(params):
         return EmptyState()

@@ -57,6 +57,20 @@ def flatten(tree) -> tuple[list, TreeDef]:
     return leaves, TreeDef(kind, aux, tuple(defs))
 
 
+def flatten_with_path(tree, prefix: tuple = ()) -> list:
+    """``[(path, leaf)]`` in :func:`flatten` order; a path holds dict keys
+    and sequence indices, as ``jax.tree_util.tree_flatten_with_path``."""
+    node = _node(tree)
+    if node is None:
+        return [(prefix, tree)]
+    kind, aux, children = node
+    keys = aux if kind == "dict" else range(len(children))
+    out: list = []
+    for key, child in zip(keys, children):
+        out.extend(flatten_with_path(child, prefix + (key,)))
+    return out
+
+
 def _count(td: TreeDef) -> int:
     if td.kind == "leaf":
         return 1

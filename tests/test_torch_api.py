@@ -273,11 +273,12 @@ def test_cuda_entry_points_raise_without_a_card():
      "Landing's fused branches"),
     (dict(method="rgd", use_kernel=True), "remaining methods"),
     (dict(method="landing_pc", use_kernel=False), "remaining methods"),
-    (dict(method="pogo", use_kernel=True, watchdog=object()), "self-healing"),
+    (dict(method="rsdm", use_kernel=True), "remaining methods"),
     (dict(method="pogo", use_kernel=True, tp_compress=True), "sharded schedules"),
     (dict(method="pogo", use_kernel=True, grouping="padded"), "ragged megagroups"),
-    (dict(method="pogo", use_kernel=True, safety_project_every=5), "Newton-Schulz"),
-    (dict(method="pogo", use_kernel=True, find_root=True), "quartic"),
+    (dict(method="pogo", use_kernel=True, tp_compress=True,
+          watchdog=tapi.WatchdogConfig()), "sharded schedules"),
+    (dict(method="slpg", use_kernel=True), "quartic"),
     (dict(method="landing", use_kernel=True, safe_step=False,
           base_optimizer=topt.chain(topt.trace(0.1))),
      "Landing's fused branches"),
@@ -286,6 +287,11 @@ def test_unported_combinations_raise(kwargs, match):
     method = kwargs.pop("method")
     with pytest.raises(NotImplementedError, match=match):
         tapi.orthogonal(method, **kwargs)
+
+
+def test_watchdog_must_be_a_config():
+    with pytest.raises(TypeError, match="WatchdogConfig"):
+        tapi.orthogonal("pogo", use_kernel=True, watchdog=object())
 
 
 def test_unflatten_keeps_no_leaf_alive():

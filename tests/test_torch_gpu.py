@@ -9,7 +9,8 @@ Tolerances are those the JAX tests hold the Pallas kernels to: for the
 fused kernels (``tests/test_fused_step.py:67,95``) atol 2e-5 / rtol 1e-4
 whole, atol 3e-5 / rtol 1e-4 tiled; for the two-stage kernels
 (``tests/test_kernels.py:34-75``) atol 1e-6 whole and 2e-5 / rtol 1e-4
-tiled, each case saying where it differs.
+tiled, each case saying where it differs; for Newton-Schulz atol 1e-6
+(``tests/test_kernels.py:54-61``).
 """
 
 import importlib.util
@@ -23,6 +24,7 @@ from repro_torch import optim as topt
 from repro_torch.core import api as tapi
 from repro_torch.kernels import fused_step as tfs
 from repro_torch.kernels import landing_field as tlf
+from repro_torch.kernels import newton_schulz as tns
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pogo_update as tpu
 from repro_torch.kernels import ref as tref
@@ -307,3 +309,111 @@ def test_landing_on_card_parts_from_cpu_only_after_ties(cuda, case, offset):
     card = ties.run(case, "cuda", "float32", 3, offset)
     untied = {k: v for k, v in ties.partings(cpu, card, eps).items() if v and not v[1]}
     assert not untied, f"(group, matrix): (step, tie) parted without a tie: {untied}"
+
+
+# ----------------------------------------------------------- Newton-Schulz
+
+
+def _drifted(shape, device, seed=0):
+    """1.5 x a Stiefel draw + 0.05 randn: the watchdog's drift."""
+    rng = np.random.default_rng(seed)
+    b, p, n = shape
+    q, _ = np.linalg.qr(rng.standard_normal((b, n, p)))
+    x = 1.5 * np.swapaxes(q, -1, -2) + 0.05 * rng.standard_normal(shape)
+    return torch.tensor(np.ascontiguousarray(x), dtype=torch.float32, device=device)
+
+
+@pytest.mark.parametrize("shape", [(64, 64, 960), (256, 16, 256), (7, 10, 250),
+                                   (3, 1, 33)])
+def test_newton_schulz_kernels_match_plain(cuda, shape):
+    """Unmasked, out of place, against ``ref.newton_schulz_ref``: atol 1e-6
+    (``tests/test_kernels.py:54-61``); the emitted distance is the
+    projection's."""
+    x = _drifted(shape, cuda)
+    kind, tile_n = tops.plan_newton_schulz(*shape[1:])
+    dist = torch.empty(shape[0], device=cuda)
+    if kind == "whole":
+        got = tns.newton_schulz_whole(x, 12, dist=dist)
+    else:
+        got = tns.newton_schulz_tiled(x, 12, tile_n=tile_n, dist=dist)
+    torch.cuda.synchronize()
+    want = tref.newton_schulz_ref(x, 12)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+    torch.testing.assert_close(dist, tref.manifold_distance_ref(want), atol=2e-6, rtol=1e-3)
+    assert float(dist.max()) < 1e-2
+
+
+@pytest.mark.parametrize("shape", [(64, 64, 960), (256, 16, 256), (7, 10, 250)])
+def test_newton_schulz_repair_in_place_with_mask(cuda, shape):
+    """The watchdog's repair: every other matrix past the threshold,
+    written over the stack; the others keep their bits and distances."""
+    x = _drifted(shape, cuda, seed=1)
+    b = shape[0]
+    dist = torch.where(torch.arange(b, device=cuda) % 2 == 0, 2.0, 0.01).float()
+    x0, d0 = x.clone(), dist.clone()
+    rep = tops.newton_schulz_repair(x, dist, torch.tensor(0.1, device=cuda), iters=12)
+    torch.cuda.synchronize()
+    assert torch.equal(rep, d0 > 0.1)
+    want = tref.newton_schulz_ref(x0, 12)
+    torch.testing.assert_close(x[rep], want[rep], atol=1e-6, rtol=0)
+    assert torch.equal(x[~rep], x0[~rep]) and torch.equal(dist[~rep], d0[~rep])
+    assert float(dist[rep].max()) < 1e-2
+
+
+def test_newton_schulz_planner_matches_the_kernels_smem(cuda):
+    lib = tns.lib()
+    for p, n in ((16, 256), (10, 250), (64, 960)):
+        assert lib.ns_whole_smem_bytes(p, n) == tops.ns_whole_smem_bytes(p, n)
+        for t in (32, 64):
+            assert lib.ns_tiled_smem_bytes(p, t) == tops.ns_tiled_smem_bytes(p, t)
+
+
+# ----------------------------------------------------------------- trainer
+
+
+def _trainer(device, use_kernel):
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, DataIterator
+    from repro_torch.models import ortho
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    cfg = dataclasses.replace(get_config("smollm-360m", smoke=True),
+                              compute_dtype="float32")
+    params = ortho.project_init(tfm.init_params(torch.Generator().manual_seed(0), cfg), cfg)
+    params = tree.tree_map(lambda t: t.to(device), params)
+    tc = TrainConfig(warmup_steps=2, decay_steps=10, learning_rate=1e-2,
+                     pogo_learning_rate=0.3, pogo_use_kernel=use_kernel,
+                     ortho_watchdog=tapi.WatchdogConfig())
+    step, opt = make_train_step(cfg, tc)
+    data = DataIterator(DataConfig(cfg.vocab_size, 32, 4, seed=1), device=device)
+    return step, params, opt.init(params), data
+
+
+def test_two_trainer_steps_on_card_match_cpu(cuda):
+    """Two steps of ``make_train_step`` at the smoke config in fp32 compute,
+    POGO's fused kernel and the watchdog on: the card (kernels, cuBLAS)
+    against the CPU (plain versions) from the same weights and data, loss
+    and every parameter within atol 1e-4 / rtol 1e-3 (fp32 sums in
+    another order over two AdamW and POGO steps)."""
+    from repro_torch import tree
+
+    runs = []
+    for device, use_kernel in ((cuda, True), (torch.device("cpu"), True)):
+        step, params, state, data = _trainer(device, use_kernel)
+        tops.reset_launches()
+        losses = []
+        for _ in range(2):
+            params, state, metrics = step(params, state, next(data))
+            losses.append(float(metrics["loss"]))
+            assert float(metrics["health_finite"]) == 1.0
+            assert float(metrics["ortho_distance"]) < 1e-3
+        runs.append((losses, params, tops.launches()))
+    (l_card, p_card, launches), (l_cpu, p_cpu, _) = runs
+    assert launches["fused_step_whole"] == 2  # (40, 120) fits one block
+    np.testing.assert_allclose(l_card, l_cpu, atol=1e-4, rtol=1e-3)
+    for a, b in zip(tree.leaves(p_card), tree.leaves(p_cpu)):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-3)

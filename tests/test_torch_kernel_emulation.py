@@ -191,3 +191,63 @@ def test_two_stage_kernels_emulated_in_place(two_stage_harness, tmp_path, kind,
     writes X' over it, and the field writes each tile after reading it."""
     _run_two_stage(two_stage_harness, tmp_path, kind, method, (3, 12, 130),
                    tile_n=tile_n, inplace=True)
+
+
+@pytest.fixture(scope="module")
+def ns_harness(tmp_path_factory):
+    return _compile(tmp_path_factory, "ns_harness.cpp")
+
+
+def _run_ns(harness, tmp_path, kind, shape, tile_n=0, inplace=False,
+            masked=False, iters=4, seed=0):
+    """One Newton-Schulz kernel through the emulator against the plain
+    version, at 1.5 x Stiefel + 0.05 randn (the watchdog's drift), with the
+    odd matrices masked off when ``masked``. Masked-off matrices and their
+    distances must come out bit for bit as they went in. Four iterations:
+    enough to run the tiled kernel's gram swap twice over; the card holds
+    the kernels at 12 (``tests/test_torch_gpu.py``)."""
+    rng = np.random.default_rng(seed)
+    b, p, n = shape
+    q, _ = np.linalg.qr(rng.standard_normal((b, n, p)))
+    x = 1.5 * np.swapaxes(q, -1, -2) + 0.05 * rng.standard_normal(shape)
+    x = np.ascontiguousarray(x, np.float32)
+    dist = rng.uniform(1.0, 2.0, b).astype(np.float32)
+    mask = (np.arange(b) % 2 == 0) if masked else np.ones(b, bool)
+    for name, a in (("x", x), ("dist", dist), ("mask", mask.astype(np.float32))):
+        a.tofile(tmp_path / f"{name}.bin")
+    subprocess.run(
+        [str(harness), str(tmp_path), str(kind), str(b), str(p), str(n),
+         str(iters), str(tile_n), str(int(inplace)), str(int(masked))],
+        check=True, timeout=120,
+    )
+    got = np.fromfile(tmp_path / "out.bin", np.float32).reshape(shape)
+    got_d = np.fromfile(tmp_path / "dist_out.bin", np.float32)
+    want = tref.newton_schulz_ref(torch.from_numpy(x), iters)
+    want_d = tref.manifold_distance_ref(want).numpy()
+    on = mask
+    np.testing.assert_allclose(got[on], want.numpy()[on], atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got_d[on], want_d[on], atol=1e-5, rtol=1e-3)
+    if masked:
+        if inplace:
+            np.testing.assert_array_equal(got[~on], x[~on])
+        np.testing.assert_array_equal(got_d[~on], dist[~on])
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 256), (2, 10, 250), (2, 1, 33),
+                                   (1, 64, 124)])
+def test_ns_whole_kernel_emulated(ns_harness, tmp_path, shape):
+    _run_ns(ns_harness, tmp_path, 0, shape)
+
+
+@pytest.mark.parametrize("shape,tile_n", [((1, 64, 300), 64), ((2, 10, 250), 32),
+                                          ((1, 70, 150), 32), ((2, 7, 33), 32)])
+def test_ns_tiled_kernel_emulated(ns_harness, tmp_path, shape, tile_n):
+    _run_ns(ns_harness, tmp_path, 1, shape, tile_n=tile_n)
+
+
+@pytest.mark.parametrize("kind,tile_n", [(0, 0), (1, 64)], ids=["whole", "tiled"])
+def test_ns_kernels_emulated_in_place_with_mask(ns_harness, tmp_path, kind, tile_n):
+    """The watchdog's repair: in place over the stack, every other matrix
+    masked off (untouched, bit for bit, distance too)."""
+    _run_ns(ns_harness, tmp_path, kind, (4, 12, 130), tile_n=tile_n,
+            inplace=True, masked=True)

@@ -4,7 +4,9 @@
     python3 benchmarks_torch/kernel_variants.py [--source LABEL=PATH ...]
         [--caps W,T ...] [--tiles 32,64] [--reps 5] [--iters 50]
 
-Builds each ``--source`` (default: the checkout's ``csrc/fused_step.cu``)
+Builds each ``--source`` (default: the checkout's ``csrc/fused_step.cu``;
+one from before the Landing branches, without their ``method`` argument,
+builds and runs as well)
 once per ``--caps`` pair, where ``W,T`` rewrites the source's
 ``kWholeBlocksPerSm`` / ``kTiledBlocksPerSm`` register caps (``-`` keeps
 the source's own; a source without those constants is built as it is).
@@ -64,13 +66,23 @@ def _build(label, path, caps, build):
     return tag, so, regs
 
 
-def _typed(so):
+def _entries(so, src):
+    """``(whole, tiled)`` entry points of a build, called as this tree's
+    ``fused_step._launch`` calls them. A source from before the Landing
+    branches takes no ``method`` argument; its entries drop it (POGO)."""
     lib = ctypes.CDLL(so)
-    common = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+    has_method = re.search(r"int nesterov,\s*int method", src) is not None
+    common = [ctypes.c_void_p] * 10 + [ctypes.c_int] * (6 if has_method else 5)
     lib.fused_step_whole.argtypes = common + [ctypes.c_void_p]
     lib.fused_step_tiled.argtypes = common + [ctypes.c_int, ctypes.c_void_p]
     lib.fused_step_whole.restype = lib.fused_step_tiled.restype = ctypes.c_int
-    return lib
+    if has_method:
+        return lib.fused_step_whole, lib.fused_step_tiled
+
+    def drop_method(entry):  # the method is the 16th argument of _launch's call
+        return lambda *a: entry(*a[:15], *a[16:])
+
+    return drop_method(lib.fused_step_whole), drop_method(lib.fused_step_tiled)
 
 
 def _time_ms(fn, iters):
@@ -117,6 +129,9 @@ def main() -> int:
     jobs = [(label, path, c) for label, path in sources for c in caps]
     with ThreadPoolExecutor(len(jobs)) as ex:  # one nvcc per build, together
         builds = list(ex.map(lambda j: _build(*j, build), jobs))
+    srcs = {label: open(path).read() for label, path in sources}
+    entries = {tag: _entries(so, srcs[label])
+               for (tag, so, _), (label, _, _) in zip(builds, jobs)}
     for tag, _, regs in builds:
         print(tag, *regs, sep="\n  ", flush=True)
 
@@ -132,9 +147,8 @@ def main() -> int:
                   post_scale=1.0, mu=mu, nu=None, count=None, pv=None)
         want = ref.fused_group_step_ref(x, g, 0.1, **kw)
         runs = {}
-        for tag, so, _ in builds:
-            lib = _typed(so)
-            entry = lib.fused_step_whole if kind == "whole" else lib.fused_step_tiled
+        for tag, _, _ in builds:
+            entry = entries[tag][0 if kind == "whole" else 1]
             extra = () if kind == "whole" else (tile_n,)
             runs[tag] = functools.partial(fs._launch, entry, x, g, 0.1, inplace=False,
                                           extra=extra, **kw)

@@ -7,9 +7,13 @@ Runs each of the port's main paths (``--paths``, all by default) with
 ``constraint_step`` on the SmolLM-360M q/k stack (640 x (64, 960)) and on
 2048 x (16, 256). The paths and their optimizers are ``chip_smoke.py``'s
 (``chip_smoke.make_opt``): ``fused`` (the fused group step),
-``pogo_adam`` (the two-stage step through the POGO update kernels) and
+``pogo_adam`` (the two-stage step through the POGO update kernels),
 ``landing`` (the paper's Landing: the landing-field kernels and the safe
-step).
+step) and ``landing_fused`` (fixed-step Landing on the fused kernels'
+Landing branches). ``tp`` is the tensor-parallel schedule on one card
+(``ops.fused_group_step_tp``, POGO over VAdam, two shards: two
+``tp_gram`` launches, the payload sum, one ``tp_apply``); the two-rank
+route of ``chip_smoke.py`` adds one gloo all-reduce to it.
 
 It traces ``--steps`` steps after three warm-up steps with
 ``torch.profiler`` and prints, per path and shape, the wall time per
@@ -41,9 +45,12 @@ def profile(path, shapes, label, steps, seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = {k: stiefel.random_stiefel(gen, s, device="cuda") for k, s in shapes.items()}
     cs = api.ConstraintSet.from_tree(params)
-    opt = make_opt(path)
-    state = opt.init(cs)
-    step = api.constraint_step(opt)
+    if path == "tp":
+        step, state = _tp_step(cs)
+    else:
+        opt = make_opt(path)
+        state = opt.init(cs)
+        step = api.constraint_step(opt)
     grads = [api.ConstraintSet(cs.plan, [GRAD_SCALE * torch.randn(s.shape, generator=gen,
                                                             device="cuda")
                                          for s in cs.stacks])
@@ -74,13 +81,38 @@ def profile(path, shapes, label, steps, seed):
               flush=True)
 
 
+def _tp_step(cs):
+    """A ``constraint_step``-shaped step of the single-device TP schedule
+    (POGO over VAdam, two shards) on a one-stack set, and its state."""
+    import torch
+
+    from chip_smoke import LR
+    from repro_torch.core import api
+    from repro_torch.health import from_residual
+    from repro_torch.kernels import ops
+
+    x = cs.stacks[0]
+
+    def step(cs, state, gs):
+        mu, nu, count = state
+        x2, mu2, nu2, dist, _ = ops.fused_group_step_tp(
+            cs.stacks[0], gs.stacks[0], LR, method="pogo", lam=0.5, base_kind="vadam",
+            hyper=(0.9, 0.999, 1e-8), mu=mu, nu=nu, count=count, tp_shards=2)
+        return api.ConstraintSet(cs.plan, [x2]), (mu2, nu2, count + 1), \
+            from_residual(dist.max())
+
+    state = (torch.zeros_like(x), torch.zeros(x.shape[0], device=x.device),
+             torch.zeros((), dtype=torch.int32, device=x.device))
+    return step, state
+
+
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--paths", default="fused,pogo_adam,landing")
+    ap.add_argument("--paths", default="fused,pogo_adam,landing,landing_fused,tp")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)

@@ -19,12 +19,25 @@ many-matrices shape 2048 x (16, 256) (the whole kernels):
   (``tests/test_torch_two_stage.py::test_pogo_adam_step_size_at_smollm_width``);
 * the paper's Landing on the two-stage step, ``orthogonal("landing",
   learning_rate=0.25, base_optimizer=chain(trace(0.1)), use_kernel=True)``
-  (lam 1, eps 0.5, exact safe step).
+  (lam 1, eps 0.5, exact safe step);
+* fixed-step Landing on the fused step, the same with ``safe_step=False``
+  (lr 0.25 keeps it within 7e-5 of the manifold on the CPU with these
+  gradients, eps is 0.5), then one step under the feasibility watchdog
+  after a 1.5x drift, which must repair every matrix.
 
 Each path's kernels must launch once per step, its first step must agree
 with the plain route, and its feasibility must hold. The Newton-Schulz
 kernels are held against their plain version with half the matrices
-masked off. Then the trainer: SmolLM-360M at full width (32 layers),
+masked off. The tensor-parallel step: its two kernels against their plain
+versions at a rank's share of the q/k stack at width 2, 640 x (64, 480),
+and of the many-matrices stack, 2048 x (16, 128); its single-device
+schedule (four shards of 640 x (64, 960)) against the unsharded fused
+step; then its main path, two ranks on the one card (``gloo``, a (1, 2)
+mesh, the q/k stack as ``DTensor`` stacks ``Shard(-1)`` on "model", each rank
+a process of its own): three POGO steps over VAdam and three Landing
+steps over trace through ``constraint_step``, one all-reduce per step on
+each rank, every rank's columns equal to the unsharded fused step's, and
+a padded case (n = 962). Then the trainer: SmolLM-360M at full width (32 layers),
 batch 8 x 512 tokens, through ``make_train_step`` and ``train`` as the
 launcher builds them (POGO's fused kernel over VAdam on the q/k group,
 AdamW elsewhere, the feasibility watchdog on), 8 steps, the q/k leaves
@@ -70,7 +83,13 @@ KERNELS = {
     "landing_field": ("two_stage", "src/repro/kernels/landing_field.py:42"),
     "landing_field_tiled": ("two_stage", "src/repro/kernels/landing_field.py:79"),
     "newton_schulz": ("newton_schulz", "src/repro/kernels/newton_schulz.py:37"),
+    "fused_step_whole_landing": ("fused_step", "src/repro/kernels/fused_step.py:164"),
+    "fused_step_tiled_landing": ("fused_step", "src/repro/kernels/fused_step.py:559"),
+    "tp_gram": ("tp_step", "src/repro/kernels/fused_step.py:304"),
+    "tp_apply": ("tp_step", "src/repro/kernels/fused_step.py:417"),
 }
+LANDING_LR = 0.25  # fixed-step Landing: max distance 7e-5 over 12 CPU steps
+TP_STEPS = 3  # per method on the two-rank TP path
 NS_ITERS = 12
 NS_TOL = dict(atol=1e-6, rtol=0.0)  # tests/test_kernels.py:54-61
 # The trainer phase: the launcher's defaults (src/repro_torch/launch/train.py)
@@ -170,7 +189,8 @@ def _operands(gen, b, p, n):
 
 
 def phase_fused_kernels(gen):
-    """Each fused kernel against the plain version at the main-path shapes."""
+    """Each fused kernel, POGO and Landing branches, against the plain
+    version at the main-path shapes (the first case of each kernel)."""
     import torch
 
     from repro_torch.kernels import fused_step as fs
@@ -184,21 +204,33 @@ def phase_fused_kernels(gen):
         ("fused_step_tiled", 640, 64, 960, "vadam", (0.9, 0.999, 1e-8)),
         ("fused_step_tiled", 640, 64, 960, "trace", (0.9, True)),
     ]
+    for b, p, n in ((2048, 16, 256), (640, 64, 960)):
+        kind = ops.plan(p, n)[0]
+        for base, hyper in (("trace", (0.1, False)), ("none", ()),
+                            ("trace", (0.5, True)), ("vadam", (0.9, 0.999, 1e-8))):
+            cases.append((f"fused_step_{kind}_landing", b, p, n, base, hyper))
     records = {}
     for name, b, p, n, base, hyper in cases:
+        landing = name.endswith("_landing")
         x, g, mu, nu = _operands(gen, b, p, n)
-        kw = dict(method="pogo", lam=0.5, base_kind=base, hyper=hyper,
+        if landing:  # off the manifold, so that lam (A X - X) is visible
+            x += 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
+        kw = dict(method="landing" if landing else "pogo", lam=1.0 if landing else 0.5,
+                  base_kind=base, hyper=hyper,
                   mu=mu if base != "none" else None,
                   nu=nu if base == "vadam" else None,
                   count=torch.tensor(3, dtype=torch.int32, device="cuda"))
-        tol = WHOLE_TOL if name.endswith("whole") else TILED_TOL
+        tol = WHOLE_TOL if "whole" in name else TILED_TOL
         kind, tile_n = ops.plan(p, n)  # the tile the main path runs
-        if f"fused_step_{kind}" != name:
+        if f"fused_step_{kind}" != name.removesuffix("_landing"):
             raise SystemExit(f"the planner picks {kind} for ({p}, {n}), not {name}")
-        wrapper = getattr(fs, name)
+        wrapper = getattr(fs, name.removesuffix("_landing"))
         if kind == "tiled":
             wrapper = functools.partial(wrapper, tile_n=tile_n)
+        before = getattr(fs, name).launches
         got = wrapper(x, g, LR, **kw)
+        if getattr(fs, name).launches != before + 1:
+            raise SystemExit(f"{name} did not count its launch")
         torch.cuda.synchronize()
         want = ref.fused_group_step_ref(x, g, LR, **kw)
         max_abs, max_rel, ok = _errors(got, want, tol)
@@ -217,6 +249,88 @@ def phase_fused_kernels(gen):
             records[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                                  bound_ms=bound_ms, bound_by=bound_by)
         del x, g, mu, nu, got, want
+    return records
+
+
+def _tp_bound(name, b, p, n, base_kind="trace", method="pogo"):
+    """``tp_gram``: read X, g (and mu), write Gb (and mu'), and the payload
+    row; three p x p x n products (6 p^2 n flops). ``tp_apply``: read X,
+    Gb and the payload, write X'; three p x p x n products (6 p^2 n) and
+    the (p, p) algebra, 20 p^3 flops for POGO (10 products) and 26 p^3 for
+    Landing (13)."""
+    k = 3 * p * p + (base_kind == "vadam")
+    if name == "tp_gram":
+        passes = 5 if base_kind != "none" else 3
+        return _bound_ms((passes * p * n + k) * b * 4, 6 * p * p * n * b)
+    p3 = 20 if method == "pogo" else 26
+    return _bound_ms((3 * p * n + k) * b * 4, (6 * p * p * n + p3 * p ** 3) * b)
+
+
+def phase_tp_kernels(gen):
+    """``tp_gram`` and ``tp_apply`` against their plain versions at a rank's
+    block of the q/k stack at width 2, 640 x (64, 480) (the main path's
+    shape, timed first), and of the many-matrices stack, 2048 x (16, 128).
+    The payload is the sum of both halves' partials, as the all-reduce
+    makes it; ``tp_apply`` runs POGO on the trace payload and Landing on
+    the vadam one (with vadam's scalar)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import tp_step as tp
+
+    records = {}
+    for b, p, n in ((640, 64, 480), (2048, 16, 128)):
+        for base, hyper, method in (("trace", (0.9, False), "pogo"),
+                                    ("vadam", (0.9, 0.999, 1e-8), "landing")):
+            x, g, mu, nu = _operands(gen, b, p, 2 * n)
+            x += 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
+            h = {k: v[..., :n].contiguous() for k, v in (("x", x), ("g", g), ("mu", mu))}
+            other = ref.tp_partial_ref(x[..., n:], g[..., n:], base_kind=base,
+                                       hyper=hyper, mu=mu[..., n:])[0]
+            gkw = dict(base_kind=base, hyper=hyper, post_scale=1.0, mu=h["mu"])
+            gtile = ops.plan_tp("tp_gram", p, ops.tp_gram_smem_bytes)
+            got = tp.tp_gram(h["x"], h["g"], tile_n=gtile, **gkw)
+            torch.cuda.synchronize()
+            want = ref.tp_partial_ref(h["x"], h["g"], **gkw)
+            err_g, _, ok_g = _errors(got, want, TILED_TOL)
+            payload = want[0] + other
+            scl = None
+            if base == "vadam":
+                scl = ref.tp_scale_ref(payload, p, hyper=hyper, post_scale=1.0, nu=nu,
+                                       count=torch.tensor(3, device="cuda"))[0].contiguous()
+            atile = ops.plan_tp("tp_apply", p, ops.tp_apply_smem_bytes)
+            akw = dict(method=method, lam=0.5 if method == "pogo" else 1.0)
+            got_a = tp.tp_apply(h["x"], want[1], payload, LR, scl, tile_n=atile, **akw)
+            torch.cuda.synchronize()
+            want_a = ref.tp_apply_ref(h["x"], want[1], payload, LR, scl, **akw)
+            err_a, _, ok_a = _errors(got_a, want_a, TILED_TOL)
+            print(f"kernel tp_gram {b}x({p},{n}) {base} tile_n {gtile}: max_abs "
+                  f"{err_g:.3e}; tp_apply {method} tile_n {atile}: max_abs {err_a:.3e}, "
+                  f"distance {float(got_a[1].max()):.3e} (atol {TILED_TOL['atol']}, rtol "
+                  f"{TILED_TOL['rtol']}) {'ok' if ok_g and ok_a else 'MISMATCH'}",
+                  flush=True)
+            if not (ok_g and ok_a):
+                raise SystemExit("a TP kernel disagrees with its plain version")
+            for name, err in (("tp_gram", err_g), ("tp_apply", err_a)):
+                rec = records.setdefault(name, {})
+                rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+            if "ms" in records["tp_gram"]:
+                continue
+            ms_g, plain_g = _time_in_turns(
+                lambda: tp.tp_gram(h["x"], h["g"], tile_n=gtile, **gkw),
+                lambda: ref.tp_partial_ref(h["x"], h["g"], **gkw))
+            ms_a, plain_a = _time_in_turns(
+                lambda: tp.tp_apply(h["x"], want[1], payload, LR, scl, tile_n=atile,
+                                    **akw),
+                lambda: ref.tp_apply_ref(h["x"], want[1], payload, LR, scl, **akw))
+            bg, byg = _tp_bound("tp_gram", b, p, n, base)
+            ba, bya = _tp_bound("tp_apply", b, p, n, base, method)
+            print(f"  tp_gram {b}x({p},{n}) ms {ms_g:.4f} plain_ms {plain_g:.4f} "
+                  f"bound_ms {bg:.4f} ({byg}); tp_apply {method} ms {ms_a:.4f} "
+                  f"plain_ms {plain_a:.4f} bound_ms {ba:.4f} ({bya})", flush=True)
+            records["tp_gram"].update(ms=ms_g, plain_ms=plain_g, bound_ms=bg, bound_by=byg)
+            records["tp_apply"].update(ms=ms_a, plain_ms=plain_a, bound_ms=ba, bound_by=bya)
+            del x, g, mu, nu, h, got, want, got_a, want_a, payload
     return records
 
 
@@ -511,11 +625,19 @@ def phase_trainer(card, workdir):
     return launches
 
 
-def make_opt(path, use_kernel=True):
-    """The optimizer of main path ``path`` (``fused``, ``pogo_adam`` or
-    ``landing``); ``benchmarks_torch/profile_step.py`` traces the same."""
+def make_opt(path, use_kernel=True, **kw):
+    """The optimizer of main path ``path`` (``fused``, ``pogo_adam``,
+    ``landing``, ``landing_fused``, or the TP path's ``tp_pogo`` and
+    ``tp_landing``); ``benchmarks_torch/profile_step.py`` traces the same."""
     from repro_torch.core import api
-    from repro_torch.optim import chain, scale_by_adam, trace
+    from repro_torch.optim import chain, scale_by_adam, scale_by_vadam, trace
+
+    if path in ("landing_fused", "tp_landing"):
+        return api.orthogonal("landing", learning_rate=LANDING_LR, use_kernel=use_kernel,
+                              safe_step=False, base_optimizer=chain(trace(0.1)), **kw)
+    if path == "tp_pogo":
+        return api.orthogonal("pogo", learning_rate=LR, use_kernel=use_kernel,
+                              base_optimizer=chain(scale_by_vadam()), **kw)
 
     if path == "fused":
         return api.orthogonal("pogo", learning_rate=LR, use_kernel=use_kernel,
@@ -610,6 +732,243 @@ def drive_main_path(gen, shapes, label, steps, card, make_opt, max_dist):
     return launches
 
 
+def phase_landing_watchdog(gen, card):
+    """Fixed-step Landing on the q/k stack with the feasibility watchdog:
+    two steps, then the stack scaled by 1.5 and one step, in which the
+    fused kernel and the Newton-Schulz repair launch once each and every
+    matrix is repaired (the fused watchdog only tightens the repair
+    threshold, ``repro/core/api.py:1551-1564``)."""
+    import torch
+
+    from repro_torch.core import api, stiefel
+    from repro_torch.kernels import ops
+
+    wd = api.WatchdogConfig()
+    opt = make_opt("landing_fused", watchdog=wd)
+    cs = api.ConstraintSet.from_tree({"qk": stiefel.random_stiefel(
+        gen, (640, 64, 960), device="cuda")})
+    state = opt.init(cs)
+    step = api.constraint_step(opt)
+
+    def grads():
+        return api.ConstraintSet(cs.plan, [GRAD_SCALE * torch.randn(
+            s.shape, generator=gen, device="cuda") for s in cs.stacks])
+
+    for _ in range(2):
+        cs, state, _ = step(cs, state, grads())
+    for s in cs.stacks:
+        s.mul_(1.5)
+    g = grads()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    cs, state, health = step(cs, state, g)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launches().items() if v}
+    summary = api.watchdog_summary(state)
+    dist = float(api.max_distance(state))
+    print(f"landing fused + watchdog, 640x(64,960) scaled by 1.5: repairs "
+          f"{summary['repairs']}, distance after the step {dist:.3e} (limit "
+          f"{wd.hard / 2}), launches {launches} [{card}]", flush=True)
+    if not (bool(health.finite) and summary["repairs"] == 640 and dist < wd.hard / 2
+            and launches == {"fused_step_tiled_landing": 1, "newton_schulz_tiled": 1}):
+        raise SystemExit("landing fused + watchdog: the drift step was not repaired")
+
+
+def phase_tp_schedule(gen, card):
+    """The single-device TP schedule, ``ops.fused_group_step_tp`` with four
+    shards of the q/k stack, against the unsharded fused step on the card:
+    POGO over VAdam and Landing over trace, each one call (four
+    ``tp_gram`` and one ``tp_apply`` launch)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    for method, base, hyper in (("pogo", "vadam", (0.9, 0.999, 1e-8)),
+                                ("landing", "trace", (0.1, False))):
+        x, g, mu, nu = _operands(gen, 640, 64, 960)
+        kw = dict(method=method, lam=0.5 if method == "pogo" else 1.0, base_kind=base,
+                  hyper=hyper, mu=mu, nu=nu if base == "vadam" else None,
+                  count=torch.tensor(3, dtype=torch.int32, device="cuda"))
+        ops.reset_launches()
+        got = ops.fused_group_step_tp(x, g, LR, tp_shards=4, **kw)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launches().items() if v}
+        want = ops.fused_group_step(x, g, LR, **kw)
+        torch.cuda.synchronize()
+        max_abs, _, ok = _errors(got, want, TILED_TOL)
+        print(f"tp schedule {method}+{base} 640x(64,960) tp_shards 4 vs the unsharded "
+              f"fused step: max_abs {max_abs:.3e}, launches {launches} "
+              f"{'ok' if ok else 'MISMATCH'} [{card}]", flush=True)
+        if not ok or launches != {"tp_gram": 4, "tp_apply": 1}:
+            raise SystemExit("the single-device TP schedule disagrees with the fused step")
+        del x, g, mu, nu, got, want
+
+
+def _tp_runs(mesh, seed, n, paths):
+    """One TP run per path on this rank: the stack (640, 64, n) and its
+    gradients from ``seed``, as DTensors ``Shard(-1)`` on "model",
+    ``TP_STEPS`` steps of ``constraint_step``. Returns per path the full
+    operands, the local result, its distances, all-reduces per step and
+    host-clock step times."""
+    import time
+
+    import torch
+
+    from repro_torch.core import api, stiefel
+    from repro_torch.distributed import shard_hints as sh
+
+    out = []
+    for i, path in enumerate(paths):
+        gen = torch.Generator(device="cuda").manual_seed(seed + i)
+        x = stiefel.random_stiefel(gen, (640, 64, n), device="cuda")
+        grads = [GRAD_SCALE * torch.randn(x.shape, generator=gen, device="cuda")
+                 for _ in range(TP_STEPS)]
+        opt = make_opt(path)
+        cs = api.ConstraintSet.from_tree({"qk": sh.shard_columns(x, mesh)})
+        state = opt.init(cs)
+        step = api.constraint_step(opt)
+        calls, ms = [], []
+        for g in grads:
+            before = sh.all_reduce_payload.calls
+            gs = api.ConstraintSet.from_tree({"qk": sh.shard_columns(g, mesh)})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cs, state, health = step(cs, state, gs)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            calls.append(sh.all_reduce_payload.calls - before)
+            if not bool(health.finite):
+                raise SystemExit(f"tp {path}: non-finite step")
+        out.append(dict(path=path, x=x, grads=grads, local=cs.stacks[0].to_local().clone(),
+                        dist=state.last_distance.per_group[0].clone(), calls=calls, ms=ms))
+    return out
+
+
+def _tp_check(rank, run):
+    """The unsharded fused step from the same operands on this rank, and
+    the rank's columns of it against the TP result."""
+    import torch
+
+    from repro_torch.core import api
+
+    opt = make_opt(run["path"])
+    cs = api.ConstraintSet.from_tree({"qk": run["x"].clone()})
+    state = opt.init(cs)
+    step = api.constraint_step(opt)
+    for g in run["grads"]:
+        cs, state, _ = step(cs, state, api.ConstraintSet(cs.plan, [g]))
+    want = torch.chunk(cs.stacks[0], 2, dim=-1)[rank]
+    max_abs, _, ok = _errors((run["local"], run["dist"]),
+                             (want, state.last_distance.per_group[0]), TILED_TOL)
+    return max_abs, ok, float(run["dist"].max())
+
+
+def tp_rank(rank, workdir):
+    """One rank of the two-rank TP path on the one card: gloo, a (1, 2)
+    mesh. Prints one JSON line with its counts, errors and times."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.distributed import shard_hints as sh
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import tp_step as tp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)  # both ranks share the one card
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/rendezvous",
+                            rank=rank, world_size=2)
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(2).reshape(1, 2),
+                          mesh_dim_names=("data", "model"))
+        sh.set_mesh(mesh)
+        rec = {"rank": rank}
+        ops.reset_launches()  # the main path: POGO over VAdam, then Landing over trace
+        runs = _tp_runs(mesh, 11, 960, ["tp_pogo", "tp_landing"])
+        torch.cuda.synchronize()
+        rec["launches"] = {k: v for k, v in ops.launches().items() if v}
+        runs += _tp_runs(mesh, 21, 962, ["tp_pogo"])  # padded: 481 -> 484 a rank
+        for run, label in zip(runs, ("pogo+vadam", "landing+trace", "pogo+vadam n=962")):
+            max_abs, ok, dist_max = _tp_check(rank, run)
+            rec[label] = dict(calls=run["calls"], max_abs=max_abs, ok=ok,
+                              dist=dist_max, step_ms=statistics.median(run["ms"]),
+                              local=list(run["local"].shape))
+        # Where a step's time goes on this rank: each piece of the POGO
+        # step at the main path's shape, the kernels by CUDA events, the
+        # all-reduce by the host clock (gloo stages CUDA tensors on the host).
+        x = runs[0]["local"].contiguous()
+        g = torch.chunk(runs[0]["grads"][0], 2, dim=-1)[rank].contiguous()
+        mu = torch.zeros_like(x)
+        gtile = ops.plan_tp("tp_gram", 64, ops.tp_gram_smem_bytes)
+        atile = ops.plan_tp("tp_apply", 64, ops.tp_apply_smem_bytes)
+        gkw = dict(base_kind="vadam", hyper=(0.9, 0.999, 1e-8), mu=mu, tile_n=gtile)
+        payload, gb, _ = tp.tp_gram(x, g, **gkw)
+        gram_ms = _time_ms(lambda: tp.tp_gram(x, g, **gkw), 20)
+        ar = []
+        for _ in range(20):
+            buf = payload.clone()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sh.all_reduce_payload(buf)
+            torch.cuda.synchronize()
+            ar.append(1e3 * (time.perf_counter() - t0))
+        scl = torch.ones(x.shape[0], device="cuda")
+        apply_ms = _time_ms(lambda: tp.tp_apply(x, gb, payload, LR, scl, method="pogo",
+                                                lam=0.5, tile_n=atile), 20)
+        ar_ms = statistics.median(ar)
+        rec["times"] = dict(gram_ms=gram_ms, all_reduce_ms=ar_ms, apply_ms=apply_ms,
+                            all_reduce_share=ar_ms / (gram_ms + ar_ms + apply_ms))
+        print(json.dumps(rec), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_tp_ranks(card, workdir):
+    """The TP main path: two ranks of this script on the one card. Returns
+    the main path's launches of each TP kernel, summed over the ranks."""
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-rank",
+                               str(r), workdir], stdout=subprocess.PIPE, text=True)
+             for r in range(2)]
+    recs = []
+    try:
+        for proc in procs:
+            out, _ = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise SystemExit(f"tp rank exited with {proc.returncode}")
+            recs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            proc.kill()
+    steps = [1] * TP_STEPS
+    want = {"tp_gram": 2 * TP_STEPS, "tp_apply": 2 * TP_STEPS}
+    for rec in recs:
+        r = rec["rank"]
+        for label in ("pogo+vadam", "landing+trace", "pogo+vadam n=962"):
+            v = rec[label]
+            limit = 0.5 if label.startswith("landing") else 1e-5
+            print(f"tp rank {r} {label}: local {v['local']}, all-reduces per step "
+                  f"{v['calls']}, max_abs vs the unsharded fused step {v['max_abs']:.3e}, "
+                  f"max distance {v['dist']:.3e} (limit {limit}), median step "
+                  f"{v['step_ms']:.3f} ms {'ok' if v['ok'] else 'MISMATCH'}", flush=True)
+            if v["calls"] != steps or not v["ok"] or not v["dist"] <= limit:
+                raise SystemExit(f"tp rank {r} {label}: {v}")
+        t = rec["times"]
+        print(f"tp rank {r} pogo+vadam 640x(64,480) pieces: tp_gram {t['gram_ms']:.4f} ms, "
+              f"all-reduce (gloo) {t['all_reduce_ms']:.4f} ms, tp_apply "
+              f"{t['apply_ms']:.4f} ms, all-reduce share {t['all_reduce_share']:.3f}; "
+              f"main-path launches {rec['launches']} [{card}]", flush=True)
+        if rec["launches"] != want:
+            raise SystemExit(f"tp rank {r}: launches {rec['launches']}, expected {want}")
+    return {k: sum(rec["launches"][k] for rec in recs) for k in want}
+
+
 def _expect_launches(label, launches, kernel, steps):
     """``kernel`` launched once per step, and no other kernel."""
     want = {name: (steps if name == kernel else 0) for name in launches}
@@ -629,6 +988,7 @@ def main() -> int:
     from repro_torch.kernels import fused_step as fs
     from repro_torch.kernels import newton_schulz as ns
     from repro_torch.kernels import pogo_update as pu
+    from repro_torch.kernels import tp_step as tp
     from repro_torch.models import ortho
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -643,6 +1003,7 @@ def main() -> int:
     fs._lib()
     pu.lib()
     ns.lib()
+    tp.lib()
     for name in sources:
         for line in build.PTXAS_LOG.get(name, "").splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
@@ -652,6 +1013,7 @@ def main() -> int:
     records = phase_fused_kernels(gen)
     records.update(phase_two_stage_kernels(gen))
     records.update(phase_newton_schulz(gen))
+    records.update(phase_tp_kernels(gen))
 
     smollm = ortho.orthogonal_leaf_shapes(smollm_360m.config())
     paths = [  # (label, shapes, steps, path, feasibility limit, kernel)
@@ -663,6 +1025,10 @@ def main() -> int:
         ("pogo+adam 2048x(16,256)", MANY, 10, "pogo_adam", 1e-5, "pogo_update_whole"),
         ("landing smollm-360m q/k", smollm, 10, "landing", 0.5, "landing_field_tiled"),
         ("landing 2048x(16,256)", MANY, 10, "landing", 0.5, "landing_field"),
+        ("landing fused smollm-360m q/k", smollm, 10, "landing_fused", 0.5,
+         "fused_step_tiled_landing"),
+        ("landing fused 2048x(16,256)", MANY, 10, "landing_fused", 0.5,
+         "fused_step_whole_landing"),
     ]
     launches = {}
     for label, shapes, steps, path, max_dist, kernel in paths:
@@ -670,6 +1036,10 @@ def main() -> int:
                                  functools.partial(make_opt, path), max_dist)
         _expect_launches(label, counts, kernel, steps)
         launches[kernel] = counts[kernel]
+    phase_landing_watchdog(gen, card)
+    phase_tp_schedule(gen, card)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
+        launches.update(phase_tp_ranks(card, workdir))
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
         counts = phase_trainer(card, workdir)
     launches["newton_schulz"] = counts["newton_schulz_whole"] + counts["newton_schulz_tiled"]
@@ -690,4 +1060,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-rank"]:  # one rank of phase_tp_ranks
+        sys.exit(tp_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -8,9 +8,16 @@ through one of two routes, chosen as the JAX package chooses them
 
 * the **fused group step**: ``use_kernel=True``, a base optimizer the
   kernel replays (none, ``trace``, ``scale_by_vadam``, chains of those with
-  ``scale``) and a method with a fused stage (POGO without ``find_root``):
-  ``Pogo.fused_step`` -> ``kernels.ops.fused_group_step``, one launch per
-  group;
+  ``scale``) and a method with a fused stage (POGO without ``find_root``,
+  Landing with ``safe_step=False``): ``Method.fused_step`` ->
+  ``kernels.ops.fused_group_step``, one launch per group. Under a mesh
+  with a "model" dim (``distributed.shard_hints.set_mesh``) a group of
+  ``DTensor`` leaves takes its **tensor-parallel** form instead
+  (``repro/core/api.py:1433-1480``): each rank runs ``tp_gram`` on its
+  ``(B_local, p, n_local)`` block, one all-reduce of the ``(B, K)`` gram
+  payload over "model", then ``tp_apply`` in place, when the step has no
+  watchdog and no ``safety_project_every`` and the group is fp32
+  (``:1272-1282``);
 * the **two-stage group step** otherwise: the base optimizer runs first,
   in PyTorch, then :meth:`Method.direction` and :meth:`Method.land`, or
   the method's ``kernel_update``. With ``use_kernel=True`` POGO's update
@@ -32,26 +39,27 @@ sync). POGO's ``find_root`` lands with the quartic-root lambda, and
 ``safety_project_every`` re-projects every k-th step.
 
 Combinations this slice does not port raise ``NotImplementedError`` naming
-the ROADMAP entry that holds them: Landing's fixed-step fused branch
-(``safe_step=False`` with a linear base and ``use_kernel=True``), methods
-other than POGO and Landing, complex groups, tensor parallelism and
+the ROADMAP entry that holds them: methods other than POGO and Landing,
+complex groups, ``tp_compress``, ``DTensor`` leaves off the TP route, and
 padded megagroups.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 from .. import tree
 from .._device import resolve_device
+from ..distributed import shard_hints
 from ..health import StepHealth, from_residual
 from ..optim import fused as optim_fused
 from ..optim.transform import GradientTransformation
 from . import quartic, stiefel
-from .schedule import GroupMember, GroupPlan, GroupSpec, plan_groups
+from .schedule import GroupMember, GroupPlan, GroupSpec, plan_groups, tp_spec
 
 __all__ = [
     "ConstraintSet", "FusedSlots", "GroupMember", "GroupPlan", "GroupSpec",
@@ -96,6 +104,35 @@ def _scatter_group_scalars(group: GroupSpec, stacked: torch.Tensor, out: list) -
         out[m.leaf] = stacked[m.offset:m.offset + m.count].reshape(m.lead)
 
 
+def _gather_local(group: GroupSpec, leaves, scalars: bool = False):
+    """The rank's local stack of a group of ``DTensor`` leaves: ``(B_local,
+    p, n_local)`` (or ``(B_local,)`` per-matrix scalars), the local block
+    itself for a single member (no copy, so in-place steps reach it)."""
+    parts = []
+    for m in group.members:
+        if m.transpose:
+            raise _not_ported("tall (transposed) leaves under TP",
+                              "sharded schedules")
+        loc = shard_hints.local_block(leaves[m.leaf]) if not scalars else \
+            leaves[m.leaf].to_local()
+        parts.append(loc.reshape(-1) if scalars else
+                     loc.reshape(-1, m.p, loc.shape[-1]))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+
+
+def _scatter_local(group: GroupSpec, stacked, out: list, like) -> None:
+    """Split a local stack back into ``DTensor`` member leaves with the
+    mesh, placements and global shapes of ``like`` (no collective)."""
+    off = 0
+    for m in group.members:
+        shape = like[m.leaf].to_local().shape
+        # Per-matrix scalars are (B_local,); matrices (B_local, p, n_local).
+        count = math.prod(shape) if stacked.dim() == 1 else math.prod(shape[:-2])
+        out[m.leaf] = shard_hints.wrap_like(
+            stacked[off:off + count].reshape(shape), like[m.leaf])
+        off += count
+
+
 class ConstraintSet:
     """Stacked storage for a constrained param tree: one ``(B, p, n)``
     tensor per constraint group plus the static :class:`GroupPlan`.
@@ -117,9 +154,21 @@ class ConstraintSet:
     def from_tree(cls, params, grouping: str = "auto",
                   device="cuda") -> "ConstraintSet":
         """Stack a tree of tensors or arrays onto ``device`` (tall leaves
-        transpose in; ``to_tree`` transposes them back out)."""
+        transpose in; ``to_tree`` transposes them back out). ``DTensor``
+        leaves stay where they are, and each must be a group of its own,
+        untransposed, ``(B, p, n)``: the stack is the leaf itself."""
         device = resolve_device(device)
         leaves, treedef = tree.flatten(params)
+        if any(shard_hints.is_dtensor(x) for x in leaves):
+            plan = plan_groups(leaves, treedef, grouping)
+            for g in plan.groups:
+                m = g.members[0]
+                x = leaves[m.leaf]
+                if len(g.members) > 1 or m.transpose or x.ndim != 3:
+                    raise ValueError(
+                        "a ConstraintSet of DTensor leaves needs one (B, p, n) "
+                        f"leaf per group, wide (p <= n); got {tuple(x.shape)}")
+            return cls(plan, [leaves[g.members[0].leaf] for g in plan.groups])
         leaves = [torch.as_tensor(x).to(device) for x in leaves]
         plan = plan_groups(leaves, treedef, grouping)
         stacks = tuple(_gather_group(g, leaves).contiguous() for g in plan.groups)
@@ -128,6 +177,9 @@ class ConstraintSet:
     def to_tree(self):
         out: list = [None] * self.plan.n_leaves
         for group, stack in zip(self.plan.groups, self.stacks):
+            if shard_hints.is_dtensor(stack):  # the leaf itself (from_tree)
+                out[group.members[0].leaf] = stack
+                continue
             _scatter_group(group, stack, out)
         return tree.unflatten(self.plan.treedef, out)
 
@@ -534,7 +586,8 @@ def orthogonal(
     if watchdog is not None and not isinstance(watchdog, WatchdogConfig):
         raise TypeError(f"watchdog must be a WatchdogConfig, got {type(watchdog).__name__}")
     if tp_compress:
-        raise _not_ported("tensor-parallel compression", "sharded schedules")
+        raise _not_ported("tensor-parallel compression",
+                          "sharded schedules (tp_compress)")
     if grouping == "padded":
         raise _not_ported("grouping='padded'", "ragged megagroups")
     if grouping not in ("auto", "per_leaf"):
@@ -545,10 +598,6 @@ def orthogonal(
         raise TypeError(f"bad kwargs for orthoptimizer {method!r}: {e}") from None
     fused_base = optim_fused.resolve_fused_base(base_optimizer)
     fused = use_kernel and fused_base is not None and meth.fused_ready()
-    if fused and meth.fused_stage != "pogo":
-        raise _not_ported(
-            f"the fused group step of {method!r} (safe_step=False with a base "
-            "the kernel replays)", "Landing's fused branches")
     cfg = OrthoConfig(learning_rate=learning_rate, base_optimizer=base_optimizer,
                       use_kernel=use_kernel,
                       safety_project_every=safety_project_every, seed=seed,
@@ -581,7 +630,33 @@ def _build(method: Method, fused_base, cfg: OrthoConfig) -> GradientTransformati
     def make_plan(params, leaves, treedef) -> GroupPlan:
         if isinstance(params, ConstraintSet):
             return params.stacked_plan()
-        return plan_groups(leaves, treedef, cfg.grouping)
+        ax = shard_hints.tp_axis()
+        return plan_groups(leaves, treedef, cfg.grouping,
+                           tp_shards=ax[1] if ax else 1)
+
+    def tp_specs(plan, leaves):
+        """Per group, its :class:`~.schedule.TpSpec` when it takes the TP
+        step (``repro/core/api.py:1272-1282``: fused, no watchdog, no
+        safety projection, a "model" dim of width >= 2, fp32, and here
+        ``DTensor`` leaves), else ``None``. A group of ``DTensor`` leaves
+        that fails the gates raises: it has no other route."""
+        ax = shard_hints.tp_axis()
+        tp_now = (fused_base is not None and wd is None
+                  and not cfg.safety_project_every and ax is not None)
+        specs = []
+        for grp in plan.groups:
+            sharded = any(shard_hints.is_dtensor(leaves[m.leaf])
+                          for m in grp.members)
+            spec = (tp_spec(grp.n, ax[1], axis=ax[0])
+                    if tp_now and sharded and grp.dtype == torch.float32 else None)
+            if sharded and spec is None:
+                raise _not_ported(
+                    f"DTensor leaves of a ({grp.p}, {grp.n}) {grp.dtype} group off "
+                    "the TP route (it needs a mesh with a 'model' dim of width "
+                    ">= 2, the fused step, fp32, no watchdog and no "
+                    "safety_project_every)", "sharded schedules")
+            specs.append(spec)
+        return specs
 
     def init(params):
         base_state = base.init(params) if base else ()
@@ -633,8 +708,60 @@ def _build(method: Method, fused_base, cfg: OrthoConfig) -> GradientTransformati
         kns.run_plain(x_next, wd.ns_iters, out=x_next, mask=rep, dist=dist)
         return rep
 
-    def fused_groups(plan, leaves, state, grads, eta0, inplace, escs, project):
-        """Every group through the fused step (base moments in-kernel)."""
+    def tp_group_step(group, spec, leaves, gleaves, mu_leaves, nu_leaves,
+                      eta0, base_count, inplace):
+        """One group's TP step on this rank (``repro/core/api.py:1433``):
+        its local blocks zero-padded to ``spec.local_n`` columns, the local
+        partial, ONE all-reduce of the payload over "model", the finish,
+        and the crop. With ``inplace`` X' and mu' are written over the
+        local blocks and nu' over nu's. Returns ``(x_local, x_next, mu',
+        nu', dist)`` as local tensors; ``dist`` covers this rank's
+        matrices and is the same on every rank of the "model" group."""
+        from ..kernels import ops as kops
+
+        x_loc = _gather_local(group, leaves)
+        if inplace and len(group.members) > 1:
+            raise TypeError("in-place TP steps need one leaf per group "
+                            "(a ConstraintSet of DTensor stacks)")
+        n_loc = x_loc.shape[-1]
+        pad = spec.local_n - n_loc
+
+        def padded(t):
+            if t is None:
+                return None
+            t = t.contiguous()
+            return torch.nn.functional.pad(t, (0, pad)) if pad else t
+
+        mu_loc = (_gather_local(group, mu_leaves) if mu_leaves is not None
+                  else None)
+        nu_loc = (_gather_local(group, nu_leaves, scalars=True)
+                  if nu_leaves is not None else None)
+        x32 = padded(x_loc)
+        mu32 = padded(mu_loc)
+        payload, gbase, mu2 = kops.fused_group_step_tp_partial(
+            x32, padded(_gather_local(group, gleaves)), base_kind=fused_base.kind,
+            hyper=fused_base.hyper, post_scale=fused_base.post_scale, mu=mu32,
+            inplace=inplace)
+        shard_hints.all_reduce_payload(payload)
+        x2, nu2, dist, _ = kops.fused_group_step_tp_finish(
+            x32, gbase, payload, eta0, method=method.fused_stage, lam=method.lam,
+            base_kind=fused_base.kind, hyper=fused_base.hyper,
+            post_scale=fused_base.post_scale, nu=nu_loc, count=base_count,
+            inplace=inplace)
+        if pad:
+            x2 = x2[..., :n_loc]
+            mu2 = mu2[..., :n_loc] if mu2 is not None else None
+            if inplace:
+                x2 = x_loc.copy_(x2)
+                mu2 = mu_loc.copy_(mu2) if mu2 is not None else None
+        if inplace and nu2 is not None:
+            nu2 = nu_loc.copy_(nu2)
+        return x_loc, x2, mu2, nu2, dist.to(torch.float32)
+
+    def fused_groups(plan, leaves, state, grads, eta0, inplace, escs, project,
+                     specs):
+        """Every group through the fused step (base moments in-kernel), in
+        its TP form where ``specs`` has a spec for it."""
         gleaves = tree.leaves(grads)
         mu_tree, nu_tree, base_count = fused_base.get_slots(state.base_state)
         mu_leaves = tree.leaves(mu_tree) if mu_tree is not None else None
@@ -642,7 +769,17 @@ def _build(method: Method, fused_base, cfg: OrthoConfig) -> GradientTransformati
         mu_out: list = [None] * len(leaves)
         nu_out: list = [None] * len(leaves)
         results = []
-        for group, esc in zip(plan.groups, escs):
+        for group, esc, spec in zip(plan.groups, escs, specs):
+            if spec is not None:
+                x_loc, x_next, mu2, nu2, dist = tp_group_step(
+                    group, spec, leaves, gleaves, mu_leaves, nu_leaves, eta0,
+                    base_count, inplace)
+                results.append((group, x_loc, x_loc, x_next, dist, None))
+                if mu2 is not None:
+                    _scatter_local(group, mu2, mu_out, mu_leaves)
+                if nu2 is not None:
+                    _scatter_local(group, nu2, nu_out, nu_leaves)
+                continue
             xg, x32, g32 = stacks(group, leaves, gleaves, inplace)
             mug = (_gather_group(group, mu_leaves).contiguous()
                    if mu_leaves is not None else None)
@@ -746,8 +883,8 @@ def _build(method: Method, fused_base, cfg: OrthoConfig) -> GradientTransformati
     def run(params, state, grads, inplace):
         """Every group through its step. Returns ``(group, stored stack,
         fp32 stack, x_next)`` per group (``x_next`` is the stack itself
-        when ``inplace``), the params' treedef and leaf count, and the new
-        state."""
+        when ``inplace``; local blocks for a TP group), the groups' TP
+        specs, the params' leaves and treedef, and the new state."""
         leaves, treedef = tree.flatten(params)
         plan = make_plan(params, leaves, treedef)
         if any(grp.dtype.is_complex for grp in plan.groups):
@@ -760,9 +897,11 @@ def _build(method: Method, fused_base, cfg: OrthoConfig) -> GradientTransformati
         if wd is not None:
             wstate, escs = escalations(plan, state)
         project = project_due(state)
+        specs = tp_specs(plan, leaves)
         if fused_base is not None:
             results, base_state = fused_groups(plan, leaves, state, grads,
-                                               eta0, inplace, escs, project)
+                                               eta0, inplace, escs, project,
+                                               specs)
         else:
             results, base_state = two_stage_groups(plan, leaves, params, state,
                                                    grads, eta0, inplace, escs,
@@ -790,23 +929,27 @@ def _build(method: Method, fused_base, cfg: OrthoConfig) -> GradientTransformati
             last_distance=GroupedDistances(plan=plan, per_group=tuple(dists)),
             extras=extras,
         )
-        return [r[:4] for r in results], treedef, len(leaves), new_state
+        return [r[:4] for r in results], specs, leaves, treedef, new_state
 
     def update(grads, state, params=None):
         if params is None:
             raise ValueError(
                 f"{method.name} is a manifold optimizer; params are required"
             )
-        results, treedef, n_leaves, new_state = run(params, state, grads, False)
-        out: list = [None] * n_leaves
-        for group, xg, x32, x_next in results:
-            _scatter_group(group, (x_next - x32).to(xg.dtype), out)
+        results, specs, leaves, treedef, new_state = run(params, state, grads,
+                                                         False)
+        out: list = [None] * len(leaves)
+        for (group, xg, x32, x_next), spec in zip(results, specs):
+            if spec is not None:  # local updates, as DTensors like the leaves
+                _scatter_local(group, x_next - x32, out, leaves)
+            else:
+                _scatter_group(group, (x_next - x32).to(xg.dtype), out)
         return tree.unflatten(treedef, out), new_state
 
     def update_inplace(grads, state, params=None):
         if not isinstance(params, ConstraintSet):
             raise TypeError("in-place steps take a ConstraintSet of params")
-        return None, run(params, state, grads, True)[3]
+        return None, run(params, state, grads, True)[4]
 
     return GradientTransformation(init, update, tag=("orthogonal", method.name),
                                   update_inplace=update_inplace)

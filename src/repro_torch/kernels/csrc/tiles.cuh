@@ -19,6 +19,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kSmemLimit = 232448;  // 227 KB: most dynamic smem a block may use
 
 enum BaseKind { kNone = 0, kTrace = 1, kVAdam = 2 };
+enum Method { kPogo = 0, kLanding = 1 };
 
 __host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
 
@@ -187,30 +188,47 @@ __device__ inline void prod_block(const float* PT, const float* YT, int P4,
 
 // m[c] = column k0 + c, rows i0..i0+3 of M = X - coef 1/2 (A Geu - B X),
 // with the grams stored as A[j * P4 + i] = A[i, j], BT[j * P4 + i] = B[i, j].
+// kLand gives Landing's fixed step instead,
+// X' = X - (coef 1/2 (A Geu - B X) + el (A X - X)), with el = eta lam.
+template <bool kLand>
 __device__ inline void leap_block(const float* A, const float* BT,
                                   const float* XT, const float* GT, int P4,
                                   int ld, int i0, int k0, float coef,
-                                  float4 m[4]) {
+                                  float el, float4 m[4]) {
   float ag[4][4] = {}, bx[4][4] = {};
   prod_block(A, GT, P4, ld, i0, k0, ag);
   prod_block(BT, XT, P4, ld, i0, k0, bx);
 #pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) ag[r][c] = coef * (0.5f * (ag[r][c] - bx[r][c]));
+  if (kLand) {  // bx becomes A X
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) bx[r][c] = 0.f;
+    prod_block(A, XT, P4, ld, i0, k0, bx);
+  }
+#pragma unroll
   for (int c = 0; c < 4; ++c) {
-    float xv[4];
+    float xv[4], o[4];
     load4(xv, lds4(XT + (k0 + c) * ld + i0));
-    m[c].x = xv[0] - coef * (0.5f * (ag[0][c] - bx[0][c]));
-    m[c].y = xv[1] - coef * (0.5f * (ag[1][c] - bx[1][c]));
-    m[c].z = xv[2] - coef * (0.5f * (ag[2][c] - bx[2][c]));
-    m[c].w = xv[3] - coef * (0.5f * (ag[3][c] - bx[3][c]));
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      o[r] = kLand ? xv[r] - (ag[r][c] + el * (bx[r][c] - xv[r]))
+                   : xv[r] - ag[r][c];
+    m[c] = make_float4(o[0], o[1], o[2], o[3]);
   }
 }
 
-// Whole-matrix leap: M = X - coef 1/2 (A Geu - B X) written over the
-// resident X (N4 columns), a group of whole column-quads at a time, since
-// M[:, k] reads only column k of X and Geu. Every thread must call it.
+// Whole-matrix leap: M = X - coef 1/2 (A Geu - B X) (or Landing's X',
+// kLand) written over the resident X (N4 columns), a group of whole
+// column-quads at a time, since M[:, k] reads only column k of X and Geu.
+// Every thread must call it.
+template <bool kLand = false>
 __device__ void leap_over_x(const float* A, const float* BT, float* XT,
                             const float* GT, int P4, int ld, int N4,
-                            float coef) {
+                            float coef, float el = 0.f) {
   const int ni = P4 / 4;
   const int quads = kThreads / ni;  // whole column-quads per pass
   for (int q0 = 0; q0 < N4 / 4; q0 += quads) {
@@ -218,7 +236,7 @@ __device__ void leap_over_x(const float* A, const float* BT, float* XT,
     const int i0 = 4 * (blk % ni), k0 = 4 * (q0 + blk / ni);
     const bool act = blk < quads * ni && k0 < N4;
     float4 m[4];
-    if (act) leap_block(A, BT, XT, GT, P4, ld, i0, k0, coef, m);
+    if (act) leap_block<kLand>(A, BT, XT, GT, P4, ld, i0, k0, coef, el, m);
     __syncthreads();
     if (act) {
 #pragma unroll
@@ -228,17 +246,19 @@ __device__ void leap_over_x(const float* A, const float* BT, float* XT,
   }
 }
 
-// Tiled leap: M for the tile's columns [t0, t0 + 4 nq) into the k-major
-// tile MT, and parked row by row in x_out (columns past n are not stored).
+// Tiled leap: M (or Landing's X', kLand) for the tile's columns
+// [t0, t0 + 4 nq) into the k-major tile MT, and stored row by row in
+// x_out (columns past n are not stored).
+template <bool kLand = false>
 __device__ void leap_tile(const float* A, const float* BT, const float* XT,
                           const float* GT, float* MT, int P4, int ld, int p,
                           int n, int t0, int nq, float coef, float* x_out,
-                          size_t off, bool vec) {
+                          size_t off, bool vec, float el = 0.f) {
   const int ni = P4 / 4;
   for (int blk = threadIdx.x; blk < ni * nq; blk += kThreads) {
     const int i0 = 4 * (blk % ni), k0 = 4 * (blk / ni);
     float4 m[4];
-    leap_block(A, BT, XT, GT, P4, ld, i0, k0, coef, m);
+    leap_block<kLand>(A, BT, XT, GT, P4, ld, i0, k0, coef, el, m);
 #pragma unroll
     for (int c = 0; c < 4; ++c)
       *reinterpret_cast<float4*>(MT + (k0 + c) * ld + i0) = m[c];
@@ -253,6 +273,32 @@ __device__ void leap_tile(const float* A, const float* BT, const float* XT,
                 vec, rows[r]);
     }
   }
+}
+
+// Columns [t0, t0 + cols) of the k-major tile T (rows below p) to HBM.
+__device__ void store_tile(const float* T, int ld, int p, int n, int t0,
+                           int cols, float* out, size_t off, bool vec) {
+  for (int u = threadIdx.x; u < p * (cols / 4); u += kThreads) {
+    const int i = u % p, kk = 4 * (u / p);
+    float v[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = T[(kk + c) * ld + i];
+    gstore4(out + off + static_cast<size_t>(i) * n, t0 + kk, n, vec, v);
+  }
+}
+
+// dist = ||W - I_pv||_F of a symmetric (p, p) gram of stride P4. Thread 0
+// stores it; every thread must call it.
+__device__ void residual_dist(const float* W, int P4, int p, int pv,
+                              float* red, float* dist_out) {
+  float acc = 0.f;
+  for (int e = threadIdx.x; e < p * p; e += kThreads) {
+    const int i = e / p, j = e - i * p;
+    const float r = W[i * P4 + j] - ((i == j && i < pv) ? 1.f : 0.f);
+    acc = fmaf(r, r, acc);
+  }
+  const float tot = block_sum(acc, red);
+  if (threadIdx.x == 0) *dist_out = sqrtf(tot);
 }
 
 // X' = (1 + lam) M - lam C M for columns [t0, t0 + cols), from the k-major

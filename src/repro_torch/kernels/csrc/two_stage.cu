@@ -44,8 +44,6 @@ namespace {
 constexpr int kWholeBlocksPerSm = 4;
 constexpr int kTiledBlocksPerSm = 3;
 
-enum Method { kPogo = 0, kLanding = 1 };
-
 // (p, p) grams each method keeps in shared memory: A, B (and POGO's C).
 // The tiled kernels keep as many column tiles: X, G (and POGO's M).
 __host__ __device__ inline int n_grams(int method) {

@@ -1,4 +1,4 @@
-"""Wrappers of the fused POGO group-step kernels (``csrc/fused_step.cu``).
+"""Wrappers of the fused group-step kernels (``csrc/fused_step.cu``).
 
 ``fused_step_whole`` replaces ``repro/kernels/fused_step.py:175``
 (``_fused_whole_kernel``): one CTA per matrix with X and the transformed
@@ -6,7 +6,12 @@ gradient resident in shared memory. ``fused_step_tiled`` replaces
 ``repro/kernels/fused_step.py:608`` (``_t1_kernel``, ``_t2_pogo_kernel``,
 ``pogo_update._phase3_kernel`` and the telemetry products left to XLA): one
 CTA per matrix sweeping n-tiles three times, with the (p, p) grams in
-shared memory. Both are IEEE fp32 on the CUDA cores.
+shared memory. Both are IEEE fp32 on the CUDA cores. ``method="landing"``
+launches their Landing branches, ``fused_step_whole_landing`` (the
+Landing branch of ``_fused_whole_kernel``, :164-168) and
+``fused_step_tiled_landing`` (``_t1_kernel`` + ``_t2_landing_kernel``,
+:559): the fixed step ``X' = X - eta (R + lam (A X - X))`` and the
+distance from the direct gram of X', the tiled one in two sweeps.
 
 Both wrappers take the arguments of ``ref.fused_group_step_ref`` and return
 its ``(x', mu', nu', dist, finite)``. On a CPU tensor they run that plain
@@ -14,7 +19,8 @@ version; on a CUDA tensor they check device, dtype, shape and contiguity,
 launch on the current stream, and raise if the launch fails. There is no
 fallback. ``inplace=True`` writes X' over ``x``, mu' over ``mu`` and nu'
 over ``nu`` (safe: each CTA owns its matrix and never re-reads an element
-it has overwritten). Each wrapper counts its launches in ``.launches``.
+it has overwritten). Each wrapper counts its launches in ``.launches``,
+the Landing branches in their own.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = build.load("fused_step")
     if not getattr(lib, "_typed", False):
-        common = [_P] * 10 + [_I] * 5
+        common = [_P] * 10 + [_I] * 6
         lib.fused_step_whole.argtypes = common + [_P]
         lib.fused_step_tiled.argtypes = common + [_I, _P]
         lib.fused_whole_smem_bytes.argtypes = [_I, _I]
@@ -97,13 +103,13 @@ def run_plain(x, g, eta, *, inplace=False, **kw):
         kw["nu"] if nu2 is not None else None, dist, finite
 
 
+_METHODS = {"pogo": 0, "landing": 1}
+
+
 def _launch(entry, x, g, eta, *, method, lam, base_kind, hyper, post_scale,
             mu, nu, count, pv, inplace, extra=()):
-    if method != "pogo":
-        raise NotImplementedError(
-            f"fused method {method!r} has no CUDA kernel yet "
-            "(ROADMAP: Landing's fused branches)"
-        )
+    if method not in _METHODS:
+        raise ValueError(f"unknown fused method {method!r}")
     if base_kind not in _BASE_KINDS:
         raise ValueError(f"unknown base kind {base_kind!r}")
     dev = x.device
@@ -142,7 +148,8 @@ def _launch(entry, x, g, eta, *, method, lam, base_kind, hyper, post_scale,
             ptr(x), ptr(g), ptr(mu) if has_mu else None,
             ptr(nu) if has_nu else None, ptr(scal), ptr(pv), ptr(x_out),
             ptr(mu_out), ptr(nu_out), ptr(dist),
-            bsz, p, n, _BASE_KINDS[base_kind], int(nesterov), *extra, stream,
+            bsz, p, n, _BASE_KINDS[base_kind], int(nesterov),
+            _METHODS[method], *extra, stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -152,20 +159,29 @@ def _launch(entry, x, g, eta, *, method, lam, base_kind, hyper, post_scale,
     return x_out, mu_out, nu_out, dist, torch.isfinite(dist)
 
 
-def fused_step_whole(x, g, eta, *, method="pogo", lam, base_kind="none",
-                     hyper=(), post_scale=1.0, mu=None, nu=None, count=None,
-                     pv=None, inplace=False):
-    """Whole-matrix fused step: one CTA per ``(p, n)`` matrix, X and the
-    transformed gradient in shared memory (``ops.whole_smem_bytes``)."""
-    kw = dict(method=method, lam=lam, base_kind=base_kind, hyper=hyper,
-              post_scale=post_scale, mu=mu, nu=nu, count=count, pv=pv)
+def _run(name, x, g, eta, *, inplace, extra=(), **kw):
+    """The plain version on a CPU tensor; else launch ``name``'s entry and
+    count it on the wrapper of the kernel that ran."""
     if x.device.type == "cpu":
         return run_plain(x, g, eta, inplace=inplace, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    out = _launch(_lib().fused_step_whole, x, g, eta, inplace=inplace, **kw)
-    fused_step_whole.launches += 1
+    out = _launch(getattr(_lib(), name), x, g, eta, inplace=inplace,
+                  extra=extra, **kw)
+    counter = _COUNTERS[name, kw["method"]]
+    counter.launches += 1
     return out
+
+
+def fused_step_whole(x, g, eta, *, method="pogo", lam, base_kind="none",
+                     hyper=(), post_scale=1.0, mu=None, nu=None, count=None,
+                     pv=None, inplace=False):
+    """Whole-matrix fused step: one CTA per ``(p, n)`` matrix, X and the
+    transformed gradient in shared memory (``ops.whole_smem_bytes``);
+    ``method="landing"`` runs ``fused_step_whole_landing``."""
+    return _run("fused_step_whole", x, g, eta, method=method, lam=lam,
+                base_kind=base_kind, hyper=hyper, post_scale=post_scale, mu=mu,
+                nu=nu, count=count, pv=pv, inplace=inplace)
 
 
 def fused_step_tiled(x, g, eta, *, method="pogo", lam, base_kind="none",
@@ -173,18 +189,29 @@ def fused_step_tiled(x, g, eta, *, method="pogo", lam, base_kind="none",
                      pv=None, inplace=False, tile_n=64):
     """Tiled fused step: one CTA per matrix sweeping ``tile_n``-wide column
     tiles (moments + A, Bp; then M + C; then X'), grams in shared memory
-    (``ops.tiled_smem_bytes``)."""
-    kw = dict(method=method, lam=lam, base_kind=base_kind, hyper=hyper,
-              post_scale=post_scale, mu=mu, nu=nu, count=count, pv=pv)
-    if x.device.type == "cpu":
-        return run_plain(x, g, eta, inplace=inplace, **kw)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    out = _launch(_lib().fused_step_tiled, x, g, eta, inplace=inplace,
-                  extra=(int(tile_n),), **kw)
-    fused_step_tiled.launches += 1
-    return out
+    (``ops.tiled_smem_bytes``); ``method="landing"`` runs
+    ``fused_step_tiled_landing`` (moments + A, Bp; then X' + W)."""
+    return _run("fused_step_tiled", x, g, eta, method=method, lam=lam,
+                base_kind=base_kind, hyper=hyper, post_scale=post_scale, mu=mu,
+                nu=nu, count=count, pv=pv, inplace=inplace,
+                extra=(int(tile_n),))
 
 
-fused_step_whole.launches = 0
-fused_step_tiled.launches = 0
+def fused_step_whole_landing(x, g, eta, **kw):
+    """``fused_step_whole(method="landing")``."""
+    return fused_step_whole(x, g, eta, method="landing", **kw)
+
+
+def fused_step_tiled_landing(x, g, eta, **kw):
+    """``fused_step_tiled(method="landing")``."""
+    return fused_step_tiled(x, g, eta, method="landing", **kw)
+
+
+_COUNTERS = {
+    ("fused_step_whole", "pogo"): fused_step_whole,
+    ("fused_step_tiled", "pogo"): fused_step_tiled,
+    ("fused_step_whole", "landing"): fused_step_whole_landing,
+    ("fused_step_tiled", "landing"): fused_step_tiled_landing,
+}
+for _k in _COUNTERS.values():
+    _k.launches = 0

@@ -1,11 +1,12 @@
 """Public kernel entry points with the Hopper shared-memory planner.
 
-Port of ``repro/kernels/ops.py``: the fused group step (``:355-477``),
-the two-stage POGO update (``:209-257``), the landing field
-(``:281-314``) and Newton-Schulz (``:700-725``). The TPU planner's VMEM budget and live-buffer counts
-become the per-block shared-memory footprint of each CUDA kernel,
-mirrored here from ``csrc/fused_step.cu``, ``csrc/two_stage.cu`` and
-``csrc/newton_schulz.cu``:
+Port of ``repro/kernels/ops.py``: the fused group step, POGO and Landing
+(``:355-477``), its tensor-parallel stages and single-device schedule
+(``:483-673``), the two-stage POGO update (``:209-257``), the landing
+field (``:281-314``) and Newton-Schulz (``:700-725``). The TPU planner's
+VMEM budget and live-buffer counts become the per-block shared-memory
+footprint of each CUDA kernel, mirrored here from ``csrc/fused_step.cu``,
+``csrc/tp_step.cu``, ``csrc/two_stage.cu`` and ``csrc/newton_schulz.cu``:
 
 * ``whole`` when X and the (transformed) gradient of one matrix plus the
   kernel's (p, p) grams fit in one block's 227 KB;
@@ -15,9 +16,11 @@ mirrored here from ``csrc/fused_step.cu``, ``csrc/two_stage.cu`` and
 * a ``ValueError`` naming the shape and the limit when even the grams
   and the narrowest tiles do not fit (large p is later work).
 
-The ragged n-edge is masked inside the kernels, so no operand is padded.
-Each entry point runs the plain version on a CPU tensor and the planned
-kernel, or an error, on a CUDA tensor.
+The TP kernels always sweep n in tiles (a shard of a wide matrix rarely
+fits one block whole), with the tile that lets the most blocks share an
+SM. The ragged n-edge is masked inside the kernels, so no operand is
+padded. Each entry point runs the plain version on a CPU tensor and the
+planned kernel, or an error, on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from . import landing_field as _lf
 from . import newton_schulz as _ns
 from . import pogo_update as _pu
 from . import ref
+from . import tp_step as _tp
 
 # Dynamic shared memory one H100 block may use (232,448 bytes), and what
 # one SM holds for all its resident blocks, each of which reserves 1 KB.
@@ -37,8 +41,10 @@ SM_SMEM_BYTES = 233472
 _BLOCK_RESERVED_BYTES = 1024
 _THREADS = 256
 _TILE_NS = (64, 32)
-# Blocks per SM the tiled kernel's register cap allows (kTiledBlocksPerSm).
+# Blocks per SM the tiled kernel's register cap allows (kTiledBlocksPerSm),
+# and the TP kernels' (kTpBlocksPerSm).
 _TILED_BLOCKS_PER_SM = 3
+_TP_BLOCKS_PER_SM = 2
 
 
 def _round4(v: int) -> int:
@@ -62,16 +68,29 @@ def _tiled_bytes(p: int, tile_n: int, grams: int, tiles: int, scratch: int) -> i
 
 
 def whole_smem_bytes(p: int, n: int) -> int:
-    """Shared memory of one fused whole-kernel block: X (then M) and the
-    transformed gradient (k-major, n rounded up to 4), the grams A, B and
-    C, and the block-reduction scratch."""
+    """Shared memory of one fused whole-kernel block: X (then M, or
+    Landing's X') and the transformed gradient (k-major, n rounded up to
+    4), the grams A, B and C (Landing's W), and the block-reduction
+    scratch. Both methods use the same buffers, so one plan serves both."""
     return _whole_bytes(p, n, 3, _THREADS // 32)
 
 
 def tiled_smem_bytes(p: int, tile_n: int) -> int:
-    """Shared memory of one fused tiled-kernel block: A, B and C, and the
-    k-major X, transformed-gradient and M tiles."""
+    """Shared memory of one fused tiled-kernel block: A, B and C (Landing's
+    W), and the k-major X, transformed-gradient and M (Landing's X') tiles."""
     return _tiled_bytes(p, tile_n, 3, 3, _THREADS // 32)
+
+
+def tp_gram_smem_bytes(p: int, tile_n: int) -> int:
+    """``tp_gram``: A, B, S and the X and Gb tiles, and the reduction
+    scratch."""
+    return _tiled_bytes(p, tile_n, 3, 2, _THREADS // 32)
+
+
+def tp_apply_smem_bytes(p: int, tile_n: int) -> int:
+    """``tp_apply``: A, B, S (then C or A^2) and two scratch (p, p)
+    products, the X, Gb and M tiles, and the reduction scratch."""
+    return _tiled_bytes(p, tile_n, 5, 3, _THREADS // 32)
 
 
 def pogo_whole_smem_bytes(p: int, n: int) -> int:
@@ -107,9 +126,9 @@ def ns_tiled_smem_bytes(p: int, tile_n: int) -> int:
     return _tiled_bytes(p, tile_n, 2, 2, _THREADS // 32)
 
 
-def _blocks_per_sm(smem: int) -> int:
+def _blocks_per_sm(smem: int, cap: int = _TILED_BLOCKS_PER_SM) -> int:
     """Tiled-kernel blocks that fit one SM, by shared memory and registers."""
-    return min(_TILED_BLOCKS_PER_SM, SM_SMEM_BYTES // (smem + _BLOCK_RESERVED_BYTES))
+    return min(cap, SM_SMEM_BYTES // (smem + _BLOCK_RESERVED_BYTES))
 
 
 def tiled_blocks_per_sm(p: int, tile_n: int) -> int:
@@ -145,6 +164,21 @@ def plan_landing_field(p: int, n: int) -> tuple[str, int]:
     """``("whole", 0)`` or ``("tiled", tile_n)`` of the landing field."""
     return _plan("landing field", p, n, landing_whole_smem_bytes,
                  landing_tiled_smem_bytes)
+
+
+def plan_tp(what: str, p: int, tiled_bytes) -> int:
+    """Column tile of a TP kernel: the one that lets the most blocks share
+    an SM, the widest of those; a ``ValueError`` when even the narrowest
+    does not fit."""
+    fits = [t for t in _TILE_NS if tiled_bytes(p, t) <= SMEM_LIMIT_BYTES]
+    if not fits:
+        raise ValueError(
+            f"{what}: p={p} needs {tiled_bytes(p, _TILE_NS[-1])} bytes of shared "
+            f"memory for its (p, p) grams and tiles, over the {SMEM_LIMIT_BYTES}-"
+            "byte limit of one block; large-p groups are not ported yet"
+        )
+    return max(fits, key=lambda t: (
+        _blocks_per_sm(tiled_bytes(p, t), _TP_BLOCKS_PER_SM), t))
 
 
 def plan_newton_schulz(p: int, n: int) -> tuple[str, int]:
@@ -223,7 +257,9 @@ def _ns_launch(x, iters, out, mask, dist):
                                    dist=dist)
 
 
-KERNELS = (_fs.fused_step_whole, _fs.fused_step_tiled, _pu.pogo_update_whole,
+KERNELS = (_fs.fused_step_whole, _fs.fused_step_tiled,
+           _fs.fused_step_whole_landing, _fs.fused_step_tiled_landing,
+           _tp.tp_gram, _tp.tp_apply, _pu.pogo_update_whole,
            _pu.pogo_update_tiled, _lf.landing_field, _lf.landing_field_tiled,
            _ns.newton_schulz_whole, _ns.newton_schulz_tiled)
 
@@ -256,10 +292,12 @@ def fused_group_step(
 ):
     """Single-pass fused group step on one ``(B, p, n)`` stack.
 
-    In-kernel linear base optimizer (``none`` | ``trace`` | ``vadam``), the
-    POGO direction, leap and land, and the per-matrix feasibility distance
-    from the land gram. Returns ``(x_next, mu', nu', dist, finite)`` as
-    ``repro.kernels.ops.fused_group_step`` does, ``finite = isfinite(dist)``.
+    In-kernel linear base optimizer (``none`` | ``trace`` | ``vadam``),
+    then ``method="pogo"``'s direction, leap and land with the distance
+    from the land gram, or ``"landing"``'s fixed step with the distance
+    from the direct gram of X'. Returns ``(x_next, mu', nu', dist,
+    finite)`` as ``repro.kernels.ops.fused_group_step`` does, ``finite =
+    isfinite(dist)``.
 
     On a CPU tensor this runs ``ref.fused_group_step_ref``; on a CUDA
     tensor it launches the planned kernel or raises. ``inplace=True``
@@ -280,3 +318,79 @@ def fused_group_step(
         return _fs.fused_step_whole(x, g, eta, **kw)
     return _fs.fused_step_tiled(x, g, eta, tile_n=tile_n, **kw)
 
+
+
+# ----------------------------------------- tensor-parallel fused group step
+
+
+def fused_group_step_tp_partial(x, g, *, base_kind: str = "none",
+                                hyper: tuple = (), post_scale: float = 1.0,
+                                mu=None, inplace: bool = False):
+    """Local stage of the one-all-reduce TP step on a rank's ``(B, p,
+    n_local)`` columns (``repro.kernels.ops.fused_group_step_tp_partial``):
+    sum the returned ``(B, K)`` payload over the TP ranks, then call
+    :func:`fused_group_step_tp_finish`. Returns ``(payload, gbase, mu')``;
+    ``inplace=True`` writes mu' over ``mu``."""
+    if x.is_complex():
+        raise ValueError("the TP group step is real-only (caller must gate)")
+    tile_n = 0 if x.device.type == "cpu" else \
+        plan_tp("tp_gram", x.shape[1], tp_gram_smem_bytes)
+    return _tp.tp_gram(x, g, base_kind=base_kind, hyper=tuple(hyper),
+                       post_scale=float(post_scale), mu=mu, inplace=inplace,
+                       tile_n=tile_n)
+
+
+def fused_group_step_tp_finish(x, gbase, payload, eta, *, method: str, lam,
+                               base_kind: str = "none", hyper: tuple = (),
+                               post_scale: float = 1.0, nu=None, count=None,
+                               pv=None, inplace: bool = False):
+    """Column-local finish of the TP step on the full payload
+    (``repro.kernels.ops.fused_group_step_tp_finish``): vadam's deferred
+    scalar and nu' in torch ops on the payload (``ref.tp_scale_ref``), then
+    the ``tp_apply`` kernel. ``dist`` depends on the replicated payload
+    only, so every rank gets the same. Returns ``(x2, nu', dist,
+    finite)``; ``inplace=True`` writes X' over ``x``."""
+    scl = nu_out = None
+    if base_kind == "vadam":
+        scl, nu_out = ref.tp_scale_ref(payload, x.shape[-2], hyper=tuple(hyper),
+                                       post_scale=float(post_scale), nu=nu,
+                                       count=count)
+        scl = scl.contiguous()
+    tile_n = 0 if x.device.type == "cpu" else \
+        plan_tp("tp_apply", x.shape[1], tp_apply_smem_bytes)
+    x2, dist = _tp.tp_apply(x, gbase, payload, eta, scl, method=method, lam=lam,
+                            pv=pv, inplace=inplace, tile_n=tile_n)
+    return x2, nu_out, dist, torch.isfinite(dist)
+
+
+def fused_group_step_tp(x, g, eta, *, method: str, lam, base_kind: str = "none",
+                        hyper: tuple = (), post_scale: float = 1.0, mu=None,
+                        nu=None, count=None, pv=None, tp_shards: int = 1):
+    """The TP schedule on one device (``repro.kernels.ops.fused_group_step_tp``):
+    ``n`` split into ``tp_shards`` chunks, a partial per chunk, the
+    payloads left-folded in shard order (the order ``ref.
+    fused_group_step_tp_ref`` sums in), the finish on the full matrix.
+    Returns :func:`fused_group_step`'s 5-tuple, in new tensors."""
+    if x.is_complex():
+        raise ValueError("the TP group step is real-only (caller must gate)")
+    n = x.shape[-1]
+    if n % tp_shards:
+        raise ValueError(f"n={n} does not split into {tp_shards} shards")
+    loc = n // tp_shards
+    total = None
+    gbs, mus = [], []
+    for k in range(tp_shards):
+        sl = slice(k * loc, (k + 1) * loc)
+        pay, gb, mo = fused_group_step_tp_partial(
+            x[..., sl].contiguous(), g[..., sl].contiguous(), base_kind=base_kind,
+            hyper=hyper, post_scale=post_scale,
+            mu=None if mu is None else mu[..., sl].contiguous())
+        total = pay if total is None else total + pay
+        gbs.append(gb)
+        mus.append(mo)
+    x2, nu_out, dist, finite = fused_group_step_tp_finish(
+        x, torch.cat(gbs, dim=-1), total, eta, method=method, lam=lam,
+        base_kind=base_kind, hyper=hyper, post_scale=post_scale, nu=nu,
+        count=count, pv=pv)
+    mu_out = None if mu is None else torch.cat(mus, dim=-1)
+    return x2, mu_out, nu_out, dist, finite

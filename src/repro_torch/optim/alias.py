@@ -19,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from .. import tree
+from ..distributed.shard_hints import is_dtensor
 from .transform import (
     GradientTransformation,
     chain,
@@ -112,6 +113,23 @@ class ScaleByVAdamState(NamedTuple):
     nu: object  # scalar second moment per matrix (shape = lead dims)
 
 
+def _scalar_moment(p):
+    """Zeros of one fp32 scalar per matrix of ``p`` (its lead dims). For a
+    ``DTensor`` leaf (the tensor-parallel step), a ``DTensor`` on the same
+    mesh, split as ``p``'s lead dims are and replicated where ``p`` splits
+    a matrix dim, so every rank holds the scalars of its own matrices."""
+    shape = tuple(p.shape[:-2]) if p.ndim >= 2 else ()
+    if is_dtensor(p):
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor import zeros as dzeros
+
+        placements = [pl if isinstance(pl, Shard) and pl.dim % p.ndim < len(shape)
+                      else Replicate() for pl in p.placements]
+        return dzeros(shape, dtype=torch.float32, device_mesh=p.device_mesh,
+                      placements=placements)
+    return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+
 def scale_by_vadam(b1=0.9, b2=0.999, eps=1e-8) -> GradientTransformation:
     """VAdam (Ling et al. 2022): Adam normalised by a per-matrix scalar
     second moment, ``G = (m / c1) / (sqrt(||g||^2_ema / c2) + eps)`` —
@@ -126,11 +144,7 @@ def scale_by_vadam(b1=0.9, b2=0.999, eps=1e-8) -> GradientTransformation:
         leaves = tree.leaves(params)
         device = leaves[0].device if leaves else None
         mu = tree.tree_map(torch.zeros_like, params)
-        nu = tree.tree_map(
-            lambda p: torch.zeros(p.shape[:-2] if p.ndim >= 2 else (),
-                                  dtype=torch.float32, device=p.device),
-            params,
-        )
+        nu = tree.tree_map(_scalar_moment, params)
         count = torch.zeros((), dtype=torch.int32, device=device)
         return ScaleByVAdamState(count=count, mu=mu, nu=nu)
 

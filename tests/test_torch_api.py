@@ -269,8 +269,8 @@ def test_cuda_entry_points_raise_without_a_card():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(method="landing", use_kernel=True, safe_step=False),
-     "Landing's fused branches"),
+    (dict(method="landing", use_kernel=True, safe_step=False, tp_compress=True),
+     "sharded schedules \\(tp_compress\\)"),
     (dict(method="rgd", use_kernel=True), "remaining methods"),
     (dict(method="landing_pc", use_kernel=False), "remaining methods"),
     (dict(method="rsdm", use_kernel=True), "remaining methods"),
@@ -279,9 +279,9 @@ def test_cuda_entry_points_raise_without_a_card():
     (dict(method="pogo", use_kernel=True, tp_compress=True,
           watchdog=tapi.WatchdogConfig()), "sharded schedules"),
     (dict(method="slpg", use_kernel=True), "quartic"),
-    (dict(method="landing", use_kernel=True, safe_step=False,
+    (dict(method="landing", use_kernel=True, safe_step=False, grouping="padded",
           base_optimizer=topt.chain(topt.trace(0.1))),
-     "Landing's fused branches"),
+     "ragged megagroups"),
 ])
 def test_unported_combinations_raise(kwargs, match):
     method = kwargs.pop("method")

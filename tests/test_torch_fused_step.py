@@ -158,10 +158,14 @@ def test_inplace_matches_out_of_place(base_kind, hyper):
             torch.testing.assert_close(b, a, rtol=0, atol=0)
 
 
-def test_fused_step_rejects_complex_and_landing():
+@pytest.mark.parametrize("method", ["pogo", "landing"])
+def test_fused_step_rejects_complex_and_unknown_methods(method):
+    """Both fused branches are real-only; a method with no fused branch is
+    refused (Landing's branch is held against JAX in
+    ``tests/test_torch_landing_fused.py``)."""
     x = torch.zeros((1, 2, 4), dtype=torch.complex64)
     with pytest.raises(ValueError, match="real-only"):
-        tops.fused_group_step(x, x, 0.1, method="pogo", lam=0.5)
+        tops.fused_group_step(x, x, 0.1, method=method, lam=0.5)
     xr = torch.zeros((1, 2, 4))
-    with pytest.raises(NotImplementedError, match="Landing"):
-        tops.fused_group_step(xr, xr, 0.1, method="landing", lam=0.5)
+    with pytest.raises(ValueError, match="unknown fused method"):
+        tops.fused_group_step(xr, xr, 0.1, method="rgd", lam=0.5)

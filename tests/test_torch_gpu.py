@@ -10,7 +10,8 @@ fused kernels (``tests/test_fused_step.py:67,95``) atol 2e-5 / rtol 1e-4
 whole, atol 3e-5 / rtol 1e-4 tiled; for the two-stage kernels
 (``tests/test_kernels.py:34-75``) atol 1e-6 whole and 2e-5 / rtol 1e-4
 tiled, each case saying where it differs; for Newton-Schulz atol 1e-6
-(``tests/test_kernels.py:54-61``).
+(``tests/test_kernels.py:54-61``). The Landing branches of the fused
+kernels and the TP kernels take the fused tolerances.
 """
 
 import importlib.util
@@ -28,6 +29,7 @@ from repro_torch.kernels import newton_schulz as tns
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pogo_update as tpu
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import tp_step as ttp
 
 pytestmark = pytest.mark.gpu
 
@@ -159,6 +161,187 @@ def test_constraint_step_on_card_matches_cpu(cuda, base):
     for a, b in zip(out["cpu"][1].last_distance.per_group,
                     out["cuda"][1].last_distance.per_group):
         torch.testing.assert_close(b.cpu(), a, atol=3e-5, rtol=1e-4)
+
+
+# ------------------------------------------- Landing's fused branches
+
+
+@pytest.mark.parametrize("shape,wrapper,tile_n,tol", [
+    ((64, 16, 256), tfs.fused_step_whole_landing, 0, dict(atol=2e-5, rtol=1e-4)),
+    ((7, 10, 250), tfs.fused_step_whole_landing, 0, dict(atol=2e-5, rtol=1e-4)),
+    ((16, 64, 960), tfs.fused_step_tiled_landing, 32, dict(atol=3e-5, rtol=1e-4)),
+    ((5, 10, 250), tfs.fused_step_tiled_landing, 64, dict(atol=3e-5, rtol=1e-4)),
+])
+@pytest.mark.parametrize("base_kind,hyper", BASES)
+def test_landing_kernels_match_plain(cuda, shape, wrapper, tile_n, tol, base_kind,
+                                     hyper):
+    x, g = _off_manifold_operands(shape, cuda, seed=4)
+    _, _, mu, nu = _operands(shape, cuda, seed=5)
+    kw = dict(_kwargs(base_kind, hyper, mu, nu, cuda), lam=1.0)
+    kw.pop("method")
+    before = wrapper.launches
+    got = wrapper(x, g, 0.1, **({"tile_n": tile_n} if tile_n else {}), **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    _close(got, tref.fused_group_step_ref(x, g, 0.1, method="landing", **kw), tol)
+
+
+@pytest.mark.parametrize("wrapper", [tfs.fused_step_whole_landing,
+                                     tfs.fused_step_tiled_landing])
+def test_landing_kernels_in_place_and_ragged(cuda, wrapper):
+    shape = (4, 8, 200)
+    x, g = _off_manifold_operands(shape, cuda, seed=6)
+    _, _, mu, nu = _operands(shape, cuda, seed=7)
+    pv = torch.tensor([8, 5, 1, 0], dtype=torch.int32, device=cuda)
+    rows = torch.arange(8, device=cuda)[None, :, None] < pv[:, None, None]
+    x, g, mu = (torch.where(rows, a, 0.0) for a in (x, g, mu))
+    kw = dict(_kwargs("vadam", (0.9, 0.999, 1e-8), mu, nu, cuda, pv=pv), lam=1.0)
+    kw.pop("method")
+    want = tref.fused_group_step_ref(x, g, 0.1, method="landing", **kw)
+    got = wrapper(x, g, 0.1, inplace=True, **kw)
+    torch.cuda.synchronize()
+    assert got[0] is x and got[1] is mu and got[2] is nu
+    _close(got, want, dict(atol=3e-5, rtol=1e-4))
+
+
+@pytest.mark.parametrize("base", ["trace", "vadam"])
+def test_fixed_step_landing_on_card_matches_cpu(cuda, base):
+    """``orthogonal("landing", safe_step=False, use_kernel=True)``: three
+    in-place steps on the card (one fused launch per group and step)
+    against the same steps on the CPU."""
+    make = {"trace": lambda: topt.chain(topt.trace(0.1)),
+            "vadam": lambda: topt.chain(topt.scale_by_vadam())}[base]
+    rng = np.random.default_rng(8)
+    params = {"q": np.swapaxes(np.linalg.qr(rng.standard_normal((6, 300, 16)))[0],
+                               -1, -2).astype(np.float32),
+              "k": np.linalg.qr(rng.standard_normal((2, 900, 32)))[0].astype(np.float32)}
+    grads = {k: (0.3 * rng.standard_normal(v.shape)).astype(np.float32)
+             for k, v in params.items()}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        opt = tapi.orthogonal("landing", learning_rate=0.05, use_kernel=True,
+                              safe_step=False, base_optimizer=make())
+        cs = tapi.ConstraintSet.from_tree(params, device=dev)
+        gs = tapi.ConstraintSet.from_tree(grads, device=dev)
+        st = opt.init(cs)
+        step = tapi.constraint_step(opt)
+        tops.reset_launches()
+        for _ in range(3):
+            cs, st, health = step(cs, st, gs)
+        assert bool(health.finite)
+        if dev == "cuda":
+            counts = tops.launches()
+            assert counts["fused_step_whole_landing"] == 3  # q: (6, 16, 300)
+            assert counts["fused_step_tiled_landing"] + \
+                counts["fused_step_whole_landing"] == 6
+        out[dev] = (cs, st)
+    for a, b in zip(out["cpu"][0].stacks, out["cuda"][0].stacks):
+        torch.testing.assert_close(b.cpu(), a, atol=3e-5, rtol=1e-4)
+    for a, b in zip(out["cpu"][1].last_distance.per_group,
+                    out["cuda"][1].last_distance.per_group):
+        torch.testing.assert_close(b.cpu(), a, atol=3e-5, rtol=1e-4)
+
+
+# ------------------------------------------------------------ TP kernels
+
+TP_SHAPES = [(16, 64, 480), (64, 16, 128), (7, 10, 250), (3, 1, 33)]
+
+
+@pytest.mark.parametrize("shape", TP_SHAPES)
+@pytest.mark.parametrize("base_kind,hyper", BASES)
+def test_tp_gram_matches_plain(cuda, shape, base_kind, hyper):
+    x, g, mu, _ = _operands(shape, cuda, seed=9)
+    tile_n = tops.plan_tp("tp_gram", shape[1], tops.tp_gram_smem_bytes)
+    before = ttp.tp_gram.launches
+    got = ttp.tp_gram(x, g, base_kind=base_kind, hyper=hyper, post_scale=0.7,
+                      mu=mu if base_kind != "none" else None, tile_n=tile_n)
+    torch.cuda.synchronize()
+    assert ttp.tp_gram.launches == before + 1
+    want = tref.tp_partial_ref(x, g, base_kind=base_kind, hyper=hyper, post_scale=0.7,
+                               mu=mu if base_kind != "none" else None)
+    _close(got, want, dict(atol=3e-5, rtol=1e-4))
+
+
+@pytest.mark.parametrize("shape", TP_SHAPES)
+@pytest.mark.parametrize("method", ["pogo", "landing"])
+@pytest.mark.parametrize("vadam", [False, True])
+def test_tp_apply_matches_plain(cuda, shape, method, vadam):
+    x, g = _off_manifold_operands(shape, cuda, seed=10)
+    b, p, _ = shape
+    payload, gb, _ = tref.tp_partial_ref(x, g)
+    scl = torch.rand(b, device=cuda) + 0.5 if vadam else None
+    tile_n = tops.plan_tp("tp_apply", p, tops.tp_apply_smem_bytes)
+    before = ttp.tp_apply.launches
+    got = ttp.tp_apply(x, gb, payload, 0.1, scl, method=method, lam=0.7, tile_n=tile_n)
+    torch.cuda.synchronize()
+    assert ttp.tp_apply.launches == before + 1
+    want = tref.tp_apply_ref(x, gb, payload, 0.1, scl, method=method, lam=0.7)
+    _close(got, want, dict(atol=3e-5, rtol=1e-4))
+
+
+@pytest.mark.parametrize("method", ["pogo", "landing"])
+def test_tp_kernels_in_place_and_ragged(cuda, method):
+    shape = (4, 8, 200)
+    x, g = _off_manifold_operands(shape, cuda, seed=11)
+    _, _, mu, nu = _operands(shape, cuda, seed=12)
+    pv = torch.tensor([8, 5, 1, 0], dtype=torch.int32, device=cuda)
+    rows = torch.arange(8, device=cuda)[None, :, None] < pv[:, None, None]
+    x, g, mu = (torch.where(rows, a, 0.0) for a in (x, g, mu))
+    want_p = tref.tp_partial_ref(x, g, base_kind="vadam", hyper=(0.9, 0.999, 1e-8),
+                                 mu=mu)
+    pay, gb, mu2 = ttp.tp_gram(x, g, base_kind="vadam", hyper=(0.9, 0.999, 1e-8),
+                               mu=mu, inplace=True, tile_n=32)
+    assert mu2 is mu
+    _close((pay, gb, mu2), want_p, dict(atol=3e-5, rtol=1e-4))
+    scl, _ = tref.tp_scale_ref(pay, 8, hyper=(0.9, 0.999, 1e-8), post_scale=1.0,
+                               nu=nu, count=torch.tensor(3, device=cuda))
+    want = tref.tp_apply_ref(x, gb, pay, 0.1, scl, method=method, lam=0.7, pv=pv)
+    got = ttp.tp_apply(x, gb, pay, 0.1, scl.contiguous(), method=method, lam=0.7,
+                       pv=pv, inplace=True, tile_n=32)
+    torch.cuda.synchronize()
+    assert got[0] is x
+    _close(got, want, dict(atol=3e-5, rtol=1e-4))
+
+
+def test_tp_planner_matches_the_kernels_smem(cuda):
+    lib = ttp.lib()
+    for p in (16, 64, 5, 96):
+        for tile_n in (32, 64):
+            assert lib.tp_gram_smem_bytes(p, tile_n) == tops.tp_gram_smem_bytes(p, tile_n)
+            assert lib.tp_apply_smem_bytes(p, tile_n) == tops.tp_apply_smem_bytes(p, tile_n)
+
+
+def test_tp_kernels_reject_bad_operands(cuda):
+    x, g, mu, _ = _operands((2, 4, 16), cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        ttp.tp_gram(x.double(), g.double())
+    with pytest.raises(ValueError, match="mu"):
+        ttp.tp_gram(x, g, base_kind="trace", hyper=(0.9, False))
+    pay, gb, _ = ttp.tp_gram(x, g, tile_n=32)
+    with pytest.raises(ValueError, match="payload"):
+        ttp.tp_apply(x, gb, pay[:, :3], 0.1, method="pogo", lam=0.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        xt = x.transpose(1, 2).contiguous().transpose(1, 2)
+        ttp.tp_apply(xt, gb, pay, 0.1, method="pogo", lam=0.5)
+
+
+@pytest.mark.parametrize("method", ["pogo", "landing"])
+@pytest.mark.parametrize("base_kind,hyper", [("trace", (0.9, False)),
+                                             ("vadam", (0.9, 0.999, 1e-8))])
+def test_tp_schedule_on_card_matches_cpu(cuda, method, base_kind, hyper):
+    """The single-device TP schedule, four shards of SmolLM's q/k width, on
+    the card against the same schedule's plain version on the CPU."""
+    x, g, mu, nu = _operands((32, 64, 960), cuda, seed=13)
+    kw = dict(method=method, lam=0.7, base_kind=base_kind, hyper=hyper,
+              tp_shards=4, count=torch.tensor(3, dtype=torch.int32, device=cuda))
+    got = tops.fused_group_step_tp(x, g, 0.1, mu=mu,
+                                   nu=nu if base_kind == "vadam" else None, **kw)
+    cpu = {k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in kw.items()}
+    want = tops.fused_group_step_tp(x.cpu(), g.cpu(), 0.1, mu=mu.cpu(),
+                                    nu=nu.cpu() if base_kind == "vadam" else None, **cpu)
+    for a, b in zip(got, want):
+        if b is not None:
+            torch.testing.assert_close(a.cpu(), b, atol=3e-5, rtol=1e-4)
 
 
 # ------------------------------------------------------ two-stage kernels

@@ -1,8 +1,10 @@
 """The port's CUDA kernels, run on the CPU, against their plain version.
 
-No ``nvcc`` is needed: ``tests/cuda_emu/harness.cpp`` and
-``tests/cuda_emu/two_stage_harness.cpp`` compile
-``src/repro_torch/kernels/csrc/fused_step.cu`` and ``two_stage.cu`` with
+No ``nvcc`` is needed: ``tests/cuda_emu/harness.cpp`` (POGO) and
+``landing_harness.cpp`` (Landing), ``two_stage_harness.cpp``,
+``ns_harness.cpp`` and ``tp_harness.cpp`` compile
+``src/repro_torch/kernels/csrc/fused_step.cu``, ``two_stage.cu``,
+``newton_schulz.cu`` and ``tp_step.cu`` with
 the host C++ compiler against ``tests/cuda_emu/cuda_runtime.h``, which
 runs each block as 256 threads with ``std::barrier`` for
 ``__syncthreads``. That checks the kernels' indexing, edge masking,
@@ -11,7 +13,9 @@ again (``tests/test_torch_gpu.py``, ``chip_smoke.py``). Tolerance: atol
 3e-5 / rtol 1e-4 for the fused kernels, the tiled-kernel tolerance of
 ``tests/test_fused_step.py``; for the two-stage kernels the tolerances of
 ``tests/test_kernels.py``, atol 1e-6 / rtol 1e-6 whole and 2e-5 / 1e-4
-tiled (fp32 sums in another order).
+tiled (fp32 sums in another order); for the TP kernels the fused tiled
+tolerance, with rtol 1e-4 covering the payload's sum of squares (a sum of
+p n squares in another order).
 """
 
 import shutil
@@ -24,6 +28,7 @@ import torch
 
 from repro_torch.kernels import fused_step as tfs
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import tp_step as ttp
 
 ROOT = Path(__file__).resolve().parents[1]
 EMU = ROOT / "tests" / "cuda_emu"
@@ -56,12 +61,19 @@ def two_stage_harness(tmp_path_factory):
     return _compile(tmp_path_factory, "two_stage_harness.cpp")
 
 
+@pytest.fixture(scope="module")
+def landing_harness(tmp_path_factory):
+    return _compile(tmp_path_factory, "landing_harness.cpp")
+
+
 def _run(harness, tmp_path, kind, shape, base_kind, hyper, tile_n=0,
-         inplace=False, pv=None, seed=0):
+         inplace=False, pv=None, seed=0, method="pogo"):
     rng = np.random.default_rng(seed)
     b, p, n = shape
     q, _ = np.linalg.qr(rng.standard_normal((b, n, p)))
     x = np.swapaxes(q, -1, -2)
+    if method == "landing":  # off the manifold: lam (A X - X) is visible
+        x = x + 0.01 * rng.standard_normal(shape)
     g = 0.2 * rng.standard_normal(shape)
     mu = 0.1 * rng.standard_normal(shape)
     nu = np.abs(rng.standard_normal(b))
@@ -85,7 +97,7 @@ def _run(harness, tmp_path, kind, shape, base_kind, hyper, tile_n=0,
     )
     t = torch.from_numpy
     want = tref.fused_group_step_ref(
-        t(x), t(g), 0.1, method="pogo", lam=0.5, base_kind=base_kind,
+        t(x), t(g), 0.1, method=method, lam=0.5, base_kind=base_kind,
         hyper=hyper, mu=t(mu) if base_kind != "none" else None,
         nu=t(nu) if base_kind == "vadam" else None, count=count,
         pv=None if pv is None else torch.tensor(pv, dtype=torch.int32),
@@ -129,6 +141,42 @@ def test_kernels_emulated_in_place_ragged(harness, tmp_path, kind, tile_n):
     per matrix (pv)."""
     _run(harness, tmp_path, kind, (4, 8, 200), "vadam", (0.9, 0.999, 1e-8),
          tile_n=tile_n, inplace=True, pv=[8, 5, 1, 0])
+
+
+@pytest.mark.parametrize("shape,base_kind,hyper", [
+    ((2, 16, 256), "trace", (0.9, False)),
+    ((2, 10, 250), "vadam", (0.9, 0.999, 1e-8)),
+    ((3, 1, 33), "none", ()),
+    ((2, 5, 40), "trace", (0.5, True)),
+    ((1, 64, 300), "trace", (0.9, False)),  # X' written in five passes
+    ((2, 32, 200), "vadam", (0.9, 0.999, 1e-8)),  # grams split 4 ways over k
+])
+def test_landing_whole_kernel_emulated(landing_harness, tmp_path, shape, base_kind,
+                                       hyper):
+    _run(landing_harness, tmp_path, 0, shape, base_kind, hyper, method="landing")
+
+
+@pytest.mark.parametrize("shape,tile_n,base_kind,hyper", [
+    ((2, 64, 960), 32, "trace", (0.9, False)),  # SmolLM's (p, n), planned tile
+    ((1, 64, 300), 64, "trace", (0.9, True)),
+    ((2, 64, 200), 32, "vadam", (0.9, 0.999, 1e-8)),
+    ((2, 10, 250), 32, "none", ()),
+    ((1, 70, 150), 32, "trace", (0.9, False)),
+    ((2, 7, 33), 32, "vadam", (0.9, 0.999, 1e-8)),
+])
+def test_landing_tiled_kernel_emulated(landing_harness, tmp_path, shape, tile_n,
+                                       base_kind, hyper):
+    _run(landing_harness, tmp_path, 1, shape, base_kind, hyper, tile_n=tile_n,
+         method="landing")
+
+
+@pytest.mark.parametrize("kind,tile_n", [(0, 0), (1, 32)], ids=["whole", "tiled"])
+def test_landing_kernels_emulated_in_place_ragged(landing_harness, tmp_path, kind,
+                                                  tile_n):
+    """X' over X (the tiled kernel writes each tile after reading it), mu'
+    over mu, nu' over nu, with zero-padded rows masked per matrix."""
+    _run(landing_harness, tmp_path, kind, (4, 8, 200), "vadam", (0.9, 0.999, 1e-8),
+         tile_n=tile_n, inplace=True, pv=[8, 5, 1, 0], method="landing")
 
 
 def _run_two_stage(harness, tmp_path, kind, method, shape, tile_n=0,
@@ -251,3 +299,88 @@ def test_ns_kernels_emulated_in_place_with_mask(ns_harness, tmp_path, kind, tile
     masked off (untouched, bit for bit, distance too)."""
     _run_ns(ns_harness, tmp_path, kind, (4, 12, 130), tile_n=tile_n,
             inplace=True, masked=True)
+
+
+@pytest.fixture(scope="module")
+def tp_harness(tmp_path_factory):
+    return _compile(tmp_path_factory, "tp_harness.cpp")
+
+
+def _tp_call(harness, tmp_path, mode, shape, k, base_kind, hyper, method, tile_n,
+             has_scl, has_pv, inplace):
+    b, p, n = shape
+    nesterov = int(base_kind == "trace" and hyper[1])
+    subprocess.run(
+        [str(harness), str(tmp_path), str(mode), str(b), str(p), str(n), str(k),
+         str(KINDS[base_kind]), str(nesterov), str(int(method == "landing")),
+         str(tile_n), str(int(has_scl)), str(int(has_pv)), str(int(inplace))],
+        check=True, timeout=120,
+    )
+
+
+def _run_tp(harness, tmp_path, shape, base_kind, hyper, method, tile_n,
+            post_scale=1.0, pv=None, inplace=False, seed=0):
+    """``tp_gram`` on the shard's columns against ``ref.tp_partial_ref``,
+    then ``tp_apply`` on that payload (a one-shard all-reduce) against
+    ``ref.tp_apply_ref``, with vadam's scalar from ``ref.tp_scale_ref``."""
+    rng = np.random.default_rng(seed)
+    b, p, n = shape
+    q, _ = np.linalg.qr(rng.standard_normal((b, n, p)))
+    x = np.swapaxes(q, -1, -2) + 0.01 * rng.standard_normal(shape)
+    g = 0.2 * rng.standard_normal(shape)
+    mu = 0.1 * rng.standard_normal(shape)
+    x, g, mu = (np.ascontiguousarray(a, np.float32) for a in (x, g, mu))
+    t = torch.from_numpy
+    scal = ttp.tp_scal(base_kind, hyper, post_scale, eta=0.1, lam=0.5).numpy()
+    for name, a in (("x", x), ("g", g), ("mu", mu), ("scal", scal)):
+        a.tofile(tmp_path / f"{name}.bin")
+    k = tref.tp_payload_width(p, base_kind)
+    _tp_call(harness, tmp_path, 0, shape, k, base_kind, hyper, method, tile_n, False,
+             False, inplace)
+    pay, gb, mu2 = tref.tp_partial_ref(t(x), t(g), base_kind=base_kind, hyper=hyper,
+                                       post_scale=post_scale,
+                                       mu=t(mu) if base_kind != "none" else None)
+    for name, w in (("payload", pay), ("gb", gb), ("mu_out", mu2)):
+        if w is None:
+            continue
+        got = np.fromfile(tmp_path / f"{name}.bin", np.float32).reshape(w.shape)
+        np.testing.assert_allclose(got, w.numpy(), err_msg=name, **TOL)
+    scl = None
+    if base_kind == "vadam":
+        nu = torch.from_numpy(np.abs(rng.standard_normal(b)).astype(np.float32))
+        scl, _ = tref.tp_scale_ref(pay, p, hyper=hyper, post_scale=post_scale, nu=nu,
+                                   count=torch.tensor(3))
+        scl.numpy().tofile(tmp_path / "scl.bin")
+    pv_arr = np.asarray(pv if pv is not None else [p] * b, np.float32)
+    pv_arr.tofile(tmp_path / "pv.bin")
+    gb.numpy().tofile(tmp_path / "gb.bin")
+    pay.numpy().tofile(tmp_path / "payload.bin")
+    _tp_call(harness, tmp_path, 1, shape, k, base_kind, hyper, method, tile_n,
+             scl is not None, pv is not None, inplace)
+    x2, dist = tref.tp_apply_ref(t(x), gb, pay, 0.1, scl, method=method, lam=0.5,
+                                 pv=None if pv is None else torch.tensor(pv))
+    got = np.fromfile(tmp_path / "x_out.bin", np.float32).reshape(shape)
+    np.testing.assert_allclose(got, x2.numpy(), err_msg="x_out", **TOL)
+    got_d = np.fromfile(tmp_path / "dist.bin", np.float32)
+    np.testing.assert_allclose(got_d, dist.numpy(), err_msg="dist", **TOL)
+
+
+@pytest.mark.parametrize("method", ["pogo", "landing"])
+@pytest.mark.parametrize("shape,tile_n,base_kind,hyper,post_scale", [
+    ((2, 16, 128), 64, "trace", (0.9, False), 1.0),  # many matrices' shard at width 2
+    ((1, 64, 240), 32, "vadam", (0.9, 0.999, 1e-8), 0.7),  # SmolLM's shard at width 4
+    ((2, 10, 250), 32, "none", (), 1.5),  # ragged last tile, 250 % 4 != 0
+    ((2, 7, 33), 64, "trace", (0.5, True), 1.0),  # one partial tile
+])
+def test_tp_kernels_emulated(tp_harness, tmp_path, method, shape, tile_n, base_kind,
+                             hyper, post_scale):
+    _run_tp(tp_harness, tmp_path, shape, base_kind, hyper, method, tile_n,
+            post_scale=post_scale)
+
+
+@pytest.mark.parametrize("method", ["pogo", "landing"])
+def test_tp_kernels_emulated_in_place_ragged(tp_harness, tmp_path, method):
+    """mu' over mu (``tp_gram``), X' over X (``tp_apply``), zero-padded rows
+    masked per matrix in the distance."""
+    _run_tp(tp_harness, tmp_path, (4, 8, 100), "vadam", (0.9, 0.999, 1e-8), method,
+            32, pv=[8, 5, 1, 0], inplace=True)

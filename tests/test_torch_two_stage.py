@@ -471,19 +471,32 @@ def test_paper_landing_keeps_inside_its_eps_ball():
         assert float(tapi.max_distance(st)) <= 0.05 + 1e-6
 
 
-def test_fixed_step_landing_with_a_linear_base_still_raises():
-    """Landing's fused branches are not ported: ``safe_step=False`` with a
-    base the kernel replays and ``use_kernel=True`` names its ROADMAP
-    entry. The same method without the kernel, or over an opaque base,
-    takes the two-stage step."""
-    for base in (None, topt.chain(topt.trace(0.1)), topt.sgd(0.5)):
-        with pytest.raises(NotImplementedError, match="Landing's fused branches"):
-            tapi.orthogonal("landing", use_kernel=True, safe_step=False,
-                            base_optimizer=base)
-        tapi.orthogonal("landing", use_kernel=False, safe_step=False,
-                        base_optimizer=base)
-    tapi.orthogonal("landing", use_kernel=True, safe_step=False,
-                    base_optimizer=topt.scale_by_adam())
+@pytest.mark.parametrize("base,fused", [
+    (None, True), ("trace", True), ("sgd", True), ("adam", False),
+])
+def test_fixed_step_landing_routes(base, fused, monkeypatch):
+    """Fixed-step Landing (``safe_step=False``) with ``use_kernel=True``
+    takes the fused group step over a base the kernel replays (none,
+    ``trace``; ``sgd`` is ``scale(-lr)`` without momentum) and the
+    two-stage step over an opaque one (Adam). The fused route's numerics
+    are held against JAX in ``tests/test_torch_landing_fused.py``."""
+    from repro_torch.kernels import ops as tops
+
+    bases = {None: None, "trace": topt.chain(topt.trace(0.1)),
+             "sgd": topt.sgd(0.5), "adam": topt.scale_by_adam()}
+    calls = []
+    real = tops.fused_group_step
+    monkeypatch.setattr(tops, "fused_group_step",
+                        lambda *a, **k: calls.append(k["method"]) or real(*a, **k))
+    opt = tapi.orthogonal("landing", learning_rate=0.05, use_kernel=True,
+                          safe_step=False, base_optimizer=bases[base])
+    params = _params()
+    cs = tapi.ConstraintSet.from_tree(params, device="cpu")
+    st = opt.init(cs)
+    cs, st, health = tapi.constraint_step(opt)(
+        cs, st, tapi.ConstraintSet.from_tree(_grads(0, 1.0), device="cpu"))
+    assert bool(health.finite)
+    assert calls == (["landing"] * len(cs.stacks) if fused else [])
 
 
 def test_complex_groups_are_refused():

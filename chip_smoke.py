@@ -43,7 +43,23 @@ launcher builds them (POGO's fused kernel over VAdam on the q/k group,
 AdamW elsewhere, the feasibility watchdog on), 8 steps, the q/k leaves
 scaled by 1.5 just before step 5 so that the watchdog's Newton-Schulz
 repair fires on all 640 matrices; a resume from the step-4 checkpoint
-must replay steps 5 and 6 bit for bit. Any failure exits non-zero. The second-to-last line is a JSON record of every kernel
+must replay steps 5 and 6 bit for bit. Then serving, at SmolLM-360M's
+full width in bf16: the flash-attention kernel against its plain version
+(bf16 causal at (B, S, H, KV, hd) = (4, 2048, 15, 5, 64), the error
+printed in output ulps and held under 3e-2; fp32 causal, non-causal and
+windowed at S = 2000, atol 2e-5 / rtol 1e-4), timed beside its plain
+version and
+PyTorch's ``scaled_dot_product_attention`` (the library yardstick, never
+on the port's path); ``transformer.prefill`` on 4 x 2048 tokens, 32 flash
+launches a call, its logits against the same call with the plain version
+patched in; ``repro_torch.launch.serve`` with ``benchmarks/
+serve_bench.py``'s default geometry (32 requests, prompts of 8-48 tokens,
+16 new tokens, 8 slots, 128 blocks of 16, chunks of 16, folded q/k), every
+request finished, 4 of them against ``generate_reference`` on the card
+(tokens equal or parting at a tie, ``serve/parity.py``), and an
+overloaded engine (24 blocks, swap preemption) that must swap out and
+restore, its restored requests held to the oracle likewise. Any failure
+exits non-zero. The second-to-last line is a JSON record of every kernel
 (launches on the main path, error against the plain version, times and
 bounds); the last line is the device record. Without a CUDA card it exits
 2 and prints no result.
@@ -53,6 +69,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -65,6 +82,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM data sheet: HBM rate and fp32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak
 WHOLE_TOL = dict(atol=2e-5, rtol=1e-4)  # tests/test_fused_step.py:67
 TILED_TOL = dict(atol=3e-5, rtol=1e-4)  # tests/test_fused_step.py:95
 # tests/test_kernels.py:34-50 (whole, atol 1e-6) and :65-75 (tiled).
@@ -87,6 +105,7 @@ KERNELS = {
     "fused_step_tiled_landing": ("fused_step", "src/repro/kernels/fused_step.py:559"),
     "tp_gram": ("tp_step", "src/repro/kernels/fused_step.py:304"),
     "tp_apply": ("tp_step", "src/repro/kernels/fused_step.py:417"),
+    "flash_attention": ("flash_attention", "src/repro/kernels/flash_attention.py:88"),
 }
 LANDING_LR = 0.25  # fixed-step Landing: max distance 7e-5 over 12 CPU steps
 TP_STEPS = 3  # per method on the two-rank TP path
@@ -106,6 +125,31 @@ DRIFT_STEP = 5  # the q/k leaves are scaled by 1.5 just before this step
 # products for the POGO update, five for the field.
 TWO_STAGE_FLOPS = {"pogo_update_whole": 12, "pogo_update_tiled": 12,
                    "landing_field": 10, "landing_field_tiled": 10}
+# Serving. SmolLM-360M's prefill: 4 prompts of 2048 tokens. The flash kernel
+# at that shape, (B, S, H, KV, hd), and its fp32 checks at S = 2000 (not a
+# multiple of the 64-row tiles), tests/test_flash_kernel.py's tolerance.
+PREFILL_BATCH, PREFILL_SEQ = 4, 2048
+FLASH_SHAPE = (PREFILL_BATCH, PREFILL_SEQ, 15, 5, 64)
+FLASH_F32_SHAPE = (2, 2000, 15, 5, 64)
+FLASH_TOL = dict(atol=2e-5, rtol=1e-4)
+# bf16 output per element: one output ulp (tests/test_torch_gpu.py's
+# tolerance); 3e-2, tests/test_flash_kernel.py's bf16 tolerance against
+# JAX, is printed beside it.
+FLASH_BF16_TOL = dict(atol=1e-6, rtol=1 / 64)
+FLASH_BF16_REFERENCE = 3e-2
+# Prefill's last-position logits, kernel vs plain, over the largest |logit|
+# (bf16, 32 layers), between the readings of benchmarks_torch/
+# parity_readings.py on an H100: the kernel 1.71e-2, the training path's
+# bf16 p 1.98e-2; key 0 dropped for the last row alone 3.25e-2 (argmax 2/4),
+# the first key tile dropped 1.23.
+PREFILL_REL_TOL = 2.5e-2
+# benchmarks/serve_bench.py's default geometry (_sizes, :63-66), and an
+# overloaded pool of 24 blocks with swap preemption.
+SERVE_ARGS = ["--arch", "smollm-360m", "--requests", "32", "--min-prompt-len", "8",
+              "--prompt-len", "48", "--max-new", "16", "--slots", "8",
+              "--blocks", "128", "--block-size", "16", "--prefill-chunk", "16"]
+OVERLOAD_BLOCKS = 24
+ORACLE_REQUESTS = 4
 
 
 def _card() -> str:
@@ -969,6 +1013,269 @@ def phase_tp_ranks(card, workdir):
     return {k: sum(rec["launches"][k] for rec in recs) for k in want}
 
 
+def _flash_inputs(gen, shape, dtype):
+    import torch
+
+    b, s, h, kvh, hd = shape
+    return [torch.randn(sh, generator=gen, device="cuda").to(dtype)
+            for sh in ((b, s, h, hd), (b, s, kvh, hd), (b, s, kvh, hd))]
+
+
+def _flash_bound(shape, causal, elem_bytes):
+    """Bytes: q, k, v read once, the output written once. Operations: two
+    multiply-adds (QK^T and PV) per head dimension per (query, key) pair
+    that the mask keeps: S (S + 1) / 2 pairs per (batch, head) when
+    causal."""
+    b, s, h, kvh, hd = shape
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return _bound_ms(elem_bytes * (2 * b * s * h * hd + 2 * b * s * kvh * hd),
+                     4 * hd * pairs * b * h)
+
+
+def phase_flash_attention(gen, card):
+    """The flash kernel against its plain version on the card, then timed at
+    the prefill's shape beside the plain version and PyTorch's SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    cases = [(FLASH_SHAPE, torch.bfloat16, True, None),
+             (FLASH_F32_SHAPE, torch.float32, True, None),
+             (FLASH_F32_SHAPE, torch.float32, False, None),
+             (FLASH_F32_SHAPE, torch.float32, True, 256)]
+    record = {}
+    for shape, dtype, causal, window in cases:
+        q, k, v = _flash_inputs(gen, shape, dtype)
+        got = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = fa.run_plain(q, k, v, causal=causal, window=window)
+        d = (got.float() - want.float()).abs()
+        max_abs = float(d.max())
+        lim = FLASH_BF16_TOL if dtype == torch.bfloat16 else FLASH_TOL
+        ok = bool(torch.all(d <= lim["atol"] + lim["rtol"] * want.float().abs())
+                  and torch.isfinite(got).all())
+        tol = f"per element atol {lim['atol']} rtol {lim['rtol']:.4g}"
+        if dtype == torch.bfloat16:
+            # a bf16 ulp at the output's largest magnitude: 2^(floor(log2 max) - 7)
+            top = float(want.float().abs().max())
+            ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+            tol += (f"; {max_abs / ulp:.2f} bf16 ulp at the largest |output| {top:.3f}, "
+                    f"{int((d > 0).sum())} of {d.numel()} elements differ; JAX's bf16 "
+                    f"tolerance {FLASH_BF16_REFERENCE}")
+            record["max_abs_err"] = max_abs
+        print(f"kernel flash_attention {shape} {str(dtype)[6:]} causal {causal} window "
+              f"{window}: max_abs {max_abs:.3e} ({tol}) {'ok' if ok else 'MISMATCH'}",
+              flush=True)
+        if not ok:
+            raise SystemExit(f"flash_attention {shape} {dtype} causal {causal} window "
+                             f"{window} disagrees with its plain version")
+        del got, want, d
+    q, k, v = _flash_inputs(gen, FLASH_SHAPE, torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))  # SDPA's layout
+    ms, plain_ms = _time_in_turns(
+        lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+        lambda: fa.run_plain(q, k, v, causal=True, window=None))
+    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    bound_ms, bound_by = _flash_bound(FLASH_SHAPE, True, 2)
+    b, s, h, _, hd = FLASH_SHAPE
+    half = 2 * hd * (s * (s + 1) // 2) * b * h  # QK^T's flops, as PV's
+    tc_ms = 1e3 * 2 * half / BF16_TC_FLOP_PER_S
+    split_ms = 1e3 * (half / BF16_TC_FLOP_PER_S + half / FP32_FLOP_PER_S)
+    print(f"  flash_attention {FLASH_SHAPE} bf16 causal: ms {ms:.4f} plain_ms "
+          f"{plain_ms:.4f} sdpa_ms {library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}, "
+          f"fp32 CUDA cores; {split_ms:.4f} with QK^T of the bf16 inputs at the bf16 "
+          f"tensor-core rate and PV of the fp32 p on the CUDA cores; {tc_ms:.4f} all at "
+          f"the bf16 tensor-core rate) [{card}]", flush=True)
+    record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                  library_ms=library_ms)
+    return {"flash_attention": record}
+
+
+def phase_prefill(card):
+    """Full-width ``transformer.prefill`` on 4 x 2048 tokens: its main-path
+    launches (32 flash launches a call), its last-position logits against
+    the same call with the plain version in ``ops.flash_attention``'s place,
+    its time. Returns the main path's launches."""
+    import time
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config("smollm-360m")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = tfm.init_params(gen, cfg, "cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ),
+                           generator=gen, device="cuda")
+    tfm.prefill(params, cfg, tokens)  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    logits = tfm.prefill(params, cfg, tokens)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launches().items() if v}
+    kernel = ops.flash_attention
+    ops.flash_attention = lambda q, k, v, *, causal=True, window=None: fa.run_plain(
+        q, k, v, causal=causal, window=window)
+    try:
+        plain = tfm.prefill(params, cfg, tokens)
+        torch.cuda.synchronize()
+    finally:
+        ops.flash_attention = kernel
+    err = float((logits - plain).abs().max())
+    rel = err / float(plain.abs().max())
+    # each row's argmax agrees, or parts at a tie: the plain version's
+    # top-2 margin there under the measured error
+    parted = (logits.argmax(-1) != plain.argmax(-1)).flatten()
+    top2 = torch.topk(plain.float().flatten(0, 1), 2, dim=-1).values
+    margins = (top2[:, 0] - top2[:, 1])[parted].tolist()
+    agree = PREFILL_BATCH - len(margins)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        tfm.prefill(params, cfg, tokens)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    ms = statistics.median(walls)
+    tokens_n = PREFILL_BATCH * PREFILL_SEQ
+    ok = (launches == {"flash_attention_fwd": cfg.num_layers} and rel <= PREFILL_REL_TOL
+          and all(m < err for m in margins) and bool(torch.isfinite(logits).all())
+          and tuple(logits.shape) == (PREFILL_BATCH, 1, cfg.padded_vocab))
+    print(f"prefill {cfg.name} {cfg.num_layers} layers, {PREFILL_BATCH} x "
+          f"{PREFILL_SEQ} tokens ({cfg.compute_dtype}): launches {launches}, "
+          f"last-position logits vs the plain version max_abs {err:.3e} "
+          f"(relative {rel:.3e}, limit {PREFILL_REL_TOL}), "
+          f"argmax agrees {agree}/{PREFILL_BATCH} (parting margins {margins}, each "
+          f"must be under the error), {ms:.2f} ms a call, "
+          f"{1e3 * tokens_n / ms:.0f} tokens/s [{card}] {'ok' if ok else 'FAILED'}",
+          flush=True)
+    if not ok:
+        raise SystemExit("prefill: launches or logits off")
+    del params
+    return launches
+
+
+def _serve(argv, uids=None):
+    """``launch.serve.run(argv)`` with every engine it builds recording the
+    logits of ``uids`` (all when None) and timing its swaps (a patch of the
+    engine class in this script)."""
+    import time
+
+    import torch
+
+    import repro_torch.serve as serve_pkg
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import parity
+
+    base = serve_pkg.ServeEngine
+
+    class Recording(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.logits = parity.record_logits(self, uids)
+            self.swap_s = {"out": [], "in": []}
+
+        def _timed(self, key, fn, *a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*a)
+            torch.cuda.synchronize()
+            self.swap_s[key].append(time.perf_counter() - t0)
+
+        def _swap_out(self, slot):
+            self._timed("out", super()._swap_out, slot)
+
+        def _restore_one(self, slot, rec, blocks):
+            self._timed("in", super()._restore_one, slot, rec, blocks)
+
+    serve_pkg.ServeEngine = Recording
+    try:
+        return launch_serve.run(argv)
+    finally:
+        serve_pkg.ServeEngine = base
+
+
+def _oracle_check(res, reqs, label, card):
+    from repro_torch.serve import generate_reference, parity
+
+    for r in reqs:
+        ref_logits = []
+        ref = generate_reference(res["params"], res["cfg"], r.prompt, r.max_new_tokens,
+                                 logits=ref_logits)
+        limit = parity.LOGIT_LIMITS[res["cfg"].compute_dtype]
+        c = parity.compare_tokens(r.out_tokens, ref, ref_logits, res["engine"].logits[r.uid],
+                                  limit=limit)
+        how = (f"logit error {c['err']:.3e} (limit {limit}), " + (
+            "identical" if c["identical"] else
+            f"part at token {c['at']}, reference top-2 margin {c['margin']:.3e}, "
+            f"{'tie' if c['ok'] else 'NOT A TIE'}"))
+        if not c["ok"] and c["err"] > limit:
+            how += ", OVER THE LIMIT"
+        print(f"  {label} request {r.uid} (prompt {len(r.prompt)}, preemptions "
+              f"{r.n_preemptions}) vs generate_reference: {how} [{card}]", flush=True)
+        if not c["ok"]:
+            raise SystemExit(f"{label}: request {r.uid} diverged from the oracle")
+
+
+def phase_serve(card):
+    """The launcher at full width with serve_bench's geometry, 4 requests
+    against the oracle, then an overloaded engine with swap preemption.
+    Returns the main path's launches (the engine reaches no kernel)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve import RequestState, is_terminal
+
+    ops.reset_launches()
+    res = _serve(SERVE_ARGS, uids=range(ORACLE_REQUESTS))
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launches().items() if v}
+    eng, s = res["engine"], res["engine"].stats
+    done = [r for r in res["terminal"] if r.state is RequestState.FINISHED]
+    n_tokens = sum(len(r.out_tokens) for r in done)
+    ttft = sorted(1e3 * (r.t_first - r.t_submit) for r in done)
+    tpot = [1e3 * (r.token_times[-1] - r.token_times[0]) / (len(r.token_times) - 1)
+            for r in done if len(r.token_times) > 1]
+    print(f"serve {res['cfg'].name} {res['cfg'].num_layers} layers "
+          f"{res['cfg'].compute_dtype}: "
+          f"{len(done)}/{len(res['terminal'])} finished, {n_tokens} tokens in "
+          f"{res['seconds']:.2f} s ({n_tokens / res['seconds']:.1f} tokens/s), prefill "
+          f"{s['prefill_time_s']:.2f} s over {s['n_prefill_dispatches']} chunks, decode "
+          f"{s['decode_time_s']:.2f} s over {s['n_decode_dispatches']} ticks "
+          f"({1e3 * s['decode_time_s'] / s['n_decode_dispatches']:.2f} ms a tick), "
+          f"TTFT median {statistics.median(ttft):.1f} ms max {ttft[-1]:.1f} ms, "
+          f"time per output token median {statistics.median(tpot):.2f} ms, fold distance "
+          f"{res['fold'].max_distance:.2e}, launches {launches} [{card}]", flush=True)
+    if len(done) != 32 or launches:
+        raise SystemExit(f"serve: {len(done)} finished of 32, launches {launches}")
+    _oracle_check(res, [r for r in res["requests"] if r.uid < ORACLE_REQUESTS],
+                  "serve", card)
+    del res, eng
+
+    over = _serve([*SERVE_ARGS, "--blocks", str(OVERLOAD_BLOCKS), "--preemption", "swap"])
+    eng, s = over["engine"], over["engine"].stats
+    states = [r.state for r in over["requests"]]
+    restored = [r for r in over["requests"]
+                if r.n_preemptions and r.state is RequestState.FINISHED]
+    out_ms = [1e3 * t for t in eng.swap_s["out"]]
+    in_ms = [1e3 * t for t in eng.swap_s["in"]]
+    print(f"serve overloaded ({OVERLOAD_BLOCKS} blocks, swap): "
+          f"{sum(st is RequestState.FINISHED for st in states)}/32 finished, swapped out "
+          f"{s['swapped_out']}, in {s['swapped_in']}, restored and finished "
+          f"{len(restored)}; swap-out median {statistics.median(out_ms):.2f} ms, restore "
+          f"median {statistics.median(in_ms):.2f} ms, {over['seconds']:.2f} s [{card}]",
+          flush=True)
+    if not (all(is_terminal(st) for st in states)
+            and s["swapped_out"] >= 1 and s["swapped_in"] >= 1 and restored):
+        raise SystemExit("serve overloaded: no swap round trip, or a request not terminal")
+    _oracle_check(over, restored, "overloaded", card)
+    return launches
+
+
 def _expect_launches(label, launches, kernel, steps):
     """``kernel`` launched once per step, and no other kernel."""
     want = {name: (steps if name == kernel else 0) for name in launches}
@@ -985,6 +1292,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs import smollm_360m
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_step as fs
     from repro_torch.kernels import newton_schulz as ns
     from repro_torch.kernels import pogo_update as pu
@@ -1004,6 +1312,7 @@ def main() -> int:
     pu.lib()
     ns.lib()
     tp.lib()
+    fa.lib()
     for name in sources:
         for line in build.PTXAS_LOG.get(name, "").splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
@@ -1043,11 +1352,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
         counts = phase_trainer(card, workdir)
     launches["newton_schulz"] = counts["newton_schulz_whole"] + counts["newton_schulz_tiled"]
+    records.update(phase_flash_attention(gen, card))
+    launches["flash_attention"] = phase_prefill(card)["flash_attention_fwd"]
+    phase_serve(card)
 
     kernels = [
         dict(name=name, route="cuda",
              source=f"src/repro_torch/kernels/csrc/{source}.cu", replaces=replaces,
-             launches=launches[name], library_ms=None, **records[name])
+             launches=launches[name], **{"library_ms": None, **records[name]})
         for name, (source, replaces) in KERNELS.items()
     ]
     print(card, flush=True)

@@ -102,3 +102,16 @@ def train_state_from_jax(leaves, like):
         out.append(torch.as_tensor(a.astype(np.int64) if a.dtype == np.uint32 else a)
                    .to(device=d.device, dtype=d.dtype))
     return tree.unflatten(td, out)
+
+
+def cache_from_jax(numpy_tree, like):
+    """A serving cache of the JAX package (``init_cache``/``init_paged_cache``
+    trees after ``jax.tree.map(np.asarray, ...)``) as the port's: ``like``
+    is the port's cache of the same shapes (``transformer.init_cache`` or
+    ``init_paged_cache``), and each leaf takes its dtype and device (bf16
+    leaves come through fp32, exactly)."""
+    leaves = []
+    for a in tree.leaves(numpy_tree):
+        a = np.array(a)  # a writable copy: the port writes caches in place
+        leaves.append(a.astype(np.float32) if a.dtype.name == "bfloat16" else a)
+    return train_state_from_jax(leaves, like)

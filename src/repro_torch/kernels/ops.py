@@ -3,7 +3,8 @@
 Port of ``repro/kernels/ops.py``: the fused group step, POGO and Landing
 (``:355-477``), its tensor-parallel stages and single-device schedule
 (``:483-673``), the two-stage POGO update (``:209-257``), the landing
-field (``:281-314``) and Newton-Schulz (``:700-725``). The TPU planner's
+field (``:281-314``), Newton-Schulz (``:700-725``) and the
+flash-attention forward (``:729-763``). The TPU planner's
 VMEM budget and live-buffer counts become the per-block shared-memory
 footprint of each CUDA kernel, mirrored here from ``csrc/fused_step.cu``,
 ``csrc/tp_step.cu``, ``csrc/two_stage.cu`` and ``csrc/newton_schulz.cu``:
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from . import flash_attention as _fa
 from . import fused_step as _fs
 from . import landing_field as _lf
 from . import newton_schulz as _ns
@@ -261,7 +263,8 @@ KERNELS = (_fs.fused_step_whole, _fs.fused_step_tiled,
            _fs.fused_step_whole_landing, _fs.fused_step_tiled_landing,
            _tp.tp_gram, _tp.tp_apply, _pu.pogo_update_whole,
            _pu.pogo_update_tiled, _lf.landing_field, _lf.landing_field_tiled,
-           _ns.newton_schulz_whole, _ns.newton_schulz_tiled)
+           _ns.newton_schulz_whole, _ns.newton_schulz_tiled,
+           _fa.flash_attention_fwd)
 
 
 def launches() -> dict:
@@ -394,3 +397,18 @@ def fused_group_step_tp(x, g, eta, *, method: str, lam, base_kind: str = "none",
         count=count, pv=pv)
     mu_out = None if mu is None else torch.cat(mus, dim=-1)
     return x2, mu_out, nu_out, dist, finite
+
+
+# ------------------------------------------------------------ flash attention
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None):
+    """Flash-attention forward on ``(B, S, H, hd)`` GQA inputs
+    (``repro.kernels.ops.flash_attention``): the ``csrc/flash_attention.cu``
+    kernel on a CUDA tensor, its plain version on a CPU tensor. Forward
+    only: the prefill and every no-grad forward use it, training keeps the
+    blocked attention of ``models/attention.py``. Unlike the TPU wrapper it
+    pads nothing and repeats no KV head: the kernel masks keys past the
+    true length and reads each query head's KV head in place."""
+    return _fa.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                                   causal=causal, window=window)

@@ -12,7 +12,8 @@ holds the kernel against on the card, and mirrors ``repro.kernels.ref``
 * ``pogo_update_ref``: ``pogo_update_whole``/``_tiled`` of ``csrc/two_stage.cu``;
 * ``landing_field_ref``: ``landing_field``/``_tiled`` of ``csrc/two_stage.cu``;
 * ``manifold_distance_ref``: the telemetry of the two-stage step;
-* ``newton_schulz_ref``: both kernels of ``csrc/newton_schulz.cu``.
+* ``newton_schulz_ref``: both kernels of ``csrc/newton_schulz.cu``;
+* ``flash_attention_fwd_ref``: ``csrc/flash_attention.cu``.
 """
 
 from __future__ import annotations
@@ -330,3 +331,27 @@ def fused_group_step_tp_ref(x, g, eta, *, method: str, lam,
         count=count, pv=pv)
     mu_out = None if mu is None else torch.cat(mus, dim=-1)
     return x2, mu_out, nu_out, dist, finite
+
+
+NEG_INF = -(2.0**30)  # the attention masks' finite sentinel (models/attention.py)
+
+
+def flash_attention_fwd_ref(q, k, v, *, causal: bool = True, window=None):
+    """Attention forward on ``(BH, S, hd)`` queries and ``(BH, Sk, hd)``
+    keys and values, all in fp32, out in q's dtype
+    (``repro.kernels.ref.flash_attention_fwd_ref``). Query and key
+    positions count from 0. ``Sk`` is the true key length: unlike the JAX
+    wrapper, nothing here pads the keys, so no padding takes softmax
+    weight. Masked scores are the finite ``NEG_INF``, as in the kernel."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    sq, sk, hd = q.shape[1], k.shape[1], q.shape[-1]
+    s = (qf @ _bt(kf)) * hd**-0.5
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window is not None:
+        mask = mask & (k_pos > q_pos - window)
+    s = torch.where(mask[None], s, NEG_INF)
+    return (torch.softmax(s, dim=-1) @ vf).to(q.dtype)

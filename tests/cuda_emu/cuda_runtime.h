@@ -9,13 +9,32 @@
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
+using std::max;
 using std::min;
 #define __global__
 #define __device__
 #define __host__
 #define __shared__
 #define __launch_bounds__(...)
+#define __restrict__
 struct float4 { float x, y, z, w; };
+// bf16 as 16 bits of storage; conversions as the card's intrinsics do them
+// (float -> bf16 rounds to nearest even, NaN stays NaN).
+struct __nv_bfloat16 { uint16_t x; };
+inline float __bfloat162float(__nv_bfloat16 h) {
+  const uint32_t u = static_cast<uint32_t>(h.x) << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {static_cast<uint16_t>((u >> 16) | 0x40u)};
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {static_cast<uint16_t>(u >> 16)};
+}
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 struct uint3 { unsigned x, y, z; };
 extern thread_local uint3 threadIdx;

@@ -11,7 +11,10 @@ whole, atol 3e-5 / rtol 1e-4 tiled; for the two-stage kernels
 (``tests/test_kernels.py:34-75``) atol 1e-6 whole and 2e-5 / rtol 1e-4
 tiled, each case saying where it differs; for Newton-Schulz atol 1e-6
 (``tests/test_kernels.py:54-61``). The Landing branches of the fused
-kernels and the TP kernels take the fused tolerances.
+kernels and the TP kernels take the fused tolerances. The flash-attention
+kernel takes ``tests/test_flash_kernel.py``'s: fp32 atol 2e-5 / rtol
+1e-4; bf16 one output ulp (the kernel and its plain version both keep
+fp32 inside and round once at the end), held at 1/64 relative.
 """
 
 import importlib.util
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch import optim as topt
 from repro_torch.core import api as tapi
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import fused_step as tfs
 from repro_torch.kernels import landing_field as tlf
 from repro_torch.kernels import newton_schulz as tns
@@ -600,3 +604,111 @@ def test_two_trainer_steps_on_card_match_cpu(cuda):
     np.testing.assert_allclose(l_card, l_cpu, atol=1e-4, rtol=1e-3)
     for a, b in zip(tree.leaves(p_card), tree.leaves(p_cpu)):
         torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-3)
+
+
+# ------------------------------------------------------------ flash attention
+
+FLASH_CASES = [  # (B, S, H, KV, hd), dtype, causal, window
+    ((1, 128, 2, 2, 64), torch.float32, True, None),
+    ((2, 256, 4, 2, 32), torch.float32, False, None),
+    ((1, 200, 2, 1, 32), torch.float32, False, None),
+    ((1, 2000, 3, 1, 40), torch.float32, True, None),
+    ((1, 700, 6, 2, 64), torch.float32, True, 256),
+    ((1, 300, 2, 2, 128), torch.float32, True, 1),
+    ((2, 333, 15, 5, 64), torch.bfloat16, True, None),
+    ((1, 64, 2, 1, 24), torch.bfloat16, False, 8),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,causal,window", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, shape, dtype, causal, window):
+    b, s, h, kvh, hd = shape
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    q = torch.randn((b, s, h, hd), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((b, s, kvh, hd), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, s, kvh, hd), generator=gen, device=cuda).to(dtype)
+    before = tfa.flash_attention_fwd.launches
+    got = tops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_fwd.launches == before + 1
+    want = tfa.run_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-6, rtol=1 / 64)
+
+
+def test_flash_kernel_true_length_and_bad_operands(cuda):
+    """More keys than queries, non-causal, at no multiple of the tile:
+    every key takes its weight and none past Sk does."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((1, 50, 2, 16), generator=gen, device=cuda)
+    k = torch.randn((1, 90, 2, 16), generator=gen, device=cuda)
+    got = tfa.flash_attention_fwd(q, k, k, causal=False)
+    want = tfa.run_plain(q, k, k, causal=False, window=None)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_fwd(q, q.half(), q.half())
+    with pytest.raises(ValueError):
+        tfa.flash_attention_fwd(q.transpose(1, 2), k, k)
+    wide = torch.zeros((1, 8, 1, 160), device=cuda)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_fwd(wide, wide, wide)
+    assert tfa.lib().flash_attention_smem_bytes(64) == 4 * (2 * 64 * 68 + 64 * 64 + 64 * 68)
+
+
+def _smoke_model():
+    """The fp32 smoke model, weights on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+
+    cfg = dataclasses.replace(get_config("smollm-360m", smoke=True),
+                              compute_dtype="float32")
+    return cfg, tfm.init_params(torch.Generator().manual_seed(0), cfg)
+
+
+def test_prefill_on_card_matches_cpu(cuda):
+    """Every layer's attention through the kernel on the card; the CPU runs
+    the plain version. fp32, atol 5e-4 / rtol 1e-3: the card and the CPU
+    sum every product of the four layers in other orders (cuBLAS against
+    the CPU's BLAS), as ``tests/test_torch_model.py``'s gradients (rtol
+    1e-3); the card read 1.8e-4 at most."""
+    from repro_torch import tree
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+
+    cfg, params = _smoke_model()
+    dev_params = tree.tree_map(lambda t: t.to(cuda), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 130), generator=torch.Generator().manual_seed(1))
+    ops.reset_launches()
+    got = tfm.prefill(dev_params, cfg, toks.to(cuda))
+    assert ops.launches()["flash_attention_fwd"] == cfg.num_layers
+    want = tfm.prefill(params, cfg, toks)
+    torch.testing.assert_close(got.cpu(), want, atol=5e-4, rtol=1e-3)
+
+
+def test_engine_on_card_matches_oracle(cuda):
+    """A burst through the paged engine on the card against the dense
+    oracle on the card, tie rule (serve/parity.py)."""
+    from repro_torch import tree
+    from repro_torch.serve import Request, ServeEngine, generate_reference, parity
+
+    cfg, params = _smoke_model()
+    params = tree.tree_map(lambda t: t.to(cuda), params)
+    rng = np.random.default_rng(5)
+    reqs = [Request(uid=i, prompt=rng.integers(0, 100, int(rng.integers(3, 13))).astype(np.int32),
+                    max_new_tokens=int(rng.integers(2, 9))) for i in range(12)]
+    eng = ServeEngine(params, cfg, n_slots=4, n_blocks=65, block_size=4, prefill_chunk=5)
+    rec = parity.record_logits(eng)
+    for r in reqs:
+        eng.submit(r)
+    assert len(eng.run()) == 12
+    for r in reqs:
+        ref_logits = []
+        ref = generate_reference(params, cfg, r.prompt, r.max_new_tokens, logits=ref_logits)
+        res = parity.compare_tokens(r.out_tokens, ref, ref_logits, rec[r.uid],
+                                    limit=parity.LOGIT_LIMITS[cfg.compute_dtype])
+        assert res["ok"], f"request {r.uid}: {res}"

@@ -4,7 +4,8 @@ No ``nvcc`` is needed: ``tests/cuda_emu/harness.cpp`` (POGO) and
 ``landing_harness.cpp`` (Landing), ``two_stage_harness.cpp``,
 ``ns_harness.cpp`` and ``tp_harness.cpp`` compile
 ``src/repro_torch/kernels/csrc/fused_step.cu``, ``two_stage.cu``,
-``newton_schulz.cu`` and ``tp_step.cu`` with
+``newton_schulz.cu``, ``tp_step.cu`` and (``flash_harness.cpp``)
+``flash_attention.cu`` with
 the host C++ compiler against ``tests/cuda_emu/cuda_runtime.h``, which
 runs each block as 256 threads with ``std::barrier`` for
 ``__syncthreads``. That checks the kernels' indexing, edge masking,
@@ -15,7 +16,9 @@ again (``tests/test_torch_gpu.py``, ``chip_smoke.py``). Tolerance: atol
 ``tests/test_kernels.py``, atol 1e-6 / rtol 1e-6 whole and 2e-5 / 1e-4
 tiled (fp32 sums in another order); for the TP kernels the fused tiled
 tolerance, with rtol 1e-4 covering the payload's sum of squares (a sum of
-p n squares in another order).
+p n squares in another order). The flash-attention kernel takes
+``tests/test_flash_kernel.py``'s fp32 tolerance, atol 2e-5 / rtol 1e-4,
+and in bf16 one output ulp (both sides round an fp32 result once).
 """
 
 import shutil
@@ -26,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import fused_step as tfs
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import tp_step as ttp
@@ -384,3 +388,38 @@ def test_tp_kernels_emulated_in_place_ragged(tp_harness, tmp_path, method):
     masked per matrix in the distance."""
     _run_tp(tp_harness, tmp_path, (4, 8, 100), "vadam", (0.9, 0.999, 1e-8), method,
             32, pv=[8, 5, 1, 0], inplace=True)
+
+
+@pytest.fixture(scope="module")
+def flash_harness(tmp_path_factory):
+    return _compile(tmp_path_factory, "flash_harness.cpp")
+
+
+@pytest.mark.parametrize("shape,sk,causal,window,bf16", [
+    ((1, 100, 2, 1, 40), 100, True, None, False),     # unaligned, GQA group 2
+    ((1, 130, 3, 1, 40), 130, False, None, False),    # non-causal, group 3
+    ((2, 150, 4, 2, 32), 150, True, 40, False),       # window across tiles
+    ((1, 80, 1, 1, 128), 80, True, 16, False),        # two output chunks
+    ((1, 50, 2, 1, 24), 90, False, None, False),      # more keys than queries
+    ((1, 70, 2, 2, 64), 70, True, None, True),        # bf16
+])
+def test_flash_kernel_emulated(flash_harness, tmp_path, shape, sk, causal, window,
+                               bf16):
+    b, s, h, kvh, hd = shape
+    rng = np.random.default_rng(s)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(dt)
+               for sh in ((b, s, h, hd), (b, sk, kvh, hd), (b, sk, kvh, hd)))
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        t.float().numpy().tofile(tmp_path / f"{name}.bin")
+    res = subprocess.run(
+        [str(flash_harness), str(tmp_path), str(int(bf16)), str(b), str(s), str(sk),
+         str(h), str(kvh), str(hd), str(int(causal)), str(window or 0),
+         repr(float(hd**-0.5))], capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr
+    got = np.fromfile(tmp_path / "out.bin", np.float32).reshape(b, s, h, hd)
+    want = tfa.run_plain(q, k, v, causal=causal, window=window).float().numpy()
+    if bf16:
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=1 / 64)
+    else:
+        np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)

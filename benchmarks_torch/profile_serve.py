@@ -30,7 +30,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _category(name: str) -> str:
     n = name.lower()
-    if "flash_fwd_kernel" in n:
+    if "flash_tc_kernel" in n or "flash_fwd_kernel" in n:
         return "flash kernel (port)"
     if any(k in n for k in ("gemm", "sm90_xmma", "cutlass", "nvjet", "gemv")):
         return "matrix products (cuBLAS)"

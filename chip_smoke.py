@@ -44,15 +44,18 @@ AdamW elsewhere, the feasibility watchdog on), 8 steps, the q/k leaves
 scaled by 1.5 just before step 5 so that the watchdog's Newton-Schulz
 repair fires on all 640 matrices; a resume from the step-4 checkpoint
 must replay steps 5 and 6 bit for bit. Then serving, at SmolLM-360M's
-full width in bf16: the flash-attention kernel against its plain version
-(bf16 causal at (B, S, H, KV, hd) = (4, 2048, 15, 5, 64), the error
-printed in output ulps and held under 3e-2; fp32 causal, non-causal and
-windowed at S = 2000, atol 2e-5 / rtol 1e-4), timed beside its plain
-version and
-PyTorch's ``scaled_dot_product_attention`` (the library yardstick, never
-on the port's path); ``transformer.prefill`` on 4 x 2048 tokens, 32 flash
-launches a call, its logits against the same call with the plain version
-patched in; ``repro_torch.launch.serve`` with ``benchmarks/
+full width: the two flash-attention kernels against their plain version,
+the tensor-core kernel in bf16 (causal at (B, S, H, KV, hd) = (4, 2048,
+15, 5, 64), at internlm2-1.8b's (1, 2048, 16, 8, 128), windowed at S =
+2000 and at hd 24; one output ulp per element, the error printed in ulps)
+and the CUDA-core kernel in fp32 (the prefill's shape; causal,
+non-causal and windowed at S = 2000; atol 2e-5 / rtol 1e-4), each timed
+at the prefill's shape in turns with its plain version and PyTorch's
+``scaled_dot_product_attention`` (the library yardstick, never on the
+port's path); ``transformer.prefill`` on 4 x 2048 tokens in bf16 (32
+launches of the tensor-core kernel a call) and in fp32 compute (32 of
+the CUDA-core kernel), its logits against the same call with the plain
+version patched in; ``repro_torch.launch.serve`` with ``benchmarks/
 serve_bench.py``'s default geometry (32 requests, prompts of 8-48 tokens,
 16 new tokens, 8 slots, 128 blocks of 16, chunks of 16, folded q/k), every
 request finished, 4 of them against ``generate_reference`` on the card
@@ -83,6 +86,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_TC_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak
+# exp2 on the SFUs: 16 a clock on each of the 132 SMs at the 1.83 GHz that
+# the tensor-core peak assumes (989e12 = 132 x 4096 flops x 1.83e9)
+SFU_EXP2_PER_S = 16 * 132 * 1.83e9
 WHOLE_TOL = dict(atol=2e-5, rtol=1e-4)  # tests/test_fused_step.py:67
 TILED_TOL = dict(atol=3e-5, rtol=1e-4)  # tests/test_fused_step.py:95
 # tests/test_kernels.py:34-50 (whole, atol 1e-6) and :65-75 (tiled).
@@ -106,6 +112,7 @@ KERNELS = {
     "tp_gram": ("tp_step", "src/repro/kernels/fused_step.py:304"),
     "tp_apply": ("tp_step", "src/repro/kernels/fused_step.py:417"),
     "flash_attention": ("flash_attention", "src/repro/kernels/flash_attention.py:88"),
+    "flash_attention_tc": ("flash_attention_tc", "src/repro/kernels/flash_attention.py:88"),
 }
 LANDING_LR = 0.25  # fixed-step Landing: max distance 7e-5 over 12 CPU steps
 TP_STEPS = 3  # per method on the two-rank TP path
@@ -125,12 +132,15 @@ DRIFT_STEP = 5  # the q/k leaves are scaled by 1.5 just before this step
 # products for the POGO update, five for the field.
 TWO_STAGE_FLOPS = {"pogo_update_whole": 12, "pogo_update_tiled": 12,
                    "landing_field": 10, "landing_field_tiled": 10}
-# Serving. SmolLM-360M's prefill: 4 prompts of 2048 tokens. The flash kernel
-# at that shape, (B, S, H, KV, hd), and its fp32 checks at S = 2000 (not a
-# multiple of the 64-row tiles), tests/test_flash_kernel.py's tolerance.
+# Serving. SmolLM-360M's prefill: 4 prompts of 2048 tokens. The flash
+# kernels at that shape, (B, S, H, KV, hd); internlm2-1.8b's heads; S = 2000
+# (not a multiple of the tiles); hd 24. fp32: tests/test_flash_kernel.py's
+# tolerance.
 PREFILL_BATCH, PREFILL_SEQ = 4, 2048
 FLASH_SHAPE = (PREFILL_BATCH, PREFILL_SEQ, 15, 5, 64)
+FLASH_WIDE_SHAPE = (1, 2048, 16, 8, 128)
 FLASH_F32_SHAPE = (2, 2000, 15, 5, 64)
+FLASH_HD24_SHAPE = (2, 2000, 4, 2, 24)
 FLASH_TOL = dict(atol=2e-5, rtol=1e-4)
 # bf16 output per element: one output ulp (tests/test_torch_gpu.py's
 # tolerance); 3e-2, tests/test_flash_kernel.py's bf16 tolerance against
@@ -143,6 +153,11 @@ FLASH_BF16_REFERENCE = 3e-2
 # bf16 p 1.98e-2; key 0 dropped for the last row alone 3.25e-2 (argmax 2/4),
 # the first key tile dropped 1.23.
 PREFILL_REL_TOL = 2.5e-2
+# The same in fp32 compute, set before its first reading: the CUDA-core
+# kernel is within 2e-5 / 1e-4 of its plain version per element (fp32 sums
+# in another order), 32 layers may grow that 10-100x; a dropped key moves
+# the bf16 logits by 3.25e-2. An H100 read 3.66e-6.
+PREFILL_F32_REL_TOL = 1e-3
 # benchmarks/serve_bench.py's default geometry (_sizes, :63-66), and an
 # overloaded pool of 24 blocks with swap preemption.
 SERVE_ARGS = ["--arch", "smollm-360m", "--requests", "32", "--min-prompt-len", "8",
@@ -192,22 +207,30 @@ def _time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def _time_in_turns(kernel, plain, rounds=3):
-    """Medians of ``rounds`` timings each of the kernel (20 launches) and
-    the plain version (10 calls), taken in turns: plain, kernel, kernel,
-    plain, ..."""
-    ks, ps = [], []
+def _time_rotating(fns, rounds=3):
+    """Medians of ``rounds`` timings of each ``(fn, calls)``, taken in turns
+    whose order reverses every round."""
+    times = [[] for _ in fns]
+    order = list(range(len(fns)))
     for i in range(rounds):
-        turns = [(ps, plain, 10), (ks, kernel, 20)]
-        for out, fn, iters in (turns if i % 2 == 0 else turns[::-1]):
-            out.append(_time_ms(fn, iters))
-    return statistics.median(ks), statistics.median(ps)
+        for j in (order if i % 2 == 0 else order[::-1]):
+            fn, calls = fns[j]
+            times[j].append(_time_ms(fn, calls))
+    return [statistics.median(t) for t in times]
 
 
-def _bound_ms(bytes_, flops):
+def _time_in_turns(kernel, plain, rounds=3):
+    """Medians of the kernel (20 launches) and the plain version (10 calls),
+    taken in turns: plain, kernel, kernel, plain, ..."""
+    plain_ms, kernel_ms = _time_rotating([(plain, 10), (kernel, 20)], rounds)
+    return kernel_ms, plain_ms
+
+
+def _bound_ms(bytes_, flops, flop_per_s=FP32_FLOP_PER_S):
     """Least time for the work: the larger of its bytes over the HBM rate
-    and its fp32 operations over the fp32 rate, and which one bounds it."""
-    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    and its operations over their rate (fp32 unless given), and which one
+    bounds it."""
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / flop_per_s
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1021,93 +1044,125 @@ def _flash_inputs(gen, shape, dtype):
             for sh in ((b, s, h, hd), (b, s, kvh, hd), (b, s, kvh, hd))]
 
 
-def _flash_bound(shape, causal, elem_bytes):
-    """Bytes: q, k, v read once, the output written once. Operations: two
-    multiply-adds (QK^T and PV) per head dimension per (query, key) pair
-    that the mask keeps: S (S + 1) / 2 pairs per (batch, head) when
-    causal."""
+def _flash_pairs(shape, causal):
+    """(query, key) pairs that the causal mask keeps, over all (batch, head)."""
+    b, s, h, _, _ = shape
+    return (s * (s + 1) // 2 if causal else s * s) * b * h
+
+
+def _flash_bound(shape, causal, elem_bytes, flop_per_s=FP32_FLOP_PER_S, pv_passes=1):
+    """Bytes: q, k, v read once, the output written once. Operations: a
+    multiply-add per head dimension per kept (query, key) pair for QK^T and
+    ``pv_passes`` for PV (three in the tensor-core kernel, one for each
+    bf16 piece of p), at ``flop_per_s``."""
     b, s, h, kvh, hd = shape
-    pairs = s * (s + 1) // 2 if causal else s * s
     return _bound_ms(elem_bytes * (2 * b * s * h * hd + 2 * b * s * kvh * hd),
-                     4 * hd * pairs * b * h)
+                     2 * hd * (1 + pv_passes) * _flash_pairs(shape, causal), flop_per_s)
 
 
 def phase_flash_attention(gen, card):
-    """The flash kernel against its plain version on the card, then timed at
-    the prefill's shape beside the plain version and PyTorch's SDPA."""
+    """Both flash kernels against their plain version on the card: the
+    tensor-core kernel (bf16) at the prefill's shape, internlm2-1.8b's
+    heads, S = 2000 windowed and hd 24; the CUDA-core kernel (fp32) at the
+    prefill's shape and at S = 2000. Then each timed at the prefill's shape
+    beside the plain version and PyTorch's SDPA, in turns."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
 
-    cases = [(FLASH_SHAPE, torch.bfloat16, True, None),
-             (FLASH_F32_SHAPE, torch.float32, True, None),
-             (FLASH_F32_SHAPE, torch.float32, False, None),
-             (FLASH_F32_SHAPE, torch.float32, True, 256)]
-    record = {}
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (shape, dtype, causal, window); the first of each kernel is its main path's
+        (FLASH_SHAPE, bf16, True, None),
+        (FLASH_WIDE_SHAPE, bf16, True, None),
+        (FLASH_F32_SHAPE, bf16, True, 256),
+        (FLASH_HD24_SHAPE, bf16, True, None),
+        (FLASH_SHAPE, f32, True, None),
+        (FLASH_F32_SHAPE, f32, True, None),
+        (FLASH_F32_SHAPE, f32, False, None),
+        (FLASH_F32_SHAPE, f32, True, 256),
+    ]
+    records = {"flash_attention_tc": {}, "flash_attention": {}}
     for shape, dtype, causal, window in cases:
         q, k, v = _flash_inputs(gen, shape, dtype)
+        ops.reset_launches()
         got = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
+        launched = {n: c for n, c in ops.launches().items() if c}
         want = fa.run_plain(q, k, v, causal=causal, window=window)
         d = (got.float() - want.float()).abs()
         max_abs = float(d.max())
-        lim = FLASH_BF16_TOL if dtype == torch.bfloat16 else FLASH_TOL
+        lim = FLASH_BF16_TOL if dtype == bf16 else FLASH_TOL
+        name = "flash_attention_tc" if dtype == bf16 else "flash_attention_fp32"
         ok = bool(torch.all(d <= lim["atol"] + lim["rtol"] * want.float().abs())
-                  and torch.isfinite(got).all())
+                  and torch.isfinite(got).all()) and launched == {name: 1}
         tol = f"per element atol {lim['atol']} rtol {lim['rtol']:.4g}"
-        if dtype == torch.bfloat16:
+        if dtype == bf16:
             # a bf16 ulp at the output's largest magnitude: 2^(floor(log2 max) - 7)
             top = float(want.float().abs().max())
             ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
             tol += (f"; {max_abs / ulp:.2f} bf16 ulp at the largest |output| {top:.3f}, "
                     f"{int((d > 0).sum())} of {d.numel()} elements differ; JAX's bf16 "
                     f"tolerance {FLASH_BF16_REFERENCE}")
-            record["max_abs_err"] = max_abs
-        print(f"kernel flash_attention {shape} {str(dtype)[6:]} causal {causal} window "
-              f"{window}: max_abs {max_abs:.3e} ({tol}) {'ok' if ok else 'MISMATCH'}",
-              flush=True)
+        record = records["flash_attention_tc" if dtype == bf16 else "flash_attention"]
+        record.setdefault("max_abs_err", max_abs)
+        print(f"kernel {name} {shape} {str(dtype)[6:]} causal {causal} window {window}: "
+              f"launches {launched}, max_abs {max_abs:.3e} ({tol}) "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
         if not ok:
-            raise SystemExit(f"flash_attention {shape} {dtype} causal {causal} window "
-                             f"{window} disagrees with its plain version")
+            raise SystemExit(f"{name} {shape} {dtype} causal {causal} window {window} "
+                             f"disagrees with its plain version or did not launch")
         del got, want, d
-    q, k, v = _flash_inputs(gen, FLASH_SHAPE, torch.bfloat16)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))  # SDPA's layout
-    ms, plain_ms = _time_in_turns(
-        lambda: fa.flash_attention_fwd(q, k, v, causal=True),
-        lambda: fa.run_plain(q, k, v, causal=True, window=None))
-    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-    bound_ms, bound_by = _flash_bound(FLASH_SHAPE, True, 2)
+
     b, s, h, _, hd = FLASH_SHAPE
-    half = 2 * hd * (s * (s + 1) // 2) * b * h  # QK^T's flops, as PV's
-    tc_ms = 1e3 * 2 * half / BF16_TC_FLOP_PER_S
-    split_ms = 1e3 * (half / BF16_TC_FLOP_PER_S + half / FP32_FLOP_PER_S)
-    print(f"  flash_attention {FLASH_SHAPE} bf16 causal: ms {ms:.4f} plain_ms "
-          f"{plain_ms:.4f} sdpa_ms {library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}, "
-          f"fp32 CUDA cores; {split_ms:.4f} with QK^T of the bf16 inputs at the bf16 "
-          f"tensor-core rate and PV of the fp32 p on the CUDA cores; {tc_ms:.4f} all at "
-          f"the bf16 tensor-core rate) [{card}]", flush=True)
-    record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                  library_ms=library_ms)
-    return {"flash_attention": record}
+    for key, dtype in (("flash_attention_tc", bf16), ("flash_attention", f32)):
+        q, k, v = _flash_inputs(gen, FLASH_SHAPE, dtype)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))  # SDPA's layout
+        ms, plain_ms, library_ms = _time_rotating([
+            (lambda: fa.flash_attention_fwd(q, k, v, causal=True), 20),
+            (lambda: fa.run_plain(q, k, v, causal=True, window=None), 10),
+            (lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                    enable_gqa=True), 20)])
+        esize = 2 if dtype == bf16 else 4
+        bytes_ms, _ = _flash_bound(FLASH_SHAPE, True, esize, flop_per_s=math.inf)
+        fp32_ms, _ = _flash_bound(FLASH_SHAPE, True, esize)
+        tc_ms, _ = _flash_bound(FLASH_SHAPE, True, esize, BF16_TC_FLOP_PER_S)
+        if dtype == bf16:
+            bound_ms, bound_by = _flash_bound(FLASH_SHAPE, True, 2, BF16_TC_FLOP_PER_S,
+                                              pv_passes=3)
+            two_ms, _ = _flash_bound(FLASH_SHAPE, True, 2, BF16_TC_FLOP_PER_S, pv_passes=2)
+            exp_ms = 1e3 * _flash_pairs(FLASH_SHAPE, True) / SFU_EXP2_PER_S
+            bounds = (f"split-p tensor work, QK^T and PV for each of p's three bf16 pieces "
+                      f"at the bf16 tensor-core rate; {two_ms:.4f} with two pieces, "
+                      f"{tc_ms:.4f} with one; exponentials {exp_ms:.4f} on the SFUs; "
+                      f"bytes {bytes_ms:.4f}; fp32 CUDA cores {fp32_ms:.4f}")
+        else:
+            bound_ms, bound_by = fp32_ms, "operations"
+            bounds = f"fp32 CUDA cores; bytes {bytes_ms:.4f}"
+        print(f"  {key} {FLASH_SHAPE} {str(dtype)[6:]} causal: ms {ms:.4f} plain_ms "
+              f"{plain_ms:.4f} sdpa_ms {library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}, "
+              f"{bounds}); {1e-9 * 4 * hd * _flash_pairs(FLASH_SHAPE, True) / ms:.1f} "
+              f"TFLOP/s of the function's 4 hd flops a kept pair [{card}]", flush=True)
+        records[key].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=library_ms)
+        del q, k, v, qt, kt, vt
+    return records
 
 
-def phase_prefill(card):
+def _prefill_check(card, cfg, label, rel_tol, kernel):
     """Full-width ``transformer.prefill`` on 4 x 2048 tokens: its main-path
-    launches (32 flash launches a call), its last-position logits against
-    the same call with the plain version in ``ops.flash_attention``'s place,
-    its time. Returns the main path's launches."""
+    launches (``kernel``, once a layer, and nothing else), its last-position
+    logits against the same call with the plain version in
+    ``ops.flash_attention``'s place, its time. Returns the launches."""
     import time
 
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as tfm
 
-    cfg = get_config("smollm-360m")
     gen = torch.Generator(device="cuda").manual_seed(1)
     params = tfm.init_params(gen, cfg, "cuda")
     tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ),
@@ -1118,14 +1173,14 @@ def phase_prefill(card):
     logits = tfm.prefill(params, cfg, tokens)
     torch.cuda.synchronize()
     launches = {k: v for k, v in ops.launches().items() if v}
-    kernel = ops.flash_attention
+    fn = ops.flash_attention
     ops.flash_attention = lambda q, k, v, *, causal=True, window=None: fa.run_plain(
         q, k, v, causal=causal, window=window)
     try:
         plain = tfm.prefill(params, cfg, tokens)
         torch.cuda.synchronize()
     finally:
-        ops.flash_attention = kernel
+        ops.flash_attention = fn
     err = float((logits - plain).abs().max())
     rel = err / float(plain.abs().max())
     # each row's argmax agrees, or parts at a tie: the plain version's
@@ -1142,21 +1197,41 @@ def phase_prefill(card):
         walls.append(1e3 * (time.perf_counter() - t0))
     ms = statistics.median(walls)
     tokens_n = PREFILL_BATCH * PREFILL_SEQ
-    ok = (launches == {"flash_attention_fwd": cfg.num_layers} and rel <= PREFILL_REL_TOL
+    ok = (launches == {kernel: cfg.num_layers} and rel <= rel_tol
           and all(m < err for m in margins) and bool(torch.isfinite(logits).all())
           and tuple(logits.shape) == (PREFILL_BATCH, 1, cfg.padded_vocab))
-    print(f"prefill {cfg.name} {cfg.num_layers} layers, {PREFILL_BATCH} x "
+    print(f"{label} {cfg.name} {cfg.num_layers} layers, {PREFILL_BATCH} x "
           f"{PREFILL_SEQ} tokens ({cfg.compute_dtype}): launches {launches}, "
           f"last-position logits vs the plain version max_abs {err:.3e} "
-          f"(relative {rel:.3e}, limit {PREFILL_REL_TOL}), "
+          f"(relative {rel:.3e}, limit {rel_tol}), "
           f"argmax agrees {agree}/{PREFILL_BATCH} (parting margins {margins}, each "
           f"must be under the error), {ms:.2f} ms a call, "
           f"{1e3 * tokens_n / ms:.0f} tokens/s [{card}] {'ok' if ok else 'FAILED'}",
           flush=True)
     if not ok:
-        raise SystemExit("prefill: launches or logits off")
+        raise SystemExit(f"{label}: launches or logits off")
     del params
     return launches
+
+
+def phase_prefill(card):
+    """SmolLM-360M's prefill as served, bf16: 32 launches of the
+    tensor-core kernel a call."""
+    from repro_torch.configs import get_config
+
+    return _prefill_check(card, get_config("smollm-360m"), "prefill", PREFILL_REL_TOL,
+                          "flash_attention_tc")
+
+
+def phase_prefill_fp32(card):
+    """The same prefill in fp32 compute: 32 launches of the CUDA-core kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("smollm-360m"), compute_dtype="float32")
+    return _prefill_check(card, cfg, "prefill fp32", PREFILL_F32_REL_TOL,
+                          "flash_attention_fp32")
 
 
 def _serve(argv, uids=None):
@@ -1313,6 +1388,7 @@ def main() -> int:
     ns.lib()
     tp.lib()
     fa.lib()
+    fa.tc_lib()
     for name in sources:
         for line in build.PTXAS_LOG.get(name, "").splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
@@ -1353,7 +1429,8 @@ def main() -> int:
         counts = phase_trainer(card, workdir)
     launches["newton_schulz"] = counts["newton_schulz_whole"] + counts["newton_schulz_tiled"]
     records.update(phase_flash_attention(gen, card))
-    launches["flash_attention"] = phase_prefill(card)["flash_attention_fwd"]
+    launches["flash_attention_tc"] = phase_prefill(card)["flash_attention_tc"]
+    launches["flash_attention"] = phase_prefill_fp32(card)["flash_attention_fp32"]
     phase_serve(card)
 
     kernels = [

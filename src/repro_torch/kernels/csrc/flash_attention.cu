@@ -1,5 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a), plain fp32 CUDA C++: the
-// attention of the prefill and of every forward that needs no gradient.
+// Flash-attention forward for Hopper (sm_90a), plain fp32 CUDA C++, for
+// fp32 inputs: the attention of every fp32 forward that needs no gradient.
+// bf16 inputs take the tensor-core kernel, flash_attention_tc.cu.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:88
 // (flash_attention_fwd, body _flash_fwd_kernel :38), reached through
@@ -9,9 +10,8 @@
 // keys and values (B, Sk, KV, hd) of KV head h / (H / KV):
 //   s_ij  = (q_i . k_j) * scale, NEG_INF unless j <= i
 //           (causal) and j > i - window (window > 0), positions from 0
-//   out_i = sum_j softmax_j(s_ij) v_j, written in q's dtype
-// q, k and v are read as bf16 or fp32 and all arithmetic is fp32, as in
-// the TPU kernel: its p stays fp32 for p @ v.
+//   out_i = sum_j softmax_j(s_ij) v_j
+// All of it in IEEE fp32, as in the TPU kernel: its p stays fp32 for p @ v.
 //
 // What differs from the TPU kernel:
 // * One CTA per (query tile of kBq rows, batch x head). The TPU's
@@ -35,16 +35,13 @@
 //
 // Bound: 4 Sq Sk hd flops per (batch, head), about half of them under the
 // causal mask, against reading q, k and v once and writing the output
-// once. At SmolLM-360M's prefill, (B, S, H, KV, hd) = (4, 2048, 15, 5, 64)
-// in bf16, that is ~32 GFLOP against ~42 MB: the fp32 operation rate
-// bounds it (0.48 ms at 67 TFLOP/s; the bf16 tensor cores would take
-// 0.033 ms, later work). The products run as 4 x 4 register blocks of
-// IEEE fp32 FMAs on the CUDA cores, fed by float4 shared-memory loads;
-// expf, no fast math.
+// once. At SmolLM-360M's prefill shape, (B, S, H, KV, hd) = (4, 2048, 15,
+// 5, 64), that is ~32 GFLOP against ~84 MB in fp32: the fp32 operation
+// rate bounds it (0.48 ms at 67 TFLOP/s). The products run as 4 x 4
+// register blocks of IEEE fp32 FMAs on the CUDA cores, fed by float4
+// shared-memory loads; expf, no fast math.
 //
 // The launcher returns cudaGetLastError().
-
-#include <cuda_bf16.h>
 
 #include "tiles.cuh"
 
@@ -57,18 +54,12 @@ constexpr int kMaxHd = 128;        // two 64-wide output column chunks
 constexpr int kFlashBlocksPerSm = 2;
 constexpr float kNegInf = -1073741824.0f;  // -2^30, models/attention.py NEG_INF
 
-__device__ inline float to_f32(float x) { return x; }
-__device__ inline float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ inline void store(float* p, float x) { *p = x; }
-__device__ inline void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
 // Output column chunks of 64: a thread owns columns cc * 64 + tx * 4 + j.
 __host__ __device__ inline int chunks(int hd) { return (hd + 63) / 64; }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, kFlashBlocksPerSm)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, int Sq, int Sk,
                  int H, int KV, int hd, int causal, int window,
                  float scale) {
   extern __shared__ float4 flash_sm[];
@@ -88,7 +79,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int e = tid; e < kBq * hd; e += kThreads) {
     const int r = e / hd, d = e - r * hd, qi = q0 + r;
     QT[d * kLd + r] =
-        qi < Sq ? to_f32(q[(static_cast<size_t>(b) * Sq + qi) * H * hd + h * hd + d]) : 0.f;
+        qi < Sq ? q[(static_cast<size_t>(b) * Sq + qi) * H * hd + h * hd + d] : 0.f;
   }
   for (int e = tid; e < kBk * ldv; e += kThreads) V[e] = 0.f;
 
@@ -116,8 +107,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float kv = 0.f, vv = 0.f;
       if (kj < Sk) {
         const size_t off = (static_cast<size_t>(b) * Sk + kj) * KV * hd + kh * hd + d;
-        kv = to_f32(k[off]);
-        vv = to_f32(v[off]);
+        kv = k[off];
+        vv = v[off];
       }
       KT[d * kLd + t] = kv;
       V[t * ldv + d] = vv;
@@ -201,13 +192,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + ty * 4 + i;
     if (qi >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* row = out + (static_cast<size_t>(b) * Sq + qi) * H * hd + h * hd;
+    float* row = out + (static_cast<size_t>(b) * Sq + qi) * H * hd + h * hd;
 #pragma unroll
     for (int cc = 0; cc < 2; ++cc)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int d = cc * 64 + tx * 4 + j;
-        if (cc < nc && d < hd) store(row + d, acc[cc][i][j] / den);
+        if (cc < nc && d < hd) row[d] = acc[cc][i][j] / den;
       }
   }
 }
@@ -224,10 +215,9 @@ int flash_attention_smem_bytes(int hd) {
 }
 
 // q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd); out: (B, Sq, H, hd); all
-// contiguous, of one dtype: fp32 (bf16 == 0) or bf16 (bf16 == 1);
-// window <= 0 means no window.
+// contiguous fp32; window <= 0 means no window.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                        int bf16, int B, int Sq, int Sk, int H, int KV, int hd,
+                        int B, int Sq, int Sk, int H, int KV, int hd,
                         int causal, int window, float scale,
                         cudaStream_t stream) {
   if (B < 0 || Sq < 0 || Sk < 0 || hd < 1 || hd > kMaxHd || KV < 1 || H % KV != 0)
@@ -235,10 +225,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
   const int blocks = B * H * ((Sq + kBq - 1) / kBq);
   void* args[] = {&q, &k, &v, &out, &Sq, &Sk, &H, &KV, &hd,
                   &causal, &window, &scale};
-  const void* kernel =
-      bf16 ? reinterpret_cast<const void*>(flash_fwd_kernel<__nv_bfloat16>)
-           : reinterpret_cast<const void*>(flash_fwd_kernel<float>);
-  return launch(kernel, flash_attention_smem_bytes(hd), blocks, stream, args);
+  return launch(reinterpret_cast<const void*>(flash_fwd_kernel),
+                flash_attention_smem_bytes(hd), blocks, stream, args);
 }
 
 }  // extern "C"

@@ -344,13 +344,13 @@ __device__ void land_tiles(const float* C, float* MT, int P4, int ld, int p,
 }
 
 int launch(const void* kernel, int smem, int B, cudaStream_t stream,
-           void** args) {
+           void** args, int threads = kThreads) {
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B > 0) {
-    err = cudaLaunchKernel(kernel, dim3(B), dim3(kThreads), args, smem, stream);
+    err = cudaLaunchKernel(kernel, dim3(B), dim3(threads), args, smem, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,19 +1,25 @@
-"""Wrapper of the flash-attention forward kernel (``csrc/flash_attention.cu``).
+"""Wrappers of the flash-attention forward kernels.
 
 ``flash_attention_fwd`` replaces ``repro/kernels/flash_attention.py:88``
-(``_flash_fwd_kernel``): one CTA per (64-row query tile, batch x head),
-a loop over 64-key tiles with the online softmax in registers, fp32
-arithmetic on bf16 or fp32 inputs, the output in q's dtype. It takes the
-model's layout directly, ``q (B, Sq, H, hd)`` and ``k``, ``v`` ``(B, Sk,
-KV, hd)`` with ``H % KV == 0``, and reads each query head's KV head in
-place (no repeat, no transpose, no padding), so ``Sk`` is the true key
-length.
+(``_flash_fwd_kernel``) and picks a kernel by dtype:
 
-On a CPU tensor it runs the plain version, ``ref.flash_attention_fwd_ref``
-on the ``(B * H, S, hd)`` layout of the JAX oracle, with the KV heads
-repeated; on a CUDA tensor it checks the operands, launches on the
-current stream and raises if the launch fails. There is no fallback. The
-wrapper counts its launches in ``.launches``.
+* bf16: ``flash_attention_tc`` (``csrc/flash_attention_tc.cu``), the bf16
+  tensor cores through ``wgmma`` with TMA-fed K/V tiles. p keeps fp32
+  quality: PV runs on p_hi and p_lo, the two bf16 halves of the fp32 p.
+* fp32: ``flash_attention_fp32`` (``csrc/flash_attention.cu``), IEEE fp32
+  on the CUDA cores.
+
+Both take the model's layout directly, ``q (B, Sq, H, hd)`` and ``k``,
+``v`` ``(B, Sk, KV, hd)`` with ``H % KV == 0``, read each query head's KV
+head in place (no repeat, no transpose, no key padding), so ``Sk`` is the
+true key length, and return the output in q's dtype.
+
+On a CPU tensor ``flash_attention_fwd`` runs the plain version,
+``ref.flash_attention_fwd_ref`` on the ``(B * H, S, hd)`` layout of the JAX
+oracle, with the KV heads repeated; on a CUDA tensor it checks the
+operands, launches one kernel on the current stream and raises if the
+launch fails. There is no fallback. Each kernel's wrapper counts its
+launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -22,22 +28,34 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import build, ref
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded ``flash_attention.cu`` library, built on first use."""
+    """The loaded ``flash_attention.cu`` library (fp32), built on first use."""
     lib_ = build.load("flash_attention")
     if not getattr(lib_, "_typed", False):
-        lib_.flash_attention_fwd.argtypes = [_P] * 4 + [_I] * 9 + [ctypes.c_float, _P]
+        lib_.flash_attention_fwd.argtypes = [_P] * 4 + [_I] * 8 + [ctypes.c_float, _P]
         lib_.flash_attention_fwd.restype = _I
         lib_.flash_attention_smem_bytes.argtypes = [_I]
         lib_.flash_attention_smem_bytes.restype = _I
+        lib_._typed = True
+    return lib_
+
+
+def tc_lib() -> ctypes.CDLL:
+    """The loaded ``flash_attention_tc.cu`` library (bf16), built on first use."""
+    lib_ = build.load("flash_attention_tc")
+    if not getattr(lib_, "_typed", False):
+        lib_.flash_attention_tc_fwd.argtypes = [_P] * 4 + [_I] * 9 + [ctypes.c_float, _P]
+        lib_.flash_attention_tc_fwd.restype = _I
+        lib_.flash_attention_tc_smem_bytes.argtypes = [_I]
+        lib_.flash_attention_tc_smem_bytes.restype = _I
         lib_._typed = True
     return lib_
 
@@ -61,6 +79,65 @@ def run_plain(q, k, v, *, causal: bool, window: Optional[int]):
     return out.reshape(b, h, sq, hd).permute(0, 2, 1, 3)
 
 
+def _raise_on(err: int, name: str, q, k) -> None:
+    if err >= 10000:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed (CUresult "
+                           f"{err - 10000}) for q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed for q {tuple(q.shape)}, "
+                           f"k {tuple(k.shape)}: cudaError {err}")
+
+
+def _launch_args(q, k, v, out):
+    """The pointers and shape that both launchers take first."""
+    b, sq, h, _ = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, h, kvh)
+
+
+def flash_attention_fp32(q, k, v, *, causal: bool, window: Optional[int]) -> torch.Tensor:
+    """The CUDA-core kernel on checked fp32 CUDA operands."""
+    hd = q.shape[-1]
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib().flash_attention_fwd(
+            *_launch_args(q, k, v, out), hd, int(causal),
+            int(window or 0), float(hd**-0.5), stream)
+    _raise_on(err, "flash_attention_fp32", q, k)
+    flash_attention_fp32.launches += 1
+    return out
+
+
+def _tma_operand(t: torch.Tensor, ld: int) -> torch.Tensor:
+    """``t`` with rows of ``ld`` columns (zeros past hd) at a 16-byte
+    aligned address, as the tensor maps need; a copy only where it is not."""
+    if t.shape[-1] != ld:
+        return F.pad(t, (0, ld - t.shape[-1]))
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def flash_attention_tc(q, k, v, *, causal: bool, window: Optional[int]) -> torch.Tensor:
+    """The tensor-core kernel on checked bf16 CUDA operands. The tensor maps
+    need rows whose bytes are a multiple of 16: a head dimension that is not
+    a multiple of 8 is padded with zero columns in a copy (no model here has
+    one)."""
+    hd = q.shape[-1]
+    if k.shape[1] < 1:
+        raise ValueError("flash_attention_tc needs at least one key")
+    ld = -(-hd // 8) * 8
+    q, k, v = (_tma_operand(t, ld) for t in (q, k, v))
+    out = torch.empty(q.shape[:-1] + (hd,), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = tc_lib().flash_attention_tc_fwd(
+            *_launch_args(q, k, v, out), ld, hd,
+            int(causal), int(window or 0), float(hd**-0.5), stream)
+    _raise_on(err, "flash_attention_tc", q, k)
+    flash_attention_tc.launches += 1
+    return out
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
     """Attention forward of ``(B, Sq, H, hd)`` queries over ``(B, Sk, KV,
@@ -69,7 +146,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}: want (B, Sq, H, hd) and two (B, Sk, KV, hd)")
     b, sq, h, hd = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
+    kvh = k.shape[2]
     if k.shape[0] != b or k.shape[3] != hd or h % kvh:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not pair")
     if window is not None and window < 1:
@@ -78,27 +155,17 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return run_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    kernels = {torch.float32: flash_attention_fp32, torch.bfloat16: flash_attention_tc}
+    if q.dtype not in kernels or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: want one of "
-                         f"{list(_DTYPES)} for all three")
+                         f"{list(kernels)} for all three")
     if not 1 <= hd <= 128:
         raise ValueError(f"head_dim {hd} outside [1, 128]")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {q.device}")
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib().flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, sq, sk, h, kvh, hd, int(causal),
-            int(window or 0), float(hd**-0.5), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"flash_attention_fwd kernel launch failed for q {tuple(q.shape)}, "
-            f"k {tuple(k.shape)}: cudaError {err}")
-    flash_attention_fwd.launches += 1
-    return out
+    return kernels[q.dtype](q, k, v, causal=causal, window=window)
 
 
-flash_attention_fwd.launches = 0
+flash_attention_fp32.launches = 0
+flash_attention_tc.launches = 0

@@ -264,7 +264,7 @@ KERNELS = (_fs.fused_step_whole, _fs.fused_step_tiled,
            _tp.tp_gram, _tp.tp_apply, _pu.pogo_update_whole,
            _pu.pogo_update_tiled, _lf.landing_field, _lf.landing_field_tiled,
            _ns.newton_schulz_whole, _ns.newton_schulz_tiled,
-           _fa.flash_attention_fwd)
+           _fa.flash_attention_fp32, _fa.flash_attention_tc)
 
 
 def launches() -> dict:
@@ -404,8 +404,10 @@ def fused_group_step_tp(x, g, eta, *, method: str, lam, base_kind: str = "none",
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """Flash-attention forward on ``(B, S, H, hd)`` GQA inputs
-    (``repro.kernels.ops.flash_attention``): the ``csrc/flash_attention.cu``
-    kernel on a CUDA tensor, its plain version on a CPU tensor. Forward
+    (``repro.kernels.ops.flash_attention``): on a CUDA tensor the
+    tensor-core kernel ``csrc/flash_attention_tc.cu`` for bf16 and the
+    CUDA-core kernel ``csrc/flash_attention.cu`` for fp32, the plain
+    version on a CPU tensor. Forward
     only: the prefill and every no-grad forward use it, training keeps the
     blocked attention of ``models/attention.py``. Unlike the TPU wrapper it
     pads nothing and repeats no KV head: the kernel masks keys past the

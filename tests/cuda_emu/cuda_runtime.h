@@ -1,8 +1,14 @@
 // CPU stand-in for <cuda_runtime.h>, for checking the logic of the port's
 // CUDA kernels on a machine without nvcc (tests/test_torch_kernel_emulation.py).
-// A block runs as 256 std::threads, __syncthreads is a std::barrier, warp
+// A block runs as std::threads (256 for the kernels built on tiles.cuh; any
+// count up to EMU_MAX_THREADS), __syncthreads is a std::barrier, warp
 // shuffles go through a buffer, and blocks run one after another. It checks
 // indexing, masking and barriers; it says nothing about speed.
+//
+// A harness either spawns a block's threads itself and calls the kernel
+// (after emu_block_begin), or registers the kernel in g_emu_kernels and
+// calls the kernel's C launcher: cudaLaunchKernel then runs the grid, so the
+// launcher's own arguments, grid and block size are checked too.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -10,14 +16,23 @@
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <functional>
+#include <map>
+#include <memory>
+#include <thread>
+#include <vector>
 using std::max;
 using std::min;
 #define __global__
 #define __device__
 #define __host__
 #define __shared__
+#define __grid_constant__
 #define __launch_bounds__(...)
 #define __restrict__
+#ifndef EMU_MAX_THREADS
+#define EMU_MAX_THREADS 384
+#endif
 struct float4 { float x, y, z, w; };
 // bf16 as 16 bits of storage; conversions as the card's intrinsics do them
 // (float -> bf16 rounds to nearest even, NaN stays NaN).
@@ -35,13 +50,19 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   u += 0x7fffu + ((u >> 16) & 1u);
   return {static_cast<uint16_t>(u >> 16)};
 }
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 struct uint3 { unsigned x, y, z; };
-extern thread_local uint3 threadIdx;
-extern uint3 blockIdx;
-extern std::barrier<>* g_bar;
-extern std::barrier<>* g_warp_bar[8];
-extern float g_xchg[256];
+inline thread_local uint3 threadIdx;
+inline uint3 blockIdx;
+inline std::barrier<>* g_bar;
+inline std::barrier<>* g_warp_bar[EMU_MAX_THREADS / 32];
+inline std::barrier<>* g_group_bar[EMU_MAX_THREADS / 128];  // warpgroups of 128
+inline float g_xchg[EMU_MAX_THREADS];
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
 inline float __shfl_xor_sync(unsigned, float v, int o) {
   int t = threadIdx.x, w = t / 32;
@@ -51,11 +72,51 @@ inline float __shfl_xor_sync(unsigned, float v, int o) {
   g_warp_bar[w]->arrive_and_wait();
   return r;
 }
+
+// The barriers of one block of `threads` threads: the block's, one per warp
+// and one per whole warpgroup. Call before spawning the block's threads.
+inline void emu_block_begin(unsigned threads) {
+  static std::vector<std::unique_ptr<std::barrier<>>> owned;
+  owned.clear();
+  auto make = [](unsigned n) {
+    owned.push_back(std::make_unique<std::barrier<>>(n));
+    return owned.back().get();
+  };
+  g_bar = make(threads);
+  for (unsigned w = 0; w < EMU_MAX_THREADS / 32; ++w)
+    g_warp_bar[w] = make(w * 32 < threads ? std::min(32u, threads - w * 32) : 32u);
+  for (unsigned g = 0; g < EMU_MAX_THREADS / 128; ++g) g_group_bar[g] = make(128);
+}
+
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 typedef void* cudaStream_t;
-struct dim3 { dim3(unsigned) {} };
+struct dim3 {
+  unsigned x;
+  dim3(unsigned x_) : x(x_) {}
+};
+// kernel -> how to call it from a cudaLaunchKernel argument array
+inline std::map<const void*, std::function<void(void**)>> g_emu_kernels;
+inline size_t g_emu_smem_limit = 232448;
 inline cudaError_t cudaFuncSetAttribute(const void*, cudaFuncAttribute, int) { return 0; }
-inline cudaError_t cudaLaunchKernel(const void*, dim3, dim3, void**, size_t, cudaStream_t) { return 0; }
+inline cudaError_t cudaLaunchKernel(const void* f, dim3 grid, dim3 block, void** args,
+                                    size_t smem, cudaStream_t) {
+  auto it = g_emu_kernels.find(f);
+  if (it == g_emu_kernels.end()) return 0;  // a harness that calls the kernel itself
+  if (block.x > EMU_MAX_THREADS || smem > g_emu_smem_limit) return cudaErrorInvalidValue;
+  for (unsigned blk = 0; blk < grid.x; ++blk) {
+    blockIdx.x = blk;
+    emu_block_begin(block.x);
+    std::vector<std::thread> threads;
+    for (unsigned t = 0; t < block.x; ++t) {
+      threads.emplace_back([&, t] {
+        threadIdx.x = t;
+        it->second(args);
+      });
+    }
+    for (auto& t : threads) t.join();
+  }
+  return 0;
+}
 inline cudaError_t cudaGetLastError() { return 0; }

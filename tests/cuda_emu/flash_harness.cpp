@@ -1,10 +1,14 @@
-// Runs the kernel of flash_attention.cu on the CPU through cuda_runtime.h here.
+// Runs the flash-attention kernels on the CPU through cuda_runtime.h and
+// hopper.cuh here: fp32 through flash_attention.cu (the CUDA-core kernel,
+// its blocks spawned here), bf16 through flash_attention_tc.cu's launcher
+// (the tensor-core kernel: tensor maps, grid and block as on the card).
 // Usage: flash_harness DIR BF16 B SQ SK H KV HD CAUSAL WINDOW SCALE
 // reads DIR/{q,k,v}.bin (float32; q (B, SQ, H, HD), k and v (B, SK, KV, HD))
 // and writes DIR/out.bin (float32). BF16 1 rounds the inputs to bf16 (exact
-// for values that are bf16 already) and runs the bf16 kernel, whose output
-// is widened back to float32.
+// for values that are bf16 already), pads rows to a multiple of 8 columns
+// with zeros as the wrapper does, and widens the bf16 output to float32.
 #include <cuda_runtime.h>
+#include <hopper.cuh>
 
 #include <cstdio>
 #include <cstdlib>
@@ -12,17 +16,13 @@
 #include <vector>
 
 namespace {
-// The kernel's `extern __shared__` array (one block runs at a time).
+// The kernels' `extern __shared__` arrays (one block runs at a time).
 float4 flash_sm[232448 / 16];
+alignas(1024) unsigned char flash_tc_smem[232448];
 }  // namespace
 
 #include "flash_attention.cu"
-
-thread_local uint3 threadIdx;
-uint3 blockIdx;
-std::barrier<>* g_bar;
-std::barrier<>* g_warp_bar[8];
-float g_xchg[256];
+#include "flash_attention_tc.cu"
 
 static std::vector<float> read(const char* dir, const char* name, size_t count) {
   std::vector<float> v(count);
@@ -35,38 +35,57 @@ static std::vector<float> read(const char* dir, const char* name, size_t count) 
   return v;
 }
 
-template <typename T>
-static void run(const std::vector<float>& qf, const std::vector<float>& kf,
-                const std::vector<float>& vf, std::vector<float>& of, int B,
-                int Sq, int Sk, int H, int KV, int hd, int causal,
-                int window, float scale) {
-  auto cast = [](const std::vector<float>& src) {
-    std::vector<T> dst(src.size());
-    for (size_t i = 0; i < src.size(); ++i) {
-      if constexpr (sizeof(T) == 2) dst[i] = __float2bfloat16_rn(src[i]);
-      else dst[i] = src[i];
-    }
-    return dst;
-  };
-  auto q = cast(qf), k = cast(kf), v = cast(vf);
-  std::vector<T> out(of.size());
+static void run_fp32(const std::vector<float>& q, const std::vector<float>& k,
+                     const std::vector<float>& v, std::vector<float>& out, int B, int Sq,
+                     int Sk, int H, int KV, int hd, int causal, int window, float scale) {
   const int blocks = B * H * ((Sq + kBq - 1) / kBq);
+  emu_block_begin(kThreads);
   for (int blk = 0; blk < blocks; ++blk) {
     blockIdx.x = blk;
     std::vector<std::thread> threads;
     for (int t = 0; t < kThreads; ++t) {
       threads.emplace_back([&, t] {
         threadIdx.x = t;
-        flash_fwd_kernel<T>(q.data(), k.data(), v.data(), out.data(), Sq, Sk, H,
-                            KV, hd, causal, window, scale);
+        flash_fwd_kernel(q.data(), k.data(), v.data(), out.data(), Sq, Sk, H, KV, hd, causal,
+                         window, scale);
       });
     }
     for (auto& t : threads) t.join();
   }
-  for (size_t i = 0; i < of.size(); ++i) {
-    if constexpr (sizeof(T) == 2) of[i] = __bfloat162float(out[i]);
-    else of[i] = out[i];
-  }
+}
+
+template <int NB>
+static void register_tc() {
+  g_emu_kernels[reinterpret_cast<const void*>(flash_tc_kernel<NB>)] = [](void** a) {
+    auto i = [a](int n) { return *static_cast<int*>(a[n]); };
+    flash_tc_kernel<NB>(*static_cast<CUtensorMap*>(a[0]), *static_cast<CUtensorMap*>(a[1]),
+                        *static_cast<CUtensorMap*>(a[2]),
+                        static_cast<__nv_bfloat16*>(*static_cast<void**>(a[3])), i(4), i(5),
+                        i(6), i(7), i(8), i(9), i(10), *static_cast<float*>(a[11]));
+  };
+}
+
+static int run_bf16(const std::vector<float>& qf, const std::vector<float>& kf,
+                    const std::vector<float>& vf, std::vector<float>& of, int B, int Sq,
+                    int Sk, int H, int KV, int hd, int causal, int window, float scale) {
+  const int ld = (hd + 7) / 8 * 8;
+  auto cast = [hd, ld](const std::vector<float>& src) {  // rows of ld, zero past hd
+    const size_t rows = src.size() / hd;
+    std::vector<__nv_bfloat16> dst(rows * ld, __nv_bfloat16{0});
+    for (size_t r = 0; r < rows; ++r)
+      for (int d = 0; d < hd; ++d) dst[r * ld + d] = __float2bfloat16_rn(src[r * hd + d]);
+    return dst;
+  };
+  auto q = cast(qf), k = cast(kf), v = cast(vf);
+  std::vector<__nv_bfloat16> out(of.size(), __float2bfloat16_rn(-7.f));
+  g_smem_base = flash_tc_smem;
+  g_smem_size = sizeof flash_tc_smem;
+  register_tc<1>();
+  register_tc<2>();
+  const int err = flash_attention_tc_fwd(q.data(), k.data(), v.data(), out.data(), B, Sq, Sk,
+                                         H, KV, ld, hd, causal, window, scale, nullptr);
+  for (size_t i = 0; i < of.size(); ++i) of[i] = __bfloat162float(out[i]);
+  return err;
 }
 
 int main(int argc, char** argv) {
@@ -80,12 +99,14 @@ int main(int argc, char** argv) {
   const size_t nk = static_cast<size_t>(B) * Sk * KV * hd;
   auto q = read(dir, "q", nq), k = read(dir, "k", nk), v = read(dir, "v", nk);
   std::vector<float> out(nq, -7.f);
-  g_bar = new std::barrier<>(kThreads);
-  for (auto& w : g_warp_bar) w = new std::barrier<>(32);
   if (bf16) {
-    run<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, KV, hd, causal, window, scale);
+    const int err = run_bf16(q, k, v, out, B, Sq, Sk, H, KV, hd, causal, window, scale);
+    if (err != 0) {
+      fprintf(stderr, "flash_attention_tc_fwd returned %d\n", err);
+      return 3;
+    }
   } else {
-    run<float>(q, k, v, out, B, Sq, Sk, H, KV, hd, causal, window, scale);
+    run_fp32(q, k, v, out, B, Sq, Sk, H, KV, hd, causal, window, scale);
   }
   char path[512];
   snprintf(path, sizeof path, "%s/out.bin", dir);

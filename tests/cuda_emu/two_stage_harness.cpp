@@ -18,12 +18,6 @@ float4 ts_tiled_sm[232448 / 16];
 
 #include "two_stage.cu"
 
-thread_local uint3 threadIdx;
-uint3 blockIdx;
-std::barrier<>* g_bar;
-std::barrier<>* g_warp_bar[8];
-float g_xchg[256];
-
 static std::vector<float> read(const char* dir, const char* name, size_t count) {
   std::vector<float> v(count);
   char path[512];
@@ -54,8 +48,7 @@ int main(int argc, char** argv) {
   std::vector<float> out(total);
   float* o = inplace ? x.data() : out.data();
   const int vec = n % 4 == 0;
-  g_bar = new std::barrier<>(kThreads);
-  for (auto& w : g_warp_bar) w = new std::barrier<>(32);
+  emu_block_begin(kThreads);
   for (int b = 0; b < B; ++b) {
     blockIdx.x = b;
     std::vector<std::thread> threads;

@@ -14,6 +14,14 @@ The Pallas wrapper pads the keys to whole blocks and masks with the
 padded length, so non-causal attention with S not a multiple of the
 block gives the zero padding keys softmax weight. The port masks with the
 true length: ``test_reference_fault_non_causal_unaligned`` pins both.
+
+The bf16 tensor-core kernel runs PV three times, on the three bf16 pieces
+of the fp32 p (p_hi, p_mid, p_lo): ``test_split_p_keeps_fp32_p_to_one_output_ulp``
+holds a plain attention that does the same to the JAX oracle (fp32 p) at
+one output ulp per element (atol 1e-6 / rtol 1/64, the kernel's card
+tolerance), and shows that p in bf16 alone misses it. Two pieces pass at
+these shapes but missed on a few outputs near zero per million on the
+card at the prefill's shapes (4 x 2048 tokens).
 """
 
 import jax.numpy as jnp
@@ -149,7 +157,60 @@ def test_wrapper_checks_operands_and_counts_no_cpu_launch():
         tfa.flash_attention_fwd(q, k, k)  # 4 heads over 3 KV heads
     with pytest.raises(ValueError):
         tfa.flash_attention_fwd(q, q, q, window=0)
-    before = tfa.flash_attention_fwd.launches
+    before = tops.launches()
     tfa.flash_attention_fwd(q, q, q)
-    assert tfa.flash_attention_fwd.launches == before  # the plain version ran
-    assert "flash_attention_fwd" in tops.launches()
+    tfa.flash_attention_fwd(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    assert tops.launches() == before  # the plain version ran, for both dtypes
+    assert {"flash_attention_fp32", "flash_attention_tc"} <= set(tops.launches())
+
+
+ULP_TOL = dict(atol=1e-6, rtol=1 / 64)  # one bf16 output ulp per element
+
+
+def _plain_split_attention(q, k, v, *, causal, window, pieces):
+    """Attention on ``(BH, S, hd)`` in fp32 whose PV takes p as the
+    tensor-core kernel does: p = exp(s - rowmax) in fp32, l its fp32 row
+    sum, the output (sum over the pieces of P_c V) / l, where each piece is
+    the bf16 rounding of what the pieces before it leave of p (three in
+    the kernel; one is p in bf16)."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    sq, sk, hd = q.shape[1], k.shape[1], q.shape[-1]
+    s = (qf @ kf.transpose(-1, -2)) * hd**-0.5
+    q_pos = torch.arange(sq)[:, None]
+    k_pos = torch.arange(sk)[None, :]
+    mask = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window is not None:
+        mask = mask & (k_pos > q_pos - window)
+    s = torch.where(mask[None], s, tref.NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    out = torch.zeros_like(qf)
+    for _ in range(pieces):
+        piece = p.bfloat16().float()
+        out = out + piece @ vf
+        p = p - piece
+    return (out / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def _flat(arrs):
+    """Model-layout numpy inputs -> ``(B * H, S, hd)`` with KV heads repeated."""
+    q, k, v = (torch.from_numpy(a) for a in arrs)
+    groups = q.shape[2] // k.shape[2]
+    k, v = (t.repeat_interleave(groups, dim=2) for t in (k, v))
+    return [tfa._heads_first(t).numpy() for t in (q, k, v)]
+
+
+@pytest.mark.parametrize("shape,causal,window", CASES)
+def test_split_p_keeps_fp32_p_to_one_output_ulp(shape, causal, window):
+    flat = _flat(_qkv(*shape, seed=4, bf16=True))
+    want = _jax(jref.flash_attention_fwd_ref, flat, bf16=True, causal=causal,
+                window=window)
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in flat)
+    got = _plain_split_attention(q, k, v, causal=causal, window=window, pieces=3)
+    np.testing.assert_allclose(got.float().numpy(), want, **ULP_TOL)
+    one = _plain_split_attention(q, k, v, causal=causal, window=window, pieces=1)
+    err = np.abs(one.float().numpy() - want)
+    missed = int((err > ULP_TOL["atol"] + ULP_TOL["rtol"] * np.abs(want)).sum())
+    assert missed > 0, "p in bf16 alone kept one output ulp: the split would buy nothing"

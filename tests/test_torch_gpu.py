@@ -12,9 +12,10 @@ whole, atol 3e-5 / rtol 1e-4 tiled; for the two-stage kernels
 tiled, each case saying where it differs; for Newton-Schulz atol 1e-6
 (``tests/test_kernels.py:54-61``). The Landing branches of the fused
 kernels and the TP kernels take the fused tolerances. The flash-attention
-kernel takes ``tests/test_flash_kernel.py``'s: fp32 atol 2e-5 / rtol
-1e-4; bf16 one output ulp (the kernel and its plain version both keep
-fp32 inside and round once at the end), held at 1/64 relative.
+kernels take ``tests/test_flash_kernel.py``'s: fp32 atol 2e-5 / rtol
+1e-4; bf16 one output ulp (the tensor-core kernel and its plain version
+both keep p to fp32 quality and round once at the end), held at 1/64
+relative.
 """
 
 import importlib.util
@@ -617,6 +618,14 @@ FLASH_CASES = [  # (B, S, H, KV, hd), dtype, causal, window
     ((1, 300, 2, 2, 128), torch.float32, True, 1),
     ((2, 333, 15, 5, 64), torch.bfloat16, True, None),
     ((1, 64, 2, 1, 24), torch.bfloat16, False, 8),
+    # the tensor-core kernel at the prefill's shape and more
+    ((4, 2048, 15, 5, 64), torch.bfloat16, True, None),   # SmolLM-360M's prefill
+    ((1, 2048, 16, 8, 128), torch.bfloat16, True, None),  # internlm2-1.8b's heads
+    ((1, 2000, 15, 5, 64), torch.bfloat16, True, 256),    # S not a multiple of 128, window
+    ((1, 333, 4, 2, 40), torch.bfloat16, True, None),     # hd 40 in one zero-filled box
+    ((1, 300, 2, 1, 24), torch.bfloat16, True, 100),      # hd 24, window across tiles
+    ((2, 300, 2, 2, 96), torch.bfloat16, False, None),    # hd 96: two boxes, one half empty
+    ((1, 130, 2, 1, 5), torch.bfloat16, True, None),      # hd 5: rows padded to 8 in a copy
 ]
 
 
@@ -627,10 +636,11 @@ def test_flash_kernel_matches_plain(cuda, shape, dtype, causal, window):
     q = torch.randn((b, s, h, hd), generator=gen, device=cuda).to(dtype)
     k = torch.randn((b, s, kvh, hd), generator=gen, device=cuda).to(dtype)
     v = torch.randn((b, s, kvh, hd), generator=gen, device=cuda).to(dtype)
-    before = tfa.flash_attention_fwd.launches
+    kernel = tfa.flash_attention_tc if dtype == torch.bfloat16 else tfa.flash_attention_fp32
+    tops.reset_launches()
     got = tops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert tfa.flash_attention_fwd.launches == before + 1
+    assert {n: c for n, c in tops.launches().items() if c} == {kernel.__name__: 1}
     want = tfa.run_plain(q, k, v, causal=causal, window=window)
     assert got.dtype == dtype and got.shape == q.shape
     if dtype == torch.float32:
@@ -641,13 +651,17 @@ def test_flash_kernel_matches_plain(cuda, shape, dtype, causal, window):
 
 def test_flash_kernel_true_length_and_bad_operands(cuda):
     """More keys than queries, non-causal, at no multiple of the tile:
-    every key takes its weight and none past Sk does."""
+    every key takes its weight and none past Sk does, in both kernels."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn((1, 50, 2, 16), generator=gen, device=cuda)
     k = torch.randn((1, 90, 2, 16), generator=gen, device=cuda)
     got = tfa.flash_attention_fwd(q, k, k, causal=False)
     want = tfa.run_plain(q, k, k, causal=False, window=None)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+    qb, kb = q.bfloat16(), k.bfloat16()
+    got = tfa.flash_attention_fwd(qb, kb, kb, causal=False)
+    want = tfa.run_plain(qb, kb, kb, causal=False, window=None)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-6, rtol=1 / 64)
     with pytest.raises(ValueError):
         tfa.flash_attention_fwd(q, q.half(), q.half())
     with pytest.raises(ValueError):
@@ -656,6 +670,11 @@ def test_flash_kernel_true_length_and_bad_operands(cuda):
     with pytest.raises(ValueError):
         tfa.flash_attention_fwd(wide, wide, wide)
     assert tfa.lib().flash_attention_smem_bytes(64) == 4 * (2 * 64 * 68 + 64 * 64 + 64 * 68)
+    # Q and two stages of K and V, 16 KB a 64-column box, five barriers,
+    # room to align: one box of hd up to 64, two up to 128
+    for hd, boxes in ((64, 1), (128, 2)):
+        want_bytes = 5 * boxes * 128 * 64 * 2 + 5 * 8 + 1024
+        assert tfa.tc_lib().flash_attention_tc_smem_bytes(hd) == want_bytes
 
 
 def _smoke_model():
@@ -685,7 +704,7 @@ def test_prefill_on_card_matches_cpu(cuda):
     toks = torch.randint(0, cfg.vocab_size, (2, 130), generator=torch.Generator().manual_seed(1))
     ops.reset_launches()
     got = tfm.prefill(dev_params, cfg, toks.to(cuda))
-    assert ops.launches()["flash_attention_fwd"] == cfg.num_layers
+    assert ops.launches()["flash_attention_fp32"] == cfg.num_layers
     want = tfm.prefill(params, cfg, toks)
     torch.testing.assert_close(got.cpu(), want, atol=5e-4, rtol=1e-3)
 

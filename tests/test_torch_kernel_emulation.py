@@ -5,12 +5,15 @@ No ``nvcc`` is needed: ``tests/cuda_emu/harness.cpp`` (POGO) and
 ``ns_harness.cpp`` and ``tp_harness.cpp`` compile
 ``src/repro_torch/kernels/csrc/fused_step.cu``, ``two_stage.cu``,
 ``newton_schulz.cu``, ``tp_step.cu`` and (``flash_harness.cpp``)
-``flash_attention.cu`` with
+``flash_attention.cu`` (fp32) and ``flash_attention_tc.cu`` (bf16) with
 the host C++ compiler against ``tests/cuda_emu/cuda_runtime.h``, which
-runs each block as 256 threads with ``std::barrier`` for
-``__syncthreads``. That checks the kernels' indexing, edge masking,
-barriers and in-place aliasing at small shapes; the card checks them
-again (``tests/test_torch_gpu.py``, ``chip_smoke.py``). Tolerance: atol
+runs each block as threads (256, or the launch's count) with
+``std::barrier`` for ``__syncthreads``, and ``tests/cuda_emu/hopper.cuh``,
+scalar stand-ins of the TMA loads, mbarriers and ``wgmma`` products that
+follow the PTX ISA's fragment layouts and 128-byte swizzle. That checks
+the kernels' indexing, edge masking, barriers, pipelines and in-place
+aliasing at small shapes; the card checks them again
+(``tests/test_torch_gpu.py``, ``chip_smoke.py``). Tolerance: atol
 3e-5 / rtol 1e-4 for the fused kernels, the tiled-kernel tolerance of
 ``tests/test_fused_step.py``; for the two-stage kernels the tolerances of
 ``tests/test_kernels.py``, atol 1e-6 / rtol 1e-6 whole and 2e-5 / 1e-4
@@ -401,7 +404,14 @@ def flash_harness(tmp_path_factory):
     ((2, 150, 4, 2, 32), 150, True, 40, False),       # window across tiles
     ((1, 80, 1, 1, 128), 80, True, 16, False),        # two output chunks
     ((1, 50, 2, 1, 24), 90, False, None, False),      # more keys than queries
-    ((1, 70, 2, 2, 64), 70, True, None, True),        # bf16
+    # bf16: the tensor-core kernel
+    ((1, 70, 2, 2, 64), 70, True, None, True),        # one tile
+    ((1, 300, 2, 1, 128), 300, True, None, True),     # hd 128: two boxes, N = 128
+    ((1, 50, 2, 1, 24), 90, False, None, True),       # hd 24 in one zero-filled box, Sk > Sq
+    ((1, 333, 3, 1, 40), 333, True, 100, True),       # window across tiles, group 3
+    ((1, 200, 2, 2, 32), 400, False, 60, True),       # Sk > Sq, windowed, non-causal
+    ((1, 600, 2, 1, 64), 600, True, None, True),      # five tiles: the stage ring reused
+    ((1, 130, 2, 1, 5), 130, True, None, True),       # hd 5, rows padded to 8
 ])
 def test_flash_kernel_emulated(flash_harness, tmp_path, shape, sk, causal, window,
                                bf16):
@@ -415,7 +425,7 @@ def test_flash_kernel_emulated(flash_harness, tmp_path, shape, sk, causal, windo
     res = subprocess.run(
         [str(flash_harness), str(tmp_path), str(int(bf16)), str(b), str(s), str(sk),
          str(h), str(kvh), str(hd), str(int(causal)), str(window or 0),
-         repr(float(hd**-0.5))], capture_output=True, text=True)
+         repr(float(hd**-0.5))], capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr
     got = np.fromfile(tmp_path / "out.bin", np.float32).reshape(b, s, h, hd)
     want = tfa.run_plain(q, k, v, causal=causal, window=window).float().numpy()

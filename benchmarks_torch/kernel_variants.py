@@ -43,8 +43,9 @@ def _card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def _build(label, path, caps, build):
-    """Compile ``path`` with the register caps ``caps`` into a library."""
+def _build(label, path, caps, build, includes=()):
+    """Compile ``path`` with the register caps ``caps`` into a library;
+    headers are looked up beside ``path``, then in ``includes``."""
     src = open(path).read()
     for const, value in zip(("kWholeBlocksPerSm", "kTiledBlocksPerSm"), caps):
         if value != "-":
@@ -56,7 +57,8 @@ def _build(label, path, caps, build):
     res = subprocess.run(  # -I: the headers beside the original source
         [build.nvcc_path(), *build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-         f"-I{os.path.dirname(os.path.abspath(path))}", "-o", so, cu],
+         f"-I{os.path.dirname(os.path.abspath(path))}", *(f"-I{d}" for d in includes),
+         "-o", so, cu],
         capture_output=True, text=True,
     )
     if res.returncode != 0:

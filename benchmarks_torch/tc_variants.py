@@ -1,0 +1,121 @@
+#!/usr/bin/env python3
+"""Time variants of the tensor-core fused step on the card, in one call.
+
+    python3 benchmarks_torch/tc_variants.py [--source LABEL=PATH ...]
+        [--shape B,P,N ...] [--reps 5] [--iters 50]
+
+Builds each ``--source`` (a copy of ``csrc/fused_step_tc.cu``; default the
+checkout's own), compiled against the checkout's headers, and runs POGO
+over VAdam and Landing over trace(0.1) at each ``--shape`` (default
+SmolLM-360M's 640 x (64, 960)) through each build, held against the plain
+version (atol 3e-5 / rtol 1e-4), beside the checkout's CUDA-core tiled
+kernel (``fused_step_tiled`` at the planner's tile for p, ``ops.tiled_tile_n``)
+as a yardstick: the readings that set where ``ops.plan`` sends a p. Prints the median, least and most of ``--reps``
+CUDA-event timings of ``--iters`` launches each (the builds take turns),
+the ptxas register and spill lines, and the card's name and power limit.
+Two sources compare fairly only inside one call: the card's clocks move
+between calls. Needs one CUDA card; exits 2 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import functools
+import itertools
+import os
+import statistics
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+sys.path.insert(0, HERE)
+
+import kernel_variants as kv  # noqa: E402  (the build and timing helpers)
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--source", action="append", default=[],
+                    help="LABEL=PATH of a fused_step_tc.cu to build (repeatable)")
+    ap.add_argument("--shape", action="append", default=[],
+                    help="B,P,N of a stack to time (repeatable; default 640,64,960)")
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--iters", type=int, default=50, help="launches per timing")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("tc_variants: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core import stiefel
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import fused_step as fs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(kv._card(), flush=True)
+    os.makedirs(kv.OUT, exist_ok=True)
+    sources = [s.split("=", 1) for s in args.source] or [
+        ("current", str(build.CSRC / "fused_step_tc.cu"))]
+
+    def make(job):  # a copy elsewhere finds the checkout's headers through -I
+        label, path = job
+        return kv._build(label, path, (), build, includes=(str(build.CSRC),))
+
+    with ThreadPoolExecutor(len(sources)) as ex:  # one nvcc per build, together
+        builds = list(ex.map(make, sources))
+    entries = {}
+    for tag, so, regs in builds:
+        lib = ctypes.CDLL(so)
+        lib.fused_step_tc.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + \
+            [ctypes.c_void_p]
+        lib.fused_step_tc.restype = ctypes.c_int
+        entries[tag] = lib.fused_step_tc
+        print(tag, *regs, sep="\n  ", flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = [tuple(int(v) for v in s.split(",")) for s in args.shape] or [(640, 64, 960)]
+    bad = 0
+    for (b, p, n), (method, base, hyper) in itertools.product(
+            shapes, (("pogo", "vadam", (0.9, 0.999, 1e-8)), ("landing", "trace", (0.1, False)))):
+        x = stiefel.random_stiefel(gen, (b, p, n), device="cuda")
+        if method == "landing":
+            x += 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
+        g = 0.2 * torch.randn((b, p, n), generator=gen, device="cuda")
+        mu = 0.1 * torch.randn((b, p, n), generator=gen, device="cuda")
+        nu = torch.rand((b,), generator=gen, device="cuda")
+        kw = dict(method=method, lam=0.5 if method == "pogo" else 1.0, base_kind=base,
+                  hyper=hyper, post_scale=1.0, mu=mu, nu=nu if base == "vadam" else None,
+                  count=torch.tensor(3, dtype=torch.int32, device="cuda"), pv=None)
+        want = ref.fused_group_step_ref(x, g, 0.1, **kw)
+        runs = {tag: functools.partial(fs._launch, entry, x, g, 0.1, inplace=False, **kw)
+                for tag, entry in entries.items()}
+        for tag, run in runs.items():
+            got = run()
+            torch.cuda.synchronize()
+            ok = all(torch.allclose(a, w, atol=3e-5, rtol=1e-4)
+                     for a, w in zip(got[:4], want[:4]) if w is not None)
+            bad += not ok
+            err = max(float((a - w).abs().max()) for a, w in zip(got[:4], want[:4])
+                      if w is not None)
+            print(f"{method}+{base} {b}x({p},{n}) {tag}: max_abs {err:.3e} "
+                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        tile_n = ops.tiled_tile_n(p)
+        runs[f"cuda-core fused_step_tiled tile {tile_n}"] = functools.partial(
+            fs.fused_step_tiled, x, g, 0.1, tile_n=tile_n, **kw)
+        times = {tag: [] for tag in runs}
+        for _ in range(args.reps):  # builds in turns, so drift hits them alike
+            for tag, run in runs.items():
+                times[tag].append(kv._time_ms(run, args.iters))
+        for tag, ts in times.items():
+            print(f"{method}+{base} {b}x({p},{n}) {tag}: ms median "
+                  f"{statistics.median(ts):.4f} min {min(ts):.4f} max {max(ts):.4f}",
+                  flush=True)
+        del x, g, mu, nu, want
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,8 +7,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all at once), holds each kernel against its plain
 PyTorch version on the card, then drives the port's three main paths with
 ``constraint_step`` at the full width of SmolLM-360M's constrained q/k
-projections (one 640 x (64, 960) stack, the tiled kernels) and at the
-many-matrices shape 2048 x (16, 256) (the whole kernels):
+projections (one 640 x (64, 960) stack: the tensor-core fused kernels of
+``fused_step_tc.cu``, 3xTF32 ``wgmma`` on TMA-fed tiles, after a one-
+``wgmma`` probe of the card's TF32 reading; the tiled two-stage kernels),
+at the many-matrices shape 2048 x (16, 256) (the whole kernels) and, for
+the fused step, at internlm2-1.8b's q/k, one 576 x (128, 2048) stack (p >
+64: the CUDA-core tiled kernels):
 
 * the fused group step, ``orthogonal("pogo", use_kernel=True,
   base_optimizer=chain(trace(0.9)))``;
@@ -26,7 +30,9 @@ many-matrices shape 2048 x (16, 256) (the whole kernels):
   after a 1.5x drift, which must repair every matrix.
 
 Each path's kernels must launch once per step, its first step must agree
-with the plain route, and its feasibility must hold. The Newton-Schulz
+with the plain route, and its feasibility must hold. The tensor-core
+kernels are launched 20 times each on the same inputs, half of them
+beside a copy on another stream, and must repeat bit for bit. The Newton-Schulz
 kernels are held against their plain version with half the matrices
 masked off. The tensor-parallel step: its two kernels against their plain
 versions at a rank's share of the q/k stack at width 2, 640 x (64, 480),
@@ -86,6 +92,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_TC_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak
+TF32_TC_FLOP_PER_S = 495e12  # dense TF32 tensor-core peak
 # exp2 on the SFUs: 16 a clock on each of the 132 SMs at the 1.83 GHz that
 # the tensor-core peak assumes (989e12 = 132 x 4096 flops x 1.83e9)
 SFU_EXP2_PER_S = 16 * 132 * 1.83e9
@@ -98,6 +105,13 @@ LR = 0.1
 GRAD_SCALE = 5e-4  # per-entry gradient std: keeps eta ||R|| near 1e-2
 SMOLLM_STEPS = 10
 MANY = {"w": (2048, 16, 256)}
+# internlm2-1.8b's constrained q/k projections (src/repro/configs/
+# internlm2_1_8b.py: 24 layers, 16 heads and 8 KV heads of head_dim 128,
+# d_model 2048), one 576 x (128, 2048) stack: the widest published p the
+# CUDA-core tiled fused kernels take (ops.plan, tile 16), where they run
+# since the tensor-core kernel took 32 <= p <= 64.
+INTERNLM2 = {"q_proj": (24, 16, 128, 2048), "k_proj": (24, 8, 128, 2048)}
+WIDE_SHAPE = (576, 128, 2048)
 # kernel -> (its source, the TPU kernel it replaces)
 KERNELS = {
     "fused_step_whole": ("fused_step", "src/repro/kernels/fused_step.py:175"),
@@ -109,6 +123,8 @@ KERNELS = {
     "newton_schulz": ("newton_schulz", "src/repro/kernels/newton_schulz.py:37"),
     "fused_step_whole_landing": ("fused_step", "src/repro/kernels/fused_step.py:164"),
     "fused_step_tiled_landing": ("fused_step", "src/repro/kernels/fused_step.py:559"),
+    "fused_step_tiled_tc": ("fused_step_tc", "src/repro/kernels/fused_step.py:608"),
+    "fused_step_tiled_tc_landing": ("fused_step_tc", "src/repro/kernels/fused_step.py:559"),
     "tp_gram": ("tp_step", "src/repro/kernels/fused_step.py:304"),
     "tp_apply": ("tp_step", "src/repro/kernels/fused_step.py:417"),
     "flash_attention": ("flash_attention", "src/repro/kernels/flash_attention.py:88"),
@@ -192,6 +208,14 @@ def _errors(got, want, tol):
     return max_abs, max_rel, ok
 
 
+def _errors_by_output(got, want):
+    """Max abs error of each fused-step output that exists: X', mu', nu' and
+    the distance."""
+    return {k: float((a - b).abs().max())
+            for k, a, b in zip(("x", "mu", "nu", "dist"), got[:4], want[:4])
+            if b is not None}
+
+
 def _time_ms(fn, iters):
     import torch
 
@@ -234,13 +258,44 @@ def _bound_ms(bytes_, flops, flop_per_s=FP32_FLOP_PER_S):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _bound(b, p, n, base_kind):
+def _bound(b, p, n, base_kind, pieces=0):
     """One fused step: 5 HBM passes of the (B, p, n) fp32 operands (read X,
     g, mu; write X', mu') plus the per-matrix scalars, against six
-    p x p x n products (12 p^2 n flops per matrix)."""
+    p x p x n products (12 p^2 n flops per matrix) in fp32 on the CUDA
+    cores, or (``pieces`` 3) as 3xTF32 on the tensor cores."""
     passes = 5 if base_kind != "none" else 3
     scalars = (3 if base_kind == "vadam" else 1) * b * 4
-    return _bound_ms(passes * b * p * n * 4 + scalars, 12 * p * p * n * b)
+    flops = 12 * p * p * n * b
+    if pieces:
+        return _bound_ms(passes * b * p * n * 4 + scalars, pieces * flops, TF32_TC_FLOP_PER_S)
+    return _bound_ms(passes * b * p * n * 4 + scalars, flops)
+
+
+def phase_tf32_probe(card):
+    """One TF32 wgmma (``fused_step_tc.cu``'s probe): the register fragment
+    and the shared-memory operands against a @ b^T on small integers (a
+    wrong layout fails the run), then how the card reads an operand's low
+    13 bits and rounds a sum, printed."""
+    import torch
+
+    from repro_torch.kernels import fused_step as fs
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randint(-8, 9, (64, 8), generator=gen, device="cuda").float()
+    b = torch.randint(-8, 9, (64, 8), generator=gen, device="cuda").float()
+    exact = all(torch.equal(fs.tf32_probe(a, b, a_regs=r), a @ b.T) for r in (False, True))
+    a, b = torch.zeros((64, 8), device="cuda"), torch.zeros((64, 8), device="cuda")
+    a[:, 0], b[:, 0] = 1.0 + 0.75 * 2.0**-10, 1.0  # 0.75 of a TF32 ulp past 1
+    op = {float(fs.tf32_probe(a, b, a_regs=r)[0, 0]) for r in (False, True)}
+    a[:, 0], a[:, 1], b[:, 1] = 1.0, 1.5 * 2.0**-24, 1.0  # a sum 0.75 fp32 ulp past 1
+    acc = {float(fs.tf32_probe(a, b, a_regs=r)[0, 0]) for r in (False, True)}
+    reading = {1.0: "dropped (truncated)", 1.0 + 2.0**-10: "rounded to nearest"}
+    summing = {1.0: "toward zero", 1.0 + 2.0**-23: "to nearest"}
+    print(f"tf32 probe: fragment layout and operands exact {exact}; an operand's low 13 "
+          f"bits {[reading.get(v, v) for v in sorted(op)]}; 1 + 0.75 ulp summed "
+          f"{[summing.get(v, v) for v in sorted(acc)]} [{card}]", flush=True)
+    if not exact:
+        raise SystemExit("tf32 probe: the wgmma fragment layout or operands are wrong")
 
 
 def _operands(gen, b, p, n):
@@ -255,68 +310,174 @@ def _operands(gen, b, p, n):
     return x, g, mu, nu
 
 
+def _ragged(gen, x, g, mu, p):
+    """Per-matrix valid-row counts in [1, p] and the stacks zeroed past them."""
+    import torch
+
+    pv = torch.randint(1, p + 1, (x.shape[0],), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    rows = torch.arange(p, device="cuda")[None, :, None] < pv[:, None, None]
+    return pv, *(torch.where(rows, a, 0.0) for a in (x, g, mu))
+
+
 def phase_fused_kernels(gen):
     """Each fused kernel, POGO and Landing branches, against the plain
-    version at the main-path shapes (the first case of each kernel)."""
+    version at the main-path shapes (the first case of each kernel, timed):
+    the whole kernels at 2048 x (16, 256), the tensor-core kernels at
+    SmolLM's 640 x (64, 960) (every base, in place, ragged), the CUDA-core
+    tiled kernels at internlm2-1.8b's 576 x (128, 2048) (their main path:
+    trace first, the planner's tile) and at 640 x (64, 960), where they ran
+    before the tensor-core kernel (checked here, and timed beside it).
+    Each output's error is printed apart: X', mu', nu' and the distance."""
     import torch
 
     from repro_torch.kernels import fused_step as fs
     from repro_torch.kernels import ops, ref
 
-    cases = [
-        ("fused_step_whole", 2048, 16, 256, "trace", (0.9, False)),
-        ("fused_step_whole", 256, 16, 256, "vadam", (0.9, 0.999, 1e-8)),
-        ("fused_step_whole", 256, 16, 256, "none", ()),
-        ("fused_step_tiled", 640, 64, 960, "trace", (0.9, False)),
-        ("fused_step_tiled", 640, 64, 960, "vadam", (0.9, 0.999, 1e-8)),
-        ("fused_step_tiled", 640, 64, 960, "trace", (0.9, True)),
+    tc_shape = (640, 64, 960)
+    cases = [  # (kernel, (B, p, n), base, hyper, variant)
+        ("fused_step_whole", (2048, 16, 256), "trace", (0.9, False), ""),
+        ("fused_step_whole", (256, 16, 256), "vadam", (0.9, 0.999, 1e-8), ""),
+        ("fused_step_whole", (256, 16, 256), "none", (), ""),
+        ("fused_step_tiled_tc", tc_shape, "vadam", (0.9, 0.999, 1e-8), ""),
+        ("fused_step_tiled_tc", tc_shape, "trace", (0.9, False), ""),
+        ("fused_step_tiled_tc", tc_shape, "trace", (0.9, True), ""),
+        ("fused_step_tiled_tc", tc_shape, "vadam", (0.9, 0.999, 1e-8), "in place"),
+        ("fused_step_tiled_tc", tc_shape, "trace", (0.9, False), "ragged"),
+        ("fused_step_tiled", WIDE_SHAPE, "trace", (0.9, False), ""),
+        ("fused_step_tiled", WIDE_SHAPE, "vadam", (0.9, 0.999, 1e-8), ""),
+        ("fused_step_tiled", tc_shape, "trace", (0.9, False), ""),
     ]
-    for b, p, n in ((2048, 16, 256), (640, 64, 960)):
+    for b, p, n in ((2048, 16, 256), tc_shape):
         kind = ops.plan(p, n)[0]
+        name = "fused_step_whole_landing" if kind == "whole" else "fused_step_tiled_tc_landing"
         for base, hyper in (("trace", (0.1, False)), ("none", ()),
                             ("trace", (0.5, True)), ("vadam", (0.9, 0.999, 1e-8))):
-            cases.append((f"fused_step_{kind}_landing", b, p, n, base, hyper))
+            cases.append((name, (b, p, n), base, hyper, ""))
+    cases += [
+        ("fused_step_tiled_tc_landing", tc_shape, "vadam", (0.9, 0.999, 1e-8), "in place"),
+        ("fused_step_tiled_tc_landing", tc_shape, "trace", (0.1, False), "ragged"),
+        ("fused_step_tiled_landing", WIDE_SHAPE, "trace", (0.1, False), ""),
+        ("fused_step_tiled_landing", WIDE_SHAPE, "vadam", (0.9, 0.999, 1e-8), ""),
+        ("fused_step_tiled_landing", tc_shape, "trace", (0.1, False), ""),
+    ]
     records = {}
-    for name, b, p, n, base, hyper in cases:
+    for name, (b, p, n), base, hyper, variant in cases:
         landing = name.endswith("_landing")
+        method = "landing" if landing else "pogo"
         x, g, mu, nu = _operands(gen, b, p, n)
         if landing:  # off the manifold, so that lam (A X - X) is visible
             x += 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
-        kw = dict(method="landing" if landing else "pogo", lam=1.0 if landing else 0.5,
+        pv = None
+        if variant == "ragged":
+            pv, x, g, mu = _ragged(gen, x, g, mu, p)
+        kw = dict(method=method, lam=1.0 if landing else 0.5,
                   base_kind=base, hyper=hyper,
                   mu=mu if base != "none" else None,
                   nu=nu if base == "vadam" else None,
-                  count=torch.tensor(3, dtype=torch.int32, device="cuda"))
+                  count=torch.tensor(3, dtype=torch.int32, device="cuda"), pv=pv)
         tol = WHOLE_TOL if "whole" in name else TILED_TOL
-        kind, tile_n = ops.plan(p, n)  # the tile the main path runs
-        if f"fused_step_{kind}" != name.removesuffix("_landing"):
+        kind, tile_n = ops.plan(p, n)  # the kernel and tile the main path runs
+        entry = name.removesuffix("_landing")
+        planned = {"whole": "fused_step_whole", "tc": "fused_step_tiled_tc",
+                   "tiled": "fused_step_tiled"}[kind]
+        if entry == "fused_step_tiled" and kind == "tc":
+            tile_n = ops.tiled_tile_n(p)  # where it ran before the tensor-core kernel
+        elif planned != entry:
             raise SystemExit(f"the planner picks {kind} for ({p}, {n}), not {name}")
-        wrapper = getattr(fs, name.removesuffix("_landing"))
-        if kind == "tiled":
+        wrapper = getattr(fs, entry)
+        if entry == "fused_step_tiled":
             wrapper = functools.partial(wrapper, tile_n=tile_n)
+        want = ref.fused_group_step_ref(x, g, LR, **kw)
+        torch.cuda.synchronize()
         before = getattr(fs, name).launches
-        got = wrapper(x, g, LR, **kw)
+        if variant == "in place":
+            got = wrapper(x, g, LR, inplace=True, **kw)
+            if got[0] is not x or (base != "none" and got[1] is not mu):
+                raise SystemExit(f"{name} in place returned new tensors")
+        else:
+            got = wrapper(x, g, LR, **kw)
         if getattr(fs, name).launches != before + 1:
             raise SystemExit(f"{name} did not count its launch")
         torch.cuda.synchronize()
-        want = ref.fused_group_step_ref(x, g, LR, **kw)
         max_abs, max_rel, ok = _errors(got, want, tol)
-        print(f"kernel {name} {b}x({p},{n}) {base}{hyper}: max_abs {max_abs:.3e} "
-              f"max_rel {max_rel:.3e} (atol {tol['atol']}, rtol {tol['rtol']}) "
-              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        by_output = _errors_by_output(got, want)
+        print(f"kernel {name} {b}x({p},{n}) {base}{hyper}{' ' + variant if variant else ''}: "
+              f"max_abs {max_abs:.3e} max_rel {max_rel:.3e} (atol {tol['atol']}, rtol "
+              f"{tol['rtol']}) {'ok' if ok else 'MISMATCH'}; max_abs by output "
+              f"{ {k: f'{v:.3e}' for k, v in by_output.items()} }", flush=True)
         if not ok:
             raise SystemExit(f"{name} disagrees with its plain version")
-        if name not in records:  # the first case of each kernel is its main-path shape
-            ms, plain_ms = _time_in_turns(
-                lambda: wrapper(x, g, LR, **kw),
-                lambda: ref.fused_group_step_ref(x, g, LR, **kw))
-            bound_ms, bound_by = _bound(b, p, n, base)
+        if name not in records and planned == entry:  # the main path's shape and base
+            tc = "_tc" in name
+            timed = [(lambda: ref.fused_group_step_ref(x, g, LR, **kw), 10),
+                     (lambda: wrapper(x, g, LR, **kw), 20)]
+            if tc:  # the CUDA-core tiled kernel at the same call
+                timed.append((lambda: fs.fused_step_tiled(
+                    x, g, LR, tile_n=ops.tiled_tile_n(p), **kw), 20))
+            times = _time_rotating(timed)
+            plain_ms, ms = times[:2]
+            bound_ms, bound_by = _bound(b, p, n, base, pieces=3 if tc else 0)
+            extra = ""
+            if tc:
+                passes = 7 if landing else 9  # the three (two) sweeps' HBM passes
+                floor_ms = 1e3 * passes * b * p * n * 4 / HBM_BYTES_PER_S
+                ops_ms = 1e3 * 3 * 12 * p * p * n * b / TF32_TC_FLOP_PER_S
+                fp32_ms = 1e3 * 12 * p * p * n * b / FP32_FLOP_PER_S
+                extra = (f"; 3xTF32 tensor work {ops_ms:.4f}; the schedule's {passes} passes "
+                         f"{floor_ms:.4f}; fp32 CUDA cores {fp32_ms:.4f}; the CUDA-core tiled "
+                         f"kernel at this call {times[2]:.4f} ms")
             print(f"  {name} tile_n {tile_n} ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
-                  f"{bound_ms:.4f} ({bound_by})", flush=True)
-            records[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=bound_ms, bound_by=bound_by)
+                  f"{bound_ms:.4f} ({bound_by}{extra})", flush=True)
+            records[name] = dict(max_abs_err=max_abs, max_abs_err_by_output=by_output,
+                                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by)
         del x, g, mu, nu, got, want
     return records
+
+
+def phase_tc_repeatability(gen, repeats=20):
+    """Each tensor-core kernel launched ``repeats`` times on the same inputs
+    at 640 x (64, 960), every other launch beside a 1 GiB copy on a second
+    stream that takes SMs and HBM from it: every output must equal the first
+    launch's bit for bit. The kernels sum in a fixed order, so a difference
+    is a race whose outcome depends on timing, which the CPU emulator
+    cannot show."""
+    import torch
+
+    from repro_torch.kernels import fused_step as fs
+
+    side = torch.cuda.Stream()
+    big = torch.zeros(256 * 2**20, device="cuda")
+    dst = torch.empty_like(big)
+    for name, base, hyper in (("fused_step_tiled_tc", "vadam", (0.9, 0.999, 1e-8)),
+                              ("fused_step_tiled_tc_landing", "trace", (0.1, False))):
+        landing = name.endswith("_landing")
+        x, g, mu, nu = _operands(gen, 640, 64, 960)
+        if landing:
+            x += 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
+        kw = dict(method="landing" if landing else "pogo", lam=1.0 if landing else 0.5,
+                  base_kind=base, hyper=hyper, mu=mu, nu=nu if base == "vadam" else None,
+                  count=torch.tensor(3, dtype=torch.int32, device="cuda"))
+        first = [None if t is None else t.clone()
+                 for t in fs.fused_step_tiled_tc(x, g, LR, **kw)[:4]]
+        differ = 0
+        for i in range(repeats):
+            torch.cuda.synchronize()
+            if i % 2:
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    dst.copy_(big)
+            got = fs.fused_step_tiled_tc(x, g, LR, **kw)[:4]
+            torch.cuda.synchronize()
+            differ += sum(not torch.equal(a, f) for a, f in zip(got, first) if f is not None)
+        print(f"kernel {name} 640x(64,960) {base}: {repeats} launches, half beside a copy "
+              f"on another stream: {differ} outputs differ from the first launch's",
+              flush=True)
+        if differ:
+            raise SystemExit(f"{name} is not repeatable")
+        del x, g, mu, nu, first, got
+    del big, dst
 
 
 def _tp_bound(name, b, p, n, base_kind="trace", method="pogo"):
@@ -648,7 +809,7 @@ def phase_trainer(card, workdir):
         # One fused step and one repair launch per step: the repair's CTAs
         # exit at once for matrices that did not trip, so only the drift
         # step repairs (the counter says which).
-        if r["launches"] != {"fused_step_tiled": 1, "newton_schulz_tiled": 1}:
+        if r["launches"] != {"fused_step_tiled_tc": 1, "newton_schulz_tiled": 1}:
             raise SystemExit(f"trainer step {k}: launches {r['launches']}")
         repairs = 640 if k >= DRIFT_STEP else 0
         if r["summary"]["repairs"] != repairs:
@@ -659,7 +820,7 @@ def phase_trainer(card, workdir):
                                  f"(limit {wd.hard / 2})")
         elif m["ortho_distance"] > 1e-5:
             raise SystemExit(f"trainer step {k}: ortho_distance {m['ortho_distance']}")
-    want = {n: TRAIN_STEPS if n in ("fused_step_tiled", "newton_schulz_tiled") else 0
+    want = {n: TRAIN_STEPS if n in ("fused_step_tiled_tc", "newton_schulz_tiled") else 0
             for n in launches}
     if launches != want:
         raise SystemExit(f"trainer: launches {launches}, expected {want}")
@@ -837,7 +998,7 @@ def phase_landing_watchdog(gen, card):
           f"{summary['repairs']}, distance after the step {dist:.3e} (limit "
           f"{wd.hard / 2}), launches {launches} [{card}]", flush=True)
     if not (bool(health.finite) and summary["repairs"] == 640 and dist < wd.hard / 2
-            and launches == {"fused_step_tiled_landing": 1, "newton_schulz_tiled": 1}):
+            and launches == {"fused_step_tiled_tc_landing": 1, "newton_schulz_tiled": 1}):
         raise SystemExit("landing fused + watchdog: the drift step was not repaired")
 
 
@@ -1384,6 +1545,7 @@ def main() -> int:
     with ThreadPoolExecutor(len(sources)) as ex:  # one nvcc per source, together
         list(ex.map(build.compile_source, sources))
     fs._lib()
+    fs.tc_lib()
     pu.lib()
     ns.lib()
     tp.lib()
@@ -1394,8 +1556,10 @@ def main() -> int:
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"ptxas[{name}] {line.strip()}", flush=True)
 
+    phase_tf32_probe(card)
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = phase_fused_kernels(gen)
+    phase_tc_repeatability(gen)
     records.update(phase_two_stage_kernels(gen))
     records.update(phase_newton_schulz(gen))
     records.update(phase_tp_kernels(gen))
@@ -1403,17 +1567,20 @@ def main() -> int:
     smollm = ortho.orthogonal_leaf_shapes(smollm_360m.config())
     paths = [  # (label, shapes, steps, path, feasibility limit, kernel)
         ("fused smollm-360m q/k", smollm, SMOLLM_STEPS, "fused", 1e-5,
-         "fused_step_tiled"),
+         "fused_step_tiled_tc"),
         ("fused 2048x(16,256)", MANY, 10, "fused", 1e-5, "fused_step_whole"),
+        ("fused internlm2-1.8b q/k", INTERNLM2, 3, "fused", 1e-5, "fused_step_tiled"),
         ("pogo+adam smollm-360m q/k", smollm, 10, "pogo_adam", 1e-5,
          "pogo_update_tiled"),
         ("pogo+adam 2048x(16,256)", MANY, 10, "pogo_adam", 1e-5, "pogo_update_whole"),
         ("landing smollm-360m q/k", smollm, 10, "landing", 0.5, "landing_field_tiled"),
         ("landing 2048x(16,256)", MANY, 10, "landing", 0.5, "landing_field"),
         ("landing fused smollm-360m q/k", smollm, 10, "landing_fused", 0.5,
-         "fused_step_tiled_landing"),
+         "fused_step_tiled_tc_landing"),
         ("landing fused 2048x(16,256)", MANY, 10, "landing_fused", 0.5,
          "fused_step_whole_landing"),
+        ("landing fused internlm2-1.8b q/k", INTERNLM2, 3, "landing_fused", 0.5,
+         "fused_step_tiled_landing"),
     ]
     launches = {}
     for label, shapes, steps, path, max_dist, kernel in paths:

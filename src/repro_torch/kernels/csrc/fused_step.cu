@@ -37,7 +37,9 @@
 // broadcast. The whole kernel reads X, g, mu once and writes X', mu'
 // once; the tiled POGO kernel sweeps n three times and parks M in x_out
 // between the last two, the tiled Landing kernel sweeps twice (X' is
-// final in its second sweep). Tensor cores (3xTF32) and TMA are later work.
+// final in its second sweep). For 32 <= p <= 64 the planner sends the
+// tiled shapes to fused_step_tc.cu (3xTF32 on the tensor cores, TMA-fed);
+// the tiled kernels here take p < 32 and p > 64.
 //
 // Scalars ride a device vector scal[8] = [eta, lam, post_scale, h0..h4]
 // with h = (decay) for trace and (b1, b2, eps, c1, c2) for vadam, as

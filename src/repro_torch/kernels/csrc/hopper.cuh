@@ -23,6 +23,12 @@
 // registers 2 and 3): the accumulator's pairs 8 k .. 8 k + 7 of 8-column
 // groups 2 k and 2 k + 1, in order, are the A operand of k-step k.
 //
+// TF32 products (m64n64k8, fp32 operands): a K-major tile row is 32 fp32
+// values, a k8 step advances the start address by 32 bytes, and a register
+// A operand holds, in four 32-bit registers, rows 16 w + l / 4 (+ 8 in
+// registers 1 and 3) and columns l % 4 (+ 4 in registers 2 and 3) of the
+// 64 x 8 step (the fragment of mma.m16n8k8.tf32, one 16-row slab a warp).
+//
 // Guarded by REPRO_HOPPER_CUH (not #pragma once) so that a host-C++
 // stand-in that defines the same guard can take its place.
 
@@ -39,14 +45,14 @@ namespace hopper {
 
 // ----------------------------------------------------------------- host
 
-// A 4-D bf16 tensor map over a dense tensor whose innermost dimension is
+// A 4-D tensor map over a dense tensor whose innermost dimension is
 // dims[0]: strides[i] is the byte stride of dims[i + 1] (a multiple of 16),
 // box the tile a load copies, 128-byte swizzled, zero past every edge.
 // cuTensorMapEncodeTiled lives in libcuda; the runtime hands out its
 // address, so that nothing links against libcuda. Returns 0, or a nonzero
 // code: a cudaError_t, or 10000 + the CUresult of the encode.
-inline int make_tma_map_bf16(CUtensorMap* map, const void* base, const uint64_t dims[4],
-                             const uint64_t strides[3], const uint32_t box[4]) {
+inline int make_tma_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                        const uint64_t dims[4], const uint64_t strides[3], const uint32_t box[4]) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -64,16 +70,43 @@ inline int make_tma_map_bf16(CUtensorMap* map, const void* base, const uint64_t 
   }
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+      map, type, 4, const_cast<void*>(base), dims, strides, box,
       unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : 10000 + static_cast<int>(res);
+}
+
+inline int make_tma_map_bf16(CUtensorMap* map, const void* base, const uint64_t dims[4],
+                             const uint64_t strides[3], const uint32_t box[4]) {
+  return make_tma_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims, strides, box);
+}
+
+// The same over fp32 (box[0] = 32: a 128-byte row).
+inline int make_tma_map_f32(CUtensorMap* map, const void* base, const uint64_t dims[4],
+                            const uint64_t strides[3], const uint32_t box[4]) {
+  return make_tma_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, dims, strides, box);
 }
 
 // --------------------------------------------------------- shared memory
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads or writes of it (wgmma operands, TMA loads into it).
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The same for every state space: global stores that a TMA load reads later.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads) over `count` threads, whole warps.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // --------------------------------------------------------------- mbarrier
@@ -143,6 +176,35 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// Copies `src` (1024-byte aligned) to the box at coordinates (c0, c1, c2,
+// c3) of `map`; elements past the tensor's edges are not written. One
+// thread issues it; commit, then wait before src is reused (.read) or the
+// result is read back through TMA.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N committed store groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until at most N committed store groups are still incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ----------------------------------------------------------------- wgmma
@@ -236,6 +298,36 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], uint32_t a0, uint32_
       "}\n"
       : HOPPER_D64
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// d (64 x 64, fp32) = A (64 x 8) B (64 x 8)^T [+ d when `accumulate`]; A and
+// B fp32 (read as TF32), both K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" HOPPER_R32 "}, "
+      "%32, %33, p, 1, 1;\n"
+      "}\n"
+      : HOPPER_D32
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// The same with A in registers (the fragment in the header's comment).
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" HOPPER_R32 "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : HOPPER_D32
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate));
 }
 
 #undef HOPPER_D8

@@ -13,7 +13,14 @@ Landing branch of ``_fused_whole_kernel``, :164-168) and
 :559): the fixed step ``X' = X - eta (R + lam (A X - X))`` and the
 distance from the direct gram of X', the tiled one in two sweeps.
 
-Both wrappers take the arguments of ``ref.fused_group_step_ref`` and return
+``fused_step_tiled_tc`` (``csrc/fused_step_tc.cu``) replaces the same TPU
+kernels as ``fused_step_tiled`` on the tensor cores (any p <= 64; the
+planner sends it 32 <= p <= 64): 3xTF32
+``wgmma`` products fed by a TMA ring, one persistent CTA per SM;
+``fused_step_tiled_tc_landing`` is its Landing branch (the TPU kernel's
+``_t2_landing_kernel``, :559). ``ops.plan`` says which shapes take which.
+
+The wrappers take the arguments of ``ref.fused_group_step_ref`` and return
 its ``(x', mu', nu', dist, finite)``. On a CPU tensor they run that plain
 version; on a CUDA tensor they check device, dtype, shape and contiguity,
 launch on the current stream, and raise if the launch fails. There is no
@@ -49,6 +56,38 @@ def _lib() -> ctypes.CDLL:
             fn.restype = _I
         lib._typed = True
     return lib
+
+
+def tc_lib() -> ctypes.CDLL:
+    """The loaded ``fused_step_tc.cu`` library, built on first use."""
+    lib = build.load("fused_step_tc")
+    if not getattr(lib, "_typed", False):
+        lib.fused_step_tc.argtypes = [_P] * 10 + [_I] * 6 + [_P]
+        lib.fused_tc_smem_bytes.argtypes = []
+        lib.tf32_probe.argtypes = [_P] * 3 + [_I, _P]
+        for fn in (lib.fused_step_tc, lib.fused_tc_smem_bytes, lib.tf32_probe):
+            fn.restype = _I
+        lib._typed = True
+    return lib
+
+
+def tf32_probe(a, b, *, a_regs: bool):
+    """``a (64, 8) @ b (64, 8)^T`` through one TF32 ``wgmma`` on the card,
+    ``a`` from shared memory or (``a_regs``) registers, the fp32 inputs as
+    they are: what it returns shows how the tensor cores treat an
+    operand's low 13 bits and round their sums, and whether the register
+    fragment layout of ``csrc/hopper.cuh`` holds."""
+    for name, t in (("a", a), ("b", b)):
+        check_operand(name, t, (64, 8), torch.float32, a.device)
+    if a.device.type != "cuda":
+        raise ValueError("the TF32 probe runs on the card only")
+    d = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = tc_lib().tf32_probe(a.data_ptr(), b.data_ptr(), d.data_ptr(), int(a_regs),
+                                  torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tf32 probe launch failed: cudaError {err}")
+    return d
 
 
 def pack_scal(eta, lam, *, base_kind, hyper, post_scale, count, device):
@@ -159,14 +198,14 @@ def _launch(entry, x, g, eta, *, method, lam, base_kind, hyper, post_scale,
     return x_out, mu_out, nu_out, dist, torch.isfinite(dist)
 
 
-def _run(name, x, g, eta, *, inplace, extra=(), **kw):
+def _run(name, x, g, eta, *, inplace, extra=(), lib=_lib, **kw):
     """The plain version on a CPU tensor; else launch ``name``'s entry and
     count it on the wrapper of the kernel that ran."""
     if x.device.type == "cpu":
         return run_plain(x, g, eta, inplace=inplace, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    out = _launch(getattr(_lib(), name), x, g, eta, inplace=inplace,
+    out = _launch(getattr(lib(), name), x, g, eta, inplace=inplace,
                   extra=extra, **kw)
     counter = _COUNTERS[name, kw["method"]]
     counter.launches += 1
@@ -197,6 +236,19 @@ def fused_step_tiled(x, g, eta, *, method="pogo", lam, base_kind="none",
                 extra=(int(tile_n),))
 
 
+def fused_step_tiled_tc(x, g, eta, *, method="pogo", lam, base_kind="none",
+                        hyper=(), post_scale=1.0, mu=None, nu=None, count=None,
+                        pv=None, inplace=False):
+    """Tensor-core fused step for ``p <= 64``: one persistent CTA per SM
+    walking the matrices, 64-column chunks in three sweeps (moments + A, Bp;
+    M + C; X') through 3xTF32 ``wgmma`` on TMA-fed tiles
+    (``ops.tc_smem_bytes``); ``method="landing"`` runs
+    ``fused_step_tiled_tc_landing`` (moments + A, Bp; then X' + W)."""
+    return _run("fused_step_tc", x, g, eta, lib=tc_lib, method=method, lam=lam,
+                base_kind=base_kind, hyper=hyper, post_scale=post_scale, mu=mu,
+                nu=nu, count=count, pv=pv, inplace=inplace)
+
+
 def fused_step_whole_landing(x, g, eta, **kw):
     """``fused_step_whole(method="landing")``."""
     return fused_step_whole(x, g, eta, method="landing", **kw)
@@ -207,11 +259,18 @@ def fused_step_tiled_landing(x, g, eta, **kw):
     return fused_step_tiled(x, g, eta, method="landing", **kw)
 
 
+def fused_step_tiled_tc_landing(x, g, eta, **kw):
+    """``fused_step_tiled_tc(method="landing")``."""
+    return fused_step_tiled_tc(x, g, eta, method="landing", **kw)
+
+
 _COUNTERS = {
     ("fused_step_whole", "pogo"): fused_step_whole,
     ("fused_step_tiled", "pogo"): fused_step_tiled,
     ("fused_step_whole", "landing"): fused_step_whole_landing,
     ("fused_step_tiled", "landing"): fused_step_tiled_landing,
+    ("fused_step_tc", "pogo"): fused_step_tiled_tc,
+    ("fused_step_tc", "landing"): fused_step_tiled_tc_landing,
 }
 for _k in _COUNTERS.values():
     _k.launches = 0

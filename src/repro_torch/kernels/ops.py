@@ -7,13 +7,18 @@ field (``:281-314``), Newton-Schulz (``:700-725``) and the
 flash-attention forward (``:729-763``). The TPU planner's
 VMEM budget and live-buffer counts become the per-block shared-memory
 footprint of each CUDA kernel, mirrored here from ``csrc/fused_step.cu``,
-``csrc/tp_step.cu``, ``csrc/two_stage.cu`` and ``csrc/newton_schulz.cu``:
+``csrc/fused_step_tc.cu``, ``csrc/tp_step.cu``, ``csrc/two_stage.cu`` and
+``csrc/newton_schulz.cu``:
 
 * ``whole`` when X and the (transformed) gradient of one matrix plus the
   kernel's (p, p) grams fit in one block's 227 KB;
+* for the fused group step, ``tc`` otherwise when ``32 <= p <= 64`` (the
+  tensor-core kernel ``csrc/fused_step_tc.cu``, one padded 64-row
+  ``wgmma`` tile, any n, one CTA per SM);
 * ``tiled`` otherwise, with the column tile that lets the most blocks
   share an SM (they hide each other's loads and barriers), the widest of
-  those;
+  those: the fused group step's ``p < 32`` and ``p > 64`` and every
+  two-stage and Newton-Schulz stack that does not fit whole;
 * a ``ValueError`` naming the shape and the limit when even the grams
   and the narrowest tiles do not fit (large p is later work).
 
@@ -43,6 +48,17 @@ SM_SMEM_BYTES = 233472
 _BLOCK_RESERVED_BYTES = 1024
 _THREADS = 256
 _TILE_NS = (64, 32)
+# The fused group step's CUDA-core tiled kernel also takes a 16-column
+# tile, the only one at which p = 128 (internlm2-1.8b's q/k) fits a block.
+_FUSED_TILE_NS = (64, 32, 16)
+# Rows of the tensor-core fused step's padded wgmma tile: TC_MIN_P <= p <=
+# TC_MAX_P takes csrc/fused_step_tc.cu, other p the CUDA-core tiled kernel.
+# Its work per 64-column chunk does not shrink with p, the CUDA-core
+# kernel's does: on an H100 (benchmarks_torch/tc_variants.py) the CUDA-core
+# kernel was faster at p = 8, 16 and 24 (POGO and Landing), the tensor-core
+# kernel from p = 32 up; p = 25-31 was not measured.
+TC_MIN_P = 32
+TC_MAX_P = 64
 # Blocks per SM the tiled kernel's register cap allows (kTiledBlocksPerSm),
 # and the TP kernels' (kTpBlocksPerSm).
 _TILED_BLOCKS_PER_SM = 3
@@ -81,6 +97,16 @@ def tiled_smem_bytes(p: int, tile_n: int) -> int:
     """Shared memory of one fused tiled-kernel block: A, B and C (Landing's
     W), and the k-major X, transformed-gradient and M (Landing's X') tiles."""
     return _tiled_bytes(p, tile_n, 3, 3, _THREADS // 32)
+
+
+def tc_smem_bytes() -> int:
+    """Shared memory of one tensor-core fused-step block
+    (``fused_tc_smem_bytes``): a ring of six 64 x 64 fp32 operand tiles,
+    the two lo tiles, the four (p, p) operand tiles, the reduction scratch
+    and thirteen mbarriers, and 1 KB to align the tiles. One block a SM,
+    whatever p and n."""
+    tile = 64 * 64 * 4
+    return 6 * tile + 2 * tile + 4 * tile + 64 + 8 * 13 + 1024
 
 
 def tp_gram_smem_bytes(p: int, tile_n: int) -> int:
@@ -138,14 +164,31 @@ def tiled_blocks_per_sm(p: int, tile_n: int) -> int:
     return _blocks_per_sm(tiled_smem_bytes(p, tile_n))
 
 
-def _plan(what: str, p: int, n: int, whole_bytes, tiled_bytes) -> tuple[str, int]:
+def _best_tile(p: int, tiled_bytes, cap: int = _TILED_BLOCKS_PER_SM,
+               tiles: tuple[int, ...] = _TILE_NS) -> int | None:
+    """The column tile of ``tiles`` that lets the most blocks share an SM,
+    the widest of those; None when even the narrowest does not fit a block."""
+    fits = [t for t in tiles if tiled_bytes(p, t) <= SMEM_LIMIT_BYTES]
+    if not fits:
+        return None
+    return max(fits, key=lambda t: (_blocks_per_sm(tiled_bytes(p, t), cap), t))
+
+
+def tiled_tile_n(p: int) -> int | None:
+    """The CUDA-core fused tiled kernel's column tile for p (None: p too
+    large for it)."""
+    return _best_tile(p, tiled_smem_bytes, tiles=_FUSED_TILE_NS)
+
+
+def _plan(what: str, p: int, n: int, whole_bytes, tiled_bytes,
+          tiles: tuple[int, ...] = _TILE_NS) -> tuple[str, int]:
     if whole_bytes(p, n) <= SMEM_LIMIT_BYTES:
         return "whole", 0
-    fits = [t for t in _TILE_NS if tiled_bytes(p, t) <= SMEM_LIMIT_BYTES]
-    if fits:
-        return "tiled", max(fits, key=lambda t: (_blocks_per_sm(tiled_bytes(p, t)), t))
+    tile = _best_tile(p, tiled_bytes, tiles=tiles)
+    if tile is not None:
+        return "tiled", tile
     raise ValueError(
-        f"{what}: p={p} (n={n}) needs {tiled_bytes(p, _TILE_NS[-1])} bytes of "
+        f"{what}: p={p} (n={n}) needs {tiled_bytes(p, tiles[-1])} bytes of "
         f"shared memory for its (p, p) grams and tiles, over the "
         f"{SMEM_LIMIT_BYTES}-byte limit of one block; large-p groups are not "
         "ported yet"
@@ -153,8 +196,14 @@ def _plan(what: str, p: int, n: int, whole_bytes, tiled_bytes) -> tuple[str, int
 
 
 def plan(p: int, n: int) -> tuple[str, int]:
-    """``("whole", 0)`` or ``("tiled", tile_n)`` of the fused group step."""
-    return _plan("fused group step", p, n, whole_smem_bytes, tiled_smem_bytes)
+    """``("whole", 0)``, ``("tc", 0)`` or ``("tiled", tile_n)`` of the fused
+    group step: whole when one matrix fits a block, else the tensor-core
+    kernel for ``TC_MIN_P <= p <= TC_MAX_P``, else the CUDA-core tiled
+    kernel."""
+    if whole_smem_bytes(p, n) > SMEM_LIMIT_BYTES and TC_MIN_P <= p <= TC_MAX_P:
+        return "tc", 0
+    return _plan("fused group step", p, n, whole_smem_bytes, tiled_smem_bytes,
+                 _FUSED_TILE_NS)
 
 
 def plan_pogo_update(p: int, n: int) -> tuple[str, int]:
@@ -172,15 +221,14 @@ def plan_tp(what: str, p: int, tiled_bytes) -> int:
     """Column tile of a TP kernel: the one that lets the most blocks share
     an SM, the widest of those; a ``ValueError`` when even the narrowest
     does not fit."""
-    fits = [t for t in _TILE_NS if tiled_bytes(p, t) <= SMEM_LIMIT_BYTES]
-    if not fits:
+    tile = _best_tile(p, tiled_bytes, _TP_BLOCKS_PER_SM)
+    if tile is None:
         raise ValueError(
             f"{what}: p={p} needs {tiled_bytes(p, _TILE_NS[-1])} bytes of shared "
             f"memory for its (p, p) grams and tiles, over the {SMEM_LIMIT_BYTES}-"
             "byte limit of one block; large-p groups are not ported yet"
         )
-    return max(fits, key=lambda t: (
-        _blocks_per_sm(tiled_bytes(p, t), _TP_BLOCKS_PER_SM), t))
+    return tile
 
 
 def plan_newton_schulz(p: int, n: int) -> tuple[str, int]:
@@ -261,6 +309,7 @@ def _ns_launch(x, iters, out, mask, dist):
 
 KERNELS = (_fs.fused_step_whole, _fs.fused_step_tiled,
            _fs.fused_step_whole_landing, _fs.fused_step_tiled_landing,
+           _fs.fused_step_tiled_tc, _fs.fused_step_tiled_tc_landing,
            _tp.tp_gram, _tp.tp_apply, _pu.pogo_update_whole,
            _pu.pogo_update_tiled, _lf.landing_field, _lf.landing_field_tiled,
            _ns.newton_schulz_whole, _ns.newton_schulz_tiled,
@@ -319,6 +368,8 @@ def fused_group_step(
     kind, tile_n = plan(p, n)
     if kind == "whole":
         return _fs.fused_step_whole(x, g, eta, **kw)
+    if kind == "tc":
+        return _fs.fused_step_tiled_tc(x, g, eta, **kw)
     return _fs.fused_step_tiled(x, g, eta, tile_n=tile_n, **kw)
 
 

@@ -19,6 +19,7 @@
 #include <functional>
 #include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 using std::max;
@@ -55,14 +56,23 @@ inline float __uint_as_float(uint32_t u) {
   std::memcpy(&f, &u, 4);
   return f;
 }
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 struct uint3 { unsigned x, y, z; };
 inline thread_local uint3 threadIdx;
 inline uint3 blockIdx;
+inline uint3 gridDim;
 inline std::barrier<>* g_bar;
 inline std::barrier<>* g_warp_bar[EMU_MAX_THREADS / 32];
 inline std::barrier<>* g_group_bar[EMU_MAX_THREADS / 128];  // warpgroups of 128
 inline float g_xchg[EMU_MAX_THREADS];
+// Named barriers (bar.sync id, count) of the running block, by id.
+inline std::mutex g_named_mu;
+inline std::map<int, std::pair<std::unique_ptr<std::barrier<>>, int>> g_named;
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
 inline float __shfl_xor_sync(unsigned, float v, int o) {
   int t = threadIdx.x, w = t / 32;
@@ -82,6 +92,7 @@ inline void emu_block_begin(unsigned threads) {
     owned.push_back(std::make_unique<std::barrier<>>(n));
     return owned.back().get();
   };
+  g_named.clear();
   g_bar = make(threads);
   for (unsigned w = 0; w < EMU_MAX_THREADS / 32; ++w)
     g_warp_bar[w] = make(w * 32 < threads ? std::min(32u, threads - w * 32) : 32u);
@@ -91,6 +102,18 @@ inline void emu_block_begin(unsigned threads) {
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+// SMs of the emulated card: few, so that a persistent grid walks several
+// matrices per block.
+inline int g_emu_sms = 2;
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return 0;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  *value = g_emu_sms;
+  return 0;
+}
 typedef void* cudaStream_t;
 struct dim3 {
   unsigned x;
@@ -105,6 +128,7 @@ inline cudaError_t cudaLaunchKernel(const void* f, dim3 grid, dim3 block, void**
   auto it = g_emu_kernels.find(f);
   if (it == g_emu_kernels.end()) return 0;  // a harness that calls the kernel itself
   if (block.x > EMU_MAX_THREADS || smem > g_emu_smem_limit) return cudaErrorInvalidValue;
+  gridDim.x = grid.x;
   for (unsigned blk = 0; blk < grid.x; ++blk) {
     blockIdx.x = blk;
     emu_block_begin(block.x);

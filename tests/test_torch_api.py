@@ -238,20 +238,40 @@ def test_smollm_leaf_shapes_match_the_jax_model():
 
 
 @pytest.mark.parametrize("p,n,kind,blocks", [(16, 256, ("whole", 0), None),
-                                             (64, 960, ("tiled", 32), 3),
+                                             (64, 960, ("tc", 0), 1),
                                              (16, 4096, ("tiled", 64), 3),
                                              (100, 4096, ("tiled", 64), 1),
-                                             (120, 4096, ("tiled", 32), 1)])
+                                             (120, 4096, ("tiled", 32), 1),
+                                             (128, 2048, ("tiled", 16), 1)])
 def test_planner_picks_the_kernel(p, n, kind, blocks):
-    """Whole when a matrix fits a block; else the tile that lets the most
-    blocks share an SM, the widest of those (SmolLM's (64, 960): 32, three
-    blocks, where a 64-wide tile would allow two)."""
+    """Whole when a matrix fits a block; else the tensor-core kernel for
+    32 <= p <= 64 (SmolLM's (64, 960); one persistent block a SM); else
+    the CUDA-core tiled kernel with the tile that lets the most blocks
+    share an SM, the widest of those (internlm2-1.8b's (128, 2048) fits
+    only a 16-wide tile)."""
     assert tops.plan(p, n) == kind
     if kind[0] == "whole":
         assert tops.whole_smem_bytes(p, n) <= tops.SMEM_LIMIT_BYTES
+    elif kind[0] == "tc":
+        assert tops.TC_MIN_P <= p <= tops.TC_MAX_P
+        assert tops.whole_smem_bytes(p, n) > tops.SMEM_LIMIT_BYTES
+        assert tops.tc_smem_bytes() <= tops.SMEM_LIMIT_BYTES
+        assert tops.SM_SMEM_BYTES // (tops.tc_smem_bytes() + 1024) == blocks
     else:
         assert tops.tiled_smem_bytes(p, kind[1]) <= tops.SMEM_LIMIT_BYTES
         assert tops.tiled_blocks_per_sm(p, kind[1]) == blocks
+
+
+@pytest.mark.parametrize("p,n,kind", [
+    (64, 960, "tc"), (1, 100000, "tiled"), (64, 400, "tc"), (65, 960, "tiled"),
+    (96, 960, "tiled"), (64, 300, "whole"), (8, 200, "whole"), (48, 2048, "tc"),
+    (32, 2048, "tc"), (31, 2048, "tiled"), (24, 2048, "tiled"), (128, 2048, "tiled"),
+])
+def test_planner_rule_for_the_tensor_core_kernel(p, n, kind):
+    """The rule on (p, n): a shape that does not fit one block whole goes
+    to the tensor-core kernel exactly when 32 <= p <= 64, to the
+    CUDA-core tiled kernel below and above that."""
+    assert tops.plan(p, n)[0] == kind
 
 
 def test_planner_raises_for_large_p():

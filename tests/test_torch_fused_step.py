@@ -131,15 +131,16 @@ def test_fused_step_ragged_pv_matches_jax(use_pallas):
     assert float(got[3].max()) < 1.0  # padded diagonal is not counted
 
 
-@pytest.mark.parametrize("wrapper", [tfs.fused_step_whole, tfs.fused_step_tiled])
+@pytest.mark.parametrize("wrapper", [tfs.fused_step_whole, tfs.fused_step_tiled,
+                                     tfs.fused_step_tiled_tc])
 def test_wrappers_run_the_plain_version_on_cpu(wrapper):
     jkw, tkw, x, g = _both((2, 10, 250), "vadam", (0.9, 0.999, 1e-8), seed=4)
-    before = (tfs.fused_step_whole.launches, tfs.fused_step_tiled.launches)
+    before = tops.launches()
     got = wrapper(torch.from_numpy(x), torch.from_numpy(g), 0.1, **tkw)
     want = jref.fused_group_step_ref(jnp.asarray(x), jnp.asarray(g), 0.1, **jkw)
     _compare(want, got, WHOLE_TOL, wrapper.__name__)
     # No kernel was launched: the launch counters count CUDA launches only.
-    assert (tfs.fused_step_whole.launches, tfs.fused_step_tiled.launches) == before
+    assert tops.launches() == before
 
 
 @pytest.mark.parametrize("base_kind,hyper", WHOLE_BASES)

@@ -92,7 +92,8 @@ def test_whole_kernel_matches_plain(cuda, shape, base_kind, hyper):
 
 
 @pytest.mark.parametrize("shape,tile_n", [((16, 64, 960), 32), ((16, 64, 960), 64),
-                                          ((5, 10, 250), 32), ((2, 120, 300), 32)])
+                                          ((5, 10, 250), 32), ((2, 120, 300), 32),
+                                          ((4, 128, 2048), 16)])
 @pytest.mark.parametrize("base_kind,hyper", BASES)
 def test_tiled_kernel_matches_plain(cuda, shape, tile_n, base_kind, hyper):
     x, g, mu, nu = _operands(shape, cuda, seed=1)
@@ -125,6 +126,7 @@ def test_planner_matches_the_kernels_smem(cuda):
     for p, n in [(16, 256), (64, 960), (5, 40), (120, 4096)]:
         assert lib.fused_whole_smem_bytes(p, n) == tops.whole_smem_bytes(p, n)
         assert lib.fused_tiled_smem_bytes(p, 32) == tops.tiled_smem_bytes(p, 32)
+    assert lib.fused_tiled_smem_bytes(128, 16) == tops.tiled_smem_bytes(128, 16)
 
 
 def test_kernel_rejects_bad_operands(cuda):
@@ -176,6 +178,7 @@ def test_constraint_step_on_card_matches_cpu(cuda, base):
     ((7, 10, 250), tfs.fused_step_whole_landing, 0, dict(atol=2e-5, rtol=1e-4)),
     ((16, 64, 960), tfs.fused_step_tiled_landing, 32, dict(atol=3e-5, rtol=1e-4)),
     ((5, 10, 250), tfs.fused_step_tiled_landing, 64, dict(atol=3e-5, rtol=1e-4)),
+    ((4, 128, 2048), tfs.fused_step_tiled_landing, 16, dict(atol=3e-5, rtol=1e-4)),
 ])
 @pytest.mark.parametrize("base_kind,hyper", BASES)
 def test_landing_kernels_match_plain(cuda, shape, wrapper, tile_n, tol, base_kind,
@@ -237,14 +240,110 @@ def test_fixed_step_landing_on_card_matches_cpu(cuda, base):
         if dev == "cuda":
             counts = tops.launches()
             assert counts["fused_step_whole_landing"] == 3  # q: (6, 16, 300)
-            assert counts["fused_step_tiled_landing"] + \
-                counts["fused_step_whole_landing"] == 6
+            assert counts["fused_step_tiled_tc_landing"] == 3  # k: (2, 32, 900)
+            assert counts["fused_step_tiled_landing"] == 0
         out[dev] = (cs, st)
     for a, b in zip(out["cpu"][0].stacks, out["cuda"][0].stacks):
         torch.testing.assert_close(b.cpu(), a, atol=3e-5, rtol=1e-4)
     for a, b in zip(out["cpu"][1].last_distance.per_group,
                     out["cuda"][1].last_distance.per_group):
         torch.testing.assert_close(b.cpu(), a, atol=3e-5, rtol=1e-4)
+
+
+# ------------------------- the tensor-core fused step (p <= 64, planned 32-64)
+
+
+def test_tf32_probe_reads_the_card(cuda):
+    """One TF32 wgmma on the card: the register fragment of ``csrc/hopper.cuh``
+    and the shared-memory operands give a @ b^T exactly on small integers;
+    an operand's low 13 bits are dropped (truncated: the emulator's model,
+    ``tests/cuda_emu/hopper.cuh``), not rounded."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randint(-8, 9, (64, 8), generator=gen, device=cuda).float()
+    b = torch.randint(-8, 9, (64, 8), generator=gen, device=cuda).float()
+    for regs in (False, True):
+        torch.testing.assert_close(tfs.tf32_probe(a, b, a_regs=regs), a @ b.T, atol=0, rtol=0)
+    a = torch.zeros((64, 8), device=cuda)
+    b = torch.zeros((64, 8), device=cuda)
+    a[:, 0] = 1.0 + 0.75 * 2.0**-10  # 0.75 of a TF32 ulp past 1
+    b[:, 0] = 1.0
+    for regs in (False, True):
+        assert float(tfs.tf32_probe(a, b, a_regs=regs)[0, 0]) == 1.0
+
+
+TC_SHAPES = [(16, 64, 960), (3, 64, 300), (5, 10, 250), (3, 7, 33), (140, 64, 200),
+             (2, 48, 2048)]
+
+
+@pytest.mark.parametrize("shape", TC_SHAPES)
+@pytest.mark.parametrize("base_kind,hyper", BASES)
+@pytest.mark.parametrize("method", ["pogo", "landing"])
+def test_tc_kernel_matches_plain(cuda, shape, base_kind, hyper, method):
+    """Both branches at SmolLM's p, ragged n through TMA (300) and plain
+    loads (250, 33), small p in the padded tile, more matrices than SMs
+    (140), a longer sweep (2048)."""
+    if method == "pogo":
+        x, g, mu, nu = _operands(shape, cuda, seed=9)
+        kw = _kwargs(base_kind, hyper, mu, nu, cuda)
+        wrapper = tfs.fused_step_tiled_tc
+    else:
+        x, g = _off_manifold_operands(shape, cuda, seed=10)
+        _, _, mu, nu = _operands(shape, cuda, seed=11)
+        kw = dict(_kwargs(base_kind, hyper, mu, nu, cuda), method="landing", lam=1.0)
+        wrapper = tfs.fused_step_tiled_tc_landing
+    before = wrapper.launches
+    got = tfs.fused_step_tiled_tc(x, g, 0.1, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    _close(got, tref.fused_group_step_ref(x, g, 0.1, **kw), dict(atol=3e-5, rtol=1e-4))
+
+
+@pytest.mark.parametrize("method", ["pogo", "landing"])
+@pytest.mark.parametrize("n", [200, 250])
+def test_tc_kernels_in_place_and_ragged(cuda, method, n):
+    shape = (4, 8, n)
+    x, g, mu, nu = _operands(shape, cuda, seed=12)
+    pv = torch.tensor([8, 5, 1, 0], dtype=torch.int32, device=cuda)
+    rows = torch.arange(8, device=cuda)[None, :, None] < pv[:, None, None]
+    x, g, mu = (torch.where(rows, a, 0.0) for a in (x, g, mu))
+    kw = dict(_kwargs("vadam", (0.9, 0.999, 1e-8), mu, nu, cuda, pv=pv), method=method)
+    want = tref.fused_group_step_ref(x, g, 0.1, **kw)
+    got = tfs.fused_step_tiled_tc(x, g, 0.1, inplace=True, **kw)
+    torch.cuda.synchronize()
+    assert got[0] is x and got[1] is mu and got[2] is nu
+    _close(got, want, dict(atol=3e-5, rtol=1e-4))
+
+
+def test_tc_step_stays_on_the_manifold(cuda):
+    """Ten POGO steps over VAdam on SmolLM's q/k stack (640 x (64, 960)) at
+    lr 0.05: the true ``||X X^T - I||_F`` (float64) of the kernel's
+    iterates and the distance it reports stay within the trainer's 1e-5,
+    as the plain version's do."""
+    x, _, mu, nu = _operands((640, 64, 960), cuda, seed=13)
+    mu.zero_()
+    nu.zero_()
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    eye = torch.eye(64, dtype=torch.float64, device=cuda)
+    for k in range(10):
+        g = 0.01 * torch.randn(x.shape, generator=gen, device=cuda)
+        count = torch.tensor(k, dtype=torch.int32, device=cuda)
+        x, mu, nu, dist, _ = tfs.fused_step_tiled_tc(
+            x, g, 0.05, lam=0.5, base_kind="vadam", hyper=(0.9, 0.999, 1e-8), mu=mu,
+            nu=nu, count=count, inplace=True)
+        true = torch.linalg.matrix_norm(x.double() @ x.double().transpose(-1, -2) - eye)
+        assert float(true.max()) <= 1e-5 and float(dist.max()) <= 1e-5, (k, true.max(),
+                                                                           dist.max())
+
+
+def test_tc_planner_matches_the_kernels_smem(cuda):
+    assert tfs.tc_lib().fused_tc_smem_bytes() == tops.tc_smem_bytes()
+    assert tops.plan(64, 960) == ("tc", 0)
+
+
+def test_tc_kernel_rejects_large_p(cuda):
+    x, g, mu, nu = _operands((2, 65, 100), cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tfs.fused_step_tiled_tc(x, g, 0.1, **_kwargs("none", (), mu, nu, cuda))
 
 
 # ------------------------------------------------------------ TP kernels

@@ -5,12 +5,15 @@ No ``nvcc`` is needed: ``tests/cuda_emu/harness.cpp`` (POGO) and
 ``ns_harness.cpp`` and ``tp_harness.cpp`` compile
 ``src/repro_torch/kernels/csrc/fused_step.cu``, ``two_stage.cu``,
 ``newton_schulz.cu``, ``tp_step.cu`` and (``flash_harness.cpp``)
-``flash_attention.cu`` (fp32) and ``flash_attention_tc.cu`` (bf16) with
+``flash_attention.cu`` (fp32) and ``flash_attention_tc.cu`` (bf16), and
+(``tc_harness.cpp``) ``fused_step_tc.cu``, with
 the host C++ compiler against ``tests/cuda_emu/cuda_runtime.h``, which
 runs each block as threads (256, or the launch's count) with
 ``std::barrier`` for ``__syncthreads``, and ``tests/cuda_emu/hopper.cuh``,
 scalar stand-ins of the TMA loads, mbarriers and ``wgmma`` products that
-follow the PTX ISA's fragment layouts and 128-byte swizzle. That checks
+follow the PTX ISA's fragment layouts and 128-byte swizzle (a TF32
+product reads its fp32 operands with the low 13 bits dropped, so a
+3xTF32 kernel that lost its lo pieces fails here too). That checks
 the kernels' indexing, edge masking, barriers, pipelines and in-place
 aliasing at small shapes; the card checks them again
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``). Tolerance: atol
@@ -19,7 +22,9 @@ aliasing at small shapes; the card checks them again
 ``tests/test_kernels.py``, atol 1e-6 / rtol 1e-6 whole and 2e-5 / 1e-4
 tiled (fp32 sums in another order); for the TP kernels the fused tiled
 tolerance, with rtol 1e-4 covering the payload's sum of squares (a sum of
-p n squares in another order). The flash-attention kernel takes
+p n squares in another order). The tensor-core fused step takes the
+tiled tolerance (3xTF32 products are within ~2^-21 of fp32's). The
+flash-attention kernel takes
 ``tests/test_flash_kernel.py``'s fp32 tolerance, atol 2e-5 / rtol 1e-4,
 and in bf16 one output ulp (both sides round an fp32 result once).
 """
@@ -74,7 +79,7 @@ def landing_harness(tmp_path_factory):
 
 
 def _run(harness, tmp_path, kind, shape, base_kind, hyper, tile_n=0,
-         inplace=False, pv=None, seed=0, method="pogo"):
+         inplace=False, pv=None, seed=0, method="pogo", tc=False):
     rng = np.random.default_rng(seed)
     b, p, n = shape
     q, _ = np.linalg.qr(rng.standard_normal((b, n, p)))
@@ -96,12 +101,16 @@ def _run(harness, tmp_path, kind, shape, base_kind, hyper, tile_n=0,
                     ("scal", scal.numpy()), ("pv", pv_arr)):
         a.astype(np.float32).tofile(tmp_path / f"{name}.bin")
     nesterov = int(base_kind == "trace" and hyper[1])
-    subprocess.run(
-        [str(harness), str(tmp_path), str(kind), str(b), str(p), str(n),
-         str(KINDS[base_kind]), str(nesterov), str(tile_n), str(int(inplace)),
-         str(int(pv is not None))],
-        check=True, timeout=120,
-    )
+    if tc:  # tc_harness: METHOD B P N BASE NESTEROV INPLACE HAS_PV
+        args = [str(int(method == "landing")), str(b), str(p), str(n),
+                str(KINDS[base_kind]), str(nesterov), str(int(inplace)),
+                str(int(pv is not None))]
+    else:
+        args = [str(kind), str(b), str(p), str(n), str(KINDS[base_kind]),
+                str(nesterov), str(tile_n), str(int(inplace)), str(int(pv is not None))]
+    res = subprocess.run([str(harness), str(tmp_path), *args], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
     t = torch.from_numpy
     want = tref.fused_group_step_ref(
         t(x), t(g), 0.1, method=method, lam=0.5, base_kind=base_kind,
@@ -137,6 +146,7 @@ def test_whole_kernel_emulated(harness, tmp_path, shape, base_kind, hyper):
     ((2, 10, 250), 32, "trace", (0.5, True)),
     ((1, 70, 150), 32, "trace", (0.9, False)),
     ((2, 7, 33), 32, "vadam", (0.9, 0.999, 1e-8)),
+    ((1, 128, 150), 16, "trace", (0.9, False)),  # internlm2-1.8b's p, the planner's tile
 ])
 def test_tiled_kernel_emulated(harness, tmp_path, shape, tile_n, base_kind, hyper):
     _run(harness, tmp_path, 1, shape, base_kind, hyper, tile_n=tile_n)
@@ -170,6 +180,7 @@ def test_landing_whole_kernel_emulated(landing_harness, tmp_path, shape, base_ki
     ((2, 10, 250), 32, "none", ()),
     ((1, 70, 150), 32, "trace", (0.9, False)),
     ((2, 7, 33), 32, "vadam", (0.9, 0.999, 1e-8)),
+    ((1, 128, 150), 16, "vadam", (0.9, 0.999, 1e-8)),  # internlm2-1.8b's p, tile 16
 ])
 def test_landing_tiled_kernel_emulated(landing_harness, tmp_path, shape, tile_n,
                                        base_kind, hyper):
@@ -184,6 +195,41 @@ def test_landing_kernels_emulated_in_place_ragged(landing_harness, tmp_path, kin
     over mu, nu' over nu, with zero-padded rows masked per matrix."""
     _run(landing_harness, tmp_path, kind, (4, 8, 200), "vadam", (0.9, 0.999, 1e-8),
          tile_n=tile_n, inplace=True, pv=[8, 5, 1, 0], method="landing")
+
+
+@pytest.fixture(scope="module")
+def tc_harness(tmp_path_factory):
+    return _compile(tmp_path_factory, "tc_harness.cpp")
+
+
+# The tiled kernels' shapes: SmolLM's (64, 960) in 15 chunks (the stage
+# ring reused across sweeps); n = 300 and 200 through TMA with a ragged last
+# chunk; n = 250 and 33 (n % 4 != 0) through the producer's plain loads;
+# p = 10 and 7 padded to the 64-row tile. Two emulated SMs, so a block
+# walks several matrices when B > 2.
+TC_CASES = [
+    ((2, 64, 960), "trace", (0.9, False)),
+    ((1, 64, 300), "trace", (0.9, True)),
+    ((2, 64, 200), "vadam", (0.9, 0.999, 1e-8)),
+    ((2, 10, 250), "none", ()),
+    ((2, 7, 33), "vadam", (0.9, 0.999, 1e-8)),
+]
+
+
+@pytest.mark.parametrize("method", ["pogo", "landing"])
+@pytest.mark.parametrize("shape,base_kind,hyper", TC_CASES)
+def test_tc_kernel_emulated(tc_harness, tmp_path, method, shape, base_kind, hyper):
+    _run(tc_harness, tmp_path, 0, shape, base_kind, hyper, method=method, tc=True)
+
+
+@pytest.mark.parametrize("method", ["pogo", "landing"])
+@pytest.mark.parametrize("n", [200, 250], ids=["tma", "plain_loads"])
+def test_tc_kernel_emulated_in_place_ragged(tc_harness, tmp_path, method, n):
+    """X' over X (POGO parks M there between sweeps 2 and 3), mu' over mu,
+    nu' over nu, zero-padded rows masked per matrix (pv), five matrices on
+    two blocks."""
+    _run(tc_harness, tmp_path, 0, (5, 8, n), "vadam", (0.9, 0.999, 1e-8),
+         inplace=True, pv=[8, 5, 1, 0, 8], method=method, tc=True)
 
 
 def _run_two_stage(harness, tmp_path, kind, method, shape, tile_n=0,

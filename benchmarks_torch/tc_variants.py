@@ -10,8 +10,15 @@ over VAdam and Landing over trace(0.1) at each ``--shape`` (default
 SmolLM-360M's 640 x (64, 960)) through each build, held against the plain
 version (atol 3e-5 / rtol 1e-4), beside the checkout's CUDA-core tiled
 kernel (``fused_step_tiled`` at the planner's tile for p, ``ops.tiled_tile_n``)
-as a yardstick: the readings that set where ``ops.plan`` sends a p. Prints the median, least and most of ``--reps``
-CUDA-event timings of ``--iters`` launches each (the builds take turns),
+as a yardstick: the readings that set where ``ops.plan`` sends a p. Then
+the two-stage entries (``pogo_update_tc``, ``landing_field_tc``; a source
+without them is skipped there) at each shape, held against
+``ref.pogo_update_ref`` / ``ref.landing_field_ref`` (atol 2e-5 / rtol
+1e-4), beside the CUDA-core ``pogo_update_tiled`` / ``landing_field_tiled``
+at their tile for p (``ops.two_stage_tile_n``): the readings that set
+``ops.TC_MIN_P`` and ``ops.LANDING_FIELD_TC_MIN_P``. Prints
+the median, least and most of ``--reps`` CUDA-event timings of
+``--iters`` launches each (the builds take turns),
 the ptxas register and spill lines, and the card's name and power limit.
 Two sources compare fairly only inside one call: the card's clocks move
 between calls. Needs one CUDA card; exits 2 without one.
@@ -53,6 +60,8 @@ def main() -> int:
     from repro_torch.core import stiefel
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import landing_field as lf
+    from repro_torch.kernels import pogo_update as pu
 
     torch.backends.cuda.matmul.allow_tf32 = False
     print(kv._card(), flush=True)
@@ -66,14 +75,28 @@ def main() -> int:
 
     with ThreadPoolExecutor(len(sources)) as ex:  # one nvcc per build, together
         builds = list(ex.map(make, sources))
-    entries = {}
+    entries, two_stage = {}, {}
     for tag, so, regs in builds:
         lib = ctypes.CDLL(so)
         lib.fused_step_tc.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + \
             [ctypes.c_void_p]
         lib.fused_step_tc.restype = ctypes.c_int
         entries[tag] = lib.fused_step_tc
+        if hasattr(lib, "pogo_update_tc"):  # sources from before them lack them
+            for fn in (lib.pogo_update_tc, lib.landing_field_tc):
+                fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+            two_stage[tag] = lib
         print(tag, *regs, sep="\n  ", flush=True)
+
+    def timed(label, runs):
+        times = {tag: [] for tag in runs}
+        for _ in range(args.reps):  # builds in turns, so drift hits them alike
+            for tag, run in runs.items():
+                times[tag].append(kv._time_ms(run, args.iters))
+        for tag, ts in times.items():
+            print(f"{label} {tag}: ms median {statistics.median(ts):.4f} min {min(ts):.4f} "
+                  f"max {max(ts):.4f}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     shapes = [tuple(int(v) for v in s.split(",")) for s in args.shape] or [(640, 64, 960)]
@@ -105,15 +128,34 @@ def main() -> int:
         tile_n = ops.tiled_tile_n(p)
         runs[f"cuda-core fused_step_tiled tile {tile_n}"] = functools.partial(
             fs.fused_step_tiled, x, g, 0.1, tile_n=tile_n, **kw)
-        times = {tag: [] for tag in runs}
-        for _ in range(args.reps):  # builds in turns, so drift hits them alike
-            for tag, run in runs.items():
-                times[tag].append(kv._time_ms(run, args.iters))
-        for tag, ts in times.items():
-            print(f"{method}+{base} {b}x({p},{n}) {tag}: ms median "
-                  f"{statistics.median(ts):.4f} min {min(ts):.4f} max {max(ts):.4f}",
-                  flush=True)
+        timed(f"{method}+{base} {b}x({p},{n})", runs)
         del x, g, mu, nu, want
+
+    for (b, p, n), name in itertools.product(shapes, ("pogo_update", "landing_field")):
+        pogo = name == "pogo_update"
+        x = stiefel.random_stiefel(gen, (b, p, n), device="cuda")
+        x += 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
+        g = 0.2 * torch.randn((b, p, n), generator=gen, device="cuda")
+        eta, lam = (0.1, 0.5) if pogo else (0.0, 1.0)
+        want = ref.pogo_update_ref(x, g, eta, lam) if pogo else ref.landing_field_ref(x, g, lam)
+        out = torch.empty_like(x)
+        runs = {tag: functools.partial(pu.launch, f"{name}_tc", x, g, eta, lam, out,
+                                       lib=lambda lib=lib: lib)
+                for tag, lib in two_stage.items()}
+        for tag, run in runs.items():
+            got = run()
+            torch.cuda.synchronize()
+            ok = torch.allclose(got, want, atol=2e-5, rtol=1e-4)
+            bad += not ok
+            print(f"{name} {b}x({p},{n}) {tag}: max_abs {float((got - want).abs().max()):.3e} "
+                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        tile_n = ops.two_stage_tile_n(
+            p, ops.pogo_tiled_smem_bytes if pogo else ops.landing_tiled_smem_bytes)
+        runs[f"cuda-core {name}_tiled tile {tile_n}"] = functools.partial(
+            pu.pogo_update_tiled, x, g, eta, lam, tile_n=tile_n) if pogo else \
+            functools.partial(lf.landing_field_tiled, x, g, lam, tile_n=tile_n)
+        timed(f"{name} {b}x({p},{n})", runs)
+        del x, g, want, out
     return 1 if bad else 0
 
 

@@ -7,12 +7,13 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all at once), holds each kernel against its plain
 PyTorch version on the card, then drives the port's three main paths with
 ``constraint_step`` at the full width of SmolLM-360M's constrained q/k
-projections (one 640 x (64, 960) stack: the tensor-core fused kernels of
+projections (one 640 x (64, 960) stack: the tensor-core kernels of
 ``fused_step_tc.cu``, 3xTF32 ``wgmma`` on TMA-fed tiles, after a one-
-``wgmma`` probe of the card's TF32 reading; the tiled two-stage kernels),
-at the many-matrices shape 2048 x (16, 256) (the whole kernels) and, for
-the fused step, at internlm2-1.8b's q/k, one 576 x (128, 2048) stack (p >
-64: the CUDA-core tiled kernels):
+``wgmma`` probe of the card's TF32 reading, for the fused step and the
+two-stage POGO update and landing field), at the many-matrices shape
+2048 x (16, 256) (the whole kernels) and at internlm2-1.8b's q/k, one
+576 x (128, 2048) stack (p > 64: the CUDA-core tiled kernels, 3 steps
+each):
 
 * the fused group step, ``orthogonal("pogo", use_kernel=True,
   base_optimizer=chain(trace(0.9)))``;
@@ -120,6 +121,8 @@ KERNELS = {
     "pogo_update_tiled": ("two_stage", "src/repro/kernels/pogo_update.py:143"),
     "landing_field": ("two_stage", "src/repro/kernels/landing_field.py:42"),
     "landing_field_tiled": ("two_stage", "src/repro/kernels/landing_field.py:79"),
+    "pogo_update_tiled_tc": ("fused_step_tc", "src/repro/kernels/pogo_update.py:143"),
+    "landing_field_tiled_tc": ("fused_step_tc", "src/repro/kernels/landing_field.py:79"),
     "newton_schulz": ("newton_schulz", "src/repro/kernels/newton_schulz.py:37"),
     "fused_step_whole_landing": ("fused_step", "src/repro/kernels/fused_step.py:164"),
     "fused_step_tiled_landing": ("fused_step", "src/repro/kernels/fused_step.py:559"),
@@ -144,10 +147,13 @@ TRAIN_BATCH = 8
 TRAIN_SEQ = 512
 TRAIN_POGO_LR = 0.05
 DRIFT_STEP = 5  # the q/k leaves are scaled by 1.5 just before this step
-# Two-stage kernel -> its flops per matrix over p^2 n: six p x p x n
-# products for the POGO update, five for the field.
+# Two-stage function -> the flops per matrix over p^2 n that it needs:
+# six p x p x n products for the POGO update; four for the field, A = X X^T,
+# B = X G^T and Lambda = A G / 2 + (lam (A - I) - B / 2) X, whose B X and
+# A X share one product (the CUDA-core kernels do them apart, five).
 TWO_STAGE_FLOPS = {"pogo_update_whole": 12, "pogo_update_tiled": 12,
-                   "landing_field": 10, "landing_field_tiled": 10}
+                   "pogo_update_tiled_tc": 12, "landing_field": 8,
+                   "landing_field_tiled": 8, "landing_field_tiled_tc": 8}
 # Serving. SmolLM-360M's prefill: 4 prompts of 2048 tokens. The flash
 # kernels at that shape, (B, S, H, KV, hd); internlm2-1.8b's heads; S = 2000
 # (not a multiple of the tiles); hd 24. fp32: tests/test_flash_kernel.py's
@@ -446,10 +452,30 @@ def phase_tc_repeatability(gen, repeats=20):
     import torch
 
     from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import landing_field as lf
+    from repro_torch.kernels import pogo_update as pu
 
     side = torch.cuda.Stream()
     big = torch.zeros(256 * 2**20, device="cuda")
     dst = torch.empty_like(big)
+
+    def repeat(label, run):
+        first = [None if t is None else t.clone() for t in run()]
+        differ = 0
+        for i in range(repeats):
+            torch.cuda.synchronize()
+            if i % 2:
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    dst.copy_(big)
+            got = run()
+            torch.cuda.synchronize()
+            differ += sum(not torch.equal(a, f) for a, f in zip(got, first) if f is not None)
+        print(f"kernel {label}: {repeats} launches, half beside a copy on another stream: "
+              f"{differ} outputs differ from the first launch's", flush=True)
+        if differ:
+            raise SystemExit(f"{label} is not repeatable")
+
     for name, base, hyper in (("fused_step_tiled_tc", "vadam", (0.9, 0.999, 1e-8)),
                               ("fused_step_tiled_tc_landing", "trace", (0.1, False))):
         landing = name.endswith("_landing")
@@ -459,25 +485,14 @@ def phase_tc_repeatability(gen, repeats=20):
         kw = dict(method="landing" if landing else "pogo", lam=1.0 if landing else 0.5,
                   base_kind=base, hyper=hyper, mu=mu, nu=nu if base == "vadam" else None,
                   count=torch.tensor(3, dtype=torch.int32, device="cuda"))
-        first = [None if t is None else t.clone()
-                 for t in fs.fused_step_tiled_tc(x, g, LR, **kw)[:4]]
-        differ = 0
-        for i in range(repeats):
-            torch.cuda.synchronize()
-            if i % 2:
-                side.wait_stream(torch.cuda.current_stream())
-                with torch.cuda.stream(side):
-                    dst.copy_(big)
-            got = fs.fused_step_tiled_tc(x, g, LR, **kw)[:4]
-            torch.cuda.synchronize()
-            differ += sum(not torch.equal(a, f) for a, f in zip(got, first) if f is not None)
-        print(f"kernel {name} 640x(64,960) {base}: {repeats} launches, half beside a copy "
-              f"on another stream: {differ} outputs differ from the first launch's",
-              flush=True)
-        if differ:
-            raise SystemExit(f"{name} is not repeatable")
-        del x, g, mu, nu, first, got
-    del big, dst
+        repeat(f"{name} 640x(64,960) {base}",
+               lambda: fs.fused_step_tiled_tc(x, g, LR, **kw)[:4])
+        del x, g, mu, nu
+    x, g, _, _ = _operands(gen, 640, 64, 960)
+    x += 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
+    repeat("pogo_update_tiled_tc 640x(64,960)", lambda: (pu.pogo_update_tiled_tc(x, g, LR, 0.5),))
+    repeat("landing_field_tiled_tc 640x(64,960)", lambda: (lf.landing_field_tiled_tc(x, g, 1.0),))
+    del x, g, big, dst
 
 
 def _tp_bound(name, b, p, n, base_kind="trace", method="pogo"):
@@ -564,30 +579,50 @@ def phase_tp_kernels(gen):
 
 def phase_two_stage_kernels(gen):
     """Each two-stage kernel against its plain version at its main-path
-    shape (timed, with its bound) and at a ragged shape, 7 x (10, 250).
-    X is a Stiefel draw plus 0.01 randn, and the check first shows that
-    dropping lam's term would break the tolerance."""
+    shape, on the planner's route, timed with its bound: the whole kernels
+    at 2048 x (16, 256), the tensor-core entries at SmolLM's 640 x (64, 960)
+    (timed beside the CUDA-core tiled kernels, their route there before,
+    which are checked at the same call), the CUDA-core tiled kernels at
+    internlm2-1.8b's 576 x (128, 2048) (POGO at tile 16). Then every kernel
+    at a ragged shape, 7 x (10, 250), the tensor-core entries also at 7 x
+    (64, 250) (plain loads), POGO's in place and with a learning rate held
+    on the card (bit for bit the host value's result). X is a Stiefel draw
+    plus 0.01 randn, and each check first shows that dropping lam's term
+    would break the tolerance."""
     import torch
 
     from repro_torch.kernels import landing_field as lf
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import pogo_update as pu
 
+    tc_shape = (640, 64, 960)
+    main = {"pogo_update_whole": (2048, 16, 256), "landing_field": (2048, 16, 256),
+            "pogo_update_tiled_tc": tc_shape, "landing_field_tiled_tc": tc_shape,
+            "pogo_update_tiled": WIDE_SHAPE, "landing_field_tiled": WIDE_SHAPE}
+    cases = [(name, shape, "") for name, shape in main.items()]
+    cases += [(name, (7, 10, 250), "ragged") for name in main]
+    cases += [("pogo_update_tiled_tc", (7, 64, 250), "ragged"),
+              ("landing_field_tiled_tc", (7, 64, 250), "ragged"),
+              ("pogo_update_tiled_tc", tc_shape, "in place"),
+              ("pogo_update_tiled_tc", tc_shape, "device eta")]
     records = {}
-    for name in TWO_STAGE_FLOPS:
+    for name, shape, variant in cases:
         pogo = name.startswith("pogo")
-        tiled = name.endswith("tiled")
-        planner = ops.plan_pogo_update if pogo else ops.plan_landing_field
-        b, p, n = (640, 64, 960) if tiled else (2048, 16, 256)
-        kind, tile_n = planner(p, n)
-        if (kind == "tiled") != tiled:
+        mod = pu if pogo else lf
+        tiled_bytes = ops.pogo_tiled_smem_bytes if pogo else ops.landing_tiled_smem_bytes
+        b, p, n = main[name]
+        kind, tile_n = (ops.plan_pogo_update if pogo else ops.plan_landing_field)(p, n)
+        stem = "pogo_update" if pogo else "landing_field"
+        planned = {"whole": "pogo_update_whole" if pogo else "landing_field",
+                   "tc": f"{stem}_tiled_tc", "tiled": f"{stem}_tiled"}[kind]
+        if planned != name:
             raise SystemExit(f"the planner picks {kind} for ({p}, {n}), not {name}")
-        wrapper = getattr(pu if pogo else lf, name)
-        if tiled:
+        wrapper = getattr(mod, name)
+        if kind == "tiled":
             wrapper = functools.partial(wrapper, tile_n=tile_n)
         if pogo:
-            def run(x, g, wrapper=wrapper):
-                return wrapper(x, g, LR, 0.5)
+            def run(x, g, wrapper=wrapper, eta=LR, **kw):
+                return wrapper(x, g, eta, 0.5, **kw)
 
             def plain(x, g, lam=0.5):
                 return ref.pogo_update_ref(x, g, LR, lam)
@@ -597,38 +632,76 @@ def phase_two_stage_kernels(gen):
 
             def plain(x, g, lam=1.0):
                 return ref.landing_field_ref(x, g, lam)
-        tol = TWO_STAGE_TILED_TOL if tiled else TWO_STAGE_WHOLE_TOL
-        for shape in ((b, p, n), (7, 10, 250)):
-            x, g, _, _ = _operands(gen, *shape)
-            # Off the manifold, so that lam's term (the land stage's
-            # lam (M M^T - I) M, the field's lam (A X - X)) is visible.
-            x += 0.01 * torch.randn(shape, generator=gen, device="cuda")
+        tol = TWO_STAGE_TILED_TOL if kind != "whole" else TWO_STAGE_WHOLE_TOL
+        x, g, _, _ = _operands(gen, *shape)
+        # Off the manifold, so that lam's term (the land stage's
+        # lam (M M^T - I) M, the field's lam (A X - X)) is visible.
+        x += 0.01 * torch.randn(shape, generator=gen, device="cuda")
+        want = plain(x, g)
+        without = plain(x, g, lam=0.0)
+        if _errors((without,), (want,), tol)[2]:
+            raise SystemExit(f"{name} {shape}: the check cannot see lam's term")
+        torch.cuda.synchronize()
+        before = getattr(mod, name).launches
+        if variant == "in place":
+            got = run(x, g, inplace=True)
+            if got is not x:
+                raise SystemExit(f"{name} in place returned a new tensor")
+        elif variant == "device eta":
+            got = run(x, g, eta=torch.tensor(LR, device="cuda"))
+        else:
             got = run(x, g)
-            torch.cuda.synchronize()
-            want = plain(x, g)
-            without = plain(x, g, lam=0.0)
-            if _errors((without,), (want,), tol)[2]:
-                raise SystemExit(f"{name} {shape}: the check cannot see lam's term")
-            max_abs, max_rel, ok = _errors((got,), (want,), tol)
-            print(f"kernel {name} {shape[0]}x{shape[1:]} tile_n {tile_n}: max_abs "
-                  f"{max_abs:.3e} max_rel {max_rel:.3e} (atol {tol['atol']}, rtol "
-                  f"{tol['rtol']}; lam's term up to {float((want - without).abs().max()):.1e}) "
-                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
-            if not ok:
-                raise SystemExit(f"{name} disagrees with its plain version")
-            if name not in records:  # the main-path shape comes first
-                ms, plain_ms = _time_in_turns(lambda: run(x, g), lambda: plain(x, g))
-                # Read X and G, write one result.
-                bound_ms, bound_by = _bound_ms(3 * b * p * n * 4,
-                                               TWO_STAGE_FLOPS[name] * p * p * n * b)
-                print(f"  {name} ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
-                      f"{bound_ms:.4f} ({bound_by})", flush=True)
-                records[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                                     bound_ms=bound_ms, bound_by=bound_by)
-            else:
-                records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
-                                                   max_abs)
+        torch.cuda.synchronize()
+        if getattr(mod, name).launches != before + 1:
+            raise SystemExit(f"{name} did not count its launch")
+        note = ""
+        if variant == "device eta":
+            if not torch.equal(got, run(x, g)):
+                raise SystemExit(f"{name}: a device-held eta changed the result")
+            note = "; bit for bit the host eta's"
+        max_abs, max_rel, ok = _errors((got,), (want,), tol)
+        print(f"kernel {name} {shape[0]}x{shape[1:]}{' ' + variant if variant else ''} "
+              f"{kind} tile_n {tile_n}: max_abs {max_abs:.3e} max_rel {max_rel:.3e} (atol "
+              f"{tol['atol']}, rtol {tol['rtol']}; lam's term up to "
+              f"{float((want - without).abs().max()):.1e}{note}) "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            raise SystemExit(f"{name} disagrees with its plain version")
+        if name in records:
+            records[name]["max_abs_err"] = max(records[name]["max_abs_err"], max_abs)
             del x, g, got, want, without
+            continue
+        # The main-path shape comes first: timed, with its bound (read X
+        # and G, write one result).
+        flops = TWO_STAGE_FLOPS[name] * p * p * n * b
+        timed = [(lambda: plain(x, g), 10), (lambda: run(x, g), 20)]
+        extra = ""
+        if kind == "tc":  # the CUDA-core tiled kernel at the same call
+            cc = functools.partial(getattr(mod, name.removesuffix("_tc")),
+                                   tile_n=ops.two_stage_tile_n(p, tiled_bytes))
+            cc_out = run(x, g, wrapper=cc)
+            torch.cuda.synchronize()
+            if not _errors((cc_out,), (want,), tol)[2]:
+                raise SystemExit(f"{name.removesuffix('_tc')} at {shape} disagrees")
+            timed.append((lambda: run(x, g, wrapper=cc), 20))
+            bound_ms, bound_by = _bound_ms(3 * b * p * n * 4, 3 * flops, TF32_TC_FLOP_PER_S)
+        else:
+            bound_ms, bound_by = _bound_ms(3 * b * p * n * 4, flops)
+        times = _time_rotating(timed)
+        plain_ms, ms = times[:2]
+        if kind == "tc":
+            passes = 7 if pogo else 5  # the three (two) sweeps' HBM passes
+            extra = (f"; bytes, 3 passes {1e3 * 3 * b * p * n * 4 / HBM_BYTES_PER_S:.4f}; "
+                     f"3xTF32 tensor work {1e3 * 3 * flops / TF32_TC_FLOP_PER_S:.4f}; the "
+                     f"schedule's {passes} passes "
+                     f"{1e3 * passes * b * p * n * 4 / HBM_BYTES_PER_S:.4f}; fp32 CUDA cores "
+                     f"{1e3 * flops / FP32_FLOP_PER_S:.4f}; the CUDA-core tiled kernel at "
+                     f"this call {times[2]:.4f} ms")
+        print(f"  {name} {b}x({p},{n}) ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+              f"{bound_ms:.4f} ({bound_by}{extra})", flush=True)
+        records[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by)
+        del x, g, got, want, without
     return records
 
 
@@ -1571,10 +1644,13 @@ def main() -> int:
         ("fused 2048x(16,256)", MANY, 10, "fused", 1e-5, "fused_step_whole"),
         ("fused internlm2-1.8b q/k", INTERNLM2, 3, "fused", 1e-5, "fused_step_tiled"),
         ("pogo+adam smollm-360m q/k", smollm, 10, "pogo_adam", 1e-5,
-         "pogo_update_tiled"),
+         "pogo_update_tiled_tc"),
         ("pogo+adam 2048x(16,256)", MANY, 10, "pogo_adam", 1e-5, "pogo_update_whole"),
-        ("landing smollm-360m q/k", smollm, 10, "landing", 0.5, "landing_field_tiled"),
+        ("pogo+adam internlm2-1.8b q/k", INTERNLM2, 3, "pogo_adam", 1e-5,
+         "pogo_update_tiled"),
+        ("landing smollm-360m q/k", smollm, 10, "landing", 0.5, "landing_field_tiled_tc"),
         ("landing 2048x(16,256)", MANY, 10, "landing", 0.5, "landing_field"),
+        ("landing internlm2-1.8b q/k", INTERNLM2, 3, "landing", 0.5, "landing_field_tiled"),
         ("landing fused smollm-360m q/k", smollm, 10, "landing_fused", 0.5,
          "fused_step_tiled_tc_landing"),
         ("landing fused 2048x(16,256)", MANY, 10, "landing_fused", 0.5,

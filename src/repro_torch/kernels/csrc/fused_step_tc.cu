@@ -1,13 +1,21 @@
 // Tiled fused POGO and Landing group steps for Hopper (sm_90a) on the
-// tensor cores: 3xTF32 wgmma products fed by a TMA ring, for p <= 64.
+// tensor cores: 3xTF32 wgmma products fed by a TMA ring, for p <= 64; and,
+// from the same kernel with no base stage and no telemetry, the two-stage
+// POGO update and landing field.
 //
-// Replaces the Pallas TPU kernels of src/repro/kernels/fused_step.py:
-//   fused_step_tiled_tc          <- fused_step_tiled (:608): _t1_kernel (:476),
-//                                   _t2_pogo_kernel (:530), pogo_update.
-//                                   _phase3_kernel (:133) and the (p, p)
-//                                   telemetry products left to XLA there
+// Replaces the Pallas TPU kernels of src/repro/kernels/:
+//   fused_step_tiled_tc          <- fused_step.py:608 fused_step_tiled:
+//                                   _t1_kernel (:476), _t2_pogo_kernel (:530),
+//                                   pogo_update._phase3_kernel (:133) and the
+//                                   (p, p) telemetry products left to XLA there
 //   fused_step_tiled_tc_landing  <- _t1_kernel + _t2_landing_kernel (:559),
 //                                   via fused_step_tiled's Landing branch (:701)
+//   pogo_update_tiled_tc         <- pogo_update.py:143 pogo_update_tiled
+//                                   (_phase1/2/3_kernel :91/:110/:133): three
+//                                   sweeps, 7 HBM passes
+//   landing_field_tiled_tc       <- landing_field.py:79 landing_field_tiled
+//                                   (_phase1_kernel + _field_tile_kernel :65):
+//                                   two sweeps, 5 HBM passes
 // It computes what kernels/ref.py::fused_group_step_ref computes, and what
 // the CUDA-core kernels of fused_step.cu compute (their header has the
 // algebra): the base stage none | trace (+nesterov) | vadam with mu' and
@@ -267,7 +275,15 @@ __device__ inline void load_tile_plain(unsigned char* tile, const float* src, in
   }
 }
 
-template <int kMethod>
+// kTwoStage: the two-stage kernels of two_stage.cu's two functions, from
+// the same sweeps with no base stage and no telemetry. POGO
+// (pogo_update_tc) writes X' = M - lam (C - I) M over M parked in x_out;
+// the field (landing_field_tc, kMethod == kLanding) writes Lambda alone
+// in sweep 2, as eta = -1 in Landing's step with the (1/2) G term of
+// P = A/2 added in fp32: Lambda^T = G^T/2 + G^T (E_A/2) + X^T Q, Q =
+// -B^T/2 + lam E_A, E_A = A - I. Neither reads mu, nu or pv, nor writes
+// dist.
+template <int kMethod, bool kTwoStage = false>
 __global__ void __launch_bounds__(kTcThreads, 1)
 fused_tc_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_g,
                 const __grid_constant__ CUtensorMap tm_mu,
@@ -286,6 +302,8 @@ fused_tc_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant_
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + kTcBarOff);
   uint64_t* empty = full + kTcSlots;
   uint64_t* swept = empty + kTcSlots;
+  constexpr bool kField = kTwoStage && kMethod == kLanding;
+  if (kTwoStage) base_kind = kNone, nesterov = 0;
   const int tid = threadIdx.x;
   const int nc = (n + kTcChunk - 1) / kTcChunk;
   const int sweeps = kMethod == kPogo ? 3 : 2;
@@ -307,7 +325,9 @@ fused_tc_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant_
     int tt = 0, waits = 0;  // tiles issued, end-of-sweep waits
     for (int b = blockIdx.x; b < B; b += gridDim.x) {
       for (int sw = 0; sw < sweeps; ++sw) {
-        if (sw > 0) {  // mu', then M, are in HBM; order that before these TMA reads
+        // mu', then M, are in HBM; order that before these TMA reads (the
+        // two-stage sweep 2 reads X and G, which nothing writes: no wait)
+        if (sw == 2 || (sw == 1 && !kTwoStage)) {
           hopper::mbar_wait(swept, waits++ & 1);
           hopper::fence_proxy_async();
         }
@@ -434,13 +454,16 @@ fused_tc_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant_
       hopper::named_sync(kConsumerBar, kTcConsumers);  // every warp is done with the tiles
       tiles_release(empty, tt, ops1);
     }
-    if (tid == 0) hopper::bulk_wait<0>();
-    hopper::fence_proxy_async();  // mu' is read back by TMA in sweep 2
-    hopper::named_sync(kConsumerBar, kTcConsumers);
-    if (tid == 0) hopper::mbar_arrive(swept);
+    if (!kTwoStage) {
+      if (tid == 0) hopper::bulk_wait<0>();
+      hopper::fence_proxy_async();  // mu' is read back by TMA in sweep 2
+      hopper::named_sync(kConsumerBar, kTcConsumers);
+      if (tid == 0) hopper::mbar_arrive(swept);
+    }
 
     // The Geu scale s (vadam: nu' from the gradient's squares), then the
-    // leap's (p, p) operands P = -(c/2) A and Q = (c/2) B^T [- eta lam (A - I)].
+    // leap's (p, p) operands P = -(c/2) A and Q = (c/2) B^T [- eta lam (A - I)]
+    // (the field: P = E_A/2, Q = -B^T/2 + lam E_A).
     float coef = eta * scal[2];
     if (base_kind == kVAdam) {
       const float tot = wg_sum(sq, red);
@@ -452,17 +475,23 @@ fused_tc_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant_
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int r = acc_row(tid, i), cc = acc_col(tid, i);
+      const float ea = a_sum[i] - (r == cc && r < p ? 1.f : 0.f);
+      if (kField) {
+        part[i] = 0.5f * ea;
+        part2[i] = -0.5f * b_sum[i] + lam * ea;
+        continue;
+      }
       part[i] = -0.5f * coef * a_sum[i];
       part2[i] = 0.5f * coef * b_sum[i];
-      if (kMethod == kLanding)
-        part2[i] -= eta * lam * (a_sum[i] - (r == cc && r < p ? 1.f : 0.f));
+      if (kMethod == kLanding) part2[i] -= eta * lam * ea;
     }
     store_split(part, gram, gram + kTcTileBytes);
     store_split(part2, gram + 2 * kTcTileBytes, gram + 3 * kTcTileBytes);
     publish_smem();
 
     // Sweep 2: M = X + D, D^T = Geu^T P + X^T Q (POGO's M, stored in x_out;
-    // Landing's X', final), written over X, its own hi, and C += M M^T.
+    // Landing's X', final), written over X, its own hi, and C += M M^T
+    // (the field: Lambda = G/2 + D written over X, no gram).
     float c_sum[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) c_sum[i] = 0.f;
@@ -485,22 +514,25 @@ fused_tc_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant_
       for (int i = 0; i < 32; ++i) {
         const int m = acc_row(tid, i), row = acc_col(tid, i);
         float& xm = tc_at(tx, row, m);
-        const float v = xm + part[i];
+        const float v = (kField ? 0.5f * tc_at(t1, row, m) : xm) + part[i];
         xm = v;  // in place: stored by TMA below, and M's hi for the C gram
-        tc_at(lo0, row, m) = trunc_lo(v);
+        if (!kField) tc_at(lo0, row, m) = trunc_lo(v);
         if (!tma && row < p && c0 + m < n) x_out[off + static_cast<size_t>(row) * n + c0 + m] = v;
       }
       publish_smem();
       if (tma && tid == 0) tile_store(&tm_x_out, tx, c, b);
-      gram_tc(part2, tx, lo0, tx, lo0);
+      if (!kField) {
+        gram_tc(part2, tx, lo0, tx, lo0);
 #pragma unroll
-      for (int i = 0; i < 32; ++i) c_sum[i] += part2[i];
+        for (int i = 0; i < 32; ++i) c_sum[i] += part2[i];
+      }
       if (tma && tid == 0) hopper::bulk_wait_read<0>();  // M has left its tile
       hopper::named_sync(kConsumerBar, kTcConsumers);  // every warp is done with the tiles
       tiles_release(empty, tt, ops2);
     }
     hopper::named_sync(kConsumerBar, kTcConsumers);  // the M tiles are free again
 
+    if (kField) continue;
     if (kMethod == kLanding) {  // W = X' X'^T: dist = ||W - I_pv||_F
       float acc = 0.f;
 #pragma unroll
@@ -528,11 +560,11 @@ fused_tc_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant_
     }
     store_split(c_sum, gram, gram + kTcTileBytes);
     publish_smem();
-    gram_tc(part, gram, gram + kTcTileBytes, gram, gram + kTcTileBytes);  // E^2 (E symmetric)
-    store_split(part, gram + 2 * kTcTileBytes, gram + 3 * kTcTileBytes);
-    publish_smem();
-    gram_tc(part2, gram, gram + kTcTileBytes, gram + 2 * kTcTileBytes, gram + 3 * kTcTileBytes);
-    {
+    if (!kTwoStage) {  // the telemetry (the two-stage update writes none)
+      gram_tc(part, gram, gram + kTcTileBytes, gram, gram + kTcTileBytes);  // E^2 (E symmetric)
+      store_split(part, gram + 2 * kTcTileBytes, gram + 3 * kTcTileBytes);
+      publish_smem();
+      gram_tc(part2, gram, gram + kTcTileBytes, gram + 2 * kTcTileBytes, gram + 3 * kTcTileBytes);
       const float k1 = 1.f - 2.f * lam, k2 = lam * lam - 2.f * lam, k3 = lam * lam;
       float acc = 0.f;
 #pragma unroll
@@ -613,23 +645,12 @@ tf32_probe_kernel(const float* a, const float* b, float* d, int a_regs) {
   for (int i = 0; i < 32; ++i) d[acc_row(t, i) * 64 + acc_col(t, i)] = acc[i];
 }
 
-}  // namespace
-
-extern "C" {
-
-// Dynamic shared memory of one CTA, in bytes (ops.py mirrors it).
-int fused_tc_smem_bytes() { return kTcSmemBytes; }
-
-// method: 0 POGO, 1 Landing (the fixed step). p <= 64; any n. TMA loads
-// when n % 4 == 0 and every operand is 16-byte aligned, plain loads by the
-// producer warpgroup otherwise.
-int fused_step_tc(const float* x, const float* g, const float* mu, const float* nu,
-                  const float* scal, const int* pv, float* x_out, float* mu_out, float* nu_out,
-                  float* dist, int B, int p, int n, int base_kind, int nesterov, int method,
-                  void* stream) {
-  if (B < 0 || p < 1 || p > kTcP || n < 1 || (method != kPogo && method != kLanding) ||
-      base_kind < kNone || base_kind > kVAdam)
-    return static_cast<int>(cudaErrorInvalidValue);
+// The tensor maps of every operand (when TMA can take the rows), the
+// persistent grid of one CTA per SM (at most B), and the launch.
+int launch_tc(const void* kernel, const float* x, const float* g, const float* mu,
+              const float* nu, const float* scal, const int* pv, float* x_out, float* mu_out,
+              float* nu_out, float* dist, int B, int p, int n, int base_kind, int nesterov,
+              void* stream) {
   const void* rows[] = {x, g, x_out, base_kind != kNone ? mu : x,
                         base_kind != kNone ? mu_out : x_out};
   int vec = vector_ok(n, rows, 5);
@@ -656,10 +677,53 @@ int fused_step_tc(const float* x, const float* g, const float* mu, const float* 
   void* args[] = {&maps[0], &maps[1], &maps[2], &maps[3], &maps[4], &x, &g, &mu, &nu, &scal,
                   &pv, &x_out, &mu_out, &nu_out, &dist, &B, &p, &n, &base_kind, &nesterov,
                   &tma, &vec};
+  return launch(kernel, kTcSmemBytes, grid, static_cast<cudaStream_t>(stream), args, kTcThreads);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic shared memory of one CTA, in bytes (ops.py mirrors it).
+int fused_tc_smem_bytes() { return kTcSmemBytes; }
+
+// method: 0 POGO, 1 Landing (the fixed step). p <= 64; any n. TMA loads
+// when n % 4 == 0 and every operand is 16-byte aligned, plain loads by the
+// producer warpgroup otherwise.
+int fused_step_tc(const float* x, const float* g, const float* mu, const float* nu,
+                  const float* scal, const int* pv, float* x_out, float* mu_out, float* nu_out,
+                  float* dist, int B, int p, int n, int base_kind, int nesterov, int method,
+                  void* stream) {
+  if (B < 0 || p < 1 || p > kTcP || n < 1 || (method != kPogo && method != kLanding) ||
+      base_kind < kNone || base_kind > kVAdam)
+    return static_cast<int>(cudaErrorInvalidValue);
   const void* kernel = method == kLanding
       ? reinterpret_cast<const void*>(fused_tc_kernel<kLanding>)
       : reinterpret_cast<const void*>(fused_tc_kernel<kPogo>);
-  return launch(kernel, kTcSmemBytes, grid, static_cast<cudaStream_t>(stream), args, kTcThreads);
+  return launch_tc(kernel, x, g, mu, nu, scal, pv, x_out, mu_out, nu_out, dist, B, p, n,
+                   base_kind, nesterov, stream);
+}
+
+// The two-stage POGO update X' = (1 + lam) M - lam (M M^T) M, M = X -
+// eta/2 (A G - B X), into out (which may be x, never g), and Landing's
+// field Lambda = 1/2 (A G - B X) + lam (A X - X) into out (never x or g),
+// as two_stage.cu's pogo_update_tiled and landing_field_tiled compute
+// them; scal[8] = [eta, lam, 1, 0...] (the field reads lam alone). p <=
+// 64; any n; TMA or plain loads as fused_step_tc.
+int pogo_update_tc(const float* x, const float* g, const float* scal, float* out, int B, int p,
+                   int n, void* stream) {
+  if (B < 0 || p < 1 || p > kTcP || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_tc(reinterpret_cast<const void*>(fused_tc_kernel<kPogo, true>), x, g, nullptr,
+                   nullptr, scal, nullptr, out, nullptr, nullptr, nullptr, B, p, n, kNone, 0,
+                   stream);
+}
+
+int landing_field_tc(const float* x, const float* g, const float* scal, float* out, int B,
+                     int p, int n, void* stream) {
+  if (B < 0 || p < 1 || p > kTcP || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_tc(reinterpret_cast<const void*>(fused_tc_kernel<kLanding, true>), x, g,
+                   nullptr, nullptr, scal, nullptr, out, nullptr, nullptr, nullptr, B, p, n,
+                   kNone, 0, stream);
 }
 
 // d (64, 64) = a (64, 8) b (64, 8)^T through one TF32 wgmma (a_regs: A from

@@ -21,8 +21,9 @@
 // group, no inter-CTA synchronisation.
 //
 // Bound: both read X and G and write one (p, n) result: 3 HBM passes of
-// 4 p n bytes. POGO does six p x p x n products (12 p^2 n flops), the
-// field five (10 p^2 n), i.e. p and 5/6 p flop/byte against the fp32
+// 4 p n bytes. POGO needs six p x p x n products (12 p^2 n flops), the
+// field four (8 p^2 n: its B X and A X share one product, which this
+// kernel does as two), i.e. p and 2/3 p flop/byte against the fp32
 // ridge of 20 (67 TFLOP/s over 3.35 TB/s): p = 16 stacks are bound by
 // bytes, p = 64 stacks by fp32 operations. The products are the register
 // blocks of tiles.cuh (IEEE fp32 FMAs, no TF32, no fast math), the same

@@ -63,9 +63,12 @@ def tc_lib() -> ctypes.CDLL:
     lib = build.load("fused_step_tc")
     if not getattr(lib, "_typed", False):
         lib.fused_step_tc.argtypes = [_P] * 10 + [_I] * 6 + [_P]
+        for fn in (lib.pogo_update_tc, lib.landing_field_tc):  # two-stage entries
+            fn.argtypes = [_P] * 4 + [_I] * 3 + [_P]
         lib.fused_tc_smem_bytes.argtypes = []
         lib.tf32_probe.argtypes = [_P] * 3 + [_I, _P]
-        for fn in (lib.fused_step_tc, lib.fused_tc_smem_bytes, lib.tf32_probe):
+        for fn in (lib.fused_step_tc, lib.pogo_update_tc, lib.landing_field_tc,
+                   lib.fused_tc_smem_bytes, lib.tf32_probe):
             fn.restype = _I
         lib._typed = True
     return lib

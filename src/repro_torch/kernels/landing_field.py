@@ -6,8 +6,12 @@ memory. ``landing_field_tiled`` replaces ``repro/kernels/landing_field.py:79``
 (``pogo_update._phase1_kernel`` + ``_field_tile_kernel``, two launches on
 the TPU): one launch, one CTA per matrix sweeping its column tiles twice,
 the first sweep shared with ``pogo_update_tiled``.
+``landing_field_tiled_tc`` replaces the same TPU kernels on the tensor
+cores for p <= 64 (the planner's range, ``ops.plan_landing_field``): the
+tensor-core fused step's Landing branch with no base stage and no
+telemetry, writing the field alone in its second sweep.
 
-Both take a ``(B, p, n)`` fp32 stack ``x`` and gradient ``g`` and return
+All three take a ``(B, p, n)`` fp32 stack ``x`` and gradient ``g`` and return
 Landing's field ``Lambda = 1/2 (A G - B X) + lam (A X - X)`` with
 ``A = X X^T``, ``B = X G^T``, in a new tensor. On a CPU tensor they run
 the plain version ``ref.landing_field_ref``; on a CUDA tensor they launch
@@ -18,14 +22,14 @@ from __future__ import annotations
 
 import torch
 
-from . import ref
-from .pogo_update import launch
+from . import fused_step, ref
+from .pogo_update import launch, lib
 
 
-def _field(entry, x, g, lam, *extra):
+def _field(entry, x, g, lam, *extra, lib=lib):
     if x.device.type == "cpu":
         return ref.landing_field_ref(x, g, lam)
-    return launch(entry, x, g, 0.0, lam, torch.empty_like(x), *extra)
+    return launch(entry, x, g, 0.0, lam, torch.empty_like(x), *extra, lib=lib)
 
 
 def landing_field(x, g, lam):
@@ -47,5 +51,16 @@ def landing_field_tiled(x, g, lam, *, tile_n=64):
     return out
 
 
+def landing_field_tiled_tc(x, g, lam):
+    """Tensor-core landing field for ``p <= 64``: one persistent CTA per SM
+    walking the matrices in 64-column chunks (A, B; then Lambda) through
+    3xTF32 ``wgmma`` on TMA-fed tiles (``ops.tc_smem_bytes``)."""
+    out = _field("landing_field_tc", x, g, lam, lib=fused_step.tc_lib)
+    if x.device.type == "cuda":
+        landing_field_tiled_tc.launches += 1
+    return out
+
+
 landing_field.launches = 0
 landing_field_tiled.launches = 0
+landing_field_tiled_tc.launches = 0

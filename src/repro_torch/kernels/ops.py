@@ -12,13 +12,16 @@ footprint of each CUDA kernel, mirrored here from ``csrc/fused_step.cu``,
 
 * ``whole`` when X and the (transformed) gradient of one matrix plus the
   kernel's (p, p) grams fit in one block's 227 KB;
-* for the fused group step, ``tc`` otherwise when ``32 <= p <= 64`` (the
-  tensor-core kernel ``csrc/fused_step_tc.cu``, one padded 64-row
-  ``wgmma`` tile, any n, one CTA per SM);
+* ``tc`` otherwise when ``32 <= p <= 64`` (the tensor-core kernel
+  ``csrc/fused_step_tc.cu``, one padded 64-row ``wgmma`` tile, any n, one
+  CTA per SM), for the fused group step and, from
+  ``TC_MIN_P`` (POGO) and ``LANDING_FIELD_TC_MIN_P`` up, for the
+  two-stage POGO update and landing field;
 * ``tiled`` otherwise, with the column tile that lets the most blocks
   share an SM (they hide each other's loads and barriers), the widest of
-  those: the fused group step's ``p < 32`` and ``p > 64`` and every
-  two-stage and Newton-Schulz stack that does not fit whole;
+  those: the fused group step's and the two-stage kernels' p below and
+  above the tensor-core range and every Newton-Schulz stack that does not
+  fit whole;
 * a ``ValueError`` naming the shape and the limit when even the grams
   and the narrowest tiles do not fit (large p is later work).
 
@@ -51,6 +54,10 @@ _TILE_NS = (64, 32)
 # The fused group step's CUDA-core tiled kernel also takes a 16-column
 # tile, the only one at which p = 128 (internlm2-1.8b's q/k) fits a block.
 _FUSED_TILE_NS = (64, 32, 16)
+# The two-stage kernels take it only where neither 64 nor 32 fits (p = 128
+# for POGO's three tiles), so that no shape that planned before moves to a
+# narrower tile.
+_TWO_STAGE_FALLBACK = (16,)
 # Rows of the tensor-core fused step's padded wgmma tile: TC_MIN_P <= p <=
 # TC_MAX_P takes csrc/fused_step_tc.cu, other p the CUDA-core tiled kernel.
 # Its work per 64-column chunk does not shrink with p, the CUDA-core
@@ -59,6 +66,18 @@ _FUSED_TILE_NS = (64, 32, 16)
 # kernel from p = 32 up; p = 25-31 was not measured.
 TC_MIN_P = 32
 TC_MAX_P = 64
+# The two-stage POGO update and landing field take the tensor-core kernel's
+# two-stage entries for TC_MIN_P (LANDING_FIELD_TC_MIN_P) <= p <= TC_MAX_P.
+# On an H100 (benchmarks_torch/tc_variants.py, its two-stage lines; ms,
+# tensor-core / CUDA-core tiled, POGO update; field) the
+# CUDA-core kernels were faster at 2048 x (16, 4096) 6.6631 / 3.7574;
+# 4.2318 / 2.7419 and 2048 x (24, 2048) 3.3908 / 2.7826; 2.1473 / 1.9936;
+# at 2048 x (28, 2048) POGO's was, 3.3939 / 3.3417, the field's not,
+# 2.1552 / 2.6112; the tensor-core entries were faster at 2048 x (32,
+# 2048) 3.4084 / 3.5515; 2.1621 / 2.6584, 1024 x (48, 2048) 1.7454 /
+# 3.2877; 1.0975 / 2.2511 and 640 x (64, 960) 0.5388 / 1.4915; 0.3371 /
+# 1.0294. p = 29-31 (POGO) and 25-27 (the field) were not measured.
+LANDING_FIELD_TC_MIN_P = 28
 # Blocks per SM the tiled kernel's register cap allows (kTiledBlocksPerSm),
 # and the TP kernels' (kTpBlocksPerSm).
 _TILED_BLOCKS_PER_SM = 3
@@ -165,10 +184,13 @@ def tiled_blocks_per_sm(p: int, tile_n: int) -> int:
 
 
 def _best_tile(p: int, tiled_bytes, cap: int = _TILED_BLOCKS_PER_SM,
-               tiles: tuple[int, ...] = _TILE_NS) -> int | None:
-    """The column tile of ``tiles`` that lets the most blocks share an SM,
-    the widest of those; None when even the narrowest does not fit a block."""
-    fits = [t for t in tiles if tiled_bytes(p, t) <= SMEM_LIMIT_BYTES]
+               tiles: tuple[int, ...] = _TILE_NS,
+               fallback: tuple[int, ...] = ()) -> int | None:
+    """The column tile of ``tiles`` (of ``fallback`` when none of them fits
+    a block) that lets the most blocks share an SM, the widest of those;
+    None when even the narrowest does not fit a block."""
+    fits = ([t for t in tiles if tiled_bytes(p, t) <= SMEM_LIMIT_BYTES]
+            or [t for t in fallback if tiled_bytes(p, t) <= SMEM_LIMIT_BYTES])
     if not fits:
         return None
     return max(fits, key=lambda t: (_blocks_per_sm(tiled_bytes(p, t), cap), t))
@@ -181,15 +203,16 @@ def tiled_tile_n(p: int) -> int | None:
 
 
 def _plan(what: str, p: int, n: int, whole_bytes, tiled_bytes,
-          tiles: tuple[int, ...] = _TILE_NS) -> tuple[str, int]:
+          tiles: tuple[int, ...] = _TILE_NS,
+          fallback: tuple[int, ...] = ()) -> tuple[str, int]:
     if whole_bytes(p, n) <= SMEM_LIMIT_BYTES:
         return "whole", 0
-    tile = _best_tile(p, tiled_bytes, tiles=tiles)
+    tile = _best_tile(p, tiled_bytes, tiles=tiles, fallback=fallback)
     if tile is not None:
         return "tiled", tile
     raise ValueError(
-        f"{what}: p={p} (n={n}) needs {tiled_bytes(p, tiles[-1])} bytes of "
-        f"shared memory for its (p, p) grams and tiles, over the "
+        f"{what}: p={p} (n={n}) needs {tiled_bytes(p, (tiles + fallback)[-1])} "
+        f"bytes of shared memory for its (p, p) grams and tiles, over the "
         f"{SMEM_LIMIT_BYTES}-byte limit of one block; large-p groups are not "
         "ported yet"
     )
@@ -206,15 +229,31 @@ def plan(p: int, n: int) -> tuple[str, int]:
                  _FUSED_TILE_NS)
 
 
+def two_stage_tile_n(p: int, tiled_bytes) -> int | None:
+    """The CUDA-core tiled two-stage kernel's column tile for p: the best of
+    64 and 32, and 16 only where neither fits a block (p = 128 for POGO's
+    three tiles), so that no shape that planned before moves to a narrower
+    tile; None when even 16 does not fit."""
+    return _best_tile(p, tiled_bytes, fallback=_TWO_STAGE_FALLBACK)
+
+
 def plan_pogo_update(p: int, n: int) -> tuple[str, int]:
-    """``("whole", 0)`` or ``("tiled", tile_n)`` of the POGO update."""
-    return _plan("pogo update", p, n, pogo_whole_smem_bytes, pogo_tiled_smem_bytes)
+    """``("whole", 0)``, ``("tc", 0)`` or ``("tiled", tile_n)`` of the POGO
+    update."""
+    if pogo_whole_smem_bytes(p, n) > SMEM_LIMIT_BYTES and TC_MIN_P <= p <= TC_MAX_P:
+        return "tc", 0
+    return _plan("pogo update", p, n, pogo_whole_smem_bytes, pogo_tiled_smem_bytes,
+                 fallback=_TWO_STAGE_FALLBACK)
 
 
 def plan_landing_field(p: int, n: int) -> tuple[str, int]:
-    """``("whole", 0)`` or ``("tiled", tile_n)`` of the landing field."""
+    """``("whole", 0)``, ``("tc", 0)`` or ``("tiled", tile_n)`` of the
+    landing field."""
+    if (landing_whole_smem_bytes(p, n) > SMEM_LIMIT_BYTES
+            and LANDING_FIELD_TC_MIN_P <= p <= TC_MAX_P):
+        return "tc", 0
     return _plan("landing field", p, n, landing_whole_smem_bytes,
-                 landing_tiled_smem_bytes)
+                 landing_tiled_smem_bytes, fallback=_TWO_STAGE_FALLBACK)
 
 
 def plan_tp(what: str, p: int, tiled_bytes) -> int:
@@ -257,6 +296,8 @@ def pogo_update(x, g, eta, lam=0.5, *, find_root: bool = False,
     kind, tile_n = plan_pogo_update(*x.shape[-2:])
     if kind == "whole":
         return _pu.pogo_update_whole(x, g, eta, lam, inplace=inplace)
+    if kind == "tc":
+        return _pu.pogo_update_tiled_tc(x, g, eta, lam, inplace=inplace)
     return _pu.pogo_update_tiled(x, g, eta, lam, tile_n=tile_n, inplace=inplace)
 
 
@@ -270,6 +311,8 @@ def landing_field(x, g, lam=1.0):
     kind, tile_n = plan_landing_field(*x.shape[-2:])
     if kind == "whole":
         return _lf.landing_field(x, g, lam)
+    if kind == "tc":
+        return _lf.landing_field_tiled_tc(x, g, lam)
     return _lf.landing_field_tiled(x, g, lam, tile_n=tile_n)
 
 
@@ -311,7 +354,8 @@ KERNELS = (_fs.fused_step_whole, _fs.fused_step_tiled,
            _fs.fused_step_whole_landing, _fs.fused_step_tiled_landing,
            _fs.fused_step_tiled_tc, _fs.fused_step_tiled_tc_landing,
            _tp.tp_gram, _tp.tp_apply, _pu.pogo_update_whole,
-           _pu.pogo_update_tiled, _lf.landing_field, _lf.landing_field_tiled,
+           _pu.pogo_update_tiled, _pu.pogo_update_tiled_tc, _lf.landing_field,
+           _lf.landing_field_tiled, _lf.landing_field_tiled_tc,
            _ns.newton_schulz_whole, _ns.newton_schulz_tiled,
            _fa.flash_attention_fp32, _fa.flash_attention_tc)
 

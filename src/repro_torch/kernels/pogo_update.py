@@ -1,4 +1,5 @@
-"""Wrappers of the two-stage POGO update kernels (``csrc/two_stage.cu``).
+"""Wrappers of the two-stage POGO update kernels (``csrc/two_stage.cu``,
+``csrc/fused_step_tc.cu``).
 
 ``pogo_update_whole`` replaces ``repro/kernels/pogo_update.py:64``
 (``_pogo_whole_kernel``): one CTA per matrix with X and G resident in
@@ -6,16 +7,21 @@ shared memory. ``pogo_update_tiled`` replaces ``repro/kernels/
 pogo_update.py:143`` (``_phase1/2/3_kernel``, three launches on the TPU):
 one launch, one CTA per matrix sweeping its column tiles three times, M
 parked in the output between the last two sweeps. Both are IEEE fp32 on
-the CUDA cores.
+the CUDA cores. ``pogo_update_tiled_tc`` replaces the same TPU kernels on
+the tensor cores for p <= 64 (the planner's range, ``ops.
+plan_pogo_update``): the tensor-core fused step's kernel with no base
+stage and no telemetry, 3xTF32 ``wgmma`` on TMA-fed 64-column chunks, one
+persistent CTA per SM, the same three sweeps.
 
-Both take a ``(B, p, n)`` fp32 stack ``x`` and transformed gradient ``g``
+All three take a ``(B, p, n)`` fp32 stack ``x`` and transformed gradient ``g``
 and return ``X' = (1 + lam) M - lam (M M^T) M`` with ``M = X - eta/2
 (X X^T G - X G^T X)``. On a CPU tensor they run the plain version
 ``ref.pogo_update_ref``; on a CUDA tensor they check the operands, launch
 on the current stream and raise if the launch fails. There is no
 fallback. ``inplace=True`` writes X' over ``x``. Each wrapper counts its
 launches in ``.launches``. The landing-field wrappers
-(``landing_field.py``) share this module's library and launcher.
+(``landing_field.py``) share this module's launcher, and the CUDA-core
+ones its library.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import functools
 
 import torch
 
-from . import build, ref
+from . import build, fused_step, ref
 from .fused_step import check_operand
 
 _P = ctypes.c_void_p
@@ -54,15 +60,19 @@ def lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=64)
 def _scal(eta: float, lam: float, device: torch.device) -> torch.Tensor:
-    """The kernels' fp32 scalar vector ``[eta, lam]`` on ``device``, made
-    once per value, so that a step with a constant learning rate copies
-    nothing to the card. The kernels only read it."""
-    return torch.tensor([eta, lam], dtype=torch.float32, device=device)
+    """The kernels' fp32 scalar vector on ``device``, ``[eta, lam, 1, 0,
+    0, 0, 0, 0]`` (the tensor-core kernel's ``scal[8]`` with post_scale 1;
+    ``two_stage.cu`` reads the first two), made once per value, so that a
+    step with a constant learning rate copies nothing to the card. The
+    kernels only read it."""
+    return torch.tensor([eta, lam, 1.0] + [0.0] * 5, dtype=torch.float32,
+                        device=device)
 
 
-def launch(entry: str, x, g, eta, lam, out, *extra) -> torch.Tensor:
-    """Launch ``entry`` of ``two_stage.cu`` on CUDA tensors: ``out`` gets
-    the result (it may be ``x``, never ``g``)."""
+def launch(entry: str, x, g, eta, lam, out, *extra, lib=lib) -> torch.Tensor:
+    """Launch ``entry`` of ``lib()`` (``two_stage.cu``, or the two-stage
+    entries of ``fused_step_tc.cu``) on CUDA tensors: ``out`` gets the
+    result (it may be ``x``, never ``g``)."""
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     if x.dim() != 3:
@@ -90,12 +100,12 @@ def launch(entry: str, x, g, eta, lam, out, *extra) -> torch.Tensor:
     return out
 
 
-def _update(entry, x, g, eta, lam, inplace, *extra):
+def _update(entry, x, g, eta, lam, inplace, *extra, lib=lib):
     if x.device.type == "cpu":
         out = ref.pogo_update_ref(x, g, eta, lam)
         return x.copy_(out) if inplace else out
     return launch(entry, x, g, eta, lam, x if inplace else torch.empty_like(x),
-                  *extra)
+                  *extra, lib=lib)
 
 
 def pogo_update_whole(x, g, eta, lam, *, inplace=False):
@@ -117,5 +127,17 @@ def pogo_update_tiled(x, g, eta, lam, *, tile_n=64, inplace=False):
     return out
 
 
+def pogo_update_tiled_tc(x, g, eta, lam, *, inplace=False):
+    """Tensor-core POGO update for ``p <= 64``: one persistent CTA per SM
+    walking the matrices in 64-column chunks (A, B; then M, parked in the
+    output, and C; then X') through 3xTF32 ``wgmma`` on TMA-fed tiles
+    (``ops.tc_smem_bytes``)."""
+    out = _update("pogo_update_tc", x, g, eta, lam, inplace, lib=fused_step.tc_lib)
+    if x.device.type == "cuda":
+        pogo_update_tiled_tc.launches += 1
+    return out
+
+
 pogo_update_whole.launches = 0
 pogo_update_tiled.launches = 0
+pogo_update_tiled_tc.launches = 0

@@ -9,8 +9,10 @@ holds the kernel against on the card, and mirrors ``repro.kernels.ref``
 * ``tp_partial_ref`` and ``tp_apply_ref``: the two kernels of
   ``csrc/tp_step.cu``; ``tp_finish_ref`` the step after the all-reduce and
   ``fused_group_step_tp_ref`` the single-device TP schedule;
-* ``pogo_update_ref``: ``pogo_update_whole``/``_tiled`` of ``csrc/two_stage.cu``;
-* ``landing_field_ref``: ``landing_field``/``_tiled`` of ``csrc/two_stage.cu``;
+* ``pogo_update_ref``: ``pogo_update_whole``/``_tiled`` of ``csrc/two_stage.cu``
+  and ``pogo_update_tc`` of ``csrc/fused_step_tc.cu``;
+* ``landing_field_ref``: ``landing_field``/``_tiled`` of ``csrc/two_stage.cu``
+  and ``landing_field_tc`` of ``csrc/fused_step_tc.cu``;
 * ``manifold_distance_ref``: the telemetry of the two-stage step;
 * ``newton_schulz_ref``: both kernels of ``csrc/newton_schulz.cu``;
 * ``flash_attention_fwd_ref``: ``csrc/flash_attention.cu`` (fp32) and

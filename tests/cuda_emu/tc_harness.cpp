@@ -3,7 +3,9 @@
 // persistent grid (g_emu_sms blocks) and the block as on the card.
 // Usage: tc_harness DIR METHOD B P N BASE NESTEROV INPLACE HAS_PV
 // reads DIR/{x,g,mu,nu,scal,pv}.bin (float32) and writes
-// DIR/{x_out,mu_out,nu_out,dist}.bin. METHOD 0 = POGO, 1 = Landing.
+// DIR/{x_out,mu_out,nu_out,dist}.bin. METHOD 0 = POGO, 1 = Landing (the
+// fused step); 2 = pogo_update_tc, 3 = landing_field_tc (the two-stage
+// entries: x, g and scal in, x_out out; BASE, NESTEROV and HAS_PV unused).
 #include <cuda_runtime.h>
 #include <hopper.cuh>
 
@@ -38,14 +40,14 @@ static void write(const char* dir, const char* name, const float* data, size_t c
   fclose(f);
 }
 
-template <int M>
+template <int M, bool TS>
 static void register_kernel() {
-  g_emu_kernels[reinterpret_cast<const void*>(fused_tc_kernel<M>)] = [](void** a) {
+  g_emu_kernels[reinterpret_cast<const void*>(fused_tc_kernel<M, TS>)] = [](void** a) {
     auto map = [a](int n) { return *static_cast<CUtensorMap*>(a[n]); };
     auto cf = [a](int n) { return *static_cast<const float**>(a[n]); };
     auto f = [a](int n) { return *static_cast<float**>(a[n]); };
     auto i = [a](int n) { return *static_cast<int*>(a[n]); };
-    fused_tc_kernel<M>(map(0), map(1), map(2), map(3), map(4), cf(5), cf(6), cf(7), cf(8),
+    fused_tc_kernel<M, TS>(map(0), map(1), map(2), map(3), map(4), cf(5), cf(6), cf(7), cf(8),
                        cf(9), *static_cast<const int**>(a[10]), f(11), f(12), f(13), f(14),
                        i(15), i(16), i(17), i(18), i(19), i(20), i(21));
   };
@@ -67,8 +69,20 @@ int main(int argc, char** argv) {
   float* nuo = inplace ? nu.data() : nu_out.data();
   g_smem_base = fused_tc_smem;
   g_smem_size = sizeof fused_tc_smem;
-  register_kernel<kPogo>();
-  register_kernel<kLanding>();
+  register_kernel<kPogo, false>();
+  register_kernel<kLanding, false>();
+  register_kernel<kPogo, true>();
+  register_kernel<kLanding, true>();
+  if (method >= 2) {
+    const int err = (method == 2 ? pogo_update_tc : landing_field_tc)(
+        x.data(), g.data(), scal.data(), xo, B, p, n, nullptr);
+    if (err != 0) {
+      fprintf(stderr, "two-stage entry returned %d\n", err);
+      return 3;
+    }
+    write(dir, "x_out", xo, total);
+    return 0;
+  }
   const int err = fused_step_tc(x.data(), g.data(), base != kNone ? mu.data() : nullptr,
                                 base == kVAdam ? nu.data() : nullptr, scal.data(),
                                 has_pv ? pv.data() : nullptr, xo,

@@ -455,15 +455,18 @@ TWO_STAGE = [(tpu.pogo_update_whole, 0), (tpu.pogo_update_tiled, 32),
              (tlf.landing_field_tiled, 64)]
 
 
+POGO_UPDATES = (tpu.pogo_update_whole, tpu.pogo_update_tiled, tpu.pogo_update_tiled_tc)
+
+
 def _two_stage_call(wrapper, tile_n, x, g, **kw):
     extra = {"tile_n": tile_n} if tile_n else {}
-    if wrapper in (tpu.pogo_update_whole, tpu.pogo_update_tiled):
+    if wrapper in POGO_UPDATES:
         return wrapper(x, g, 0.1, 0.5, **extra, **kw)
     return wrapper(x, g, 1.0, **extra)
 
 
 def _two_stage_plain(wrapper, x, g, lam=None):
-    if wrapper in (tpu.pogo_update_whole, tpu.pogo_update_tiled):
+    if wrapper in POGO_UPDATES:
         return tref.pogo_update_ref(x, g, 0.1, 0.5 if lam is None else lam)
     return tref.landing_field_ref(x, g, 1.0 if lam is None else lam)
 
@@ -508,13 +511,79 @@ def test_pogo_update_kernels_in_place(cuda, wrapper, tile_n):
 
 def test_two_stage_planner_matches_the_kernels_smem(cuda):
     lib = tpu.lib()
-    for p, n in [(16, 256), (64, 960), (5, 40), (120, 4096)]:
+    for p, n in [(16, 256), (64, 960), (5, 40), (120, 4096), (128, 2048)]:
         assert lib.two_stage_whole_smem_bytes(0, p, n) == tops.pogo_whole_smem_bytes(p, n)
         assert lib.two_stage_whole_smem_bytes(1, p, n) == tops.landing_whole_smem_bytes(p, n)
-        for t in (32, 64):
+        for t in (16, 32, 64):
             assert lib.two_stage_tiled_smem_bytes(0, p, t) == tops.pogo_tiled_smem_bytes(p, t)
             assert lib.two_stage_tiled_smem_bytes(1, p, t) == \
                 tops.landing_tiled_smem_bytes(p, t)
+    # the tensor-core route: the fused step's block, whatever p and n
+    assert tops.plan_pogo_update(64, 960) == tops.plan_landing_field(64, 960) == ("tc", 0)
+    assert tfs.tc_lib().fused_tc_smem_bytes() == tops.tc_smem_bytes()
+    # p = 128 takes POGO's 16-column tile, the only one that fits a block
+    assert tops.plan_pogo_update(128, 2048) == ("tiled", 16)
+    assert lib.two_stage_tiled_smem_bytes(0, 128, 16) <= tops.SMEM_LIMIT_BYTES
+
+
+TWO_STAGE_TC = [tpu.pogo_update_tiled_tc, tlf.landing_field_tiled_tc]
+
+
+@pytest.mark.parametrize("shape", [(640, 64, 960), (4, 64, 300), (7, 10, 250), (3, 7, 33),
+                                   (140, 48, 200), (2, 32, 2048)])
+@pytest.mark.parametrize("wrapper", TWO_STAGE_TC)
+def test_two_stage_tc_kernels_match_plain(cuda, shape, wrapper):
+    """The tensor-core two-stage entries at the tiled tolerance: SmolLM's
+    q/k stack, a ragged chunk through TMA (300), plain loads (250, 33),
+    small p in the padded tile, more matrices than SMs (140), a long
+    sweep (2048). X lies off the manifold: dropping lam's term fails."""
+    x, g = _off_manifold_operands(shape, cuda, seed=15)
+    before = wrapper.launches
+    got = _two_stage_call(wrapper, 0, x, g)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    tol = dict(atol=2e-5, rtol=1e-4)
+    want = _two_stage_plain(wrapper, x, g)
+    assert not torch.allclose(_two_stage_plain(wrapper, x, g, lam=0.0), want, **tol)
+    torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.parametrize("n", [300, 250], ids=["tma", "plain_loads"])
+def test_two_stage_tc_pogo_in_place(cuda, n):
+    """X' over X: M parked in X's place between the last two sweeps."""
+    x, g = _off_manifold_operands((150, 24, n), cuda, seed=16)
+    want = tref.pogo_update_ref(x, g, 0.1, 0.5)
+    got = tpu.pogo_update_tiled_tc(x, g, 0.1, 0.5, inplace=True)
+    torch.cuda.synchronize()
+    assert got is x
+    torch.testing.assert_close(x, want, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("wrapper", [tpu.pogo_update_tiled, tpu.pogo_update_tiled_tc])
+def test_pogo_update_with_a_device_held_eta(cuda, wrapper):
+    """A learning rate held on the card gives the same bits as the same
+    value passed from the host."""
+    x, g = _off_manifold_operands((16, 64, 960), cuda, seed=17)
+    extra = {"tile_n": 32} if wrapper is tpu.pogo_update_tiled else {}
+    host = wrapper(x, g, 0.1, 0.5, **extra)
+    dev = wrapper(x, g, torch.tensor(0.1, device=cuda), 0.5, **extra)
+    torch.cuda.synchronize()
+    assert torch.equal(dev, host)
+    torch.testing.assert_close(dev, tref.pogo_update_ref(x, g, 0.1, 0.5), atol=2e-5,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("wrapper,pogo", [(tpu.pogo_update_tiled, True),
+                                          (tlf.landing_field_tiled, False)])
+def test_two_stage_tiled_kernels_at_p128(cuda, wrapper, pogo):
+    """internlm2-1.8b's p = 128 on the CUDA-core tiled kernels at the
+    planner's tile (16 for POGO, 64 for the field)."""
+    x, g = _off_manifold_operands((3, 128, 2048), cuda, seed=18)
+    kind, tile_n = (tops.plan_pogo_update if pogo else tops.plan_landing_field)(128, 2048)
+    assert kind == "tiled" and tile_n == (16 if pogo else 64)
+    got = _two_stage_call(wrapper, tile_n, x, g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, _two_stage_plain(wrapper, x, g), atol=2e-5, rtol=1e-4)
 
 
 def test_two_stage_kernels_reject_bad_operands(cuda):
@@ -538,12 +607,13 @@ def test_two_stage_kernels_reject_bad_operands(cuda):
      0.3, 1),
 ])
 def test_two_stage_step_on_card_matches_cpu(cuda, method, base, kw, gscale, steps):
-    """In-place ``constraint_step``s on the card (whole and tiled kernels:
-    p = 16 and p = 64 groups) against the plain route on the CPU. The
-    last case's safe step binds: one step only, since from the eps-sphere
-    the next step's "already violating" test compares two numbers equal
-    to rounding, and the two devices may take different branches; the
-    next test follows binding steps further."""
+    """In-place ``constraint_step``s on the card (the whole kernels and the
+    tensor-core two-stage entries, once a step: p = 16 and p = 64 groups)
+    against the plain route on the CPU. The last case's safe step binds:
+    one step only, since from the eps-sphere the next step's "already
+    violating" test compares two numbers equal to rounding, and the two
+    devices may take different branches; the next test follows binding
+    steps further."""
     rng = np.random.default_rng(6)
     params = {"q": np.swapaxes(np.linalg.qr(rng.standard_normal((6, 300, 16)))[0],
                                -1, -2).astype(np.float32),
@@ -557,10 +627,13 @@ def test_two_stage_step_on_card_matches_cpu(cuda, method, base, kw, gscale, step
         gs = tapi.ConstraintSet.from_tree(grads, device=dev)
         st = opt.init(cs)
         step = tapi.constraint_step(opt)
+        tops.reset_launches()
         for _ in range(steps):
             cs, st, health = step(cs, st, gs)
         assert bool(health.finite)
         out[dev] = (cs, st)
+    tc = tpu.pogo_update_tiled_tc if method == "pogo" else tlf.landing_field_tiled_tc
+    assert tc.launches == steps
     for a, b in zip(out["cpu"][0].stacks, out["cuda"][0].stacks):
         torch.testing.assert_close(b.cpu(), a, atol=3e-5, rtol=1e-4)
     for a, b in zip(out["cpu"][1].last_distance.per_group,

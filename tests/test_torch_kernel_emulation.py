@@ -6,7 +6,8 @@ No ``nvcc`` is needed: ``tests/cuda_emu/harness.cpp`` (POGO) and
 ``src/repro_torch/kernels/csrc/fused_step.cu``, ``two_stage.cu``,
 ``newton_schulz.cu``, ``tp_step.cu`` and (``flash_harness.cpp``)
 ``flash_attention.cu`` (fp32) and ``flash_attention_tc.cu`` (bf16), and
-(``tc_harness.cpp``) ``fused_step_tc.cu``, with
+(``tc_harness.cpp``) ``fused_step_tc.cu``, its fused step and its two-stage
+entries, with
 the host C++ compiler against ``tests/cuda_emu/cuda_runtime.h``, which
 runs each block as threads (256, or the launch's count) with
 ``std::barrier`` for ``__syncthreads``, and ``tests/cuda_emu/hopper.cuh``,
@@ -23,7 +24,8 @@ aliasing at small shapes; the card checks them again
 tiled (fp32 sums in another order); for the TP kernels the fused tiled
 tolerance, with rtol 1e-4 covering the payload's sum of squares (a sum of
 p n squares in another order). The tensor-core fused step takes the
-tiled tolerance (3xTF32 products are within ~2^-21 of fp32's). The
+tiled tolerance (3xTF32 products are within ~2^-21 of fp32's), its
+two-stage entries the two-stage tiled one. The
 flash-attention kernel takes
 ``tests/test_flash_kernel.py``'s fp32 tolerance, atol 2e-5 / rtol 1e-4,
 and in bf16 one output ulp (both sides round an fp32 result once).
@@ -277,6 +279,7 @@ def test_two_stage_whole_kernels_emulated(two_stage_harness, tmp_path, method, s
     ((2, 10, 250), 32),  # ragged last tile
     ((1, 70, 150), 32),
     ((2, 7, 33), 32),
+    ((1, 128, 150), 16),  # internlm2-1.8b's p, POGO's planned tile
 ])
 def test_two_stage_tiled_kernels_emulated(two_stage_harness, tmp_path, method,
                                           shape, tile_n):
@@ -292,6 +295,50 @@ def test_two_stage_kernels_emulated_in_place(two_stage_harness, tmp_path, kind,
     writes X' over it, and the field writes each tile after reading it."""
     _run_two_stage(two_stage_harness, tmp_path, kind, method, (3, 12, 130),
                    tile_n=tile_n, inplace=True)
+
+
+def _run_two_stage_tc(harness, tmp_path, method, shape, inplace=False, seed=0):
+    """``pogo_update_tc`` (method 0) or ``landing_field_tc`` (1) through
+    the tensor-core harness against the plain version, at the two-stage
+    tiled tolerance."""
+    rng = np.random.default_rng(seed)
+    b, p, n = shape
+    q, _ = np.linalg.qr(rng.standard_normal((b, n, p)))
+    x = np.swapaxes(q, -1, -2) + 0.01 * rng.standard_normal(shape)
+    g = 0.2 * rng.standard_normal(shape)
+    x, g = (np.ascontiguousarray(a, np.float32) for a in (x, g))
+    scal = np.array([0.1, 0.5, 1.0, 0, 0, 0, 0, 0], np.float32)
+    for name, a in (("x", x), ("g", g), ("scal", scal)):
+        a.tofile(tmp_path / f"{name}.bin")
+    res = subprocess.run(
+        [str(harness), str(tmp_path), str(2 + method), str(b), str(p), str(n), "0", "0",
+         str(int(inplace)), "0"], capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    t = torch.from_numpy
+    if method == 0:
+        want = tref.pogo_update_ref(t(x), t(g), 0.1, 0.5)
+    else:
+        want = tref.landing_field_ref(t(x), t(g), 0.5)
+    got = np.fromfile(tmp_path / "x_out.bin", np.float32).reshape(shape)
+    np.testing.assert_allclose(got, want.numpy(), atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("method", [0, 1], ids=["pogo_update", "landing_field"])
+@pytest.mark.parametrize("shape", [
+    (2, 64, 960),  # SmolLM's (p, n): 15 chunks, the ring reused across sweeps
+    (1, 64, 300),  # TMA with a ragged last chunk
+    (2, 10, 250),  # n % 4 != 0: the producer's plain loads
+    (2, 7, 33),
+])
+def test_two_stage_tc_kernels_emulated(tc_harness, tmp_path, method, shape):
+    _run_two_stage_tc(tc_harness, tmp_path, method, shape)
+
+
+@pytest.mark.parametrize("n", [200, 250], ids=["tma", "plain_loads"])
+def test_two_stage_tc_pogo_emulated_in_place(tc_harness, tmp_path, n):
+    """X' over X: M is parked in X's place between sweeps 2 and 3; five
+    matrices on two blocks."""
+    _run_two_stage_tc(tc_harness, tmp_path, 0, (5, 8, n), inplace=True)
 
 
 @pytest.fixture(scope="module")

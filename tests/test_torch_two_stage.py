@@ -104,6 +104,23 @@ def test_plain_versions_match_jax_tiled_kernels(shape, tile_n):
                                **TILED_TOL)
 
 
+@pytest.mark.parametrize("shape", [(2, 128, 160), (1, 128, 256)])
+def test_plain_versions_match_jax_at_p128(shape):
+    """internlm2-1.8b's p = 128, where the port's planner gives POGO the
+    16-column tile: JAX's ``ops.pogo_update`` / ``ops.landing_field`` (the
+    Pallas kernels in interpret mode) against the port's entry points on
+    the CPU, at the whole-kernel tolerance (atol 1e-6; the differences
+    read ~2e-7)."""
+    x, g = _xg(shape, seed=7)
+    x = x + 0.01 * np.random.default_rng(8).standard_normal(shape).astype(np.float32)
+    jx, jg = jnp.asarray(x), jnp.asarray(g)
+    tx, tg = torch.from_numpy(x), torch.from_numpy(g)
+    np.testing.assert_allclose(tops.pogo_update(tx, tg, 0.1, 0.5).numpy(),
+                               np.asarray(jops.pogo_update(jx, jg, 0.1, 0.5)), **KERNEL_TOL)
+    np.testing.assert_allclose(tops.landing_field(tx, tg, 1.0).numpy(),
+                               np.asarray(jops.landing_field(jx, jg, 1.0)), **KERNEL_TOL)
+
+
 def test_manifold_distance_ref_matches_jax():
     x, g = _xg((3, 6, 40), seed=4)
     y = x + 0.05 * g
@@ -112,7 +129,8 @@ def test_manifold_distance_ref_matches_jax():
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("wrapper", [tpu.pogo_update_whole, tpu.pogo_update_tiled])
+@pytest.mark.parametrize("wrapper", [tpu.pogo_update_whole, tpu.pogo_update_tiled,
+                                     tpu.pogo_update_tiled_tc])
 def test_pogo_update_wrappers_write_in_place_on_cpu(wrapper):
     x, g = (torch.from_numpy(a) for a in _xg((2, 6, 50), seed=5))
     want = tref.pogo_update_ref(x, g, 0.1, 0.5)
@@ -125,7 +143,7 @@ def test_pogo_update_wrappers_write_in_place_on_cpu(wrapper):
 def test_landing_field_wrappers_run_the_plain_version_on_cpu():
     x, g = (torch.from_numpy(a) for a in _xg((2, 6, 50), seed=6))
     want = tref.landing_field_ref(x, g, 1.0)
-    for wrapper in (tlf.landing_field, tlf.landing_field_tiled):
+    for wrapper in (tlf.landing_field, tlf.landing_field_tiled, tlf.landing_field_tiled_tc):
         before = wrapper.launches
         torch.testing.assert_close(wrapper(x, g, 1.0), want, atol=0, rtol=0)
         assert wrapper.launches == before
@@ -133,13 +151,18 @@ def test_landing_field_wrappers_run_the_plain_version_on_cpu():
 
 @pytest.mark.parametrize("p,n,pogo,landing", [
     (16, 256, ("whole", 0), ("whole", 0)),
-    (64, 960, ("tiled", 32), ("tiled", 64)),
+    (64, 960, ("tc", 0), ("tc", 0)),
     (120, 4096, ("tiled", 32), ("tiled", 64)),
+    (128, 2048, ("tiled", 16), ("tiled", 64)),
+    (24, 4096, ("tiled", 64), ("tiled", 64)),
+    (28, 2048, ("tiled", 64), ("tc", 0)),
 ])
 def test_two_stage_planners(p, n, pogo, landing):
-    """Whole when a matrix fits one block; else the tile that lets the
-    most blocks share an SM, the widest of those (SmolLM's (64, 960):
-    32-wide for POGO's three tiles, 64-wide for the field's two)."""
+    """Whole when a matrix fits one block; else the tensor-core entries from
+    p = 32 (POGO) or 28 (the field) to 64 (SmolLM's (64, 960)); else the tile
+    that lets the most blocks share an SM, the widest of those, and 16
+    columns only where neither 64 nor 32 fits (internlm2-1.8b's p = 128:
+    POGO's three tiles; the field's two fit 64 columns)."""
     assert tops.plan_pogo_update(p, n) == pogo
     assert tops.plan_landing_field(p, n) == landing
     for kind, whole, tiled in ((pogo, tops.pogo_whole_smem_bytes,
@@ -148,9 +171,46 @@ def test_two_stage_planners(p, n, pogo, landing):
                                 tops.landing_tiled_smem_bytes)):
         if kind[0] == "whole":
             assert whole(p, n) <= tops.SMEM_LIMIT_BYTES
+        elif kind[0] == "tc":
+            assert whole(p, n) > tops.SMEM_LIMIT_BYTES
+            assert tops.tc_smem_bytes() <= tops.SMEM_LIMIT_BYTES
         else:
             assert whole(p, n) > tops.SMEM_LIMIT_BYTES
             assert tiled(p, kind[1]) <= tops.SMEM_LIMIT_BYTES
+
+
+@pytest.mark.parametrize("pogo", [True, False], ids=["pogo_update", "landing_field"])
+def test_two_stage_planners_keep_their_plans_outside_the_tc_range(pogo):
+    """Every (p, n) that planned whole or a 64- or 32-column tile before
+    the tensor-core route and the 16-column tile keeps that plan outside
+    the tensor-core range; the 16-column tile appears only where the old
+    planner raised."""
+    whole = tops.pogo_whole_smem_bytes if pogo else tops.landing_whole_smem_bytes
+    tiled = tops.pogo_tiled_smem_bytes if pogo else tops.landing_tiled_smem_bytes
+    plan = tops.plan_pogo_update if pogo else tops.plan_landing_field
+    low = tops.TC_MIN_P if pogo else tops.LANDING_FIELD_TC_MIN_P
+    moved = 0
+    for p in range(1, 161):
+        for n in (16, 100, 256, 960, 2048, 4096, 8192):
+            try:
+                old = tops._plan("old", p, n, whole, tiled)
+            except ValueError:
+                old = None
+            try:
+                new = plan(p, n)
+            except ValueError:
+                new = None
+            if new == ("tc", 0):
+                assert low <= p <= tops.TC_MAX_P and old is not None
+                moved += 1
+            elif old is None:
+                assert new in (None, ("tiled", 16)), (p, n, new)
+                assert new is None or tiled(p, 32) > tops.SMEM_LIMIT_BYTES
+            else:
+                assert new == old, (p, n, old, new)
+    assert moved > 0
+    assert tops.plan_pogo_update(128, 2048) == ("tiled", 16)
+    assert tops.pogo_tiled_smem_bytes(128, 16) <= tops.SMEM_LIMIT_BYTES
 
 
 def test_two_stage_planners_raise_for_large_p():

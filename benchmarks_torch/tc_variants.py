@@ -10,13 +10,16 @@ over VAdam and Landing over trace(0.1) at each ``--shape`` (default
 SmolLM-360M's 640 x (64, 960)) through each build, held against the plain
 version (atol 3e-5 / rtol 1e-4), beside the checkout's CUDA-core tiled
 kernel (``fused_step_tiled`` at the planner's tile for p, ``ops.tiled_tile_n``)
-as a yardstick: the readings that set where ``ops.plan`` sends a p. Then
+as a yardstick: the readings that set where ``ops.plan`` sends a p (a
+source with the wide kernel, whose launcher takes a park, also runs
+64 < p <= 128; one without it only p <= 64). Then
 the two-stage entries (``pogo_update_tc``, ``landing_field_tc``; a source
 without them is skipped there) at each shape, held against
 ``ref.pogo_update_ref`` / ``ref.landing_field_ref`` (atol 2e-5 / rtol
 1e-4), beside the CUDA-core ``pogo_update_tiled`` / ``landing_field_tiled``
-at their tile for p (``ops.two_stage_tile_n``): the readings that set
-``ops.TC_MIN_P`` and ``ops.LANDING_FIELD_TC_MIN_P``. Prints
+at their tile for p (``ops.two_stage_tile_n``; the field's entry only at
+p <= 64): the readings that set ``ops.TC_MIN_P``, ``ops.TC_MAX_P`` and
+``ops.LANDING_FIELD_TC_MIN_P``. Prints
 the median, least and most of ``--reps`` CUDA-event timings of
 ``--iters`` launches each (the builds take turns),
 the ptxas register and spill lines, and the card's name and power limit.
@@ -75,19 +78,30 @@ def main() -> int:
 
     with ThreadPoolExecutor(len(sources)) as ex:  # one nvcc per build, together
         builds = list(ex.map(make, sources))
-    entries, two_stage = {}, {}
-    for tag, so, regs in builds:
+    entries, two_stage, wide = {}, {}, set()
+    for (tag, so, regs), (_, path) in zip(builds, sources):
         lib = ctypes.CDLL(so)
+        parks = "float* park" in open(path).read()  # the wide kernel's scratch
+        if parks:
+            wide.add(tag)
         lib.fused_step_tc.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + \
-            [ctypes.c_void_p]
+            [ctypes.c_void_p] * (1 + parks)
         lib.fused_step_tc.restype = ctypes.c_int
         entries[tag] = lib.fused_step_tc
         if hasattr(lib, "pogo_update_tc"):  # sources from before them lack them
             for fn in (lib.pogo_update_tc, lib.landing_field_tc):
                 fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
+            if parks:
+                lib.pogo_update_tc.argtypes = lib.pogo_update_tc.argtypes[:-1] + \
+                    [ctypes.c_void_p] * 2
             two_stage[tag] = lib
         print(tag, *regs, sep="\n  ", flush=True)
+
+    def usable(tags, p, kernel="fused"):
+        """The builds that take p: above 64 only those with the wide kernel,
+        and never the field's entry."""
+        return [t for t in tags if p <= 64 or (t in wide and kernel != "landing_field")]
 
     def timed(label, runs):
         times = {tag: [] for tag in runs}
@@ -113,8 +127,12 @@ def main() -> int:
                   hyper=hyper, post_scale=1.0, mu=mu, nu=nu if base == "vadam" else None,
                   count=torch.tensor(3, dtype=torch.int32, device="cuda"), pv=None)
         want = ref.fused_group_step_ref(x, g, 0.1, **kw)
-        runs = {tag: functools.partial(fs._launch, entry, x, g, 0.1, inplace=False, **kw)
-                for tag, entry in entries.items()}
+        park = fs.park(x) if p > 64 else None
+        extra = {tag: ((park.data_ptr() if park is not None else None),) if tag in wide else ()
+                 for tag in entries}
+        runs = {tag: functools.partial(fs._launch, entries[tag], x, g, 0.1, inplace=False,
+                                       extra=extra[tag], **kw)
+                for tag in usable(entries, p)}
         for tag, run in runs.items():
             got = run()
             torch.cuda.synchronize()
@@ -129,7 +147,7 @@ def main() -> int:
         runs[f"cuda-core fused_step_tiled tile {tile_n}"] = functools.partial(
             fs.fused_step_tiled, x, g, 0.1, tile_n=tile_n, **kw)
         timed(f"{method}+{base} {b}x({p},{n})", runs)
-        del x, g, mu, nu, want
+        del x, g, mu, nu, want, park
 
     for (b, p, n), name in itertools.product(shapes, ("pogo_update", "landing_field")):
         pogo = name == "pogo_update"
@@ -139,9 +157,13 @@ def main() -> int:
         eta, lam = (0.1, 0.5) if pogo else (0.0, 1.0)
         want = ref.pogo_update_ref(x, g, eta, lam) if pogo else ref.landing_field_ref(x, g, lam)
         out = torch.empty_like(x)
-        runs = {tag: functools.partial(pu.launch, f"{name}_tc", x, g, eta, lam, out,
-                                       lib=lambda lib=lib: lib)
-                for tag, lib in two_stage.items()}
+        park = fs.park(x) if p > 64 else None
+        runs = {tag: functools.partial(
+                    pu.launch, f"{name}_tc", x, g, eta, lam, out,
+                    *([park.data_ptr() if park is not None else None]
+                      if pogo and tag in wide else []),
+                    lib=lambda lib=two_stage[tag]: lib)
+                for tag in usable(two_stage, p, name)}
         for tag, run in runs.items():
             got = run()
             torch.cuda.synchronize()
@@ -155,7 +177,7 @@ def main() -> int:
             pu.pogo_update_tiled, x, g, eta, lam, tile_n=tile_n) if pogo else \
             functools.partial(lf.landing_field_tiled, x, g, lam, tile_n=tile_n)
         timed(f"{name} {b}x({p},{n})", runs)
-        del x, g, want, out
+        del x, g, want, out, park
     return 1 if bad else 0
 
 

@@ -11,9 +11,12 @@ projections (one 640 x (64, 960) stack: the tensor-core kernels of
 ``fused_step_tc.cu``, 3xTF32 ``wgmma`` on TMA-fed tiles, after a one-
 ``wgmma`` probe of the card's TF32 reading, for the fused step and the
 two-stage POGO update and landing field), at the many-matrices shape
-2048 x (16, 256) (the whole kernels) and at internlm2-1.8b's q/k, one
-576 x (128, 2048) stack (p > 64: the CUDA-core tiled kernels, 3 steps
-each):
+2048 x (16, 256) (the whole kernels), at internlm2-1.8b's q/k, one 576 x
+(128, 2048) stack (p > 64: the wide tensor-core kernel of the same source
+for the fused step and the POGO update, the CUDA-core tiled kernel for the
+landing field; 3 steps each), and at the paper's squared-unitary-PC
+sizes, 1048 x (10, 10000) (p < 32: the CUDA-core tiled kernels of the
+fused step and the POGO update; 3 steps each):
 
 * the fused group step, ``orthogonal("pogo", use_kernel=True,
   base_optimizer=chain(trace(0.9)))``;
@@ -32,8 +35,9 @@ each):
 
 Each path's kernels must launch once per step, its first step must agree
 with the plain route, and its feasibility must hold. The tensor-core
-kernels are launched 20 times each on the same inputs, half of them
-beside a copy on another stream, and must repeat bit for bit. The Newton-Schulz
+kernels (the wide ones at 576 x (128, 2048)) are launched 20 times each
+on the same inputs, half of them beside a copy on another stream, and
+must repeat bit for bit. The Newton-Schulz
 kernels are held against their plain version with half the matrices
 masked off. The tensor-parallel step: its two kernels against their plain
 versions at a rank's share of the q/k stack at width 2, 640 x (64, 480),
@@ -108,11 +112,17 @@ SMOLLM_STEPS = 10
 MANY = {"w": (2048, 16, 256)}
 # internlm2-1.8b's constrained q/k projections (src/repro/configs/
 # internlm2_1_8b.py: 24 layers, 16 heads and 8 KV heads of head_dim 128,
-# d_model 2048), one 576 x (128, 2048) stack: the widest published p the
-# CUDA-core tiled fused kernels take (ops.plan, tile 16), where they run
-# since the tensor-core kernel took 32 <= p <= 64.
+# d_model 2048), one 576 x (128, 2048) stack: the wide tensor-core kernel's
+# (64 < p <= 128) main path for the fused step and the POGO update; the
+# landing field stays on its CUDA-core tiled kernel there.
 INTERNLM2 = {"q_proj": (24, 16, 128, 2048), "k_proj": (24, 8, 128, 2048)}
 WIDE_SHAPE = (576, 128, 2048)
+# The paper's squared-unitary-PC sizes (src/repro/configs/pogo_paper.py:10,
+# 1048 matrices of (10, n), n at the top of its 256-10000 range), real-valued
+# (the port refuses complex groups): p < 32, where the planner keeps the
+# CUDA-core tiled kernels of the fused step and the POGO update.
+PAPER_PC = {"pc": (1048, 10, 10000)}
+PAPER_SHAPE = (1048, 10, 10000)
 # kernel -> (its source, the TPU kernel it replaces)
 KERNELS = {
     "fused_step_whole": ("fused_step", "src/repro/kernels/fused_step.py:175"),
@@ -128,6 +138,9 @@ KERNELS = {
     "fused_step_tiled_landing": ("fused_step", "src/repro/kernels/fused_step.py:559"),
     "fused_step_tiled_tc": ("fused_step_tc", "src/repro/kernels/fused_step.py:608"),
     "fused_step_tiled_tc_landing": ("fused_step_tc", "src/repro/kernels/fused_step.py:559"),
+    "fused_step_tiled_tc128": ("fused_step_tc", "src/repro/kernels/fused_step.py:608"),
+    "fused_step_tiled_tc128_landing": ("fused_step_tc", "src/repro/kernels/fused_step.py:559"),
+    "pogo_update_tiled_tc128": ("fused_step_tc", "src/repro/kernels/pogo_update.py:143"),
     "tp_gram": ("tp_step", "src/repro/kernels/fused_step.py:304"),
     "tp_apply": ("tp_step", "src/repro/kernels/fused_step.py:417"),
     "flash_attention": ("flash_attention", "src/repro/kernels/flash_attention.py:88"),
@@ -152,8 +165,8 @@ DRIFT_STEP = 5  # the q/k leaves are scaled by 1.5 just before this step
 # B = X G^T and Lambda = A G / 2 + (lam (A - I) - B / 2) X, whose B X and
 # A X share one product (the CUDA-core kernels do them apart, five).
 TWO_STAGE_FLOPS = {"pogo_update_whole": 12, "pogo_update_tiled": 12,
-                   "pogo_update_tiled_tc": 12, "landing_field": 8,
-                   "landing_field_tiled": 8, "landing_field_tiled_tc": 8}
+                   "pogo_update_tiled_tc": 12, "pogo_update_tiled_tc128": 12,
+                   "landing_field": 8, "landing_field_tiled": 8, "landing_field_tiled_tc": 8}
 # Serving. SmolLM-360M's prefill: 4 prompts of 2048 tokens. The flash
 # kernels at that shape, (B, S, H, KV, hd); internlm2-1.8b's heads; S = 2000
 # (not a multiple of the tiles); hd 24. fp32: tests/test_flash_kernel.py's
@@ -330,11 +343,14 @@ def phase_fused_kernels(gen):
     """Each fused kernel, POGO and Landing branches, against the plain
     version at the main-path shapes (the first case of each kernel, timed):
     the whole kernels at 2048 x (16, 256), the tensor-core kernels at
-    SmolLM's 640 x (64, 960) (every base, in place, ragged), the CUDA-core
-    tiled kernels at internlm2-1.8b's 576 x (128, 2048) (their main path:
-    trace first, the planner's tile) and at 640 x (64, 960), where they ran
-    before the tensor-core kernel (checked here, and timed beside it).
-    Each output's error is printed apart: X', mu', nu' and the distance."""
+    SmolLM's 640 x (64, 960) (every base, in place, ragged), the wide
+    tensor-core kernels at internlm2-1.8b's 576 x (128, 2048) (every base,
+    in place, ragged; plain loads at 7 x (72, 1002)), the CUDA-core tiled
+    kernels at the paper's 1048 x (10, 10000) (their main path: trace
+    first, the planner's tile) and at 576 x (128, 2048) and 640 x (64,
+    960), where they ran before the tensor-core kernels (checked here, and
+    timed beside them). Each output's error is printed apart: X', mu', nu'
+    and the distance."""
     import torch
 
     from repro_torch.kernels import fused_step as fs
@@ -350,12 +366,20 @@ def phase_fused_kernels(gen):
         ("fused_step_tiled_tc", tc_shape, "trace", (0.9, True), ""),
         ("fused_step_tiled_tc", tc_shape, "vadam", (0.9, 0.999, 1e-8), "in place"),
         ("fused_step_tiled_tc", tc_shape, "trace", (0.9, False), "ragged"),
+        ("fused_step_tiled_tc128", WIDE_SHAPE, "trace", (0.9, False), ""),
+        ("fused_step_tiled_tc128", WIDE_SHAPE, "vadam", (0.9, 0.999, 1e-8), ""),
+        ("fused_step_tiled_tc128", WIDE_SHAPE, "trace", (0.9, True), ""),
+        ("fused_step_tiled_tc128", WIDE_SHAPE, "none", (), ""),
+        ("fused_step_tiled_tc128", WIDE_SHAPE, "vadam", (0.9, 0.999, 1e-8), "in place"),
+        ("fused_step_tiled_tc128", (140, 100, 300), "trace", (0.9, False), "ragged"),
+        ("fused_step_tiled_tc128", (7, 72, 1002), "vadam", (0.9, 0.999, 1e-8), ""),
+        ("fused_step_tiled", PAPER_SHAPE, "trace", (0.9, False), ""),
         ("fused_step_tiled", WIDE_SHAPE, "trace", (0.9, False), ""),
         ("fused_step_tiled", WIDE_SHAPE, "vadam", (0.9, 0.999, 1e-8), ""),
         ("fused_step_tiled", tc_shape, "trace", (0.9, False), ""),
     ]
     for b, p, n in ((2048, 16, 256), tc_shape):
-        kind = ops.plan(p, n)[0]
+        kind = ops.plan(p, n, "landing")[0]
         name = "fused_step_whole_landing" if kind == "whole" else "fused_step_tiled_tc_landing"
         for base, hyper in (("trace", (0.1, False)), ("none", ()),
                             ("trace", (0.5, True)), ("vadam", (0.9, 0.999, 1e-8))):
@@ -363,6 +387,15 @@ def phase_fused_kernels(gen):
     cases += [
         ("fused_step_tiled_tc_landing", tc_shape, "vadam", (0.9, 0.999, 1e-8), "in place"),
         ("fused_step_tiled_tc_landing", tc_shape, "trace", (0.1, False), "ragged"),
+        ("fused_step_tiled_tc128_landing", WIDE_SHAPE, "trace", (0.1, False), ""),
+        ("fused_step_tiled_tc128_landing", WIDE_SHAPE, "none", (), ""),
+        ("fused_step_tiled_tc128_landing", WIDE_SHAPE, "trace", (0.5, True), ""),
+        ("fused_step_tiled_tc128_landing", WIDE_SHAPE, "vadam", (0.9, 0.999, 1e-8), ""),
+        ("fused_step_tiled_tc128_landing", WIDE_SHAPE, "vadam", (0.9, 0.999, 1e-8),
+         "in place"),
+        ("fused_step_tiled_tc128_landing", (140, 100, 300), "trace", (0.1, False), "ragged"),
+        ("fused_step_tiled_tc128_landing", (7, 72, 1002), "trace", (0.1, False), ""),
+        ("fused_step_tiled_landing", PAPER_SHAPE, "trace", (0.1, False), ""),
         ("fused_step_tiled_landing", WIDE_SHAPE, "trace", (0.1, False), ""),
         ("fused_step_tiled_landing", WIDE_SHAPE, "vadam", (0.9, 0.999, 1e-8), ""),
         ("fused_step_tiled_landing", tc_shape, "trace", (0.1, False), ""),
@@ -383,9 +416,10 @@ def phase_fused_kernels(gen):
                   nu=nu if base == "vadam" else None,
                   count=torch.tensor(3, dtype=torch.int32, device="cuda"), pv=pv)
         tol = WHOLE_TOL if "whole" in name else TILED_TOL
-        kind, tile_n = ops.plan(p, n)  # the kernel and tile the main path runs
+        kind, tile_n = ops.plan(p, n, method)  # the kernel and tile the main path runs
         entry = name.removesuffix("_landing")
-        planned = {"whole": "fused_step_whole", "tc": "fused_step_tiled_tc",
+        planned = {"whole": "fused_step_whole",
+                   "tc": "fused_step_tiled_tc" if p <= 64 else "fused_step_tiled_tc128",
                    "tiled": "fused_step_tiled"}[kind]
         if entry == "fused_step_tiled" and kind == "tc":
             tile_n = ops.tiled_tile_n(p)  # where it ran before the tensor-core kernel
@@ -425,8 +459,8 @@ def phase_fused_kernels(gen):
             plain_ms, ms = times[:2]
             bound_ms, bound_by = _bound(b, p, n, base, pieces=3 if tc else 0)
             extra = ""
-            if tc:
-                passes = 7 if landing else 9  # the three (two) sweeps' HBM passes
+            if tc:  # the sweeps' HBM passes (the wide kernel's pass 2 runs twice)
+                passes = (10 if landing else 11.5) if p > 64 else (7 if landing else 9)
                 floor_ms = 1e3 * passes * b * p * n * 4 / HBM_BYTES_PER_S
                 ops_ms = 1e3 * 3 * 12 * p * p * n * b / TF32_TC_FLOP_PER_S
                 fp32_ms = 1e3 * 12 * p * p * n * b / FP32_FLOP_PER_S
@@ -444,7 +478,8 @@ def phase_fused_kernels(gen):
 
 def phase_tc_repeatability(gen, repeats=20):
     """Each tensor-core kernel launched ``repeats`` times on the same inputs
-    at 640 x (64, 960), every other launch beside a 1 GiB copy on a second
+    at 640 x (64, 960) (the wide ones at 576 x (128, 2048)), every other
+    launch beside a 1 GiB copy on a second
     stream that takes SMs and HBM from it: every output must equal the first
     launch's bit for bit. The kernels sum in a fixed order, so a difference
     is a race whose outcome depends on timing, which the CPU emulator
@@ -476,23 +511,32 @@ def phase_tc_repeatability(gen, repeats=20):
         if differ:
             raise SystemExit(f"{label} is not repeatable")
 
-    for name, base, hyper in (("fused_step_tiled_tc", "vadam", (0.9, 0.999, 1e-8)),
-                              ("fused_step_tiled_tc_landing", "trace", (0.1, False))):
+    for name, base, hyper, shape in (
+            ("fused_step_tiled_tc", "vadam", (0.9, 0.999, 1e-8), (640, 64, 960)),
+            ("fused_step_tiled_tc_landing", "trace", (0.1, False), (640, 64, 960)),
+            ("fused_step_tiled_tc128", "vadam", (0.9, 0.999, 1e-8), WIDE_SHAPE),
+            ("fused_step_tiled_tc128_landing", "trace", (0.1, False), WIDE_SHAPE)):
         landing = name.endswith("_landing")
-        x, g, mu, nu = _operands(gen, 640, 64, 960)
+        x, g, mu, nu = _operands(gen, *shape)
         if landing:
             x += 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
         kw = dict(method="landing" if landing else "pogo", lam=1.0 if landing else 0.5,
                   base_kind=base, hyper=hyper, mu=mu, nu=nu if base == "vadam" else None,
                   count=torch.tensor(3, dtype=torch.int32, device="cuda"))
-        repeat(f"{name} 640x(64,960) {base}",
-               lambda: fs.fused_step_tiled_tc(x, g, LR, **kw)[:4])
+        wrapper = getattr(fs, name.removesuffix("_landing"))
+        repeat(f"{name} {shape[0]}x{shape[1:]} {base}",
+               lambda: wrapper(x, g, LR, **kw)[:4])
         del x, g, mu, nu
-    x, g, _, _ = _operands(gen, 640, 64, 960)
-    x += 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
-    repeat("pogo_update_tiled_tc 640x(64,960)", lambda: (pu.pogo_update_tiled_tc(x, g, LR, 0.5),))
-    repeat("landing_field_tiled_tc 640x(64,960)", lambda: (lf.landing_field_tiled_tc(x, g, 1.0),))
-    del x, g, big, dst
+    for shape, updates in (((640, 64, 960), (pu.pogo_update_tiled_tc, lf.landing_field_tiled_tc)),
+                           (WIDE_SHAPE, (pu.pogo_update_tiled_tc128,))):
+        x, g, _, _ = _operands(gen, *shape)
+        x += 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
+        for update in updates:
+            args = (LR, 0.5) if update.__name__.startswith("pogo") else (1.0,)
+            repeat(f"{update.__name__} {shape[0]}x{shape[1:]}",
+                   lambda: (update(x, g, *args),))
+        del x, g
+    del big, dst
 
 
 def _tp_bound(name, b, p, n, base_kind="trace", method="pogo"):
@@ -583,8 +627,11 @@ def phase_two_stage_kernels(gen):
     at 2048 x (16, 256), the tensor-core entries at SmolLM's 640 x (64, 960)
     (timed beside the CUDA-core tiled kernels, their route there before,
     which are checked at the same call), the CUDA-core tiled kernels at
-    internlm2-1.8b's 576 x (128, 2048) (POGO at tile 16). Then every kernel
-    at a ragged shape, 7 x (10, 250), the tensor-core entries also at 7 x
+    internlm2-1.8b's 576 x (128, 2048) (the field at tile 64; POGO's update
+    on the wide tensor-core kernel there, timed beside its CUDA-core tiled
+    kernel at tile 16), POGO's CUDA-core tiled kernel at the paper's 1048 x
+    (10, 10000). Then every kernel at a ragged shape, 7 x (10, 250) (the
+    wide kernel at 7 x (100, 250)), the tensor-core entries also at 7 x
     (64, 250) (plain loads), POGO's in place and with a learning rate held
     on the card (bit for bit the host value's result). X is a Stiefel draw
     plus 0.01 randn, and each check first shows that dropping lam's term
@@ -598,13 +645,17 @@ def phase_two_stage_kernels(gen):
     tc_shape = (640, 64, 960)
     main = {"pogo_update_whole": (2048, 16, 256), "landing_field": (2048, 16, 256),
             "pogo_update_tiled_tc": tc_shape, "landing_field_tiled_tc": tc_shape,
-            "pogo_update_tiled": WIDE_SHAPE, "landing_field_tiled": WIDE_SHAPE}
+            "pogo_update_tiled_tc128": WIDE_SHAPE,
+            "pogo_update_tiled": PAPER_SHAPE, "landing_field_tiled": WIDE_SHAPE}
     cases = [(name, shape, "") for name, shape in main.items()]
-    cases += [(name, (7, 10, 250), "ragged") for name in main]
+    cases += [(name, (7, 100 if name.endswith("tc128") else 10, 250), "ragged")
+              for name in main]
     cases += [("pogo_update_tiled_tc", (7, 64, 250), "ragged"),
               ("landing_field_tiled_tc", (7, 64, 250), "ragged"),
               ("pogo_update_tiled_tc", tc_shape, "in place"),
-              ("pogo_update_tiled_tc", tc_shape, "device eta")]
+              ("pogo_update_tiled_tc", tc_shape, "device eta"),
+              ("pogo_update_tiled_tc128", WIDE_SHAPE, "in place"),
+              ("pogo_update_tiled_tc128", WIDE_SHAPE, "device eta")]
     records = {}
     for name, shape, variant in cases:
         pogo = name.startswith("pogo")
@@ -614,7 +665,8 @@ def phase_two_stage_kernels(gen):
         kind, tile_n = (ops.plan_pogo_update if pogo else ops.plan_landing_field)(p, n)
         stem = "pogo_update" if pogo else "landing_field"
         planned = {"whole": "pogo_update_whole" if pogo else "landing_field",
-                   "tc": f"{stem}_tiled_tc", "tiled": f"{stem}_tiled"}[kind]
+                   "tc": f"{stem}_tiled_tc" + ("128" if p > 64 else ""),
+                   "tiled": f"{stem}_tiled"}[kind]
         if planned != name:
             raise SystemExit(f"the planner picks {kind} for ({p}, {n}), not {name}")
         wrapper = getattr(mod, name)
@@ -677,20 +729,20 @@ def phase_two_stage_kernels(gen):
         timed = [(lambda: plain(x, g), 10), (lambda: run(x, g), 20)]
         extra = ""
         if kind == "tc":  # the CUDA-core tiled kernel at the same call
-            cc = functools.partial(getattr(mod, name.removesuffix("_tc")),
+            cc = functools.partial(getattr(mod, f"{stem}_tiled"),
                                    tile_n=ops.two_stage_tile_n(p, tiled_bytes))
             cc_out = run(x, g, wrapper=cc)
             torch.cuda.synchronize()
             if not _errors((cc_out,), (want,), tol)[2]:
-                raise SystemExit(f"{name.removesuffix('_tc')} at {shape} disagrees")
+                raise SystemExit(f"{stem}_tiled at {shape} disagrees")
             timed.append((lambda: run(x, g, wrapper=cc), 20))
             bound_ms, bound_by = _bound_ms(3 * b * p * n * 4, 3 * flops, TF32_TC_FLOP_PER_S)
         else:
             bound_ms, bound_by = _bound_ms(3 * b * p * n * 4, flops)
         times = _time_rotating(timed)
         plain_ms, ms = times[:2]
-        if kind == "tc":
-            passes = 7 if pogo else 5  # the three (two) sweeps' HBM passes
+        if kind == "tc":  # the sweeps' HBM passes (the wide kernel's pass 2 runs twice)
+            passes = (9.5 if p > 64 else 7) if pogo else 5
             extra = (f"; bytes, 3 passes {1e3 * 3 * b * p * n * 4 / HBM_BYTES_PER_S:.4f}; "
                      f"3xTF32 tensor work {1e3 * 3 * flops / TF32_TC_FLOP_PER_S:.4f}; the "
                      f"schedule's {passes} passes "
@@ -1642,11 +1694,14 @@ def main() -> int:
         ("fused smollm-360m q/k", smollm, SMOLLM_STEPS, "fused", 1e-5,
          "fused_step_tiled_tc"),
         ("fused 2048x(16,256)", MANY, 10, "fused", 1e-5, "fused_step_whole"),
-        ("fused internlm2-1.8b q/k", INTERNLM2, 3, "fused", 1e-5, "fused_step_tiled"),
+        ("fused internlm2-1.8b q/k", INTERNLM2, 3, "fused", 1e-5, "fused_step_tiled_tc128"),
+        ("fused paper unitary-PC sizes", PAPER_PC, 3, "fused", 1e-5, "fused_step_tiled"),
         ("pogo+adam smollm-360m q/k", smollm, 10, "pogo_adam", 1e-5,
          "pogo_update_tiled_tc"),
         ("pogo+adam 2048x(16,256)", MANY, 10, "pogo_adam", 1e-5, "pogo_update_whole"),
         ("pogo+adam internlm2-1.8b q/k", INTERNLM2, 3, "pogo_adam", 1e-5,
+         "pogo_update_tiled_tc128"),
+        ("pogo+adam paper unitary-PC sizes", PAPER_PC, 3, "pogo_adam", 1e-5,
          "pogo_update_tiled"),
         ("landing smollm-360m q/k", smollm, 10, "landing", 0.5, "landing_field_tiled_tc"),
         ("landing 2048x(16,256)", MANY, 10, "landing", 0.5, "landing_field"),
@@ -1656,6 +1711,8 @@ def main() -> int:
         ("landing fused 2048x(16,256)", MANY, 10, "landing_fused", 0.5,
          "fused_step_whole_landing"),
         ("landing fused internlm2-1.8b q/k", INTERNLM2, 3, "landing_fused", 0.5,
+         "fused_step_tiled_tc128_landing"),
+        ("landing fused paper unitary-PC sizes", PAPER_PC, 3, "landing_fused", 0.5,
          "fused_step_tiled_landing"),
     ]
     launches = {}

@@ -1,7 +1,8 @@
 // Tiled fused POGO and Landing group steps for Hopper (sm_90a) on the
-// tensor cores: 3xTF32 wgmma products fed by a TMA ring, for p <= 64; and,
-// from the same kernel with no base stage and no telemetry, the two-stage
-// POGO update and landing field.
+// tensor cores: 3xTF32 wgmma products fed by a TMA ring, for p <= 64 and
+// (the wide kernel, below fused_tc_kernel) 64 < p <= 128; and, from the
+// same kernels with no base stage and no telemetry, the two-stage POGO
+// update (p <= 128) and landing field (p <= 64).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/:
 //   fused_step_tiled_tc          <- fused_step.py:608 fused_step_tiled:
@@ -16,6 +17,9 @@
 //   landing_field_tiled_tc       <- landing_field.py:79 landing_field_tiled
 //                                   (_phase1_kernel + _field_tile_kernel :65):
 //                                   two sweeps, 5 HBM passes
+//   fused_step_tiled_tc128(_landing), pogo_update_tiled_tc128
+//                                <- the same TPU kernels for 64 < p <= 128
+//                                   (fused_tc_wide_kernel)
 // It computes what kernels/ref.py::fused_group_step_ref computes, and what
 // the CUDA-core kernels of fused_step.cu compute (their header has the
 // algebra): the base stage none | trace (+nesterov) | vadam with mu' and
@@ -28,6 +32,10 @@
 // 3.35 TB/s; its six p x p x n products are 30.2 GFLOP, three TF32
 // products each here (90.6 GFLOP, 0.1830 ms at 495 TFLOP/s). The three
 // sweeps below move 9 passes (POGO) or 7 (Landing): 0.4226 and 0.3287 ms.
+// At internlm2-1.8b's 576 x (128, 2048) (the wide kernel): 5 passes
+// 0.9015 ms, the 3xTF32 products 695.8 GFLOP, 1.4056 ms, which bound it;
+// its schedule moves 11.5 passes (POGO, 2.0752 ms), 10 (Landing) or 9.5
+// (the two-stage update).
 //
 // Design:
 // * fp32 accuracy on the tensor cores: an operand x is split as hi =
@@ -605,6 +613,808 @@ fused_tc_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant_
   if (tid == 0) hopper::bulk_wait<0>();  // Landing's X' and the last X'
 }
 
+// ------------------------------------------------ the wide kernel: p <= 128
+//
+// One matrix is two 64-row halves. Every operand chunk is a pair of ring
+// slots, each a 128-row box of 32 fp32 columns (rows 64..127 start at
+// kWHalf), and the (p, p) operands are 64 x 64 blocks. Two consumer
+// warpgroups (wg 0 and 1) and a producer warpgroup; setmaxnreg gives the
+// consumers 240 registers a thread (224 on the plain-load path).
+// * Sweep 1 runs over 32-column chunks (one slot an operand, so the ring
+//   holds two chunks of X, g and mu): the base stage, mu' stored, the lo
+//   boxes of X and Geu in S, and warpgroup wg's rows of X X^T and Geu X^T
+//   (wg's rows of A, and B's columns wg) as m64n64 products, one half of
+//   X at a time.
+// * Sweep 2 runs twice, once per output half h: the half-h slabs of the
+//   leap's operands (P's rows h, Q's rows h: 4 x 32 KB, hi and lo) fill
+//   S, and the full P and Q (256 KB) never need to be resident. Warpgroup
+//   wg writes the 32 rows 64 h + 32 wg .. of M = X + D (m64n32 products
+//   over K = p, from the chunk's X and Geu in registers), then the gram
+//   C's rows of half h: C00 in pass 0, C10 and C11 in pass 1 from M's
+//   rows 0..63 read back. X's rows are the K side of both passes, so M's
+//   rows 0..63 cannot go over X before pass 1 is done with them: they are
+//   parked in `park` (a scratch of 64 n + kWKeep floats a block, one
+//   matrix at a time; past the rows, each thread keeps its blocks of A
+//   and B for pass 1's slab and, through pass 1, its columns of C00,
+//   which would otherwise hold 80 registers a thread), and Landing's X'
+//   rows 0..63 are copied to x_out in pass 1.
+// * The tail: E = C - I (128 x 128, hi and lo, in S), and for the
+//   telemetry E^2 (m64n128 from S) and E^3, whose A operand E^2 is staged
+//   in the idle ring, by warpgroup 0, half the rows at a time (its E^2 then
+//   E^3 products hold 64 registers, not 128). Sweep 3 (POGO's land)
+//   reads M (rows 0..63 from park, 64..127 from x_out) and writes X' =
+//   M - lam M E, warpgroup wg its rows 64 wg ...
+// * Scattered accumulator writes (the slabs, E, M, X') go through acc_at,
+//   which holds four base addresses a thread, not one an element: with
+//   one an element ptxas spilled. The plain-load path stores M and X'
+//   from the tiles, row by row.
+// HBM passes: 11.5 for the fused POGO step (sweep 1: 4; pass 0: 2.5; pass
+// 1: 3; sweep 3: 2), 10 for Landing, 9.5 for the POGO update.
+//
+// Shared memory: the ring (6 x 16 KB) and S (128 KB: sweep 1's lo boxes,
+// then one pass's slabs, then E), the reduction scratch and the barriers.
+
+constexpr int kWP = 128;                          // rows of the wide tile: p <= 128
+constexpr int kWBox = kWP * 128;                  // a ring slot: 128 rows x 32 fp32 columns
+constexpr int kWHalf = kWBox / 2;                 // rows 64..127 of a box
+constexpr int kWSlots = 6;
+constexpr int kWConsumers = 256;                  // two warpgroups
+constexpr int kWThreads = kWConsumers + 128;      // and the producer's
+// Registers a thread: a 384-thread block is launched at 168 (64,512 in
+// all), and setmaxnreg moves them to the consumers: the producer's
+// warpgroup keeps 24 where one lane issues TMA loads, 56 where the whole
+// warpgroup loads (24 + 2 x 240 = 56 + 2 x 224 = 3 x 168).
+template <bool kTma>
+constexpr int kWProducerRegs = kTma ? 24 : 56;
+template <bool kTma>
+constexpr int kWConsumerRegs = kTma ? 240 : 224;
+// Past the parked rows, each block keeps its warpgroups' blocks of A and B
+// for pass 1's slab (2 x 32 floats a consumer thread) and, through pass 1,
+// its columns of C00 (16) in `park`.
+constexpr int kWKeep = 80 * kWConsumers;
+// k8 steps of a register operand's fragments live at once in wproduct_t.
+constexpr int kWFragSteps = 4;
+constexpr int kWSOff = kWSlots * kWBox;           // S: 8 boxes
+constexpr int kWPiece = 2 * kWBox;                // a slab piece: 64 rows x 128 columns
+constexpr int kWELo = 4 * kWBox;                  // E's lo piece, after its hi
+constexpr int kWRedOff = kWSOff + 8 * kWBox;
+constexpr int kWBarOff = kWRedOff + 64;
+constexpr int kWSmemBytes = kWBarOff + 8 * (2 * kWSlots + 1) + 1024;  // + room to align
+constexpr int kWideBar = 3, kGroupBar = 4;        // named barriers: 256 consumers; one warpgroup
+
+// Byte offset of element (row, col & 31) in a box of 128-byte rows.
+__host__ __device__ inline int box_off(int row, int col) {
+  return row * 128 + ((((col & 31) >> 2) ^ (row & 7)) << 4) + ((col & 3) << 2);
+}
+
+// A 64-column chunk of one operand: its two column boxes, anywhere in the ring.
+struct Op {
+  unsigned char* b[2];
+};
+
+__device__ inline float& op_at(const Op& o, int row, int col) {
+  return *reinterpret_cast<float*>((col < 32 ? o.b[0] : o.b[1]) + box_off(row, col));
+}
+
+__device__ inline uint64_t kdesc(const unsigned char* p) { return hopper::sw128_desc(p, 16, 1024); }
+
+// d = A B^T over kSteps k8 steps (3xTF32, small terms first), waited for;
+// a(kk, lo) and b(kk, lo) are the descriptors of step kk of the hi (lo =
+// 0) or lo (1) piece.
+template <int kSteps, int NR, typename AD, typename BD>
+__device__ inline void wgram(float (&d)[NR], AD a, BD b) {
+  hopper::fence_regs(d);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    hopper::wgmma_tf32_ss(d, a(kk, 0), b(kk, 1), kk > 0);
+    hopper::wgmma_tf32_ss(d, a(kk, 1), b(kk, 0), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) hopper::wgmma_tf32_ss(d, a(kk, 0), b(kk, 0), 1);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(d);
+}
+
+// d (+)= T^T B over K = 64, T^T the register operand whose element (m, k)
+// is val(k, m), B's descriptors b(kk, lo); waits. product_t for a
+// warpgroup of the wide kernel, in batches of kWFragSteps k8 steps (each
+// batch's small terms, then its hi.hi terms), so that only a batch's
+// fragments are live.
+template <int NR, typename Val, typename BD>
+__device__ inline void wproduct_t(float (&d)[NR], Val val, BD b, int accumulate) {
+  const int t = threadIdx.x & 127, m0 = 16 * (t >> 5) + ((t & 31) >> 2), k0 = t & 3;
+#pragma unroll
+  for (int k8 = 0; k8 < 8; k8 += kWFragSteps) {
+    uint32_t fh[kWFragSteps][4], fl[kWFragSteps][4];
+#pragma unroll
+    for (int kk = 0; kk < kWFragSteps; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float hi, lo;
+        split(val(8 * (k8 + kk) + k0 + 4 * (r >> 1), m0 + 8 * (r & 1)), hi, lo);
+        fh[kk][r] = __float_as_uint(hi);
+        fl[kk][r] = __float_as_uint(lo);
+      }
+    }
+    hopper::fence_regs(d);
+#pragma unroll
+    for (int kk = 0; kk < kWFragSteps; ++kk) {
+      hopper::fence_regs(fh[kk]);
+      hopper::fence_regs(fl[kk]);
+    }
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWFragSteps; ++kk) {
+      hopper::wgmma_tf32_rs(d, fh[kk][0], fh[kk][1], fh[kk][2], fh[kk][3], b(k8 + kk, 1),
+                            accumulate || k8 + kk > 0);
+      hopper::wgmma_tf32_rs(d, fl[kk][0], fl[kk][1], fl[kk][2], fl[kk][3], b(k8 + kk, 0), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kWFragSteps; ++kk)
+      hopper::wgmma_tf32_rs(d, fh[kk][0], fh[kk][1], fh[kk][2], fh[kk][3], b(k8 + kk, 0), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(d);
+#pragma unroll
+    for (int kk = 0; kk < kWFragSteps; ++kk) {
+      hopper::fence_regs(fh[kk]);
+      hopper::fence_regs(fl[kk]);
+    }
+  }
+}
+
+// Sum over both consumer warpgroups, the same on every consumer thread, in
+// a fixed order.
+__device__ float wide_sum(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  hopper::named_sync(kWideBar, kWConsumers);  // red may still be read
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  hopper::named_sync(kWideBar, kWConsumers);
+  return ((red[0] + red[1]) + (red[2] + red[3])) + ((red[4] + red[5]) + (red[6] + red[7]));
+}
+
+__device__ inline void wide_publish() {
+  hopper::fence_proxy_async_smem();
+  hopper::named_sync(kWideBar, kWConsumers);
+}
+
+__device__ inline unsigned char* wslot(unsigned char* ring, uint64_t* full, int tt) {
+  hopper::mbar_wait(full + tt % kWSlots, (tt / kWSlots) & 1);
+  return ring + (tt % kWSlots) * kWBox;
+}
+
+// Releases `count` slots from tt on, once every lane of the warp is done
+// with them (lanes may diverge: the plain stores read the slots unevenly).
+__device__ inline void wrelease(uint64_t* empty, int tt, int count) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0)
+    for (int o = 0; o < count; ++o) hopper::mbar_arrive(empty + (tt + o) % kWSlots);
+}
+
+// Rows r0 .. r0 + 63 and columns c0 .. c0 + 31 of a row-major (rows, n)
+// matrix into 64 rows of a box by plain loads over the producer warpgroup
+// (thread pt of 128), zero past `rows` and n.
+__device__ inline void load_half_plain(unsigned char* dst, const float* src, int rows, int n,
+                                       int r0, int c0, int pt) {
+#pragma unroll 2
+  for (int u = pt; u < 64 * 32; u += 128) {
+    const int r = u >> 5, col = u & 31, row = r0 + r;
+    const float v = row < rows && c0 + col < n ? src[static_cast<size_t>(row) * n + c0 + col] : 0.f;
+    *reinterpret_cast<float*>(dst + box_off(r, col)) = v;
+  }
+}
+
+// Calls f(i, r, c, off) for this thread's accumulator elements i of an
+// m64nN product (NR = N / 2), at rows r = r0 + acc_row and columns c = c1 +
+// acc_col (r0, c1 multiples of 8), off the byte offset of element (r, c),
+// or (kT) of (c, r), in an array of 32-column boxes kBox bytes apart.
+// Element 4 j + q lies at the q-th of four bases plus a constant of j, so
+// that the unrolled loop holds no address per element. Transposed, column c
+// = c0 + 8 j is row c0 + 8 j: 1024 j further. In place, it is 16-byte chunk
+// 2 (j & 3) + k of box j / 4 (k = (c0 & 31) / 4), which row r's swizzle XORs
+// with r & 7 = 2 u + (r & 1): the chunk's high bits with u, its low bit with
+// r & 1.
+template <int NR, bool kT, int kBox, typename F>
+__device__ inline void acc_at(int r0, int c1, F f) {
+  const int t = threadIdx.x & 127;
+  const int u = (((t & 31) >> 2) & 7) >> 1;  // r & 7 is (t & 31) / 4 & 7 whatever q
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int r = r0 + 16 * (t >> 5) + ((t & 31) >> 2) + 8 * (q >> 1);
+    const int c0 = c1 + 2 * (t & 3) + (q & 1);
+    const int base = kT ? (r >> 5) * kBox + box_off(c0, r)
+                        : (c0 >> 5) * kBox + r * 128 +
+                              (((((c0 & 31) >> 2) & 1) ^ (r & 1)) << 4) + ((c0 & 3) << 2);
+#pragma unroll
+    for (int j = 0; j < NR / 4; ++j)
+      f(4 * j + q, r, c0 + 8 * j, base + (kT ? 1024 * j : (j >> 2) * kBox + (((j & 3) ^ u) << 5)));
+  }
+}
+
+__device__ inline void put_split(unsigned char* at, int lo_off, float v) {
+  float hi, lo;
+  split(v, hi, lo);
+  *reinterpret_cast<float*>(at) = hi;
+  *reinterpret_cast<float*>(at + lo_off) = lo;
+}
+
+// Rows r0 .. r0 + rows - 1 of a chunk's tile o (cols columns: 64, or 32
+// for one box) to the row-major (., n) matrix dst at column c0, over the
+// consumer warpgroups (the plain-load path's stores), rows past `valid`
+// and columns past n skipped.
+__device__ inline void store_rows_plain(const Op& o, int r0, int rows, float* dst, int valid,
+                                        int n, int c0, int cols = 64) {
+#pragma unroll 1
+  for (int u = threadIdx.x; u < rows * cols; u += kWConsumers) {
+    const int r = u / cols, col = u % cols;
+    if (r < valid && c0 + col < n)
+      dst[static_cast<size_t>(r) * n + c0 + col] = op_at(o, r0 + r, col);
+  }
+}
+
+// Writes the slab of output half H into S: rows 64 H .. 64 H + 63 of P =
+// -(c/2) A and of Q^T = (c/2) B [- eta lam (A - I)], hi and lo, from this
+// warpgroup's blocks (wg, H) of A (a(i)) and (H, wg)^T of B (bv(i)), i in
+// the accumulator layout, each at its transposed place; as B operands the
+// slab's rows are N, its 128 columns K (64-row boxes).
+template <int H, int kMethod, typename AV, typename BV>
+__device__ inline void write_slab(AV a, BV bv, unsigned char* s, int wg, int p, float coef,
+                                  float eta, float lam) {
+  acc_at<32, true, kWHalf>(64 * wg, 0, [&](int i, int r, int c, int off) {
+    const float av = a(i);
+    float qv = 0.5f * coef * bv(i);  // A's (r, 64 H + c): slab row c, column r
+    if (kMethod == kLanding) qv -= eta * lam * (av - (r == 64 * H + c && r < p ? 1.f : 0.f));
+    put_split(s + off, kWPiece, -0.5f * coef * av);
+    put_split(s + 2 * kWPiece + off, kWPiece, qv);
+  });
+}
+
+// E = C - I (below p) into S, hi and lo, from this thread's accumulator
+// elements v(i) of C's block at (r0, c1) of an m64nN product, at their
+// transposed place (kT) or in place.
+template <int NR, bool kT, typename V>
+__device__ inline void put_e(unsigned char* s, int r0, int c1, int p, V v) {
+  acc_at<NR, kT, kWBox>(r0, c1, [&](int i, int r, int c, int off) {
+    put_split(s + off, kWELo, v(i) - (r == c && r < p ? 1.f : 0.f));
+  });
+}
+
+// hi + lo of a value stored by put_split.
+__device__ inline float load_split(const unsigned char* at, int lo_off) {
+  return *reinterpret_cast<const float*>(at) + *reinterpret_cast<const float*>(at + lo_off);
+}
+
+// The wide kernel's producer: every slot of every sweep of this block's
+// matrices, in the order the consumers take them, through TMA (kTma: one
+// lane) or plain loads (the whole warpgroup, thread pt); pk is this block's
+// park. Two instances, so that neither keeps the other's operands live.
+template <bool kTma, int kMethod, bool kTwoStage>
+__device__ inline void wide_produce(const CUtensorMap& tm_x, const CUtensorMap& tm_g,
+                                    const CUtensorMap& tm_mu, const CUtensorMap& tm_mu_out,
+                                    const CUtensorMap& tm_x_out, const CUtensorMap& tm_park,
+                                    const float* x, const float* g, const float* mu,
+                                    const float* mu_out, const float* x_out, const float* pk,
+                                    unsigned char* ring, int B, int p, int n, int base_kind,
+                                    bool nest, int pt) {
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kWBarOff);
+  uint64_t* empty = full + kWSlots;
+  uint64_t* swept = empty + kWSlots;
+  const int nc1 = (n + 31) / 32, nc2 = (n + 63) / 64;
+  int q = 0, round = 0, waits = 0;  // the next slot, its use, end-of-sweep waits
+  // One slot: rows 0..63 of (map0 / src0, rows0 valid rows) at column c0
+  // and rows r1 .. r1 + 63 of (map1 / src1) at column c1.
+  auto issue = [&](const CUtensorMap& map0, const float* src0, int rows0, int c0, int bc0,
+                   const CUtensorMap& map1, const float* src1, int rows1, int r1, int c1,
+                   int bc1) {
+    if (round > 0) hopper::mbar_wait(empty + q, (round - 1) & 1);
+    unsigned char* st = ring + q * kWBox;
+    if (kTma) {
+      hopper::mbar_expect_tx(full + q, kWBox);
+      hopper::tma_load_4d(st, &map0, full + q, c0, 0, bc0, 0);
+      hopper::tma_load_4d(st + kWHalf, &map1, full + q, c1, r1, bc1, 0);
+    } else {
+      load_half_plain(st, src0, rows0, n, 0, c0, pt);
+      load_half_plain(st + kWHalf, src1, rows1, n, r1, c1, pt);
+      hopper::named_sync(kProducerBar, 128);
+      if (pt == 0) hopper::mbar_arrive(full + q);
+    }
+    if (++q == kWSlots) q = 0, ++round;
+  };
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    const size_t off = static_cast<size_t>(b) * p * n;
+    auto box = [&](const CUtensorMap& map, const float* src, int c0) {  // 128 rows of a stack
+      issue(map, src + off, p, c0, b, map, src + off, p, 64, c0, b);
+    };
+    for (int c = 0; c < nc1; ++c) {  // sweep 1: X, g (, mu), one box each
+      box(tm_x, x, 32 * c);
+      box(tm_g, g, 32 * c);
+      if (base_kind != kNone) box(tm_mu, mu, 32 * c);
+    }
+    for (int h = 0; h < 2; ++h) {  // sweep 2: [g,] X, Geu's source [, M's rows 0..63]
+      // mu' (pass 0) and the parked rows (pass 1) are in HBM; order that
+      // before these TMA reads (the two-stage pass 0 reads X and G only)
+      if (h == 1 || !kTwoStage) {
+        hopper::mbar_wait(swept, waits++ & 1);
+        hopper::fence_proxy_async();
+      }
+      for (int c = 0; c < nc2; ++c) {
+        if (nest)
+          for (int bx = 0; bx < 2; ++bx) box(tm_g, g, 64 * c + 32 * bx);
+        for (int bx = 0; bx < 2; ++bx) box(tm_x, x, 64 * c + 32 * bx);
+        for (int bx = 0; bx < 2; ++bx) {
+          if (base_kind == kNone)
+            box(tm_g, g, 64 * c + 32 * bx);
+          else
+            box(tm_mu_out, mu_out, 64 * c + 32 * bx);
+        }
+        if (h == 1)  // a 64-row tile: column box bx at kWHalf bx
+          issue(tm_park, pk, 64, 64 * c, blockIdx.x, tm_park, pk, 64, 0, 64 * c + 32,
+                blockIdx.x);
+      }
+    }
+    if (kMethod == kPogo) {  // sweep 3: M, rows 0..63 parked, 64.. in x_out
+      hopper::mbar_wait(swept, waits++ & 1);
+      hopper::fence_proxy_async();
+      for (int c = 0; c < nc2; ++c)
+        for (int bx = 0; bx < 2; ++bx)
+          issue(tm_park, pk, 64, 64 * c + 32 * bx, blockIdx.x, tm_x_out, x_out + off, p, 64,
+                64 * c + 32 * bx, b);
+    }
+  }
+}
+
+// kTma: TMA loads and stores (n % 4 == 0 and aligned operands), else the
+// producer warpgroup's plain loads and the consumers' plain stores; two
+// instances, so that neither carries the other's code and registers.
+template <int kMethod, bool kTwoStage, bool kTma>
+__global__ void __launch_bounds__(kWThreads, 1)
+fused_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_x,
+                     const __grid_constant__ CUtensorMap tm_g,
+                     const __grid_constant__ CUtensorMap tm_mu,
+                     const __grid_constant__ CUtensorMap tm_mu_out,
+                     const __grid_constant__ CUtensorMap tm_x_out,
+                     const __grid_constant__ CUtensorMap tm_park, const float* x, const float* g,
+                     const float* mu, const float* nu, const float* scal, const int* pv,
+                     float* x_out, float* mu_out, float* nu_out, float* dist, float* park, int B,
+                     int p, int n, int base_kind, int nesterov) {
+  constexpr bool tma = kTma;
+  // the plain-load path holds Geu X^T's sums in shared memory: its
+  // consumers have 16 registers fewer
+  constexpr bool kTbSmem = !kTma;
+  extern __shared__ unsigned char fused_tc_smem[];
+  const uint32_t pad = (1024u - (hopper::smem_u32(fused_tc_smem) & 1023u)) & 1023u;
+  unsigned char* ring = fused_tc_smem + pad;
+  unsigned char* s = ring + kWSOff;
+  float* red = reinterpret_cast<float*>(ring + kWRedOff);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kWBarOff);
+  uint64_t* empty = full + kWSlots;
+  uint64_t* swept = empty + kWSlots;
+  if (kTwoStage) base_kind = kNone, nesterov = 0;
+  const int tid = threadIdx.x;
+  const int nc1 = (n + 31) / 32, nc2 = (n + 63) / 64;
+  const bool nest = base_kind == kTrace && nesterov;
+  const size_t park_off = static_cast<size_t>(blockIdx.x) * (64 * n + kWKeep);
+
+  if (tid == 0) {
+    for (int q = 0; q < kWSlots; ++q) {
+      hopper::mbar_init(full + q, 1);
+      hopper::mbar_init(empty + q, kWConsumers / 32);  // one arrival per consumer warp
+    }
+    hopper::mbar_init(swept, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= kWConsumers) {  // the producer's warpgroup
+    hopper::reg_dealloc<kWProducerRegs<kTma>>();
+    const int pt = tid - kWConsumers;
+    if (!kTma || pt == 0)  // TMA: one lane issues every load
+      wide_produce<kTma, kMethod, kTwoStage>(tm_x, tm_g, tm_mu, tm_mu_out, tm_x_out, tm_park, x, g,
+                                             mu, mu_out, x_out, park + park_off, ring, B, p, n,
+                                             base_kind, nest, pt);
+    return;
+  }
+
+  // ------------------------------------------- the two consumer warpgroups
+  hopper::reg_alloc<kWConsumerRegs<kTma>>();
+  // the warpgroup, from lane 0, so that the compiler sees it warp-uniform
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0), wt = tid & 127;
+  const float eta = scal[0], lam = scal[1], h0 = scal[3];
+  const int ops1 = base_kind != kNone ? 3 : 2;  // sweep 1's slots a chunk
+  float* pk = park + park_off;
+  int tt = 0;  // slots consumed
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    const size_t off = static_cast<size_t>(b) * p * n;
+    const float nu0 = base_kind == kVAdam ? nu[b] : 0.f;
+    const int pvb = pv != nullptr ? pv[b] : p;
+
+    // Sweep 1 (32-column chunks): moments, mu' stored, the lo boxes of X
+    // and Geu (S's boxes 0 and 1), ta = X_wg X^T (A's rows wg), tb =
+    // Geu_wg X^T (B's columns wg, transposed; kTbSmem: summed in S's boxes
+    // 2..5, element i of consumer thread tid at float 256 i + tid).
+    float ta[64], tb[kTbSmem ? 1 : 64];
+    float* tbs = reinterpret_cast<float*>(s + 2 * kWBox) + tid;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      ta[i] = 0.f;
+      if (kTbSmem)
+        tbs[kWConsumers * i] = 0.f;
+      else
+        tb[i] = 0.f;
+    }
+    float sq = 0.f;
+    for (int c = 0; c < nc1; ++c, tt += ops1) {
+      unsigned char* tx = wslot(ring, full, tt);
+      unsigned char* tg = wslot(ring, full, tt + 1);
+      unsigned char* tm = base_kind != kNone ? wslot(ring, full, tt + 2) : nullptr;
+      for (int u = tid; u < kWP * 8; u += kWConsumers) {
+        const int row = u >> 3, col = 4 * (u & 7), o = box_off(row, col);
+        float4* px = reinterpret_cast<float4*>(tx + o);
+        float4* pg = reinterpret_cast<float4*>(tg + o);
+        float xv[4], gv[4], hv[4];
+        load4(xv, *px);
+        load4(gv, *pg);
+        if (base_kind != kNone) {
+          float mv[4], m2[4];
+          load4(mv, *reinterpret_cast<const float4*>(tm + o));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (base_kind == kTrace) {
+              m2[e] = h0 * mv[e] + gv[e];
+            } else {
+              m2[e] = h0 * mv[e] + (1.f - h0) * gv[e];
+              sq = fmaf(gv[e], gv[e], sq);
+            }
+          }
+          // in place: stored below, and Geu's hi unless nesterov
+          *reinterpret_cast<float4*>(tm + o) = make_float4(m2[0], m2[1], m2[2], m2[3]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) gv[e] = nest ? h0 * m2[e] + gv[e] : m2[e];
+          if (nest) *pg = make_float4(gv[0], gv[1], gv[2], gv[3]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) hv[e] = trunc_lo(xv[e]);
+        *reinterpret_cast<float4*>(s + o) = make_float4(hv[0], hv[1], hv[2], hv[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) hv[e] = trunc_lo(gv[e]);
+        *reinterpret_cast<float4*>(s + kWBox + o) = make_float4(hv[0], hv[1], hv[2], hv[3]);
+      }
+      wide_publish();
+      if (!tma && tm != nullptr)  // mu', one box
+        store_rows_plain(Op{{tm, tm}}, 0, kWP, mu_out + off, p, n, 32 * c, 32);
+      if (tma && tm != nullptr && tid == 0) {
+        hopper::tma_store_4d(&tm_mu_out, tm, 32 * c, 0, b, 0);
+        hopper::tma_store_4d(&tm_mu_out, tm + kWHalf, 32 * c, 64, b, 0);
+        hopper::bulk_commit();
+      }
+      const unsigned char* ga = base_kind == kNone || nest ? tg : tm;
+      auto xa = [&](int kk, int lo) { return kdesc((lo ? s : tx) + wg * kWHalf + kk * 32); };
+      auto ea = [&](int kk, int lo) {
+        return kdesc((lo ? s + kWBox : ga) + wg * kWHalf + kk * 32);
+      };
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {  // one 64-row half of X at a time (m64n64)
+        auto xs = [&](int kk, int lo) { return kdesc((lo ? s : tx) + hh * kWHalf + kk * 32); };
+        float part[32];
+        wgram<4>(part, xa, xs);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) ta[32 * hh + i] += part[i];
+        wgram<4>(part, ea, xs);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          if (kTbSmem)
+            tbs[kWConsumers * (32 * hh + i)] += part[i];
+          else
+            tb[32 * hh + i] += part[i];
+        }
+      }
+      if (tma && tid == 0) hopper::bulk_wait_read<0>();  // mu' has left its box
+      hopper::named_sync(kWideBar, kWConsumers);  // every warp is done with the boxes
+      wrelease(empty, tt, ops1);
+    }
+    if (!kTwoStage) {
+      if (tid == 0) hopper::bulk_wait<0>();
+      hopper::fence_proxy_async();  // mu' is read back by TMA in sweep 2
+      hopper::named_sync(kWideBar, kWConsumers);
+      if (tid == 0) hopper::mbar_arrive(swept);
+    }
+
+    // The Geu scale s (vadam: nu' from the gradient's squares); the blocks
+    // of pass 1's slab kept in park; then the slabs of output half 0.
+    float coef = eta * scal[2];
+    if (base_kind == kVAdam) {
+      const float tot = wide_sum(sq, red);
+      const float b2 = scal[4], eps = scal[5], c1 = scal[6], c2 = scal[7];
+      const float nu2 = b2 * nu0 + (1.f - b2) * tot;
+      if (tid == 0) nu_out[b] = nu2;
+      coef = eta * ((scal[2] / c1) / (sqrtf(nu2 / c2) + eps));
+    }
+    float* keep = pk + static_cast<size_t>(64) * n + tid;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      keep[kWConsumers * i] = ta[32 + i];
+      keep[kWConsumers * (32 + i)] = kTbSmem ? tbs[kWConsumers * (32 + i)] : tb[32 + i];
+    }
+    if (kTbSmem) {
+      float tb0[32];  // S's sums, read before the slab goes over them
+#pragma unroll
+      for (int i = 0; i < 32; ++i) tb0[i] = tbs[kWConsumers * i];
+      hopper::named_sync(kWideBar, kWConsumers);
+      write_slab<0, kMethod>([&](int i) { return ta[i]; }, [&](int i) { return tb0[i]; }, s, wg,
+                             p, coef, eta, lam);
+    } else {
+      write_slab<0, kMethod>([&](int i) { return ta[i]; }, [&](int i) { return tb[i]; }, s, wg,
+                             p, coef, eta, lam);
+    }
+    wide_publish();
+
+    // Sweep 2, once per output half h: M = X + D, D^T = Geu^T P + X^T Q
+    // (POGO's M; Landing's X', final), this warpgroup's 32 rows 64 h +
+    // 32 wg .., written over X (its own hi) with their lo over Geu's rows
+    // 0..63; M's rows 0..63 parked (pass 0) and read back (pass 1, their
+    // lo over Geu's rows 64..127); C00 (pass 0, columns 32 wg ..) and C1wg
+    // = M_1 M_wg^T (pass 1).
+    float c00[16], c1[32];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) c00[i] = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h == 1) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) c1[i] = 0.f;
+        write_slab<1, kMethod>([&](int i) { return keep[kWConsumers * i]; },
+                               [&](int i) { return keep[kWConsumers * (32 + i)]; }, s, wg, p,
+                               coef, eta, lam);
+        wide_publish();
+      }
+      for (int c = 0; c < nc2; ++c) {
+        const int c0 = 64 * c, t0 = tt;
+        Op go{};
+        if (nest) {
+          go.b[0] = wslot(ring, full, tt);
+          go.b[1] = wslot(ring, full, tt + 1);
+          tt += 2;
+        }
+        const Op xo{{wslot(ring, full, tt), wslot(ring, full, tt + 1)}};
+        const Op so{{wslot(ring, full, tt + 2), wslot(ring, full, tt + 3)}};
+        tt += 4;
+        if (nest) {  // Geu = h0 mu' + g over mu'; then g's slots are free
+          for (int u = tid; u < kWP * 16; u += kWConsumers) {
+            const int row = u >> 4, col = 4 * (u & 15), o = box_off(row, col);
+            float4* pm = reinterpret_cast<float4*>(so.b[col >> 5] + o);
+            const float4 gq = *reinterpret_cast<const float4*>(go.b[col >> 5] + o);
+            const float4 mq = *pm;
+            *pm = make_float4(h0 * mq.x + gq.x, h0 * mq.y + gq.y, h0 * mq.z + gq.z,
+                              h0 * mq.w + gq.w);
+          }
+          hopper::named_sync(kWideBar, kWConsumers);
+          wrelease(empty, t0, 2);
+        }
+        float d[16];
+        const unsigned char* slab = s + wg * 32 * 128;  // this warpgroup's 32 rows of the slabs
+#pragma unroll
+        for (int kh = 0; kh < 2; ++kh)
+          wproduct_t(
+              d, [&](int k, int m) { return op_at(so, 64 * kh + k, m); },
+              [&](int kk, int lo) {
+                return kdesc(slab + lo * kWPiece + (2 * kh + (kk >> 2)) * kWHalf + (kk & 3) * 32);
+              },
+              kh);
+#pragma unroll
+        for (int kh = 0; kh < 2; ++kh)
+          wproduct_t(
+              d, [&](int k, int m) { return op_at(xo, 64 * kh + k, m); },
+              [&](int kk, int lo) {
+                return kdesc(slab + (2 + lo) * kWPiece + (2 * kh + (kk >> 2)) * kWHalf +
+                             (kk & 3) * 32);
+              },
+              1);
+        hopper::named_sync(kWideBar, kWConsumers);  // every product has read X and Geu
+        // accumulator (m, rr) is M's (64 h + rr, m), column m in box m / 32 =
+        // the thread's warp / 2
+        unsigned char* xb = xo.b[(wt >> 6) & 1] + h * kWHalf;
+        unsigned char* sb = so.b[(wt >> 6) & 1];
+        acc_at<16, true, 0>(0, 32 * wg, [&](int i, int, int, int o) {
+          float& xm = *reinterpret_cast<float*>(xb + o);
+          const float v = xm + d[i];
+          xm = v;  // in place: stored below, and M's hi for the C gram
+          *reinterpret_cast<float*>(sb + o) = trunc_lo(v);
+        });
+        Op mo{};  // pass 1: M's rows 0..63, a 64-row tile
+        if (h == 1) {
+          mo.b[0] = wslot(ring, full, tt);
+          mo.b[1] = mo.b[0] + kWHalf;
+          ++tt;
+          for (int u = tid; u < 64 * 64; u += kWConsumers) {
+            const int r = u >> 6, col = u & 63;
+            op_at(so, 64 + r, col) = trunc_lo(op_at(mo, r, col));
+          }
+        }
+        wide_publish();
+        if (!tma) {
+          if (h == 0)
+            store_rows_plain(xo, 0, 64, pk, 64, n, c0);
+          else
+            store_rows_plain(xo, 64, 64, x_out + off + static_cast<size_t>(64) * n, p - 64, n, c0);
+          if (kMethod == kLanding && h == 1)  // X' rows 0..63, final
+            store_rows_plain(mo, 0, 64, x_out + off, 64, n, c0);
+        }
+        if (tma && tid == 0) {
+          for (int bx = 0; bx < 2; ++bx) {
+            if (h == 0)
+              hopper::tma_store_4d(&tm_park, xo.b[bx], c0 + 32 * bx, 0, blockIdx.x, 0);
+            else
+              hopper::tma_store_4d(&tm_x_out, xo.b[bx] + kWHalf, c0 + 32 * bx, 64, b, 0);
+            if (kMethod == kLanding && h == 1)
+              hopper::tma_store_4d(&tm_x_out, mo.b[bx], c0 + 32 * bx, 0, b, 0);
+          }
+          hopper::bulk_commit();
+        }
+        if (h == 0) {  // C00's columns 32 wg ..: M_0 M_0^T
+          float part[16];
+          wgram<8>(
+              part,
+              [&](int kk, int lo) { return kdesc((lo ? so : xo).b[kk >> 2] + (kk & 3) * 32); },
+              [&](int kk, int lo) {
+                return kdesc((lo ? so : xo).b[kk >> 2] + wg * 32 * 128 + (kk & 3) * 32);
+              });
+#pragma unroll
+          for (int i = 0; i < 16; ++i) c00[i] += part[i];
+        } else {  // C1wg = M_1 M_wg^T
+          float part[32];
+          auto m1 = [&](int kk, int lo) {
+            return kdesc((lo ? so.b[kk >> 2] : xo.b[kk >> 2] + kWHalf) + (kk & 3) * 32);
+          };
+          auto m0 = [&](int kk, int lo) {
+            return kdesc((lo ? so.b[kk >> 2] + kWHalf : mo.b[kk >> 2]) + (kk & 3) * 32);
+          };
+          if (wg == 0)
+            wgram<8>(part, m1, m0);
+          else
+            wgram<8>(part, m1, m1);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) c1[i] += part[i];
+        }
+        if (tma && tid == 0) hopper::bulk_wait_read<0>();  // M has left its boxes
+        hopper::named_sync(kWideBar, kWConsumers);  // every warp is done with the slots
+        wrelease(empty, nest ? t0 + 2 : t0, 4 + h);
+      }
+      if (h == 0) {  // M's rows 0..63 are read back by TMA in pass 1
+#pragma unroll
+        for (int i = 0; i < 16; ++i) keep[kWConsumers * (64 + i)] = c00[i];  // C00 waits
+        if (tid == 0) hopper::bulk_wait<0>();
+        hopper::fence_proxy_async();
+        hopper::named_sync(kWideBar, kWConsumers);
+        if (tid == 0) hopper::mbar_arrive(swept);
+      }
+    }
+
+    if (kMethod == kLanding) {  // W = X' X'^T: dist = ||W - I_pv||_F, W01 = W10^T
+      float acc = 0.f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int r = acc_row(wt, i), cc = 32 * wg + acc_col(wt, i);
+        const float w = keep[kWConsumers * (64 + i)] - (r == cc && r < pvb ? 1.f : 0.f);
+        acc = fmaf(w, w, acc);
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = 64 + acc_row(wt, i), cc = 64 * wg + acc_col(wt, i);
+        const float w = c1[i] - (r == cc && r < pvb ? 1.f : 0.f);
+        acc = fmaf(wg == 0 ? 2.f * w : w, w, acc);
+      }
+      const float tot = wide_sum(acc, red);
+      if (tid == 0) dist[b] = sqrtf(tot);
+      continue;
+    }
+
+    // The (p, p) tail: E = C - I (rows below p) into S, hi and lo, E01 =
+    // E10^T; then E^2 and E^3 on the tensor cores and dist = ||(1 - 2 lam) E
+    // + (lam^2 - 2 lam) E^2 + lam^2 E^3 + (I_p - I_pv)||_F.
+    if (tid == 0) hopper::bulk_wait<0>();  // M's rows 64.. in x_out, read back in sweep 3
+    // E00 (symmetric: each warpgroup's columns, transposed), E01 = C10^T, and
+    // E10 and E11 in place
+    put_e<16, true>(s, 0, 32 * wg, p, [&](int i) { return keep[kWConsumers * (64 + i)]; });
+    if (wg == 0) put_e<32, true>(s, 64, 0, p, [&](int i) { return c1[i]; });
+    put_e<32, false>(s, 64, 64 * wg, p, [&](int i) { return c1[i]; });
+    wide_publish();
+    auto e_all = [&](int kk, int lo) {
+      return kdesc(s + lo * kWELo + (kk >> 2) * kWBox + (kk & 3) * 32);
+    };
+    if (!kTwoStage) {  // the telemetry (the two-stage update writes none)
+      // Warpgroup 0 alone, one half hh of the rows at a time, so that E^2
+      // and E^3 are never live together: E^2's rows hh staged in the idle
+      // ring (slots 0..3, box kb: hi in rows 0..63, lo in 64..127), then
+      // E^3's (slots 4 and 5, box kb in rows 64 (kb & 1).., fp32), and the
+      // sum of squares read from shared memory.
+      const float k1 = 1.f - 2.f * lam, k2 = lam * lam - 2.f * lam, k3 = lam * lam;
+      unsigned char* e3s = ring + 4 * kWBox;
+      float acc = 0.f;
+      if (wg == 0) {
+        for (int hh = 0; hh < 2; ++hh) {
+          {
+            float e2[64];
+            wgram<16>(e2,
+                      [&](int kk, int lo) {
+                        return kdesc(s + lo * kWELo + (kk >> 2) * kWBox + hh * kWHalf +
+                                     (kk & 3) * 32);
+                      },
+                      e_all);
+            hopper::named_sync(kGroupBar, 128);  // the last rows' sums have read the ring
+            acc_at<64, false, kWBox>(0, 0, [&](int i, int, int, int off) {
+              put_split(ring + off, kWHalf, e2[i]);
+            });
+          }
+          hopper::fence_proxy_async_smem();
+          hopper::named_sync(kGroupBar, 128);
+          {
+            float e3[64];
+            wgram<16>(e3,
+                      [&](int kk, int lo) {
+                        return kdesc(ring + (kk >> 2) * kWBox + lo * kWHalf + (kk & 3) * 32);
+                      },
+                      e_all);
+            acc_at<64, false, kWHalf>(0, 0, [&](int i, int, int, int off) {
+              *reinterpret_cast<float*>(e3s + off) = e3[i];
+            });
+          }
+          hopper::named_sync(kGroupBar, 128);
+          for (int u = wt; u < 64 * kWP; u += 128) {
+            const int r = u >> 7, c = u & 127, rr = 64 * hh + r;
+            const int o = (c >> 5) * kWBox + box_off(r, c);
+            const float w = k1 * load_split(s + hh * kWHalf + o, kWELo) +
+                            k2 * load_split(ring + o, kWHalf) +
+                            k3 * *reinterpret_cast<const float*>(e3s + (c >> 5) * kWHalf +
+                                                                 box_off(r, c)) +
+                            (rr == c && rr >= pvb && rr < p ? 1.f : 0.f);
+            acc = fmaf(w, w, acc);
+          }
+        }
+      }
+      const float tot = wide_sum(acc, red);  // also: the ring is free again
+      if (tid == 0) dist[b] = sqrtf(tot);
+    }
+    hopper::fence_proxy_async();
+    hopper::named_sync(kWideBar, kWConsumers);
+    if (tid == 0) hopper::mbar_arrive(swept);
+
+    // Sweep 3: X' = M - lam D, D^T = M^T E, this warpgroup's rows 64 wg ..
+    for (int c = 0; c < nc2; ++c, tt += 2) {
+      const Op mo{{wslot(ring, full, tt), wslot(ring, full, tt + 1)}};
+      float d[32];
+#pragma unroll
+      for (int kh = 0; kh < 2; ++kh)
+        wproduct_t(
+            d, [&](int k, int m) { return op_at(mo, 64 * kh + k, m); },
+            [&](int kk, int lo) {
+              return kdesc(s + lo * kWELo + (2 * kh + (kk >> 2)) * kWBox + wg * kWHalf +
+                           (kk & 3) * 32);
+            },
+            kh);
+      hopper::named_sync(kWideBar, kWConsumers);  // every product has read M
+      const int c0 = 64 * c;
+      unsigned char* mb = mo.b[(wt >> 6) & 1];  // accumulator (m, row): M's (row, m)
+      acc_at<32, true, 0>(0, 64 * wg, [&](int i, int, int, int o) {
+        float& mm = *reinterpret_cast<float*>(mb + o);
+        mm -= lam * d[i];  // in place, stored below
+      });
+      wide_publish();
+      if (!tma) store_rows_plain(mo, 0, kWP, x_out + off, p, n, c0);
+      if (tma && tid == 0) {
+        for (int bx = 0; bx < 2; ++bx)
+          for (int hf = 0; hf < 2; ++hf)
+            hopper::tma_store_4d(&tm_x_out, mo.b[bx] + hf * kWHalf, c0 + 32 * bx, 64 * hf, b, 0);
+        hopper::bulk_commit();
+        hopper::bulk_wait_read<0>();
+      }
+      wrelease(empty, tt, 2);
+    }
+  }
+  if (tid == 0) hopper::bulk_wait<0>();  // the last X'
+}
+
 // One wgmma m64n64k8 .tf32 on raw fp32 inputs: d (64 x 64) = a (64 x 8)
 // b (64 x 8)^T, a from shared memory or (a_regs) from registers in the
 // fragment layout of hopper.cuh. It reads how the card treats an operand's
@@ -646,84 +1456,112 @@ tf32_probe_kernel(const float* a, const float* b, float* d, int a_regs) {
 }
 
 // The tensor maps of every operand (when TMA can take the rows), the
-// persistent grid of one CTA per SM (at most B), and the launch.
-int launch_tc(const void* kernel, const float* x, const float* g, const float* mu,
-              const float* nu, const float* scal, const int* pv, float* x_out, float* mu_out,
-              float* nu_out, float* dist, int B, int p, int n, int base_kind, int nesterov,
-              void* stream) {
+// persistent grid of one CTA per SM (at most B), and the launch: the kernel
+// for p <= 64, or (p > 64) the wide one, its TMA instance `kernel` or its
+// plain-load instance `wide_plain`, whose park holds 64 n + kWKeep floats a
+// block.
+int launch_tc(const void* kernel, const void* wide_plain, const float* x, const float* g,
+              const float* mu, const float* nu, const float* scal, const int* pv, float* x_out,
+              float* mu_out, float* nu_out, float* dist, float* park, int B, int p, int n,
+              int base_kind, int nesterov, void* stream) {
+  const bool wide = p > kTcP;
   const void* rows[] = {x, g, x_out, base_kind != kNone ? mu : x,
-                        base_kind != kNone ? mu_out : x_out};
-  int vec = vector_ok(n, rows, 5);
+                        base_kind != kNone ? mu_out : x_out, wide ? park : x};
+  int vec = vector_ok(n, rows, 6);
   int tma = vec;
-  CUtensorMap maps[5] = {};  // x, g, mu, mu_out, x_out
-  if (tma) {
-    const uint64_t e = sizeof(float);
-    const uint64_t dims[4] = {static_cast<uint64_t>(n), static_cast<uint64_t>(p),
-                              static_cast<uint64_t>(B > 0 ? B : 1), 1};
-    const uint64_t strides[3] = {n * e, dims[1] * n * e, dims[2] * dims[1] * n * e};
-    const uint32_t box[4] = {32, kTcP, 1, 1};
-    const float* srcs[5] = {x, g, mu, mu_out, x_out};
-    for (int i = 0; i < 5; ++i) {
-      if (srcs[i] == nullptr) continue;
-      const int err = hopper::make_tma_map_f32(&maps[i], srcs[i], dims, strides, box);
-      if (err != 0) return err;
-    }
-  }
   int sms = 0, dev = 0;
   cudaError_t cerr = cudaGetDevice(&dev);
   if (cerr == cudaSuccess) cerr = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const int grid = B < sms ? B : sms;
-  void* args[] = {&maps[0], &maps[1], &maps[2], &maps[3], &maps[4], &x, &g, &mu, &nu, &scal,
-                  &pv, &x_out, &mu_out, &nu_out, &dist, &B, &p, &n, &base_kind, &nesterov,
-                  &tma, &vec};
-  return launch(kernel, kTcSmemBytes, grid, static_cast<cudaStream_t>(stream), args, kTcThreads);
+  CUtensorMap maps[6] = {};  // x, g, mu, mu_out, x_out, park
+  if (tma) {
+    const uint64_t e = sizeof(float);
+    const uint32_t box[4] = {32, kTcP, 1, 1};
+    const float* srcs[6] = {x, g, mu, mu_out, x_out, wide ? park : nullptr};
+    for (int i = 0; i < 6; ++i) {
+      if (srcs[i] == nullptr) continue;
+      // the park: 64 rows a block, then its kept blocks
+      const uint64_t rows_i = i == 5 ? 64 : p, mats = i == 5 ? grid : B;
+      const uint64_t mat = i == 5 ? 64 * static_cast<uint64_t>(n) + kWKeep : rows_i * n;
+      const uint64_t dims[4] = {static_cast<uint64_t>(n), rows_i, mats > 0 ? mats : 1, 1};
+      const uint64_t strides[3] = {n * e, mat * e, dims[2] * mat * e};
+      const int err = hopper::make_tma_map_f32(&maps[i], srcs[i], dims, strides, box);
+      if (err != 0) return err;
+    }
+  }
+  if (!wide) {
+    void* args[] = {&maps[0], &maps[1], &maps[2], &maps[3], &maps[4], &x, &g, &mu, &nu, &scal,
+                    &pv, &x_out, &mu_out, &nu_out, &dist, &B, &p, &n, &base_kind, &nesterov,
+                    &tma, &vec};
+    return launch(kernel, kTcSmemBytes, grid, static_cast<cudaStream_t>(stream), args, kTcThreads);
+  }
+  void* args[] = {&maps[0], &maps[1], &maps[2], &maps[3], &maps[4], &maps[5], &x, &g, &mu, &nu,
+                  &scal, &pv, &x_out, &mu_out, &nu_out, &dist, &park, &B, &p, &n, &base_kind,
+                  &nesterov};
+  return launch(tma ? kernel : wide_plain, kWSmemBytes, grid, static_cast<cudaStream_t>(stream),
+                args, kWThreads);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one CTA, in bytes (ops.py mirrors it).
-int fused_tc_smem_bytes() { return kTcSmemBytes; }
+// Dynamic shared memory of one CTA at p, in bytes (ops.py mirrors it).
+int fused_tc_smem_bytes(int p) { return p > kTcP ? kWSmemBytes : kTcSmemBytes; }
 
-// method: 0 POGO, 1 Landing (the fixed step). p <= 64; any n. TMA loads
-// when n % 4 == 0 and every operand is 16-byte aligned, plain loads by the
-// producer warpgroup otherwise.
+// Floats of the wide kernel's park a block (min(B, SMs) blocks): M's rows
+// 0..63, then the kept blocks of A and B (fused_step.park mirrors it).
+int fused_tc_park_floats(int n) { return 64 * n + kWKeep; }
+
+// method: 0 POGO, 1 Landing (the fixed step). p <= 128 (p > 64: the wide
+// kernel, which needs park, min(B, SMs) x fused_tc_park_floats(n)); any n.
+// TMA loads when n % 4 == 0 and every operand is 16-byte aligned, plain
+// loads by the producer warpgroup otherwise.
 int fused_step_tc(const float* x, const float* g, const float* mu, const float* nu,
                   const float* scal, const int* pv, float* x_out, float* mu_out, float* nu_out,
                   float* dist, int B, int p, int n, int base_kind, int nesterov, int method,
-                  void* stream) {
-  if (B < 0 || p < 1 || p > kTcP || n < 1 || (method != kPogo && method != kLanding) ||
-      base_kind < kNone || base_kind > kVAdam)
+                  float* park, void* stream) {
+  if (B < 0 || p < 1 || p > kWP || n < 1 || (method != kPogo && method != kLanding) ||
+      base_kind < kNone || base_kind > kVAdam || (p > kTcP && park == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const void* kernel = method == kLanding
-      ? reinterpret_cast<const void*>(fused_tc_kernel<kLanding>)
-      : reinterpret_cast<const void*>(fused_tc_kernel<kPogo>);
-  return launch_tc(kernel, x, g, mu, nu, scal, pv, x_out, mu_out, nu_out, dist, B, p, n,
-                   base_kind, nesterov, stream);
+  const bool landing = method == kLanding, wide = p > kTcP;
+  using K = const void*;
+  const K kernel = wide ? (landing ? K(fused_tc_wide_kernel<kLanding, false, true>)
+                                   : K(fused_tc_wide_kernel<kPogo, false, true>))
+                        : (landing ? K(fused_tc_kernel<kLanding>) : K(fused_tc_kernel<kPogo>));
+  const K plain = landing ? K(fused_tc_wide_kernel<kLanding, false, false>)
+                          : K(fused_tc_wide_kernel<kPogo, false, false>);
+  return launch_tc(kernel, plain, x, g, mu, nu, scal, pv, x_out, mu_out, nu_out, dist, park, B,
+                   p, n, base_kind, nesterov, stream);
 }
 
 // The two-stage POGO update X' = (1 + lam) M - lam (M M^T) M, M = X -
 // eta/2 (A G - B X), into out (which may be x, never g), and Landing's
 // field Lambda = 1/2 (A G - B X) + lam (A X - X) into out (never x or g),
 // as two_stage.cu's pogo_update_tiled and landing_field_tiled compute
-// them; scal[8] = [eta, lam, 1, 0...] (the field reads lam alone). p <=
-// 64; any n; TMA or plain loads as fused_step_tc.
+// them; scal[8] = [eta, lam, 1, 0...] (the field reads lam alone). The
+// update takes p <= 128 (p > 64: the wide kernel and its park, as
+// fused_step_tc), the field p <= 64; any n; TMA or plain loads as
+// fused_step_tc.
 int pogo_update_tc(const float* x, const float* g, const float* scal, float* out, int B, int p,
-                   int n, void* stream) {
-  if (B < 0 || p < 1 || p > kTcP || n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_tc(reinterpret_cast<const void*>(fused_tc_kernel<kPogo, true>), x, g, nullptr,
-                   nullptr, scal, nullptr, out, nullptr, nullptr, nullptr, B, p, n, kNone, 0,
+                   int n, float* park, void* stream) {
+  if (B < 0 || p < 1 || p > kWP || n < 1 || (p > kTcP && park == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using K = const void*;
+  const K kernel = p > kTcP ? K(fused_tc_wide_kernel<kPogo, true, true>)
+                            : K(fused_tc_kernel<kPogo, true>);
+  return launch_tc(kernel, K(fused_tc_wide_kernel<kPogo, true, false>), x, g, nullptr, nullptr,
+                   scal, nullptr, out, nullptr, nullptr, nullptr, park, B, p, n, kNone, 0,
                    stream);
 }
 
 int landing_field_tc(const float* x, const float* g, const float* scal, float* out, int B,
                      int p, int n, void* stream) {
   if (B < 0 || p < 1 || p > kTcP || n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_tc(reinterpret_cast<const void*>(fused_tc_kernel<kLanding, true>), x, g,
-                   nullptr, nullptr, scal, nullptr, out, nullptr, nullptr, nullptr, B, p, n,
-                   kNone, 0, stream);
+  return launch_tc(reinterpret_cast<const void*>(fused_tc_kernel<kLanding, true>), nullptr, x,
+                   g, nullptr, nullptr, scal, nullptr, out, nullptr, nullptr, nullptr, nullptr, B,
+                   p, n, kNone, 0, stream);
 }
 
 // d (64, 64) = a (64, 8) b (64, 8)^T through one TF32 wgmma (a_regs: A from

@@ -23,8 +23,8 @@
 // registers 2 and 3): the accumulator's pairs 8 k .. 8 k + 7 of 8-column
 // groups 2 k and 2 k + 1, in order, are the A operand of k-step k.
 //
-// TF32 products (m64n64k8, fp32 operands): a K-major tile row is 32 fp32
-// values, a k8 step advances the start address by 32 bytes, and a register
+// TF32 products (m64nNk8, N = 32, 64 or 128, fp32 operands): a K-major
+// tile row is 32 fp32 values, a k8 step advances the start address by 32 bytes, and a register
 // A operand holds, in four 32-bit registers, rows 16 w + l / 4 (+ 8 in
 // registers 1 and 3) and columns l % 4 (+ 4 in registers 2 and 3) of the
 // 64 x 8 step (the fragment of mma.m16n8k8.tf32, one 16-row slab a warp).
@@ -246,10 +246,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
 #define HOPPER_D8(o)                                                                       \
   "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]),              \
       "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
-#define HOPPER_D32 HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
+#define HOPPER_D16 HOPPER_D8(0), HOPPER_D8(8)
+#define HOPPER_D32 HOPPER_D16, HOPPER_D8(16), HOPPER_D8(24)
 #define HOPPER_D64 HOPPER_D32, HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56)
+#define HOPPER_R16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define HOPPER_R32                                                                     \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "             \
+  HOPPER_R16 ", "                                                                      \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
 #define HOPPER_R64                                                                     \
   HOPPER_R32 ", "                                                                      \
@@ -315,6 +317,33 @@ __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t a, uint64
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// The same at N = 32 (d[16]) and N = 128 (d[64]): B's rows are the N side.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" HOPPER_R16 "}, "
+      "%16, %17, p, 1, 1;\n"
+      "}\n"
+      : HOPPER_D16
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {" HOPPER_R64 "}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : HOPPER_D64
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // The same with A in registers (the fragment in the header's comment).
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], uint32_t a0, uint32_t a1,
                                               uint32_t a2, uint32_t a3, uint64_t b,
@@ -330,9 +359,25 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], uint32_t a0, uint3
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate));
 }
 
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" HOPPER_R16 "}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : HOPPER_D16
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate));
+}
+
 #undef HOPPER_D8
+#undef HOPPER_D16
 #undef HOPPER_D32
 #undef HOPPER_D64
+#undef HOPPER_R16
 #undef HOPPER_R32
 #undef HOPPER_R64
 

@@ -14,11 +14,15 @@ Landing branch of ``_fused_whole_kernel``, :164-168) and
 distance from the direct gram of X', the tiled one in two sweeps.
 
 ``fused_step_tiled_tc`` (``csrc/fused_step_tc.cu``) replaces the same TPU
-kernels as ``fused_step_tiled`` on the tensor cores (any p <= 64; the
-planner sends it 32 <= p <= 64): 3xTF32
+kernels as ``fused_step_tiled`` on the tensor cores for p <= 64: 3xTF32
 ``wgmma`` products fed by a TMA ring, one persistent CTA per SM;
 ``fused_step_tiled_tc_landing`` is its Landing branch (the TPU kernel's
-``_t2_landing_kernel``, :559). ``ops.plan`` says which shapes take which.
+``_t2_landing_kernel``, :559). ``fused_step_tiled_tc128`` and
+``fused_step_tiled_tc128_landing`` are the same source's wide kernel for
+64 < p <= 128 (internlm2-1.8b's q/k): two consumer warpgroups, the (p, p)
+operands in 64-row halves, M's rows 0..63 parked in a scratch of the
+wrapper's. ``fused_step_tiled_tc`` hands p > 64 to them. ``ops.plan``
+says which shapes take which.
 
 The wrappers take the arguments of ``ref.fused_group_step_ref`` and return
 its ``(x', mu', nu', dist, finite)``. On a CPU tensor they run that plain
@@ -62,16 +66,44 @@ def tc_lib() -> ctypes.CDLL:
     """The loaded ``fused_step_tc.cu`` library, built on first use."""
     lib = build.load("fused_step_tc")
     if not getattr(lib, "_typed", False):
-        lib.fused_step_tc.argtypes = [_P] * 10 + [_I] * 6 + [_P]
-        for fn in (lib.pogo_update_tc, lib.landing_field_tc):  # two-stage entries
-            fn.argtypes = [_P] * 4 + [_I] * 3 + [_P]
-        lib.fused_tc_smem_bytes.argtypes = []
+        lib.fused_step_tc.argtypes = [_P] * 10 + [_I] * 6 + [_P, _P]
+        # the two-stage entries; the POGO update's last pointer but the
+        # stream is the wide kernel's park
+        lib.pogo_update_tc.argtypes = [_P] * 4 + [_I] * 3 + [_P, _P]
+        lib.landing_field_tc.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+        lib.fused_tc_smem_bytes.argtypes = [_I]
+        lib.fused_tc_park_floats.argtypes = [_I]
         lib.tf32_probe.argtypes = [_P] * 3 + [_I, _P]
         for fn in (lib.fused_step_tc, lib.pogo_update_tc, lib.landing_field_tc,
-                   lib.fused_tc_smem_bytes, lib.tf32_probe):
+                   lib.fused_tc_smem_bytes, lib.fused_tc_park_floats, lib.tf32_probe):
             fn.restype = _I
         lib._typed = True
     return lib
+
+
+# The tensor-core kernel for p <= TC_P; the wide kernel up to TC_WIDE_P.
+TC_P = 64
+TC_WIDE_P = 128
+# Floats a block keeps past its parked rows (``kWKeep``): 80 a consumer
+# thread, its blocks of A and B for the second output half and its
+# columns of C00.
+PARK_KEEP = 80 * 256
+
+
+def park_floats(n: int) -> int:
+    """The wide kernel's park a block (``fused_tc_park_floats``)."""
+    return 64 * n + PARK_KEEP
+
+
+def park(x) -> torch.Tensor:
+    """The wide kernel's scratch, where each block parks rows 0..63 of M
+    (or of Landing's X') of the matrix it is on, and keeps the sums it
+    needs again later (``PARK_KEEP``): ``(min(B, SMs), park_floats(n))``
+    fp32 on x's card."""
+    bsz, _, n = x.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return torch.empty((min(bsz, sms), park_floats(n)), dtype=torch.float32,
+                       device=x.device)
 
 
 def tf32_probe(a, b, *, a_regs: bool):
@@ -201,17 +233,17 @@ def _launch(entry, x, g, eta, *, method, lam, base_kind, hyper, post_scale,
     return x_out, mu_out, nu_out, dist, torch.isfinite(dist)
 
 
-def _run(name, x, g, eta, *, inplace, extra=(), lib=_lib, **kw):
+def _run(name, x, g, eta, *, inplace, extra=(), lib=_lib, counter=None, **kw):
     """The plain version on a CPU tensor; else launch ``name``'s entry and
-    count it on the wrapper of the kernel that ran."""
+    count it on the wrapper of the kernel that ran (``counter``'s, else
+    ``name``'s)."""
     if x.device.type == "cpu":
         return run_plain(x, g, eta, inplace=inplace, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     out = _launch(getattr(lib(), name), x, g, eta, inplace=inplace,
                   extra=extra, **kw)
-    counter = _COUNTERS[name, kw["method"]]
-    counter.launches += 1
+    _COUNTERS[counter or name, kw["method"]].launches += 1
     return out
 
 
@@ -246,10 +278,33 @@ def fused_step_tiled_tc(x, g, eta, *, method="pogo", lam, base_kind="none",
     walking the matrices, 64-column chunks in three sweeps (moments + A, Bp;
     M + C; X') through 3xTF32 ``wgmma`` on TMA-fed tiles
     (``ops.tc_smem_bytes``); ``method="landing"`` runs
-    ``fused_step_tiled_tc_landing`` (moments + A, Bp; then X' + W)."""
-    return _run("fused_step_tc", x, g, eta, lib=tc_lib, method=method, lam=lam,
-                base_kind=base_kind, hyper=hyper, post_scale=post_scale, mu=mu,
-                nu=nu, count=count, pv=pv, inplace=inplace)
+    ``fused_step_tiled_tc_landing`` (moments + A, Bp; then X' + W). A CUDA
+    stack with p > 64 goes to :func:`fused_step_tiled_tc128`."""
+    kw = dict(method=method, lam=lam, base_kind=base_kind, hyper=hyper,
+              post_scale=post_scale, mu=mu, nu=nu, count=count, pv=pv, inplace=inplace)
+    if x.device.type == "cuda" and x.dim() == 3 and x.shape[1] > TC_P:
+        return fused_step_tiled_tc128(x, g, eta, **kw)
+    return _run("fused_step_tc", x, g, eta, lib=tc_lib, extra=(None,), **kw)
+
+
+def fused_step_tiled_tc128(x, g, eta, *, method="pogo", lam, base_kind="none",
+                           hyper=(), post_scale=1.0, mu=None, nu=None, count=None,
+                           pv=None, inplace=False):
+    """The wide tensor-core fused step, ``64 < p <= 128``: two consumer
+    warpgroups, 32-column chunks in sweep 1 (moments + A, Bp), sweep 2 once
+    per 64-row half of M (M + C), then X', with M's rows 0..63 parked in
+    :func:`park` (``ops.tc_smem_bytes``); ``method="landing"`` runs
+    ``fused_step_tiled_tc128_landing`` (its X' + W in the two halves)."""
+    kw = dict(method=method, lam=lam, base_kind=base_kind, hyper=hyper,
+              post_scale=post_scale, mu=mu, nu=nu, count=count, pv=pv, inplace=inplace)
+    if x.device.type != "cuda":
+        return _run("fused_step_tc", x, g, eta, lib=tc_lib, **kw)
+    if x.dim() == 3 and x.shape[1] <= TC_P:
+        raise ValueError(f"the wide kernel takes {TC_P} < p <= {TC_WIDE_P}, got p="
+                         f"{x.shape[1]}: fused_step_tiled_tc runs it")
+    scratch = park(x) if x.dim() == 3 else None
+    return _run("fused_step_tc", x, g, eta, lib=tc_lib, counter="fused_step_tc128",
+                extra=(None if scratch is None else scratch.data_ptr(),), **kw)
 
 
 def fused_step_whole_landing(x, g, eta, **kw):
@@ -267,6 +322,11 @@ def fused_step_tiled_tc_landing(x, g, eta, **kw):
     return fused_step_tiled_tc(x, g, eta, method="landing", **kw)
 
 
+def fused_step_tiled_tc128_landing(x, g, eta, **kw):
+    """``fused_step_tiled_tc128(method="landing")``."""
+    return fused_step_tiled_tc128(x, g, eta, method="landing", **kw)
+
+
 _COUNTERS = {
     ("fused_step_whole", "pogo"): fused_step_whole,
     ("fused_step_tiled", "pogo"): fused_step_tiled,
@@ -274,6 +334,8 @@ _COUNTERS = {
     ("fused_step_tiled", "landing"): fused_step_tiled_landing,
     ("fused_step_tc", "pogo"): fused_step_tiled_tc,
     ("fused_step_tc", "landing"): fused_step_tiled_tc_landing,
+    ("fused_step_tc128", "pogo"): fused_step_tiled_tc128,
+    ("fused_step_tc128", "landing"): fused_step_tiled_tc128_landing,
 }
 for _k in _COUNTERS.values():
     _k.launches = 0

@@ -12,11 +12,12 @@ footprint of each CUDA kernel, mirrored here from ``csrc/fused_step.cu``,
 
 * ``whole`` when X and the (transformed) gradient of one matrix plus the
   kernel's (p, p) grams fit in one block's 227 KB;
-* ``tc`` otherwise when ``32 <= p <= 64`` (the tensor-core kernel
-  ``csrc/fused_step_tc.cu``, one padded 64-row ``wgmma`` tile, any n, one
-  CTA per SM), for the fused group step and, from
-  ``TC_MIN_P`` (POGO) and ``LANDING_FIELD_TC_MIN_P`` up, for the
-  two-stage POGO update and landing field;
+* ``tc`` otherwise when ``TC_MIN_P <= p <= TC_MAX_P`` (the tensor-core
+  kernels of ``csrc/fused_step_tc.cu``, any n, one CTA per SM: one padded
+  64-row ``wgmma`` tile for p <= 64, two 64-row halves up to 128), for
+  the fused POGO step and the two-stage POGO update; from
+  ``LANDING_TC_MIN_P`` for fused Landing, and from
+  ``LANDING_FIELD_TC_MIN_P`` to 64 for the landing field;
 * ``tiled`` otherwise, with the column tile that lets the most blocks
   share an SM (they hide each other's loads and barriers), the widest of
   those: the fused group step's and the two-stage kernels' p below and
@@ -58,26 +59,38 @@ _FUSED_TILE_NS = (64, 32, 16)
 # for POGO's three tiles), so that no shape that planned before moves to a
 # narrower tile.
 _TWO_STAGE_FALLBACK = (16,)
-# Rows of the tensor-core fused step's padded wgmma tile: TC_MIN_P <= p <=
-# TC_MAX_P takes csrc/fused_step_tc.cu, other p the CUDA-core tiled kernel.
-# Its work per 64-column chunk does not shrink with p, the CUDA-core
-# kernel's does: on an H100 (benchmarks_torch/tc_variants.py) the CUDA-core
-# kernel was faster at p = 8, 16 and 24 (POGO and Landing), the tensor-core
-# kernel from p = 32 up; p = 25-31 was not measured.
-TC_MIN_P = 32
-TC_MAX_P = 64
+# TC_MIN_P <= p <= TC_MAX_P takes csrc/fused_step_tc.cu (its wide kernel
+# above p = 64), other p the CUDA-core tiled kernel; fused Landing from
+# LANDING_TC_MIN_P. Its work per 64-column chunk does not shrink with p, the
+# CUDA-core kernel's does. On an H100 (benchmarks_torch/tc_variants.py,
+# 2048 x (p, 2048); ms, tensor-core / CUDA-core, POGO over VAdam; Landing
+# over trace) the CUDA-core kernel was faster at p = 8, 16 and 24 for both;
+# at p = 25 3.8688 / 3.6302; 2.9859 / 3.2010, at 28 3.8704 / 3.8008;
+# 2.9938 / 3.4792, at 29 3.8698 / 3.9847; 2.9954 / 3.7153 and at 32
+# 3.8885 / 4.0714; 3.0010 / 3.7433: POGO takes the tensor cores from p =
+# 29, Landing from 25. Above 64 the wide kernel, at 576 x (p, 2048): p = 72
+# 4.5692 / 5.9152; 3.6586 / 5.6448, 96 4.6310 / 8.8753; 3.7211 / 8.1520,
+# 128 4.7414 / 17.9761; 3.8668 / 16.2153.
+TC_MIN_P = 29
+LANDING_TC_MIN_P = 25
+TC_MAX_P = 128
+# The landing field's tensor-core entry has no wide kernel.
+LANDING_FIELD_TC_MAX_P = 64
 # The two-stage POGO update and landing field take the tensor-core kernel's
-# two-stage entries for TC_MIN_P (LANDING_FIELD_TC_MIN_P) <= p <= TC_MAX_P.
-# On an H100 (benchmarks_torch/tc_variants.py, its two-stage lines; ms,
-# tensor-core / CUDA-core tiled, POGO update; field) the
-# CUDA-core kernels were faster at 2048 x (16, 4096) 6.6631 / 3.7574;
-# 4.2318 / 2.7419 and 2048 x (24, 2048) 3.3908 / 2.7826; 2.1473 / 1.9936;
-# at 2048 x (28, 2048) POGO's was, 3.3939 / 3.3417, the field's not,
-# 2.1552 / 2.6112; the tensor-core entries were faster at 2048 x (32,
-# 2048) 3.4084 / 3.5515; 2.1621 / 2.6584, 1024 x (48, 2048) 1.7454 /
-# 3.2877; 1.0975 / 2.2511 and 640 x (64, 960) 0.5388 / 1.4915; 0.3371 /
-# 1.0294. p = 29-31 (POGO) and 25-27 (the field) were not measured.
-LANDING_FIELD_TC_MIN_P = 28
+# two-stage entries for TC_MIN_P <= p <= TC_MAX_P (the field
+# LANDING_FIELD_TC_MIN_P <= p <= LANDING_FIELD_TC_MAX_P). On an H100
+# (benchmarks_torch/tc_variants.py, its two-stage lines; ms, tensor-core /
+# CUDA-core tiled, POGO update; field) the CUDA-core kernels were faster
+# at 2048 x (16, 4096) 6.6631 / 3.7574; 4.2318 / 2.7419 and 2048 x (24,
+# 2048) 3.3908 / 2.7826; 2.1473 / 1.9936; at 2048 x (25, 2048) POGO's was,
+# 3.4192 / 3.2231, the field's not, 2.1558 / 2.5652, and so to p = 28,
+# 3.4188 / 3.3824; 2.1628 / 2.6789; the tensor-core entries were faster at
+# 2048 x (29, 2048) 3.4247 / 3.5123; 2.1630 / 2.7052, (32, 2048) 3.4317 /
+# 3.6149; 2.1888 / 2.6922, 1024 x (48, 2048) 1.7454 / 3.2877; 1.0975 /
+# 2.2511 and 640 x (64, 960) 0.5388 / 1.4915; 0.3371 / 1.0294. The POGO
+# update's wide kernel at 576 x (p, 2048): p = 72 4.3681 / 5.5770, 96
+# 4.4355 / 8.3068, 128 4.5525 / 16.7332.
+LANDING_FIELD_TC_MIN_P = 25
 # Blocks per SM the tiled kernel's register cap allows (kTiledBlocksPerSm),
 # and the TP kernels' (kTpBlocksPerSm).
 _TILED_BLOCKS_PER_SM = 3
@@ -118,14 +131,17 @@ def tiled_smem_bytes(p: int, tile_n: int) -> int:
     return _tiled_bytes(p, tile_n, 3, 3, _THREADS // 32)
 
 
-def tc_smem_bytes() -> int:
-    """Shared memory of one tensor-core fused-step block
-    (``fused_tc_smem_bytes``): a ring of six 64 x 64 fp32 operand tiles,
-    the two lo tiles, the four (p, p) operand tiles, the reduction scratch
-    and thirteen mbarriers, and 1 KB to align the tiles. One block a SM,
-    whatever p and n."""
+def tc_smem_bytes(p: int) -> int:
+    """Shared memory of one tensor-core fused-step block at p
+    (``fused_tc_smem_bytes``), whatever n; one block a SM. For p <= 64 a
+    ring of six 64 x 64 fp32 operand tiles, the two lo tiles and the four
+    (p, p) operand tiles; above, the wide kernel's ring of six 128-row x
+    32-column boxes and 128 KB for the (p, p) operands (one output half's
+    slabs of P and Q, or E, hi and lo). Then the reduction scratch, thirteen
+    mbarriers and 1 KB to align the tiles."""
     tile = 64 * 64 * 4
-    return 6 * tile + 2 * tile + 4 * tile + 64 + 8 * 13 + 1024
+    body = 12 * tile if p <= 64 else 6 * 128 * 32 * 4 + 128 * 128 * 4 * 2
+    return body + 64 + 8 * 13 + 1024
 
 
 def tp_gram_smem_bytes(p: int, tile_n: int) -> int:
@@ -218,12 +234,13 @@ def _plan(what: str, p: int, n: int, whole_bytes, tiled_bytes,
     )
 
 
-def plan(p: int, n: int) -> tuple[str, int]:
+def plan(p: int, n: int, method: str = "pogo") -> tuple[str, int]:
     """``("whole", 0)``, ``("tc", 0)`` or ``("tiled", tile_n)`` of the fused
     group step: whole when one matrix fits a block, else the tensor-core
-    kernel for ``TC_MIN_P <= p <= TC_MAX_P``, else the CUDA-core tiled
-    kernel."""
-    if whole_smem_bytes(p, n) > SMEM_LIMIT_BYTES and TC_MIN_P <= p <= TC_MAX_P:
+    kernel for ``TC_MIN_P`` (``LANDING_TC_MIN_P`` for ``method="landing"``)
+    ``<= p <= TC_MAX_P``, else the CUDA-core tiled kernel."""
+    low = LANDING_TC_MIN_P if method == "landing" else TC_MIN_P
+    if whole_smem_bytes(p, n) > SMEM_LIMIT_BYTES and low <= p <= TC_MAX_P:
         return "tc", 0
     return _plan("fused group step", p, n, whole_smem_bytes, tiled_smem_bytes,
                  _FUSED_TILE_NS)
@@ -250,7 +267,7 @@ def plan_landing_field(p: int, n: int) -> tuple[str, int]:
     """``("whole", 0)``, ``("tc", 0)`` or ``("tiled", tile_n)`` of the
     landing field."""
     if (landing_whole_smem_bytes(p, n) > SMEM_LIMIT_BYTES
-            and LANDING_FIELD_TC_MIN_P <= p <= TC_MAX_P):
+            and LANDING_FIELD_TC_MIN_P <= p <= LANDING_FIELD_TC_MAX_P):
         return "tc", 0
     return _plan("landing field", p, n, landing_whole_smem_bytes,
                  landing_tiled_smem_bytes, fallback=_TWO_STAGE_FALLBACK)
@@ -353,8 +370,10 @@ def _ns_launch(x, iters, out, mask, dist):
 KERNELS = (_fs.fused_step_whole, _fs.fused_step_tiled,
            _fs.fused_step_whole_landing, _fs.fused_step_tiled_landing,
            _fs.fused_step_tiled_tc, _fs.fused_step_tiled_tc_landing,
+           _fs.fused_step_tiled_tc128, _fs.fused_step_tiled_tc128_landing,
            _tp.tp_gram, _tp.tp_apply, _pu.pogo_update_whole,
-           _pu.pogo_update_tiled, _pu.pogo_update_tiled_tc, _lf.landing_field,
+           _pu.pogo_update_tiled, _pu.pogo_update_tiled_tc,
+           _pu.pogo_update_tiled_tc128, _lf.landing_field,
            _lf.landing_field_tiled, _lf.landing_field_tiled_tc,
            _ns.newton_schulz_whole, _ns.newton_schulz_tiled,
            _fa.flash_attention_fp32, _fa.flash_attention_tc)
@@ -409,7 +428,7 @@ def fused_group_step(
     if x.device.type != "cuda":
         raise ValueError(f"no fused group step for device {x.device}")
     _, p, n = x.shape
-    kind, tile_n = plan(p, n)
+    kind, tile_n = plan(p, n, method)
     if kind == "whole":
         return _fs.fused_step_whole(x, g, eta, **kw)
     if kind == "tc":

@@ -11,7 +11,10 @@ the CUDA cores. ``pogo_update_tiled_tc`` replaces the same TPU kernels on
 the tensor cores for p <= 64 (the planner's range, ``ops.
 plan_pogo_update``): the tensor-core fused step's kernel with no base
 stage and no telemetry, 3xTF32 ``wgmma`` on TMA-fed 64-column chunks, one
-persistent CTA per SM, the same three sweeps.
+persistent CTA per SM, the same three sweeps. ``pogo_update_tiled_tc128``
+is the wide kernel's for 64 < p <= 128, sweep 2 once per 64-row half of
+M, whose rows 0..63 wait in a scratch (``fused_step.park``);
+``pogo_update_tiled_tc`` hands p > 64 to it.
 
 All three take a ``(B, p, n)`` fp32 stack ``x`` and transformed gradient ``g``
 and return ``X' = (1 + lam) M - lam (M M^T) M`` with ``M = X - eta/2
@@ -131,13 +134,34 @@ def pogo_update_tiled_tc(x, g, eta, lam, *, inplace=False):
     """Tensor-core POGO update for ``p <= 64``: one persistent CTA per SM
     walking the matrices in 64-column chunks (A, B; then M, parked in the
     output, and C; then X') through 3xTF32 ``wgmma`` on TMA-fed tiles
-    (``ops.tc_smem_bytes``)."""
-    out = _update("pogo_update_tc", x, g, eta, lam, inplace, lib=fused_step.tc_lib)
+    (``ops.tc_smem_bytes``). A CUDA stack with p > 64 goes to
+    :func:`pogo_update_tiled_tc128`."""
+    if x.device.type == "cuda" and x.dim() == 3 and x.shape[1] > fused_step.TC_P:
+        return pogo_update_tiled_tc128(x, g, eta, lam, inplace=inplace)
+    out = _update("pogo_update_tc", x, g, eta, lam, inplace, None, lib=fused_step.tc_lib)
     if x.device.type == "cuda":
         pogo_update_tiled_tc.launches += 1
+    return out
+
+
+def pogo_update_tiled_tc128(x, g, eta, lam, *, inplace=False):
+    """The wide tensor-core POGO update, ``64 < p <= 128``: A, B over
+    32-column chunks; M and C once per 64-row half of M (rows 0..63 parked
+    in ``fused_step.park``, rows 64.. in the output); then X'."""
+    if x.device.type != "cuda":
+        return _update("pogo_update_tc", x, g, eta, lam, inplace)
+    if x.dim() == 3 and x.shape[1] <= fused_step.TC_P:
+        raise ValueError(f"the wide kernel takes {fused_step.TC_P} < p <= "
+                         f"{fused_step.TC_WIDE_P}, got p={x.shape[1]}: "
+                         "pogo_update_tiled_tc runs it")
+    scratch = fused_step.park(x) if x.dim() == 3 else None
+    out = _update("pogo_update_tc", x, g, eta, lam, inplace,
+                  None if scratch is None else scratch.data_ptr(), lib=fused_step.tc_lib)
+    pogo_update_tiled_tc128.launches += 1
     return out
 
 
 pogo_update_whole.launches = 0
 pogo_update_tiled.launches = 0
 pogo_update_tiled_tc.launches = 0
+pogo_update_tiled_tc128.launches = 0

@@ -74,6 +74,16 @@ inline float g_xchg[EMU_MAX_THREADS];
 inline std::mutex g_named_mu;
 inline std::map<int, std::pair<std::unique_ptr<std::barrier<>>, int>> g_named;
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { g_warp_bar[threadIdx.x / 32]->arrive_and_wait(); }
+// Lane src's v, for every lane of the warp (through the same buffer).
+inline int __shfl_sync(unsigned, int v, int src) {
+  int t = threadIdx.x, w = t / 32;
+  g_xchg[t] = static_cast<float>(v);
+  g_warp_bar[w]->arrive_and_wait();
+  const int r = static_cast<int>(g_xchg[32 * w + src]);
+  g_warp_bar[w]->arrive_and_wait();
+  return r;
+}
 inline float __shfl_xor_sync(unsigned, float v, int o) {
   int t = threadIdx.x, w = t / 32;
   g_xchg[t] = v;

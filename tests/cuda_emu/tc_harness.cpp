@@ -1,6 +1,7 @@
 // Runs the tensor-core fused step (fused_step_tc.cu) on the CPU through
 // cuda_runtime.h and hopper.cuh here, by its C launcher: tensor maps, the
-// persistent grid (g_emu_sms blocks) and the block as on the card.
+// persistent grid (g_emu_sms blocks) and the block as on the card; p > 64
+// runs the wide kernel, with a park of B x fused_tc_park_floats(n) floats.
 // Usage: tc_harness DIR METHOD B P N BASE NESTEROV INPLACE HAS_PV
 // reads DIR/{x,g,mu,nu,scal,pv}.bin (float32) and writes
 // DIR/{x_out,mu_out,nu_out,dist}.bin. METHOD 0 = POGO, 1 = Landing (the
@@ -40,6 +41,20 @@ static void write(const char* dir, const char* name, const float* data, size_t c
   fclose(f);
 }
 
+template <int M, bool TS, bool TMA>
+static void register_wide_kernel() {
+  g_emu_kernels[reinterpret_cast<const void*>(fused_tc_wide_kernel<M, TS, TMA>)] = [](void** a) {
+    auto map = [a](int n) { return *static_cast<CUtensorMap*>(a[n]); };
+    auto cf = [a](int n) { return *static_cast<const float**>(a[n]); };
+    auto f = [a](int n) { return *static_cast<float**>(a[n]); };
+    auto i = [a](int n) { return *static_cast<int*>(a[n]); };
+    fused_tc_wide_kernel<M, TS, TMA>(map(0), map(1), map(2), map(3), map(4), map(5), cf(6),
+                                     cf(7), cf(8), cf(9), cf(10),
+                                     *static_cast<const int**>(a[11]), f(12), f(13), f(14),
+                                     f(15), f(16), i(17), i(18), i(19), i(20), i(21));
+  };
+}
+
 template <int M, bool TS>
 static void register_kernel() {
   g_emu_kernels[reinterpret_cast<const void*>(fused_tc_kernel<M, TS>)] = [](void** a) {
@@ -73,9 +88,17 @@ int main(int argc, char** argv) {
   register_kernel<kLanding, false>();
   register_kernel<kPogo, true>();
   register_kernel<kLanding, true>();
+  register_wide_kernel<kPogo, false, true>();
+  register_wide_kernel<kLanding, false, true>();
+  register_wide_kernel<kPogo, true, true>();
+  register_wide_kernel<kPogo, false, false>();
+  register_wide_kernel<kLanding, false, false>();
+  register_wide_kernel<kPogo, true, false>();
+  std::vector<float> park(static_cast<size_t>(B) * fused_tc_park_floats(n));
   if (method >= 2) {
-    const int err = (method == 2 ? pogo_update_tc : landing_field_tc)(
-        x.data(), g.data(), scal.data(), xo, B, p, n, nullptr);
+    const int err = method == 2
+        ? pogo_update_tc(x.data(), g.data(), scal.data(), xo, B, p, n, park.data(), nullptr)
+        : landing_field_tc(x.data(), g.data(), scal.data(), xo, B, p, n, nullptr);
     if (err != 0) {
       fprintf(stderr, "two-stage entry returned %d\n", err);
       return 3;
@@ -87,7 +110,8 @@ int main(int argc, char** argv) {
                                 base == kVAdam ? nu.data() : nullptr, scal.data(),
                                 has_pv ? pv.data() : nullptr, xo,
                                 base != kNone ? muo : nullptr, base == kVAdam ? nuo : nullptr,
-                                dist.data(), B, p, n, base, nesterov, method, nullptr);
+                                dist.data(), B, p, n, base, nesterov, method, park.data(),
+                                nullptr);
   if (err != 0) {
     fprintf(stderr, "fused_step_tc returned %d\n", err);
     return 3;

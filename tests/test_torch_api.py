@@ -240,38 +240,60 @@ def test_smollm_leaf_shapes_match_the_jax_model():
 @pytest.mark.parametrize("p,n,kind,blocks", [(16, 256, ("whole", 0), None),
                                              (64, 960, ("tc", 0), 1),
                                              (16, 4096, ("tiled", 64), 3),
-                                             (100, 4096, ("tiled", 64), 1),
-                                             (120, 4096, ("tiled", 32), 1),
-                                             (128, 2048, ("tiled", 16), 1)])
+                                             (100, 4096, ("tc", 0), 1),
+                                             (120, 4096, ("tc", 0), 1),
+                                             (128, 2048, ("tc", 0), 1)])
 def test_planner_picks_the_kernel(p, n, kind, blocks):
     """Whole when a matrix fits a block; else the tensor-core kernel for
-    32 <= p <= 64 (SmolLM's (64, 960); one persistent block a SM); else
-    the CUDA-core tiled kernel with the tile that lets the most blocks
-    share an SM, the widest of those (internlm2-1.8b's (128, 2048) fits
-    only a 16-wide tile)."""
+    32 <= p <= 128 (SmolLM's (64, 960), and the wide kernel for
+    internlm2-1.8b's (128, 2048); one persistent block a SM); else the
+    CUDA-core tiled kernel with the tile that lets the most blocks share
+    an SM, the widest of those."""
     assert tops.plan(p, n) == kind
     if kind[0] == "whole":
         assert tops.whole_smem_bytes(p, n) <= tops.SMEM_LIMIT_BYTES
     elif kind[0] == "tc":
         assert tops.TC_MIN_P <= p <= tops.TC_MAX_P
         assert tops.whole_smem_bytes(p, n) > tops.SMEM_LIMIT_BYTES
-        assert tops.tc_smem_bytes() <= tops.SMEM_LIMIT_BYTES
-        assert tops.SM_SMEM_BYTES // (tops.tc_smem_bytes() + 1024) == blocks
+        assert tops.tc_smem_bytes(p) <= tops.SMEM_LIMIT_BYTES
+        assert tops.SM_SMEM_BYTES // (tops.tc_smem_bytes(p) + 1024) == blocks
     else:
         assert tops.tiled_smem_bytes(p, kind[1]) <= tops.SMEM_LIMIT_BYTES
         assert tops.tiled_blocks_per_sm(p, kind[1]) == blocks
 
 
 @pytest.mark.parametrize("p,n,kind", [
-    (64, 960, "tc"), (1, 100000, "tiled"), (64, 400, "tc"), (65, 960, "tiled"),
-    (96, 960, "tiled"), (64, 300, "whole"), (8, 200, "whole"), (48, 2048, "tc"),
-    (32, 2048, "tc"), (31, 2048, "tiled"), (24, 2048, "tiled"), (128, 2048, "tiled"),
+    (64, 960, "tc"), (1, 100000, "tiled"), (64, 400, "tc"), (65, 960, "tc"),
+    (96, 960, "tc"), (64, 300, "whole"), (8, 200, "whole"), (48, 2048, "tc"),
+    (32, 2048, "tc"), (31, 2048, "tc"), (24, 2048, "tiled"), (128, 2048, "tc"),
 ])
 def test_planner_rule_for_the_tensor_core_kernel(p, n, kind):
     """The rule on (p, n): a shape that does not fit one block whole goes
-    to the tensor-core kernel exactly when 32 <= p <= 64, to the
-    CUDA-core tiled kernel below and above that."""
+    to the tensor-core kernels exactly when 29 <= p <= 128 (the wide one
+    above 64), to the CUDA-core tiled kernel below that."""
     assert tops.plan(p, n)[0] == kind
+
+
+@pytest.mark.parametrize("p,method,kind", [
+    (28, "pogo", "tiled"), (29, "pogo", "tc"), (24, "landing", "tiled"),
+    (25, "landing", "tc"), (28, "landing", "tc"), (128, "landing", "tc"),
+])
+def test_planner_lower_end_by_method(p, method, kind):
+    """The crossovers read on an H100 at 2048 x (p, 2048): fused POGO takes
+    the tensor cores from p = 29, fused Landing from p = 25."""
+    assert tops.plan(p, 2048, method)[0] == kind
+
+
+@pytest.mark.parametrize("p", [65, 72, 96, 100, 127, 128])
+def test_wide_tensor_core_block_fits_one_sm(p):
+    """The wide kernel's block (64 < p <= 128), whatever p: a ring of six
+    128-row x 32-column fp32 boxes (96 KB), 128 KB of (p, p) operands, the
+    reduction scratch, 13 mbarriers and 1 KB of alignment, 230,568 bytes,
+    within one block's 232,448; the p <= 64 kernel's block is 197,800."""
+    assert tops.tc_smem_bytes(p) == 6 * 16384 + 131072 + 64 + 8 * 13 + 1024 == 230568
+    assert tops.tc_smem_bytes(p) <= tops.SMEM_LIMIT_BYTES
+    assert tops.tc_smem_bytes(p - 64) == 197800
+    assert tops.SM_SMEM_BYTES // (tops.tc_smem_bytes(p) + 1024) == 1
 
 
 def test_planner_raises_for_large_p():

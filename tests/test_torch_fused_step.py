@@ -132,7 +132,7 @@ def test_fused_step_ragged_pv_matches_jax(use_pallas):
 
 
 @pytest.mark.parametrize("wrapper", [tfs.fused_step_whole, tfs.fused_step_tiled,
-                                     tfs.fused_step_tiled_tc])
+                                     tfs.fused_step_tiled_tc, tfs.fused_step_tiled_tc128])
 def test_wrappers_run_the_plain_version_on_cpu(wrapper):
     jkw, tkw, x, g = _both((2, 10, 250), "vadam", (0.9, 0.999, 1e-8), seed=4)
     before = tops.launches()

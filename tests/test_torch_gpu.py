@@ -336,14 +336,111 @@ def test_tc_step_stays_on_the_manifold(cuda):
 
 
 def test_tc_planner_matches_the_kernels_smem(cuda):
-    assert tfs.tc_lib().fused_tc_smem_bytes() == tops.tc_smem_bytes()
-    assert tops.plan(64, 960) == ("tc", 0)
+    for p in range(1, 129):
+        assert tfs.tc_lib().fused_tc_smem_bytes(p) == tops.tc_smem_bytes(p), p
+    assert tops.plan(64, 960) == tops.plan(128, 2048) == ("tc", 0)
+    for n in (33, 200, 2048):  # the wide kernel's park, as the wrappers allocate it
+        assert tfs.tc_lib().fused_tc_park_floats(n) == tfs.park_floats(n)
 
 
 def test_tc_kernel_rejects_large_p(cuda):
+    """p = 65 runs, on the wide kernel; p = 129 is refused."""
     x, g, mu, nu = _operands((2, 65, 100), cuda)
+    kw = _kwargs("none", (), mu, nu, cuda)
+    before = tfs.fused_step_tiled_tc128.launches
+    got = tfs.fused_step_tiled_tc(x, g, 0.1, **kw)
+    torch.cuda.synchronize()
+    assert tfs.fused_step_tiled_tc128.launches == before + 1
+    _close(got, tref.fused_group_step_ref(x, g, 0.1, **kw), dict(atol=3e-5, rtol=1e-4))
+    x, g, mu, nu = _operands((2, 129, 200), cuda)
     with pytest.raises(RuntimeError, match="launch failed"):
         tfs.fused_step_tiled_tc(x, g, 0.1, **_kwargs("none", (), mu, nu, cuda))
+
+
+# ------------------------------ the wide tensor-core kernel (64 < p <= 128)
+
+
+TC_WIDE_SHAPES = [(4, 128, 2048), (3, 72, 250), (5, 100, 300), (140, 128, 200),
+                  (2, 65, 70)]
+
+
+@pytest.mark.parametrize("shape", TC_WIDE_SHAPES)
+@pytest.mark.parametrize("base_kind,hyper", BASES)
+@pytest.mark.parametrize("method", ["pogo", "landing"])
+def test_tc_wide_kernel_matches_plain(cuda, shape, base_kind, hyper, method):
+    """Both branches of the wide kernel at internlm2-1.8b's p over a long
+    sweep (2048), ragged n through plain loads (250, 70) and TMA (300),
+    p = 72, 100 and 65 in the padded halves, more matrices than SMs (140:
+    a block reuses its park)."""
+    if method == "pogo":
+        x, g, mu, nu = _operands(shape, cuda, seed=30)
+        kw = _kwargs(base_kind, hyper, mu, nu, cuda)
+        wrapper = tfs.fused_step_tiled_tc128
+    else:
+        x, g = _off_manifold_operands(shape, cuda, seed=31)
+        _, _, mu, nu = _operands(shape, cuda, seed=32)
+        kw = dict(_kwargs(base_kind, hyper, mu, nu, cuda), method="landing", lam=1.0)
+        wrapper = tfs.fused_step_tiled_tc128_landing
+    before = wrapper.launches
+    got = tfs.fused_step_tiled_tc128(x, g, 0.1, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    _close(got, tref.fused_group_step_ref(x, g, 0.1, **kw), dict(atol=3e-5, rtol=1e-4))
+
+
+@pytest.mark.parametrize("method", ["pogo", "landing"])
+@pytest.mark.parametrize("n", [200, 250])
+def test_tc_wide_kernels_in_place_and_ragged(cuda, method, n):
+    """X' over X while M's rows 0..63 wait in the park; ragged pv."""
+    shape = (4, 100, n)
+    x, g, mu, nu = _operands(shape, cuda, seed=33)
+    pv = torch.tensor([100, 70, 1, 0], dtype=torch.int32, device=cuda)
+    rows = torch.arange(100, device=cuda)[None, :, None] < pv[:, None, None]
+    x, g, mu = (torch.where(rows, a, 0.0) for a in (x, g, mu))
+    kw = dict(_kwargs("vadam", (0.9, 0.999, 1e-8), mu, nu, cuda, pv=pv), method=method)
+    want = tref.fused_group_step_ref(x, g, 0.1, **kw)
+    got = tfs.fused_step_tiled_tc(x, g, 0.1, inplace=True, **kw)
+    torch.cuda.synchronize()
+    assert got[0] is x and got[1] is mu and got[2] is nu
+    _close(got, want, dict(atol=3e-5, rtol=1e-4))
+
+
+def test_tc_wide_step_stays_on_the_manifold(cuda):
+    """Ten POGO steps over VAdam at internlm2-1.8b's p (64 x (128, 2048)),
+    lr 0.05: the true ``||X X^T - I||_F`` (float64) and the reported
+    distance stay within the trainer's 1e-5."""
+    x, _, mu, nu = _operands((64, 128, 2048), cuda, seed=34)
+    mu.zero_()
+    nu.zero_()
+    gen = torch.Generator(device=cuda).manual_seed(35)
+    eye = torch.eye(128, dtype=torch.float64, device=cuda)
+    for k in range(10):
+        g = 0.01 * torch.randn(x.shape, generator=gen, device=cuda)
+        count = torch.tensor(k, dtype=torch.int32, device=cuda)
+        x, mu, nu, dist, _ = tfs.fused_step_tiled_tc128(
+            x, g, 0.05, lam=0.5, base_kind="vadam", hyper=(0.9, 0.999, 1e-8), mu=mu,
+            nu=nu, count=count, inplace=True)
+        true = torch.linalg.matrix_norm(x.double() @ x.double().transpose(-1, -2) - eye)
+        assert float(true.max()) <= 1e-5 and float(dist.max()) <= 1e-5, (k, true.max(),
+                                                                           dist.max())
+
+
+@pytest.mark.parametrize("shape,inplace", [((576, 128, 2048), False), ((3, 72, 250), False),
+                                           ((140, 100, 300), True), ((2, 65, 70), True)])
+def test_two_stage_tc_wide_pogo_matches_plain(cuda, shape, inplace):
+    """The wide kernel's POGO update at internlm2-1.8b's q/k stack, plain
+    loads (250, 70), more matrices than SMs, in place (M's rows 0..63
+    parked, 64.. in the output). X lies off the manifold: dropping lam's
+    term fails."""
+    x, g = _off_manifold_operands(shape, cuda, seed=36)
+    want = tref.pogo_update_ref(x, g, 0.1, 0.5)
+    assert not torch.allclose(tref.pogo_update_ref(x, g, 0.1, 0.0), want, atol=2e-5, rtol=1e-4)
+    before = tpu.pogo_update_tiled_tc128.launches
+    got = tpu.pogo_update_tiled_tc(x, g, 0.1, 0.5, inplace=inplace)
+    torch.cuda.synchronize()
+    assert tpu.pogo_update_tiled_tc128.launches == before + 1
+    assert (got is x) == inplace
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
 
 
 # ------------------------------------------------------------ TP kernels
@@ -518,11 +615,14 @@ def test_two_stage_planner_matches_the_kernels_smem(cuda):
             assert lib.two_stage_tiled_smem_bytes(0, p, t) == tops.pogo_tiled_smem_bytes(p, t)
             assert lib.two_stage_tiled_smem_bytes(1, p, t) == \
                 tops.landing_tiled_smem_bytes(p, t)
-    # the tensor-core route: the fused step's block, whatever p and n
+    # the tensor-core route: the fused step's block, whatever n
     assert tops.plan_pogo_update(64, 960) == tops.plan_landing_field(64, 960) == ("tc", 0)
-    assert tfs.tc_lib().fused_tc_smem_bytes() == tops.tc_smem_bytes()
-    # p = 128 takes POGO's 16-column tile, the only one that fits a block
-    assert tops.plan_pogo_update(128, 2048) == ("tiled", 16)
+    for p in (64, 128):
+        assert tfs.tc_lib().fused_tc_smem_bytes(p) == tops.tc_smem_bytes(p)
+    # p = 128: POGO's update takes the wide kernel, the field its 64-column
+    # tile; POGO's CUDA-core kernel fits a block there at 16 columns only
+    assert tops.plan_pogo_update(128, 2048) == ("tc", 0)
+    assert tops.plan_landing_field(128, 2048) == ("tiled", 64)
     assert lib.two_stage_tiled_smem_bytes(0, 128, 16) <= tops.SMEM_LIMIT_BYTES
 
 
@@ -576,11 +676,15 @@ def test_pogo_update_with_a_device_held_eta(cuda, wrapper):
 @pytest.mark.parametrize("wrapper,pogo", [(tpu.pogo_update_tiled, True),
                                           (tlf.landing_field_tiled, False)])
 def test_two_stage_tiled_kernels_at_p128(cuda, wrapper, pogo):
-    """internlm2-1.8b's p = 128 on the CUDA-core tiled kernels at the
-    planner's tile (16 for POGO, 64 for the field)."""
+    """internlm2-1.8b's p = 128 on the CUDA-core tiled kernels at their
+    tile (16 for POGO, 64 for the field: the field's plan; POGO's update
+    plans the wide tensor-core kernel there)."""
     x, g = _off_manifold_operands((3, 128, 2048), cuda, seed=18)
-    kind, tile_n = (tops.plan_pogo_update if pogo else tops.plan_landing_field)(128, 2048)
-    assert kind == "tiled" and tile_n == (16 if pogo else 64)
+    tiled = tops.pogo_tiled_smem_bytes if pogo else tops.landing_tiled_smem_bytes
+    tile_n = tops.two_stage_tile_n(128, tiled)
+    assert tile_n == (16 if pogo else 64)
+    assert (tops.plan_pogo_update if pogo else tops.plan_landing_field)(128, 2048) == \
+        (("tc", 0) if pogo else ("tiled", 64))
     got = _two_stage_call(wrapper, tile_n, x, g)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, _two_stage_plain(wrapper, x, g), atol=2e-5, rtol=1e-4)

@@ -208,13 +208,18 @@ def tc_harness(tmp_path_factory):
 # ring reused across sweeps); n = 300 and 200 through TMA with a ragged last
 # chunk; n = 250 and 33 (n % 4 != 0) through the producer's plain loads;
 # p = 10 and 7 padded to the 64-row tile. Two emulated SMs, so a block
-# walks several matrices when B > 2.
+# walks several matrices when B > 2. The wide kernel (64 < p <= 128):
+# internlm2-1.8b's p = 128 with nesterov through TMA (n = 200: a ragged last
+# chunk), p = 72 through plain loads, p = 100 with no base.
 TC_CASES = [
     ((2, 64, 960), "trace", (0.9, False)),
     ((1, 64, 300), "trace", (0.9, True)),
     ((2, 64, 200), "vadam", (0.9, 0.999, 1e-8)),
     ((2, 10, 250), "none", ()),
     ((2, 7, 33), "vadam", (0.9, 0.999, 1e-8)),
+    ((3, 128, 200), "trace", (0.9, True)),
+    ((3, 72, 250), "vadam", (0.9, 0.999, 1e-8)),
+    ((2, 100, 200), "none", ()),
 ]
 
 
@@ -232,6 +237,17 @@ def test_tc_kernel_emulated_in_place_ragged(tc_harness, tmp_path, method, n):
     two blocks."""
     _run(tc_harness, tmp_path, 0, (5, 8, n), "vadam", (0.9, 0.999, 1e-8),
          inplace=True, pv=[8, 5, 1, 0, 8], method=method, tc=True)
+
+
+@pytest.mark.parametrize("method", ["pogo", "landing"])
+@pytest.mark.parametrize("n", [200, 250], ids=["tma", "plain_loads"])
+def test_tc_wide_kernel_emulated_in_place_ragged(tc_harness, tmp_path, method, n):
+    """The wide kernel in place: M's rows 0..63 parked in the scratch while
+    X's rows are still the K side of sweep 2's second pass, X' over X, mu'
+    over mu, nu' over nu; ragged pv (one matrix with none); three matrices
+    on two blocks, so a block reuses its park."""
+    _run(tc_harness, tmp_path, 0, (3, 100, n), "vadam", (0.9, 0.999, 1e-8),
+         inplace=True, pv=[100, 70, 0], method=method, tc=True)
 
 
 def _run_two_stage(harness, tmp_path, kind, method, shape, tile_n=0,
@@ -339,6 +355,17 @@ def test_two_stage_tc_pogo_emulated_in_place(tc_harness, tmp_path, n):
     """X' over X: M is parked in X's place between sweeps 2 and 3; five
     matrices on two blocks."""
     _run_two_stage_tc(tc_harness, tmp_path, 0, (5, 8, n), inplace=True)
+
+
+@pytest.mark.parametrize("shape,inplace", [
+    ((3, 128, 200), False),  # internlm2-1.8b's p, TMA, a ragged last chunk
+    ((2, 72, 250), False),  # the producer's plain loads
+    ((3, 100, 200), True),  # X' over X, M's rows 0..63 parked meanwhile
+])
+def test_two_stage_tc_wide_pogo_emulated(tc_harness, tmp_path, shape, inplace):
+    """``pogo_update_tc`` at 64 < p <= 128: the wide kernel's two-stage
+    instance (no base stage, no telemetry)."""
+    _run_two_stage_tc(tc_harness, tmp_path, 0, shape, inplace=inplace)
 
 
 @pytest.fixture(scope="module")

@@ -141,7 +141,8 @@ def test_landing_ragged_pv_matches_jax(use_pallas):
 
 @pytest.mark.parametrize("wrapper", [tfs.fused_step_whole_landing,
                                      tfs.fused_step_tiled_landing,
-                                     tfs.fused_step_tiled_tc_landing])
+                                     tfs.fused_step_tiled_tc_landing,
+                                     tfs.fused_step_tiled_tc128_landing])
 def test_landing_wrappers_run_the_plain_version_on_cpu(wrapper):
     _, tkw, x, g = _both((2, 10, 250), "trace", (0.9, False))
     tkw.pop("method")

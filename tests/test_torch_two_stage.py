@@ -130,7 +130,7 @@ def test_manifold_distance_ref_matches_jax():
 
 
 @pytest.mark.parametrize("wrapper", [tpu.pogo_update_whole, tpu.pogo_update_tiled,
-                                     tpu.pogo_update_tiled_tc])
+                                     tpu.pogo_update_tiled_tc, tpu.pogo_update_tiled_tc128])
 def test_pogo_update_wrappers_write_in_place_on_cpu(wrapper):
     x, g = (torch.from_numpy(a) for a in _xg((2, 6, 50), seed=5))
     want = tref.pogo_update_ref(x, g, 0.1, 0.5)
@@ -152,17 +152,17 @@ def test_landing_field_wrappers_run_the_plain_version_on_cpu():
 @pytest.mark.parametrize("p,n,pogo,landing", [
     (16, 256, ("whole", 0), ("whole", 0)),
     (64, 960, ("tc", 0), ("tc", 0)),
-    (120, 4096, ("tiled", 32), ("tiled", 64)),
-    (128, 2048, ("tiled", 16), ("tiled", 64)),
+    (120, 4096, ("tc", 0), ("tiled", 64)),
+    (128, 2048, ("tc", 0), ("tiled", 64)),
     (24, 4096, ("tiled", 64), ("tiled", 64)),
     (28, 2048, ("tiled", 64), ("tc", 0)),
 ])
 def test_two_stage_planners(p, n, pogo, landing):
     """Whole when a matrix fits one block; else the tensor-core entries from
-    p = 32 (POGO) or 28 (the field) to 64 (SmolLM's (64, 960)); else the tile
-    that lets the most blocks share an SM, the widest of those, and 16
-    columns only where neither 64 nor 32 fits (internlm2-1.8b's p = 128:
-    POGO's three tiles; the field's two fit 64 columns)."""
+    p = 32 (POGO) or 28 (the field) to 128 (POGO: the wide kernel, for
+    internlm2-1.8b's (128, 2048)) or 64 (the field: SmolLM's (64, 960));
+    else the tile that lets the most blocks share an SM, the widest of
+    those (the field's two tiles fit 64 columns at p = 128)."""
     assert tops.plan_pogo_update(p, n) == pogo
     assert tops.plan_landing_field(p, n) == landing
     for kind, whole, tiled in ((pogo, tops.pogo_whole_smem_bytes,
@@ -173,7 +173,7 @@ def test_two_stage_planners(p, n, pogo, landing):
             assert whole(p, n) <= tops.SMEM_LIMIT_BYTES
         elif kind[0] == "tc":
             assert whole(p, n) > tops.SMEM_LIMIT_BYTES
-            assert tops.tc_smem_bytes() <= tops.SMEM_LIMIT_BYTES
+            assert tops.tc_smem_bytes(p) <= tops.SMEM_LIMIT_BYTES
         else:
             assert whole(p, n) > tops.SMEM_LIMIT_BYTES
             assert tiled(p, kind[1]) <= tops.SMEM_LIMIT_BYTES
@@ -184,11 +184,13 @@ def test_two_stage_planners_keep_their_plans_outside_the_tc_range(pogo):
     """Every (p, n) that planned whole or a 64- or 32-column tile before
     the tensor-core route and the 16-column tile keeps that plan outside
     the tensor-core range; the 16-column tile appears only where the old
-    planner raised."""
+    planner raised, and so may the tensor-core route, for POGO's wide
+    kernel (p = 128, where the old planner's 32-column tile did not fit)."""
     whole = tops.pogo_whole_smem_bytes if pogo else tops.landing_whole_smem_bytes
     tiled = tops.pogo_tiled_smem_bytes if pogo else tops.landing_tiled_smem_bytes
     plan = tops.plan_pogo_update if pogo else tops.plan_landing_field
     low = tops.TC_MIN_P if pogo else tops.LANDING_FIELD_TC_MIN_P
+    high = tops.TC_MAX_P if pogo else tops.LANDING_FIELD_TC_MAX_P
     moved = 0
     for p in range(1, 161):
         for n in (16, 100, 256, 960, 2048, 4096, 8192):
@@ -201,7 +203,7 @@ def test_two_stage_planners_keep_their_plans_outside_the_tc_range(pogo):
             except ValueError:
                 new = None
             if new == ("tc", 0):
-                assert low <= p <= tops.TC_MAX_P and old is not None
+                assert low <= p <= high and (old is not None or (pogo and p > 64))
                 moved += 1
             elif old is None:
                 assert new in (None, ("tiled", 16)), (p, n, new)
@@ -209,8 +211,19 @@ def test_two_stage_planners_keep_their_plans_outside_the_tc_range(pogo):
             else:
                 assert new == old, (p, n, old, new)
     assert moved > 0
-    assert tops.plan_pogo_update(128, 2048) == ("tiled", 16)
+    assert tops.plan_pogo_update(128, 2048) == ("tc", 0)
+    # the CUDA-core kernel's tile there, which the card times beside it
+    assert tops.two_stage_tile_n(128, tops.pogo_tiled_smem_bytes) == 16
     assert tops.pogo_tiled_smem_bytes(128, 16) <= tops.SMEM_LIMIT_BYTES
+
+
+def test_landing_field_keeps_its_cuda_core_tile_at_p128():
+    """The field's tensor-core entry has no wide kernel: internlm2-1.8b's
+    (128, 2048) keeps the CUDA-core 64-column tile while POGO's update and
+    the fused step take the wide tensor-core kernel."""
+    assert tops.plan_landing_field(128, 2048) == ("tiled", 64)
+    assert tops.plan_pogo_update(128, 2048) == tops.plan(128, 2048) == ("tc", 0)
+    assert tops.LANDING_FIELD_TC_MAX_P == 64 < tops.TC_MAX_P
 
 
 def test_two_stage_planners_raise_for_large_p():

@@ -17,9 +17,14 @@ the two-stage entries (``pogo_update_tc``, ``landing_field_tc``; a source
 without them is skipped there) at each shape, held against
 ``ref.pogo_update_ref`` / ``ref.landing_field_ref`` (atol 2e-5 / rtol
 1e-4), beside the CUDA-core ``pogo_update_tiled`` / ``landing_field_tiled``
-at their tile for p (``ops.two_stage_tile_n``; the field's entry only at
-p <= 64): the readings that set ``ops.TC_MIN_P``, ``ops.TC_MAX_P`` and
-``ops.LANDING_FIELD_TC_MIN_P``. Prints
+at their tile for p (``ops.two_stage_tile_n``; above p = 64 only a source
+whose entries take the wide kernel's park): the readings that set
+``ops.TC_MIN_P``, ``ops.TC_MAX_P`` and ``ops.LANDING_FIELD_TC_MIN_P``. With ``--ns-shape`` (repeatable), the
+checkout's tensor-core Newton-Schulz kernel (``newton_schulz_tc``, 12
+iterations on the watchdog's drifted input) at each shape beside the
+CUDA-core kernel that planned there before it (whole or tiled), both held
+against ``ref.newton_schulz_ref`` (atol 1e-6): the readings that set
+``ops.NS_TC_MIN_P``; given without ``--shape``, only those. Prints
 the median, least and most of ``--reps`` CUDA-event timings of
 ``--iters`` launches each (the builds take turns),
 the ptxas register and spill lines, and the card's name and power limit.
@@ -34,6 +39,7 @@ import ctypes
 import functools
 import itertools
 import os
+import re
 import statistics
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -53,6 +59,8 @@ def main() -> int:
                     help="LABEL=PATH of a fused_step_tc.cu to build (repeatable)")
     ap.add_argument("--shape", action="append", default=[],
                     help="B,P,N of a stack to time (repeatable; default 640,64,960)")
+    ap.add_argument("--ns-shape", action="append", default=[],
+                    help="B,P,N of a Newton-Schulz stack to time (repeatable)")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--iters", type=int, default=50, help="launches per timing")
     args = ap.parse_args()
@@ -78,12 +86,17 @@ def main() -> int:
 
     with ThreadPoolExecutor(len(sources)) as ex:  # one nvcc per build, together
         builds = list(ex.map(make, sources))
-    entries, two_stage, wide = {}, {}, set()
+    entries, two_stage, wide, wide_field = {}, {}, set(), set()
     for (tag, so, regs), (_, path) in zip(builds, sources):
         lib = ctypes.CDLL(so)
-        parks = "float* park" in open(path).read()  # the wide kernel's scratch
+        text = open(path).read()
+        parks = "float* park" in text  # the wide kernel's scratch
         if parks:
             wide.add(tag)
+        # the field's wide entry takes a park too
+        field_parks = re.search(r"int landing_field_tc\([^)]*float\* park", text) is not None
+        if field_parks:
+            wide_field.add(tag)
         lib.fused_step_tc.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + \
             [ctypes.c_void_p] * (1 + parks)
         lib.fused_step_tc.restype = ctypes.c_int
@@ -92,16 +105,18 @@ def main() -> int:
             for fn in (lib.pogo_update_tc, lib.landing_field_tc):
                 fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
-            if parks:
-                lib.pogo_update_tc.argtypes = lib.pogo_update_tc.argtypes[:-1] + \
-                    [ctypes.c_void_p] * 2
+            for fn, takes in ((lib.pogo_update_tc, parks),
+                              (lib.landing_field_tc, field_parks)):
+                if takes:
+                    fn.argtypes = fn.argtypes[:-1] + [ctypes.c_void_p] * 2
             two_stage[tag] = lib
         print(tag, *regs, sep="\n  ", flush=True)
 
     def usable(tags, p, kernel="fused"):
-        """The builds that take p: above 64 only those with the wide kernel,
-        and never the field's entry."""
-        return [t for t in tags if p <= 64 or (t in wide and kernel != "landing_field")]
+        """The builds that take p: above 64 only those with the wide kernel
+        (for the field, its wide entry)."""
+        return [t for t in tags
+                if p <= 64 or (t in (wide_field if kernel == "landing_field" else wide))]
 
     def timed(label, runs):
         times = {tag: [] for tag in runs}
@@ -114,7 +129,9 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     shapes = [tuple(int(v) for v in s.split(",")) for s in args.shape] or [(640, 64, 960)]
-    bad = 0
+    bad = _ns_readings(args, gen, timed) if args.ns_shape else 0
+    if args.ns_shape and not args.shape:
+        return 1 if bad else 0
     for (b, p, n), (method, base, hyper) in itertools.product(
             shapes, (("pogo", "vadam", (0.9, 0.999, 1e-8)), ("landing", "trace", (0.1, False)))):
         x = stiefel.random_stiefel(gen, (b, p, n), device="cuda")
@@ -157,11 +174,12 @@ def main() -> int:
         eta, lam = (0.1, 0.5) if pogo else (0.0, 1.0)
         want = ref.pogo_update_ref(x, g, eta, lam) if pogo else ref.landing_field_ref(x, g, lam)
         out = torch.empty_like(x)
-        park = fs.park(x) if p > 64 else None
+        park = fs.park(x, rows=pogo) if p > 64 else None
+        takes_park = wide if pogo else wide_field
         runs = {tag: functools.partial(
                     pu.launch, f"{name}_tc", x, g, eta, lam, out,
                     *([park.data_ptr() if park is not None else None]
-                      if pogo and tag in wide else []),
+                      if tag in takes_park else []),
                     lib=lambda lib=two_stage[tag]: lib)
                 for tag in usable(two_stage, p, name)}
         for tag, run in runs.items():
@@ -179,6 +197,42 @@ def main() -> int:
         timed(f"{name} {b}x({p},{n})", runs)
         del x, g, want, out, park
     return 1 if bad else 0
+
+
+def _ns_readings(args, gen, timed) -> int:
+    """The tensor-core Newton-Schulz kernel beside the CUDA-core kernel the
+    planner gave each ``--ns-shape`` before it; returns the mismatches."""
+    import torch
+
+    from repro_torch.core import stiefel
+    from repro_torch.kernels import newton_schulz as ns
+    from repro_torch.kernels import ops, ref
+
+    bad = 0
+    for b, p, n in (tuple(int(v) for v in s.split(",")) for s in args.ns_shape):
+        x = 1.5 * stiefel.random_stiefel(gen, (b, p, n), device="cuda")
+        x += 0.05 * torch.randn(x.shape, generator=gen, device="cuda")
+        want = ref.newton_schulz_ref(x, 12)
+        out = torch.empty_like(x)
+        if ops.ns_whole_smem_bytes(p, n) <= ops.SMEM_LIMIT_BYTES:
+            label, cc = "cuda-core whole", ns.newton_schulz_whole
+        else:
+            tile = ops.ns_tiled_tile_n(p)
+            label, cc = f"cuda-core tiled tile {tile}", functools.partial(
+                ns.newton_schulz_tiled, tile_n=tile)
+        runs = {f"tensor-core cluster {ops.ns_tc_cluster(n)}": ns.newton_schulz_tc, label: cc}
+        for tag, fn in runs.items():
+            got = fn(x, 12, out=out)
+            torch.cuda.synchronize()
+            ok = torch.allclose(got, want, atol=1e-6, rtol=0)
+            bad += not ok
+            print(f"newton_schulz {b}x({p},{n}) {tag}: max_abs "
+                  f"{float((got - want).abs().max()):.3e} {'ok' if ok else 'MISMATCH'}",
+                  flush=True)
+        timed(f"newton_schulz {b}x({p},{n})",
+              {tag: functools.partial(fn, x, 12, out=out) for tag, fn in runs.items()})
+        del x, want, out
+    return bad
 
 
 if __name__ == "__main__":

@@ -13,10 +13,10 @@ projections (one 640 x (64, 960) stack: the tensor-core kernels of
 two-stage POGO update and landing field), at the many-matrices shape
 2048 x (16, 256) (the whole kernels), at internlm2-1.8b's q/k, one 576 x
 (128, 2048) stack (p > 64: the wide tensor-core kernel of the same source
-for the fused step and the POGO update, the CUDA-core tiled kernel for the
-landing field; 3 steps each), and at the paper's squared-unitary-PC
-sizes, 1048 x (10, 10000) (p < 32: the CUDA-core tiled kernels of the
-fused step and the POGO update; 3 steps each):
+for the fused step, the POGO update and the landing field; 3 steps each),
+and at the paper's squared-unitary-PC sizes, 1048 x (10, 10000) (p < 25:
+the CUDA-core tiled kernels of the fused step, the POGO update and the
+landing field; 3 steps each):
 
 * the fused group step, ``orthogonal("pogo", use_kernel=True,
   base_optimizer=chain(trace(0.9)))``;
@@ -31,15 +31,19 @@ fused step and the POGO update; 3 steps each):
 * fixed-step Landing on the fused step, the same with ``safe_step=False``
   (lr 0.25 keeps it within 7e-5 of the manifold on the CPU with these
   gradients, eps is 0.5), then one step under the feasibility watchdog
-  after a 1.5x drift, which must repair every matrix.
+  after a 1.5x drift, which must repair every matrix: at SmolLM's q/k
+  (the tensor-core Newton-Schulz kernel of ``newton_schulz_tc.cu``, one
+  thread block cluster a matrix) and at internlm2-1.8b's (its CUDA-core
+  tiled kernel).
 
 Each path's kernels must launch once per step, its first step must agree
 with the plain route, and its feasibility must hold. The tensor-core
 kernels (the wide ones at 576 x (128, 2048)) are launched 20 times each
 on the same inputs, half of them beside a copy on another stream, and
-must repeat bit for bit. The Newton-Schulz
-kernels are held against their plain version with half the matrices
-masked off. The tensor-parallel step: its two kernels against their plain
+must repeat bit for bit, and so must the tensor-core Newton-Schulz
+kernel. The Newton-Schulz kernels are held against their plain version
+with half the matrices masked off, and timed beside the repair launch
+that finds no matrix past the threshold. The tensor-parallel step: its two kernels against their plain
 versions at a rank's share of the q/k stack at width 2, 640 x (64, 480),
 and of the many-matrices stack, 2048 x (16, 128); its single-device
 schedule (four shards of 640 x (64, 960)) against the unsharded fused
@@ -113,14 +117,15 @@ MANY = {"w": (2048, 16, 256)}
 # internlm2-1.8b's constrained q/k projections (src/repro/configs/
 # internlm2_1_8b.py: 24 layers, 16 heads and 8 KV heads of head_dim 128,
 # d_model 2048), one 576 x (128, 2048) stack: the wide tensor-core kernel's
-# (64 < p <= 128) main path for the fused step and the POGO update; the
-# landing field stays on its CUDA-core tiled kernel there.
+# (64 < p <= 128) main path for the fused step, the POGO update and the
+# landing field, and (Landing under the watchdog) the CUDA-core tiled
+# Newton-Schulz kernel's.
 INTERNLM2 = {"q_proj": (24, 16, 128, 2048), "k_proj": (24, 8, 128, 2048)}
 WIDE_SHAPE = (576, 128, 2048)
 # The paper's squared-unitary-PC sizes (src/repro/configs/pogo_paper.py:10,
 # 1048 matrices of (10, n), n at the top of its 256-10000 range), real-valued
-# (the port refuses complex groups): p < 32, where the planner keeps the
-# CUDA-core tiled kernels of the fused step and the POGO update.
+# (the port refuses complex groups): p < 25, where the planner keeps the
+# CUDA-core tiled kernels of the fused step, the POGO update and the field.
 PAPER_PC = {"pc": (1048, 10, 10000)}
 PAPER_SHAPE = (1048, 10, 10000)
 # kernel -> (its source, the TPU kernel it replaces)
@@ -133,7 +138,9 @@ KERNELS = {
     "landing_field_tiled": ("two_stage", "src/repro/kernels/landing_field.py:79"),
     "pogo_update_tiled_tc": ("fused_step_tc", "src/repro/kernels/pogo_update.py:143"),
     "landing_field_tiled_tc": ("fused_step_tc", "src/repro/kernels/landing_field.py:79"),
+    "landing_field_tiled_tc128": ("fused_step_tc", "src/repro/kernels/landing_field.py:79"),
     "newton_schulz": ("newton_schulz", "src/repro/kernels/newton_schulz.py:37"),
+    "newton_schulz_tc": ("newton_schulz_tc", "src/repro/kernels/newton_schulz.py:37"),
     "fused_step_whole_landing": ("fused_step", "src/repro/kernels/fused_step.py:164"),
     "fused_step_tiled_landing": ("fused_step", "src/repro/kernels/fused_step.py:559"),
     "fused_step_tiled_tc": ("fused_step_tc", "src/repro/kernels/fused_step.py:608"),
@@ -166,7 +173,8 @@ DRIFT_STEP = 5  # the q/k leaves are scaled by 1.5 just before this step
 # A X share one product (the CUDA-core kernels do them apart, five).
 TWO_STAGE_FLOPS = {"pogo_update_whole": 12, "pogo_update_tiled": 12,
                    "pogo_update_tiled_tc": 12, "pogo_update_tiled_tc128": 12,
-                   "landing_field": 8, "landing_field_tiled": 8, "landing_field_tiled_tc": 8}
+                   "landing_field": 8, "landing_field_tiled": 8, "landing_field_tiled_tc": 8,
+                   "landing_field_tiled_tc128": 8}
 # Serving. SmolLM-360M's prefill: 4 prompts of 2048 tokens. The flash
 # kernels at that shape, (B, S, H, KV, hd); internlm2-1.8b's heads; S = 2000
 # (not a multiple of the tiles); hd 24. fp32: tests/test_flash_kernel.py's
@@ -478,16 +486,19 @@ def phase_fused_kernels(gen):
 
 def phase_tc_repeatability(gen, repeats=20):
     """Each tensor-core kernel launched ``repeats`` times on the same inputs
-    at 640 x (64, 960) (the wide ones at 576 x (128, 2048)), every other
-    launch beside a 1 GiB copy on a second
+    at 640 x (64, 960) (the wide ones at 576 x (128, 2048); Newton-Schulz
+    on the watchdog's drifted input, half the matrices masked off), every
+    other launch beside a 1 GiB copy on a second
     stream that takes SMs and HBM from it: every output must equal the first
     launch's bit for bit. The kernels sum in a fixed order, so a difference
     is a race whose outcome depends on timing, which the CPU emulator
     cannot show."""
     import torch
 
+    from repro_torch.core import stiefel
     from repro_torch.kernels import fused_step as fs
     from repro_torch.kernels import landing_field as lf
+    from repro_torch.kernels import newton_schulz as ns
     from repro_torch.kernels import pogo_update as pu
 
     side = torch.cuda.Stream()
@@ -528,7 +539,8 @@ def phase_tc_repeatability(gen, repeats=20):
                lambda: wrapper(x, g, LR, **kw)[:4])
         del x, g, mu, nu
     for shape, updates in (((640, 64, 960), (pu.pogo_update_tiled_tc, lf.landing_field_tiled_tc)),
-                           (WIDE_SHAPE, (pu.pogo_update_tiled_tc128,))):
+                           (WIDE_SHAPE, (pu.pogo_update_tiled_tc128,
+                                         lf.landing_field_tiled_tc128))):
         x, g, _, _ = _operands(gen, *shape)
         x += 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
         for update in updates:
@@ -536,7 +548,19 @@ def phase_tc_repeatability(gen, repeats=20):
             repeat(f"{update.__name__} {shape[0]}x{shape[1:]}",
                    lambda: (update(x, g, *args),))
         del x, g
-    del big, dst
+    shape = (640, 64, 960)
+    x = 1.5 * stiefel.random_stiefel(gen, shape, device="cuda")
+    x += 0.05 * torch.randn(shape, generator=gen, device="cuda")
+    mask = torch.arange(shape[0], device="cuda") % 2 == 0
+    dist = torch.ones(shape[0], device="cuda")
+
+    def ns_run():
+        y, d = x.clone(), dist.clone()
+        ns.newton_schulz_tc(y, NS_ITERS, out=y, mask=mask, dist=d)
+        return y, d
+
+    repeat(f"newton_schulz_tc {shape[0]}x{shape[1:]}, half masked", ns_run)
+    del x, big, dst
 
 
 def _tp_bound(name, b, p, n, base_kind="trace", method="pogo"):
@@ -625,17 +649,15 @@ def phase_two_stage_kernels(gen):
     """Each two-stage kernel against its plain version at its main-path
     shape, on the planner's route, timed with its bound: the whole kernels
     at 2048 x (16, 256), the tensor-core entries at SmolLM's 640 x (64, 960)
-    (timed beside the CUDA-core tiled kernels, their route there before,
-    which are checked at the same call), the CUDA-core tiled kernels at
-    internlm2-1.8b's 576 x (128, 2048) (the field at tile 64; POGO's update
-    on the wide tensor-core kernel there, timed beside its CUDA-core tiled
-    kernel at tile 16), POGO's CUDA-core tiled kernel at the paper's 1048 x
-    (10, 10000). Then every kernel at a ragged shape, 7 x (10, 250) (the
-    wide kernel at 7 x (100, 250)), the tensor-core entries also at 7 x
-    (64, 250) (plain loads), POGO's in place and with a learning rate held
-    on the card (bit for bit the host value's result). X is a Stiefel draw
-    plus 0.01 randn, and each check first shows that dropping lam's term
-    would break the tolerance."""
+    and the wide ones at internlm2-1.8b's 576 x (128, 2048) (each timed
+    beside the CUDA-core tiled kernel, their route there before, checked at
+    the same call: the field at tile 64, POGO's update at tile 16), the
+    CUDA-core tiled kernels at the paper's 1048 x (10, 10000). Then every
+    kernel at a ragged shape, 7 x (10, 250) (the wide ones at 7 x (100,
+    250)), the tensor-core entries also at 7 x (64, 250) (plain loads),
+    POGO's in place and with a learning rate held on the card (bit for bit
+    the host value's result). X is a Stiefel draw plus 0.01 randn, and each
+    check first shows that dropping lam's term would break the tolerance."""
     import torch
 
     from repro_torch.kernels import landing_field as lf
@@ -645,8 +667,8 @@ def phase_two_stage_kernels(gen):
     tc_shape = (640, 64, 960)
     main = {"pogo_update_whole": (2048, 16, 256), "landing_field": (2048, 16, 256),
             "pogo_update_tiled_tc": tc_shape, "landing_field_tiled_tc": tc_shape,
-            "pogo_update_tiled_tc128": WIDE_SHAPE,
-            "pogo_update_tiled": PAPER_SHAPE, "landing_field_tiled": WIDE_SHAPE}
+            "pogo_update_tiled_tc128": WIDE_SHAPE, "landing_field_tiled_tc128": WIDE_SHAPE,
+            "pogo_update_tiled": PAPER_SHAPE, "landing_field_tiled": PAPER_SHAPE}
     cases = [(name, shape, "") for name, shape in main.items()]
     cases += [(name, (7, 100 if name.endswith("tc128") else 10, 250), "ragged")
               for name in main]
@@ -742,7 +764,7 @@ def phase_two_stage_kernels(gen):
         times = _time_rotating(timed)
         plain_ms, ms = times[:2]
         if kind == "tc":  # the sweeps' HBM passes (the wide kernel's pass 2 runs twice)
-            passes = (9.5 if p > 64 else 7) if pogo else 5
+            passes = (9.5 if p > 64 else 7) if pogo else (7 if p > 64 else 5)
             extra = (f"; bytes, 3 passes {1e3 * 3 * b * p * n * 4 / HBM_BYTES_PER_S:.4f}; "
                      f"3xTF32 tensor work {1e3 * 3 * flops / TF32_TC_FLOP_PER_S:.4f}; the "
                      f"schedule's {passes} passes "
@@ -761,59 +783,91 @@ def phase_newton_schulz(gen):
     """Each Newton-Schulz kernel against the plain version on the watchdog's
     input, 1.5 x Stiefel + 0.05 randn, 12 iterations, with half the
     matrices masked off (they must come out bit-unchanged, distances too),
-    at 640 x (64, 960) (tiled), 2048 x (16, 256) (whole) and 7 x (10, 250);
-    then timed unmasked at the first two shapes."""
+    through the planner: at the trainer's 640 x (64, 960) (the tensor-core
+    kernel, a cluster of two CTAs a matrix), internlm2-1.8b's 576 x (128,
+    2048) (the CUDA-core tiled kernel), 2048 x (16, 256) (whole) and 7 x
+    (10, 250); then timed unmasked at the first three, each beside the
+    repair with no matrix past the threshold (the watchdog's launch on
+    every step), the tensor-core kernel in turns with the tiled kernel at
+    its shape and the plain version."""
     import torch
 
     from repro_torch.core import stiefel
     from repro_torch.kernels import newton_schulz as ns
     from repro_torch.kernels import ops, ref
 
-    record = {}
-    for shape in ((640, 64, 960), (2048, 16, 256), (7, 10, 250)):
+    records = {}
+    for shape in ((640, 64, 960), WIDE_SHAPE, (2048, 16, 256), (7, 10, 250)):
         b, p, n = shape
         x = 1.5 * stiefel.random_stiefel(gen, shape, device="cuda")
         x += 0.05 * torch.randn(shape, generator=gen, device="cuda")
         dist = torch.where(torch.arange(b, device="cuda") % 2 == 0, 2.0, 0.0).float()
         x0, d0 = x.clone(), dist.clone()
+        kind, tile_n = ops.plan_newton_schulz(p, n)
+        name = "newton_schulz_tc" if kind == "tc" else "newton_schulz"
+        before = ns.newton_schulz_tc.launches
         rep = ops.newton_schulz_repair(x, dist, torch.tensor(0.1, device="cuda"),
                                        NS_ITERS)
         torch.cuda.synchronize()
+        if (ns.newton_schulz_tc.launches - before) != (kind == "tc"):
+            raise SystemExit(f"newton_schulz {shape}: the planned {kind} kernel did not launch")
         want = ref.newton_schulz_ref(x0[rep], NS_ITERS)
         want_d = ref.manifold_distance_ref(want)
         max_abs, _, ok = _errors((x[rep],), (want,), NS_TOL)
         kept = torch.equal(x[~rep], x0[~rep]) and torch.equal(dist[~rep], d0[~rep])
-        kind, tile_n = ops.plan_newton_schulz(p, n)
         print(f"kernel newton_schulz_{kind} {b}x({p},{n}) tile_n {tile_n}: repaired "
               f"{int(rep.sum())}, max_abs {max_abs:.3e} (atol {NS_TOL['atol']}), "
               f"distance kernel {float(dist[rep].max()):.3e} plain "
-              f"{float(want_d.max()):.3e}, masked-off bit-unchanged {kept} "
-              f"{'ok' if ok and kept else 'MISMATCH'}", flush=True)
+              f"{float(want_d.max()):.3e}, max |kernel - plain| "
+              f"{float((dist[rep] - want_d).abs().max()):.3e}, masked-off bit-unchanged "
+              f"{kept} {'ok' if ok and kept else 'MISMATCH'}", flush=True)
         if not (ok and kept and int(rep.sum()) == (b + 1) // 2
                 and float(dist[rep].max()) < 1e-2):
             raise SystemExit(f"newton_schulz {shape} disagrees with its plain version")
-        record["max_abs_err"] = max(record.get("max_abs_err", 0.0), max_abs)
+        rec = records.setdefault(name, {})
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), max_abs)
         if b == 7:
             continue
         out = torch.empty_like(x0)
         wrapper = getattr(ns, f"newton_schulz_{kind}")
         if kind == "tiled":
             wrapper = functools.partial(wrapper, tile_n=tile_n)
-        ms, plain_ms = _time_in_turns(lambda: wrapper(x0, NS_ITERS, out=out),
-                                      lambda: ref.newton_schulz_ref(x0, NS_ITERS))
-        # Read X, write Y; 4 p^2 n flops per matrix per iteration.
-        bound_ms, bound_by = _bound_ms(2 * b * p * n * 4, 4 * NS_ITERS * p * p * n * b)
-        # The watchdog launches the repair every step; with no matrix past
-        # the threshold every CTA exits at once.
+        timed = [(lambda: ref.newton_schulz_ref(x0, NS_ITERS), 10),
+                 (lambda: wrapper(x0, NS_ITERS, out=out), 20)]
+        if kind == "tc":  # the CUDA-core tiled kernel, its route here before
+            cc_tile = ops.ns_tiled_tile_n(p)
+            cc = functools.partial(ns.newton_schulz_tiled, tile_n=cc_tile)
+            max_cc, _, ok_cc = _errors((cc(x0, NS_ITERS),), (ref.newton_schulz_ref(x0, NS_ITERS),),
+                                       NS_TOL)
+            if not ok_cc:
+                raise SystemExit(f"newton_schulz_tiled at {shape} disagrees ({max_cc:.3e})")
+            timed.append((lambda: cc(x0, NS_ITERS, out=out), 20))
+        times = _time_rotating(timed)
+        plain_ms, ms = times[:2]
+        # Read X, write Y; 4 p^2 n flops per matrix per iteration: the gram
+        # and the update, 2 p^2 n each. On the tensor cores the update takes
+        # 3 TF32 products, the symmetric gram 2 (G = U + U^T).
+        flops = 4 * NS_ITERS * p * p * n * b
+        if kind == "tc":
+            tc_flops = (2 + 3) * 2 * NS_ITERS * p * p * n * b
+            bound_ms, bound_by = _bound_ms(2 * b * p * n * 4, tc_flops, TF32_TC_FLOP_PER_S)
+        else:
+            bound_ms, bound_by = _bound_ms(2 * b * p * n * 4, flops)
         idle, thresh = torch.zeros(b, device="cuda"), torch.tensor(0.1, device="cuda")
         idle_ms = _time_ms(lambda: ops.newton_schulz_repair(x0, idle, thresh, NS_ITERS), 20)
+        extra = ""
+        if kind == "tc":
+            idle_cc = _time_ms(lambda: cc(x0, NS_ITERS, out=x0, mask=idle > thresh), 20)
+            extra = (f"; the CUDA-core tiled kernel at this call {times[2]:.4f} ms (tile "
+                     f"{cc_tile}; fp32 CUDA cores {1e3 * flops / FP32_FLOP_PER_S:.4f}), its "
+                     f"repair with no matrix past the threshold {idle_cc:.4f} ms")
         print(f"  newton_schulz_{kind} {b}x({p},{n}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
               f"bound_ms {bound_ms:.4f} ({bound_by}); repair with no matrix past the "
-              f"threshold {idle_ms:.4f} ms", flush=True)
-        if kind == "tiled":  # the trainer's shape is the kernel's main-path shape
-            record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+              f"threshold {idle_ms:.4f} ms{extra}", flush=True)
+        if kind != "whole":  # the tiled kernel's main path is internlm2-1.8b's
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
         del x, x0, out
-    return {"newton_schulz": record}
+    return records
 
 
 def _is_qk(path: str) -> bool:
@@ -934,7 +988,7 @@ def phase_trainer(card, workdir):
         # One fused step and one repair launch per step: the repair's CTAs
         # exit at once for matrices that did not trip, so only the drift
         # step repairs (the counter says which).
-        if r["launches"] != {"fused_step_tiled_tc": 1, "newton_schulz_tiled": 1}:
+        if r["launches"] != {"fused_step_tiled_tc": 1, "newton_schulz_tc": 1}:
             raise SystemExit(f"trainer step {k}: launches {r['launches']}")
         repairs = 640 if k >= DRIFT_STEP else 0
         if r["summary"]["repairs"] != repairs:
@@ -945,7 +999,7 @@ def phase_trainer(card, workdir):
                                  f"(limit {wd.hard / 2})")
         elif m["ortho_distance"] > 1e-5:
             raise SystemExit(f"trainer step {k}: ortho_distance {m['ortho_distance']}")
-    want = {n: TRAIN_STEPS if n in ("fused_step_tiled_tc", "newton_schulz_tiled") else 0
+    want = {n: TRAIN_STEPS if n in ("fused_step_tiled_tc", "newton_schulz_tc") else 0
             for n in launches}
     if launches != want:
         raise SystemExit(f"trainer: launches {launches}, expected {want}")
@@ -1086,45 +1140,57 @@ def drive_main_path(gen, shapes, label, steps, card, make_opt, max_dist):
 
 
 def phase_landing_watchdog(gen, card):
-    """Fixed-step Landing on the q/k stack with the feasibility watchdog:
-    two steps, then the stack scaled by 1.5 and one step, in which the
-    fused kernel and the Newton-Schulz repair launch once each and every
-    matrix is repaired (the fused watchdog only tightens the repair
-    threshold, ``repro/core/api.py:1551-1564``)."""
+    """Fixed-step Landing on a q/k stack with the feasibility watchdog: two
+    steps, then the stack scaled by 1.5 and one step, in which the fused
+    kernel and the Newton-Schulz repair launch once each and every matrix
+    is repaired (the fused watchdog only tightens the repair threshold,
+    ``repro/core/api.py:1551-1564``): at SmolLM-360M's 640 x (64, 960) (the
+    tensor-core repair) and at internlm2-1.8b's 576 x (128, 2048) (the
+    wide fused kernel and the CUDA-core tiled repair, whose main path this
+    is). Returns the repair kernels' launches."""
     import torch
 
     from repro_torch.core import api, stiefel
     from repro_torch.kernels import ops
 
     wd = api.WatchdogConfig()
-    opt = make_opt("landing_fused", watchdog=wd)
-    cs = api.ConstraintSet.from_tree({"qk": stiefel.random_stiefel(
-        gen, (640, 64, 960), device="cuda")})
-    state = opt.init(cs)
-    step = api.constraint_step(opt)
+    repairs = {}
+    for shape, fused, repair in (((640, 64, 960), "fused_step_tiled_tc_landing",
+                                  "newton_schulz_tc"),
+                                 (WIDE_SHAPE, "fused_step_tiled_tc128_landing",
+                                  "newton_schulz_tiled")):
+        opt = make_opt("landing_fused", watchdog=wd)
+        cs = api.ConstraintSet.from_tree({"qk": stiefel.random_stiefel(gen, shape,
+                                                                       device="cuda")})
+        state = opt.init(cs)
+        step = api.constraint_step(opt)
 
-    def grads():
-        return api.ConstraintSet(cs.plan, [GRAD_SCALE * torch.randn(
-            s.shape, generator=gen, device="cuda") for s in cs.stacks])
+        def grads():
+            return api.ConstraintSet(cs.plan, [GRAD_SCALE * torch.randn(
+                s.shape, generator=gen, device="cuda") for s in cs.stacks])
 
-    for _ in range(2):
-        cs, state, _ = step(cs, state, grads())
-    for s in cs.stacks:
-        s.mul_(1.5)
-    g = grads()
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    cs, state, health = step(cs, state, g)
-    torch.cuda.synchronize()
-    launches = {k: v for k, v in ops.launches().items() if v}
-    summary = api.watchdog_summary(state)
-    dist = float(api.max_distance(state))
-    print(f"landing fused + watchdog, 640x(64,960) scaled by 1.5: repairs "
-          f"{summary['repairs']}, distance after the step {dist:.3e} (limit "
-          f"{wd.hard / 2}), launches {launches} [{card}]", flush=True)
-    if not (bool(health.finite) and summary["repairs"] == 640 and dist < wd.hard / 2
-            and launches == {"fused_step_tiled_tc_landing": 1, "newton_schulz_tiled": 1}):
-        raise SystemExit("landing fused + watchdog: the drift step was not repaired")
+        for _ in range(2):
+            cs, state, _ = step(cs, state, grads())
+        for s in cs.stacks:
+            s.mul_(1.5)
+        g = grads()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        cs, state, health = step(cs, state, g)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launches().items() if v}
+        summary = api.watchdog_summary(state)
+        dist = float(api.max_distance(state))
+        print(f"landing fused + watchdog, {shape[0]}x{shape[1:]} scaled by 1.5: repairs "
+              f"{summary['repairs']}, distance after the step {dist:.3e} (limit "
+              f"{wd.hard / 2}), launches {launches} [{card}]", flush=True)
+        if not (bool(health.finite) and summary["repairs"] == shape[0]
+                and dist < wd.hard / 2 and launches == {fused: 1, repair: 1}):
+            raise SystemExit(f"landing fused + watchdog at {shape}: the drift step was not "
+                             "repaired")
+        repairs[repair] = launches[repair]
+        del cs, state, g
+    return repairs
 
 
 def phase_tp_schedule(gen, card):
@@ -1673,6 +1739,7 @@ def main() -> int:
     fs.tc_lib()
     pu.lib()
     ns.lib()
+    ns.tc_lib()
     tp.lib()
     fa.lib()
     fa.tc_lib()
@@ -1705,7 +1772,9 @@ def main() -> int:
          "pogo_update_tiled"),
         ("landing smollm-360m q/k", smollm, 10, "landing", 0.5, "landing_field_tiled_tc"),
         ("landing 2048x(16,256)", MANY, 10, "landing", 0.5, "landing_field"),
-        ("landing internlm2-1.8b q/k", INTERNLM2, 3, "landing", 0.5, "landing_field_tiled"),
+        ("landing internlm2-1.8b q/k", INTERNLM2, 3, "landing", 0.5,
+         "landing_field_tiled_tc128"),
+        ("landing paper unitary-PC sizes", PAPER_PC, 3, "landing", 0.5, "landing_field_tiled"),
         ("landing fused smollm-360m q/k", smollm, 10, "landing_fused", 0.5,
          "fused_step_tiled_tc_landing"),
         ("landing fused 2048x(16,256)", MANY, 10, "landing_fused", 0.5,
@@ -1721,13 +1790,14 @@ def main() -> int:
                                  functools.partial(make_opt, path), max_dist)
         _expect_launches(label, counts, kernel, steps)
         launches[kernel] = counts[kernel]
-    phase_landing_watchdog(gen, card)
+    repairs = phase_landing_watchdog(gen, card)
+    launches["newton_schulz"] = repairs["newton_schulz_tiled"]
     phase_tp_schedule(gen, card)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
         launches.update(phase_tp_ranks(card, workdir))
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
         counts = phase_trainer(card, workdir)
-    launches["newton_schulz"] = counts["newton_schulz_whole"] + counts["newton_schulz_tiled"]
+    launches["newton_schulz_tc"] = counts["newton_schulz_tc"]
     records.update(phase_flash_attention(gen, card))
     launches["flash_attention_tc"] = phase_prefill(card)["flash_attention_tc"]
     launches["flash_attention"] = phase_prefill_fp32(card)["flash_attention_fp32"]

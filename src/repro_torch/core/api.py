@@ -33,8 +33,9 @@ place.
 The feasibility watchdog (``watchdog=WatchdogConfig(...)``) escalates a
 group whose previous residual crossed ``soft`` and repairs every matrix
 whose post-step residual exceeds the repair threshold with Newton-Schulz,
-in place; with ``use_kernel`` on a card that is the kernel of
-``csrc/newton_schulz.cu``, gated per matrix by a device mask (no host
+in place; with ``use_kernel`` on a card that is a kernel of
+``csrc/newton_schulz_tc.cu`` or ``csrc/newton_schulz.cu``
+(``ops.plan_newton_schulz``), gated per matrix by a device mask (no host
 sync). POGO's ``find_root`` lands with the quartic-root lambda, and
 ``safety_project_every`` re-projects every k-th step.
 

@@ -102,7 +102,8 @@ def project_newton_schulz(x: torch.Tensor, iters: int = 12) -> torch.Tensor:
     """Polar projection via Newton-Schulz (matmul only):
     ``Y <- 1.5 Y - 0.5 (Y Y^H) Y`` from ``Y = X / ||X||_F`` (the Frobenius
     prescale bounds the spectral norm by 1, so the iteration contracts).
-    The plain version of the kernels in ``csrc/newton_schulz.cu``."""
+    The plain version of the kernels in ``csrc/newton_schulz.cu`` and
+    ``csrc/newton_schulz_tc.cu``."""
     fro = torch.sqrt(torch.sum(x.abs() ** 2, dim=(-2, -1), keepdim=True))
     y = x / torch.clamp_min(fro, 1e-30)
     for _ in range(iters):

@@ -2,7 +2,7 @@
 // tensor cores: 3xTF32 wgmma products fed by a TMA ring, for p <= 64 and
 // (the wide kernel, below fused_tc_kernel) 64 < p <= 128; and, from the
 // same kernels with no base stage and no telemetry, the two-stage POGO
-// update (p <= 128) and landing field (p <= 64).
+// update and landing field (p <= 128).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/:
 //   fused_step_tiled_tc          <- fused_step.py:608 fused_step_tiled:
@@ -17,8 +17,8 @@
 //   landing_field_tiled_tc       <- landing_field.py:79 landing_field_tiled
 //                                   (_phase1_kernel + _field_tile_kernel :65):
 //                                   two sweeps, 5 HBM passes
-//   fused_step_tiled_tc128(_landing), pogo_update_tiled_tc128
-//                                <- the same TPU kernels for 64 < p <= 128
+//   fused_step_tiled_tc128(_landing), pogo_update_tiled_tc128,
+//   landing_field_tiled_tc128    <- the same TPU kernels for 64 < p <= 128
 //                                   (fused_tc_wide_kernel)
 // It computes what kernels/ref.py::fused_group_step_ref computes, and what
 // the CUDA-core kernels of fused_step.cu compute (their header has the
@@ -34,8 +34,9 @@
 // sweeps below move 9 passes (POGO) or 7 (Landing): 0.4226 and 0.3287 ms.
 // At internlm2-1.8b's 576 x (128, 2048) (the wide kernel): 5 passes
 // 0.9015 ms, the 3xTF32 products 695.8 GFLOP, 1.4056 ms, which bound it;
-// its schedule moves 11.5 passes (POGO, 2.0752 ms), 10 (Landing) or 9.5
-// (the two-stage update).
+// its schedule moves 11.5 passes (POGO, 2.0752 ms), 10 (Landing), 9.5
+// (the two-stage update) or 7 (the field, 1.2620 ms: its 3xTF32 work, 8
+// p^2 n x 3 = 0.9371 ms, and its 3 passes, 0.5409, bound it).
 //
 // Design:
 // * fp32 accuracy on the tensor cores: an operand x is split as hi =
@@ -96,14 +97,11 @@
 // launcher returns cudaGetLastError(), or a tensor map's error.
 
 #include "hopper.cuh"
+#include "tf32_tile.cuh"
 #include "tiles.cuh"
 
 namespace {
 
-constexpr int kTcP = 64;                          // rows of a tile: p <= 64
-constexpr int kTcBoxBytes = kTcP * 128;           // 64 rows x 32 fp32 columns
-constexpr int kTcTileBytes = 2 * kTcBoxBytes;     // a 64-column chunk of one operand
-constexpr int kTcChunk = 64;
 constexpr int kTcOps = 3;                         // most operand tiles of a chunk
 constexpr int kTcSlots = 6;                       // operand tiles in the ring
 constexpr int kTcConsumers = 128;                 // one warpgroup
@@ -115,44 +113,6 @@ constexpr int kTcBarOff = kTcRedOff + 64;
 constexpr int kTcBars = 2 * kTcSlots + 1;         // full, empty, end of sweep
 constexpr int kTcSmemBytes = kTcBarOff + 8 * kTcBars + 1024;  // + room to align
 constexpr int kConsumerBar = 1, kProducerBar = 2;  // named barriers
-
-// Byte offset of element (row, col) of a 64 x 64 fp32 tile: two 64 x 32
-// boxes, 128-byte swizzled, as TMA writes them and the descriptors read.
-__host__ __device__ inline int tc_off(int row, int col) {
-  return (col >> 5) * kTcBoxBytes + row * 128 + ((((col & 31) >> 2) ^ (row & 7)) << 4) +
-         ((col & 3) << 2);
-}
-
-__device__ inline float& tc_at(unsigned char* tile, int row, int col) {
-  return *reinterpret_cast<float*>(tile + tc_off(row, col));
-}
-
-// Descriptor of k8 step kk (K = 64, kk < 8) of a K-major tile.
-__device__ inline uint64_t tc_desc(const unsigned char* tile, int kk) {
-  return hopper::sw128_desc(tile + (kk >> 2) * kTcBoxBytes + (kk & 3) * 32, 16, 1024);
-}
-
-// Row and column of accumulator element i of consumer thread t.
-__device__ inline int acc_row(int t, int i) { return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * ((i >> 1) & 1); }
-__device__ inline int acc_col(int t, int i) { return 8 * (i >> 2) + 2 * (t & 3) + (i & 1); }
-
-// v rounded to TF32 (to nearest, ties away from zero, as cvt.rna.tf32.f32
-// rounds) by integer operations, which issue at full rate; the low 13 bits
-// of the result are zero. A NaN stays NaN or, for payloads at the top of
-// the range, becomes a zero whose lo piece is the NaN.
-__device__ inline float tf32_round(float v) {
-  return __uint_as_float((__float_as_uint(v) + 0x1000u) & 0xFFFFE000u);
-}
-
-__device__ inline void split(float v, float& hi, float& lo) {
-  hi = tf32_round(v);
-  lo = tf32_round(v - hi);
-}
-
-// lo of v when the tensor cores read v itself as hi (its low 13 bits dropped).
-__device__ inline float trunc_lo(float v) {
-  return tf32_round(v - __uint_as_float(__float_as_uint(v) & 0xFFFFE000u));
-}
 
 // Sum over the consumer warpgroup, the same on every consumer thread, in
 // a fixed order.
@@ -648,8 +608,15 @@ fused_tc_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant_
 //   which holds four base addresses a thread, not one an element: with
 //   one an element ptxas spilled. The plain-load path stores M and X'
 //   from the tiles, row by row.
+// * The field (kTwoStage, kLanding) runs sweep 1 and both passes of sweep
+//   2 and stops: it writes Lambda = G / 2 + D (slabs P = E_A / 2, Q^T =
+//   -B / 2 + lam E_A) over X's rows of the pass, straight to out, which is
+//   never x or g, so no row is parked and pass 1 waits for nothing. Its
+//   park holds the kept blocks of A and B alone (kWKeep floats a block):
+//   64 registers a thread would otherwise live through pass 0.
 // HBM passes: 11.5 for the fused POGO step (sweep 1: 4; pass 0: 2.5; pass
-// 1: 3; sweep 3: 2), 10 for Landing, 9.5 for the POGO update.
+// 1: 3; sweep 3: 2), 10 for Landing, 9.5 for the POGO update, 7 for the
+// field (sweep 1: X, G; each pass: X, G and half of Lambda).
 //
 // Shared memory: the ring (6 x 16 KB) and S (128 KB: sweep 1's lo boxes,
 // then one pass's slabs, then E), the reduction scratch and the barriers.
@@ -855,15 +822,25 @@ __device__ inline void store_rows_plain(const Op& o, int r0, int rows, float* ds
 }
 
 // Writes the slab of output half H into S: rows 64 H .. 64 H + 63 of P =
-// -(c/2) A and of Q^T = (c/2) B [- eta lam (A - I)], hi and lo, from this
-// warpgroup's blocks (wg, H) of A (a(i)) and (H, wg)^T of B (bv(i)), i in
-// the accumulator layout, each at its transposed place; as B operands the
+// -(c/2) A and of Q^T = (c/2) B [- eta lam (A - I)] (kField: P = E_A / 2,
+// Q^T = -B / 2 + lam E_A, E_A = A - I), hi and lo, from this warpgroup's
+// blocks (wg, H) of A (a(i)) and (H, wg)^T of B (bv(i)), i in the
+// accumulator layout, each at its transposed place; as B operands the
 // slab's rows are N, its 128 columns K (64-row boxes).
-template <int H, int kMethod, typename AV, typename BV>
+template <int H, int kMethod, bool kField, typename AV, typename BV>
 __device__ inline void write_slab(AV a, BV bv, unsigned char* s, int wg, int p, float coef,
                                   float eta, float lam) {
+  // the field's diagonal tests stay here: hoisted out of the matrix loop,
+  // they took 40 registers through it and spilled
+  const int pf = kField ? hopper::opaque(p) : p;
   acc_at<32, true, kWHalf>(64 * wg, 0, [&](int i, int r, int c, int off) {
     const float av = a(i);
+    if (kField) {  // A's (r, 64 H + c): slab row c, column r
+      const float ea = av - (r == 64 * H + c && r < pf ? 1.f : 0.f);
+      put_split(s + off, kWPiece, 0.5f * ea);
+      put_split(s + 2 * kWPiece + off, kWPiece, -0.5f * bv(i) + lam * ea);
+      return;
+    }
     float qv = 0.5f * coef * bv(i);  // A's (r, 64 H + c): slab row c, column r
     if (kMethod == kLanding) qv -= eta * lam * (av - (r == 64 * H + c && r < p ? 1.f : 0.f));
     put_split(s + off, kWPiece, -0.5f * coef * av);
@@ -901,6 +878,7 @@ __device__ inline void wide_produce(const CUtensorMap& tm_x, const CUtensorMap& 
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + kWBarOff);
   uint64_t* empty = full + kWSlots;
   uint64_t* swept = empty + kWSlots;
+  constexpr bool kField = kTwoStage && kMethod == kLanding;
   const int nc1 = (n + 31) / 32, nc2 = (n + 63) / 64;
   int q = 0, round = 0, waits = 0;  // the next slot, its use, end-of-sweep waits
   // One slot: rows 0..63 of (map0 / src0, rows0 valid rows) at column c0
@@ -934,8 +912,9 @@ __device__ inline void wide_produce(const CUtensorMap& tm_x, const CUtensorMap& 
     }
     for (int h = 0; h < 2; ++h) {  // sweep 2: [g,] X, Geu's source [, M's rows 0..63]
       // mu' (pass 0) and the parked rows (pass 1) are in HBM; order that
-      // before these TMA reads (the two-stage pass 0 reads X and G only)
-      if (h == 1 || !kTwoStage) {
+      // before these TMA reads (the two-stage pass 0 reads X and G only,
+      // the field both passes)
+      if (!kField && (h == 1 || !kTwoStage)) {
         hopper::mbar_wait(swept, waits++ & 1);
         hopper::fence_proxy_async();
       }
@@ -949,7 +928,7 @@ __device__ inline void wide_produce(const CUtensorMap& tm_x, const CUtensorMap& 
           else
             box(tm_mu_out, mu_out, 64 * c + 32 * bx);
         }
-        if (h == 1)  // a 64-row tile: column box bx at kWHalf bx
+        if (h == 1 && !kField)  // a 64-row tile: column box bx at kWHalf bx
           issue(tm_park, pk, 64, 64 * c, blockIdx.x, tm_park, pk, 64, 0, 64 * c + 32,
                 blockIdx.x);
       }
@@ -991,11 +970,14 @@ fused_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_x,
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + kWBarOff);
   uint64_t* empty = full + kWSlots;
   uint64_t* swept = empty + kWSlots;
+  constexpr bool kField = kTwoStage && kMethod == kLanding;
   if (kTwoStage) base_kind = kNone, nesterov = 0;
   const int tid = threadIdx.x;
   const int nc1 = (n + 31) / 32, nc2 = (n + 63) / 64;
   const bool nest = base_kind == kTrace && nesterov;
-  const size_t park_off = static_cast<size_t>(blockIdx.x) * (64 * n + kWKeep);
+  // the field parks no rows: its park is the kept blocks alone
+  const size_t park_off = kField ? static_cast<size_t>(blockIdx.x) * kWKeep
+                                 : static_cast<size_t>(blockIdx.x) * (64 * n + kWKeep);
 
   if (tid == 0) {
     for (int q = 0; q < kWSlots; ++q) {
@@ -1131,7 +1113,7 @@ fused_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_x,
       if (tid == 0) nu_out[b] = nu2;
       coef = eta * ((scal[2] / c1) / (sqrtf(nu2 / c2) + eps));
     }
-    float* keep = pk + static_cast<size_t>(64) * n + tid;
+    float* keep = kField ? pk + tid : pk + static_cast<size_t>(64) * n + tid;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       keep[kWConsumers * i] = ta[32 + i];
@@ -1142,11 +1124,11 @@ fused_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_x,
 #pragma unroll
       for (int i = 0; i < 32; ++i) tb0[i] = tbs[kWConsumers * i];
       hopper::named_sync(kWideBar, kWConsumers);
-      write_slab<0, kMethod>([&](int i) { return ta[i]; }, [&](int i) { return tb0[i]; }, s, wg,
-                             p, coef, eta, lam);
+      write_slab<0, kMethod, kField>([&](int i) { return ta[i]; }, [&](int i) { return tb0[i]; },
+                                     s, wg, p, coef, eta, lam);
     } else {
-      write_slab<0, kMethod>([&](int i) { return ta[i]; }, [&](int i) { return tb[i]; }, s, wg,
-                             p, coef, eta, lam);
+      write_slab<0, kMethod, kField>([&](int i) { return ta[i]; }, [&](int i) { return tb[i]; },
+                                     s, wg, p, coef, eta, lam);
     }
     wide_publish();
 
@@ -1164,9 +1146,9 @@ fused_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_x,
       if (h == 1) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) c1[i] = 0.f;
-        write_slab<1, kMethod>([&](int i) { return keep[kWConsumers * i]; },
-                               [&](int i) { return keep[kWConsumers * (32 + i)]; }, s, wg, p,
-                               coef, eta, lam);
+        write_slab<1, kMethod, kField>([&](int i) { return keep[kWConsumers * i]; },
+                                       [&](int i) { return keep[kWConsumers * (32 + i)]; }, s,
+                                       wg, p, coef, eta, lam);
         wide_publish();
       }
       for (int c = 0; c < nc2; ++c) {
@@ -1193,7 +1175,10 @@ fused_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_x,
           wrelease(empty, t0, 2);
         }
         float d[16];
-        const unsigned char* slab = s + wg * 32 * 128;  // this warpgroup's 32 rows of the slabs
+        // this warpgroup's 32 rows of the slabs (the field: its descriptors
+        // made in this loop, not hoisted out of it and spilled)
+        const unsigned char* slab =
+            kField ? hopper::opaque(s + wg * 32 * 128) : s + wg * 32 * 128;
 #pragma unroll
         for (int kh = 0; kh < 2; ++kh)
           wproduct_t(
@@ -1218,12 +1203,16 @@ fused_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_x,
         unsigned char* sb = so.b[(wt >> 6) & 1];
         acc_at<16, true, 0>(0, 32 * wg, [&](int i, int, int, int o) {
           float& xm = *reinterpret_cast<float*>(xb + o);
+          if (kField) {  // Lambda = G / 2 + D over X, stored below
+            xm = 0.5f * *reinterpret_cast<const float*>(sb + h * kWHalf + o) + d[i];
+            return;
+          }
           const float v = xm + d[i];
           xm = v;  // in place: stored below, and M's hi for the C gram
           *reinterpret_cast<float*>(sb + o) = trunc_lo(v);
         });
         Op mo{};  // pass 1: M's rows 0..63, a 64-row tile
-        if (h == 1) {
+        if (h == 1 && !kField) {
           mo.b[0] = wslot(ring, full, tt);
           mo.b[1] = mo.b[0] + kWHalf;
           ++tt;
@@ -1234,25 +1223,31 @@ fused_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_x,
         }
         wide_publish();
         if (!tma) {
-          if (h == 0)
+          if (kField)  // Lambda's rows 64 h .., straight to out
+            store_rows_plain(xo, 64 * h, 64, x_out + off + static_cast<size_t>(64 * h) * n,
+                             p - 64 * h, n, c0);
+          else if (h == 0)
             store_rows_plain(xo, 0, 64, pk, 64, n, c0);
           else
             store_rows_plain(xo, 64, 64, x_out + off + static_cast<size_t>(64) * n, p - 64, n, c0);
-          if (kMethod == kLanding && h == 1)  // X' rows 0..63, final
+          if (kMethod == kLanding && !kField && h == 1)  // X' rows 0..63, final
             store_rows_plain(mo, 0, 64, x_out + off, 64, n, c0);
         }
         if (tma && tid == 0) {
           for (int bx = 0; bx < 2; ++bx) {
-            if (h == 0)
+            if (kField)
+              hopper::tma_store_4d(&tm_x_out, xo.b[bx] + h * kWHalf, c0 + 32 * bx, 64 * h, b, 0);
+            else if (h == 0)
               hopper::tma_store_4d(&tm_park, xo.b[bx], c0 + 32 * bx, 0, blockIdx.x, 0);
             else
               hopper::tma_store_4d(&tm_x_out, xo.b[bx] + kWHalf, c0 + 32 * bx, 64, b, 0);
-            if (kMethod == kLanding && h == 1)
+            if (kMethod == kLanding && !kField && h == 1)
               hopper::tma_store_4d(&tm_x_out, mo.b[bx], c0 + 32 * bx, 0, b, 0);
           }
           hopper::bulk_commit();
         }
-        if (h == 0) {  // C00's columns 32 wg ..: M_0 M_0^T
+        if (kField) {  // no gram
+        } else if (h == 0) {  // C00's columns 32 wg ..: M_0 M_0^T
           float part[16];
           wgram<8>(
               part,
@@ -1279,9 +1274,9 @@ fused_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_x,
         }
         if (tma && tid == 0) hopper::bulk_wait_read<0>();  // M has left its boxes
         hopper::named_sync(kWideBar, kWConsumers);  // every warp is done with the slots
-        wrelease(empty, nest ? t0 + 2 : t0, 4 + h);
+        wrelease(empty, nest ? t0 + 2 : t0, kField ? 4 : 4 + h);
       }
-      if (h == 0) {  // M's rows 0..63 are read back by TMA in pass 1
+      if (h == 0 && !kField) {  // M's rows 0..63 are read back by TMA in pass 1
 #pragma unroll
         for (int i = 0; i < 16; ++i) keep[kWConsumers * (64 + i)] = c00[i];  // C00 waits
         if (tid == 0) hopper::bulk_wait<0>();
@@ -1291,6 +1286,7 @@ fused_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_x,
       }
     }
 
+    if (kField) continue;
     if (kMethod == kLanding) {  // W = X' X'^T: dist = ||W - I_pv||_F, W01 = W10^T
       float acc = 0.f;
 #pragma unroll
@@ -1459,11 +1455,11 @@ tf32_probe_kernel(const float* a, const float* b, float* d, int a_regs) {
 // persistent grid of one CTA per SM (at most B), and the launch: the kernel
 // for p <= 64, or (p > 64) the wide one, its TMA instance `kernel` or its
 // plain-load instance `wide_plain`, whose park holds 64 n + kWKeep floats a
-// block.
+// block (park_rows), or (the field) kWKeep.
 int launch_tc(const void* kernel, const void* wide_plain, const float* x, const float* g,
               const float* mu, const float* nu, const float* scal, const int* pv, float* x_out,
               float* mu_out, float* nu_out, float* dist, float* park, int B, int p, int n,
-              int base_kind, int nesterov, void* stream) {
+              int base_kind, int nesterov, void* stream, bool park_rows = true) {
   const bool wide = p > kTcP;
   const void* rows[] = {x, g, x_out, base_kind != kNone ? mu : x,
                         base_kind != kNone ? mu_out : x_out, wide ? park : x};
@@ -1478,7 +1474,7 @@ int launch_tc(const void* kernel, const void* wide_plain, const float* x, const 
   if (tma) {
     const uint64_t e = sizeof(float);
     const uint32_t box[4] = {32, kTcP, 1, 1};
-    const float* srcs[6] = {x, g, mu, mu_out, x_out, wide ? park : nullptr};
+    const float* srcs[6] = {x, g, mu, mu_out, x_out, wide && park_rows ? park : nullptr};
     for (int i = 0; i < 6; ++i) {
       if (srcs[i] == nullptr) continue;
       // the park: 64 rows a block, then its kept blocks
@@ -1511,7 +1507,8 @@ extern "C" {
 int fused_tc_smem_bytes(int p) { return p > kTcP ? kWSmemBytes : kTcSmemBytes; }
 
 // Floats of the wide kernel's park a block (min(B, SMs) blocks): M's rows
-// 0..63, then the kept blocks of A and B (fused_step.park mirrors it).
+// 0..63, then the kept blocks of A and B (fused_step.park mirrors it); the
+// field's park holds the kept blocks alone (kWKeep floats, rows = 0).
 int fused_tc_park_floats(int n) { return 64 * n + kWKeep; }
 
 // method: 0 POGO, 1 Landing (the fixed step). p <= 128 (p > 64: the wide
@@ -1540,10 +1537,10 @@ int fused_step_tc(const float* x, const float* g, const float* mu, const float* 
 // eta/2 (A G - B X), into out (which may be x, never g), and Landing's
 // field Lambda = 1/2 (A G - B X) + lam (A X - X) into out (never x or g),
 // as two_stage.cu's pogo_update_tiled and landing_field_tiled compute
-// them; scal[8] = [eta, lam, 1, 0...] (the field reads lam alone). The
-// update takes p <= 128 (p > 64: the wide kernel and its park, as
-// fused_step_tc), the field p <= 64; any n; TMA or plain loads as
-// fused_step_tc.
+// them; scal[8] = [eta, lam, 1, 0...] (the field reads lam alone). Both
+// take p <= 128 (p > 64: the wide kernel and its park, min(B, SMs) blocks
+// of fused_tc_park_floats(n) floats for the update, of kWKeep for the
+// field); any n; TMA or plain loads as fused_step_tc.
 int pogo_update_tc(const float* x, const float* g, const float* scal, float* out, int B, int p,
                    int n, float* park, void* stream) {
   if (B < 0 || p < 1 || p > kWP || n < 1 || (p > kTcP && park == nullptr))
@@ -1557,11 +1554,15 @@ int pogo_update_tc(const float* x, const float* g, const float* scal, float* out
 }
 
 int landing_field_tc(const float* x, const float* g, const float* scal, float* out, int B,
-                     int p, int n, void* stream) {
-  if (B < 0 || p < 1 || p > kTcP || n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_tc(reinterpret_cast<const void*>(fused_tc_kernel<kLanding, true>), nullptr, x,
-                   g, nullptr, nullptr, scal, nullptr, out, nullptr, nullptr, nullptr, nullptr, B,
-                   p, n, kNone, 0, stream);
+                     int p, int n, float* park, void* stream) {
+  if (B < 0 || p < 1 || p > kWP || n < 1 || (p > kTcP && park == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using K = const void*;
+  const K kernel = p > kTcP ? K(fused_tc_wide_kernel<kLanding, true, true>)
+                            : K(fused_tc_kernel<kLanding, true>);
+  return launch_tc(kernel, K(fused_tc_wide_kernel<kLanding, true, false>), x, g, nullptr,
+                   nullptr, scal, nullptr, out, nullptr, nullptr, nullptr, park, B, p, n, kNone,
+                   0, stream, false);
 }
 
 // d (64, 64) = a (64, 8) b (64, 8)^T through one TF32 wgmma (a_regs: A from

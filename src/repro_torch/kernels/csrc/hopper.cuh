@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels: the
 // TMA tensor map and load, mbarriers, wgmma matrix descriptors and the
-// wgmma products, each as one small function over inline PTX.
+// wgmma products, and a thread block cluster's rank, barrier and
+// distributed shared memory, each as one small function over inline PTX.
 //
 // The shared-memory tiles are 128-byte swizzled (CU_TENSOR_MAP_SWIZZLE_128B
 // on the load, layout type B128 in the descriptor): a tile row is 128
@@ -104,6 +105,12 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async;\n" ::: "memory");
 }
 
+// The block's dynamic shared memory `dyn` from its first 1024-byte boundary
+// (the 128-byte swizzle's unit); the block asks for 1 KB more to pay for it.
+__device__ __forceinline__ unsigned char* smem_align1024(unsigned char* dyn) {
+  return dyn + ((1024u - (smem_u32(dyn) & 1023u)) & 1023u);
+}
+
 // Named barrier `id` (1-15; 0 is __syncthreads) over `count` threads, whole warps.
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
@@ -149,7 +156,61 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// ---------------------------------------------------------------- cluster
+
+// This block's rank in its thread block cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster: shared-memory writes before
+// it are seen by every block's reads after it (release, then acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of `p` (this block's shared memory) in the
+// block of rank `rank`, and an fp32 load from such an address.
+__device__ __forceinline__ uint32_t map_peer(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_peer(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// Four consecutive fp32 values at a 16-byte aligned shared::cluster address.
+__device__ __forceinline__ float4 ld_peer4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
 // -------------------------------------------------------------- registers
+
+// v, opaque to the optimizer: nothing computed from it is hoisted above
+// this point (so that values a loop can recompute cheaply are not kept,
+// and spilled, across it).
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+__device__ __forceinline__ unsigned char* opaque(unsigned char* p) {
+  asm volatile("" : "+l"(p));
+  return p;
+}
 
 // Moves registers between warpgroups (setmaxnreg): a warpgroup that only
 // issues loads gives them up, the ones that hold accumulators take them.

@@ -67,10 +67,10 @@ def tc_lib() -> ctypes.CDLL:
     lib = build.load("fused_step_tc")
     if not getattr(lib, "_typed", False):
         lib.fused_step_tc.argtypes = [_P] * 10 + [_I] * 6 + [_P, _P]
-        # the two-stage entries; the POGO update's last pointer but the
-        # stream is the wide kernel's park
+        # the two-stage entries; the last pointer but the stream is the
+        # wide kernel's park
         lib.pogo_update_tc.argtypes = [_P] * 4 + [_I] * 3 + [_P, _P]
-        lib.landing_field_tc.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+        lib.landing_field_tc.argtypes = [_P] * 4 + [_I] * 3 + [_P, _P]
         lib.fused_tc_smem_bytes.argtypes = [_I]
         lib.fused_tc_park_floats.argtypes = [_I]
         lib.tf32_probe.argtypes = [_P] * 3 + [_I, _P]
@@ -95,15 +95,16 @@ def park_floats(n: int) -> int:
     return 64 * n + PARK_KEEP
 
 
-def park(x) -> torch.Tensor:
+def park(x, *, rows: bool = True) -> torch.Tensor:
     """The wide kernel's scratch, where each block parks rows 0..63 of M
     (or of Landing's X') of the matrix it is on, and keeps the sums it
     needs again later (``PARK_KEEP``): ``(min(B, SMs), park_floats(n))``
-    fp32 on x's card."""
+    fp32 on x's card; ``rows=False`` (the landing field, which parks no
+    rows) the kept sums alone, ``(min(B, SMs), PARK_KEEP)``."""
     bsz, _, n = x.shape
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    return torch.empty((min(bsz, sms), park_floats(n)), dtype=torch.float32,
-                       device=x.device)
+    return torch.empty((min(bsz, sms), park_floats(n) if rows else PARK_KEEP),
+                       dtype=torch.float32, device=x.device)
 
 
 def tf32_probe(a, b, *, a_regs: bool):

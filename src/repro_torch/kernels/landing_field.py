@@ -10,8 +10,12 @@ the first sweep shared with ``pogo_update_tiled``.
 cores for p <= 64 (the planner's range, ``ops.plan_landing_field``): the
 tensor-core fused step's Landing branch with no base stage and no
 telemetry, writing the field alone in its second sweep.
+``landing_field_tiled_tc128`` is the wide kernel's for 64 < p <= 128,
+sweep 2 once per 64-row half of Lambda, the kept blocks of A and B in a
+scratch (``fused_step.park(rows=False)``); ``landing_field_tiled_tc``
+hands p > 64 to it.
 
-All three take a ``(B, p, n)`` fp32 stack ``x`` and gradient ``g`` and return
+All four take a ``(B, p, n)`` fp32 stack ``x`` and gradient ``g`` and return
 Landing's field ``Lambda = 1/2 (A G - B X) + lam (A X - X)`` with
 ``A = X X^T``, ``B = X G^T``, in a new tensor. On a CPU tensor they run
 the plain version ``ref.landing_field_ref``; on a CUDA tensor they launch
@@ -54,13 +58,35 @@ def landing_field_tiled(x, g, lam, *, tile_n=64):
 def landing_field_tiled_tc(x, g, lam):
     """Tensor-core landing field for ``p <= 64``: one persistent CTA per SM
     walking the matrices in 64-column chunks (A, B; then Lambda) through
-    3xTF32 ``wgmma`` on TMA-fed tiles (``ops.tc_smem_bytes``)."""
-    out = _field("landing_field_tc", x, g, lam, lib=fused_step.tc_lib)
+    3xTF32 ``wgmma`` on TMA-fed tiles (``ops.tc_smem_bytes``). A CUDA stack
+    with p > 64 goes to :func:`landing_field_tiled_tc128`."""
+    if x.device.type == "cuda" and x.dim() == 3 and x.shape[1] > fused_step.TC_P:
+        return landing_field_tiled_tc128(x, g, lam)
+    out = _field("landing_field_tc", x, g, lam, None, lib=fused_step.tc_lib)
     if x.device.type == "cuda":
         landing_field_tiled_tc.launches += 1
+    return out
+
+
+def landing_field_tiled_tc128(x, g, lam):
+    """The wide tensor-core landing field, ``64 < p <= 128``: A, B over
+    32-column chunks; then Lambda once per 64-row half, straight to the
+    output, the blocks of A and B for the second half kept in
+    ``fused_step.park(rows=False)``."""
+    if x.device.type != "cuda":
+        return _field("landing_field_tc", x, g, lam)
+    if x.dim() == 3 and x.shape[1] <= fused_step.TC_P:
+        raise ValueError(f"the wide kernel takes {fused_step.TC_P} < p <= "
+                         f"{fused_step.TC_WIDE_P}, got p={x.shape[1]}: "
+                         "landing_field_tiled_tc runs it")
+    scratch = fused_step.park(x, rows=False) if x.dim() == 3 else None
+    out = _field("landing_field_tc", x, g, lam,
+                 None if scratch is None else scratch.data_ptr(), lib=fused_step.tc_lib)
+    landing_field_tiled_tc128.launches += 1
     return out
 
 
 landing_field.launches = 0
 landing_field_tiled.launches = 0
 landing_field_tiled_tc.launches = 0
+landing_field_tiled_tc128.launches = 0

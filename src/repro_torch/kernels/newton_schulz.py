@@ -1,11 +1,16 @@
-"""Wrappers of the Newton-Schulz kernels (``csrc/newton_schulz.cu``).
+"""Wrappers of the Newton-Schulz kernels (``csrc/newton_schulz.cu``,
+``csrc/newton_schulz_tc.cu``).
 
 ``newton_schulz_whole`` and ``newton_schulz_tiled`` replace
 ``repro/kernels/newton_schulz.py:37`` (``_ns_kernel``): one CTA per
 ``(p, n)`` matrix, with Y resident in shared memory (whole) or swept in
-column tiles through the output buffer (tiled).
+column tiles through the output buffer (tiled), IEEE fp32 on the CUDA
+cores. ``newton_schulz_tc`` replaces the same TPU kernel on the tensor
+cores for p <= 64: one thread block cluster per matrix, Y kept in its
+CTAs' shared memory for every iteration, 3xTF32 ``wgmma``, the partial
+grams summed through distributed shared memory.
 
-Both take a ``(B, p, n)`` fp32 stack ``x`` and write
+All three take a ``(B, p, n)`` fp32 stack ``x`` and write
 ``NS_iters(x / ||x||_F)`` to ``out`` (a new tensor, or ``x`` itself).
 ``mask`` (a ``(B,)`` bool tensor, with ``out=x``) limits the work to the
 matrices it selects: the others keep their values and their ``dist``
@@ -27,6 +32,19 @@ from .fused_step import check_operand
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+def tc_lib() -> ctypes.CDLL:
+    """The loaded ``newton_schulz_tc.cu`` library, built on first use."""
+    lib_ = build.load("newton_schulz_tc")
+    if not getattr(lib_, "_typed", False):
+        lib_.newton_schulz_tc.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+        lib_.ns_tc_cluster.argtypes = [_I]
+        lib_.ns_tc_smem_bytes.argtypes = [_I]
+        for fn in (lib_.newton_schulz_tc, lib_.ns_tc_cluster, lib_.ns_tc_smem_bytes):
+            fn.restype = _I
+        lib_._typed = True
+    return lib_
 
 
 def lib() -> ctypes.CDLL:
@@ -58,7 +76,7 @@ def run_plain(x, iters, *, out, mask=None, dist=None):
     return out
 
 
-def _launch(entry, x, iters, out, mask, dist, *extra):
+def _launch(entry, x, iters, out, mask, dist, *extra, lib=lib):
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     if x.dim() != 3:
@@ -87,13 +105,13 @@ def _launch(entry, x, iters, out, mask, dist, *extra):
     return out
 
 
-def _run(entry, x, iters, out, mask, dist, *extra):
+def _run(entry, x, iters, out, mask, dist, *extra, lib=lib):
     out = torch.empty_like(x) if out is None else out
     if mask is not None and out is not x:
         raise ValueError("a mask needs out=x: masked-off matrices keep x")
     if x.device.type == "cpu":
         return run_plain(x, iters, out=out, mask=mask, dist=dist)
-    return _launch(entry, x, iters, out, mask, dist, *extra)
+    return _launch(entry, x, iters, out, mask, dist, *extra, lib=lib)
 
 
 def newton_schulz_whole(x, iters=12, *, out=None, mask=None, dist=None):
@@ -116,5 +134,17 @@ def newton_schulz_tiled(x, iters=12, *, tile_n=64, out=None, mask=None,
     return res
 
 
+def newton_schulz_tc(x, iters=12, *, out=None, mask=None, dist=None):
+    """Tensor-core Newton-Schulz for ``p <= 64``: one cluster of
+    ``ops.ns_tc_cluster(n)`` CTAs per matrix, each keeping its 64-column
+    chunks of Y in shared memory through every iteration
+    (``ops.ns_tc_smem_bytes``)."""
+    res = _run("newton_schulz_tc", x, iters, out, mask, dist, lib=tc_lib)
+    if x.device.type == "cuda":
+        newton_schulz_tc.launches += 1
+    return res
+
+
 newton_schulz_whole.launches = 0
 newton_schulz_tiled.launches = 0
+newton_schulz_tc.launches = 0

@@ -17,7 +17,9 @@ footprint of each CUDA kernel, mirrored here from ``csrc/fused_step.cu``,
   64-row ``wgmma`` tile for p <= 64, two 64-row halves up to 128), for
   the fused POGO step and the two-stage POGO update; from
   ``LANDING_TC_MIN_P`` for fused Landing, and from
-  ``LANDING_FIELD_TC_MIN_P`` to 64 for the landing field;
+  ``LANDING_FIELD_TC_MIN_P`` for the landing field; for Newton-Schulz
+  ``NS_TC_MIN_P <= p <= 64`` where n fits a thread block cluster's shared
+  memory (``csrc/newton_schulz_tc.cu``, ``ns_tc_cluster``);
 * ``tiled`` otherwise, with the column tile that lets the most blocks
   share an SM (they hide each other's loads and barriers), the widest of
   those: the fused group step's and the two-stage kernels' p below and
@@ -74,11 +76,9 @@ _TWO_STAGE_FALLBACK = (16,)
 TC_MIN_P = 29
 LANDING_TC_MIN_P = 25
 TC_MAX_P = 128
-# The landing field's tensor-core entry has no wide kernel.
-LANDING_FIELD_TC_MAX_P = 64
 # The two-stage POGO update and landing field take the tensor-core kernel's
-# two-stage entries for TC_MIN_P <= p <= TC_MAX_P (the field
-# LANDING_FIELD_TC_MIN_P <= p <= LANDING_FIELD_TC_MAX_P). On an H100
+# two-stage entries (its wide kernel above p = 64) for TC_MIN_P <= p <=
+# TC_MAX_P (the field LANDING_FIELD_TC_MIN_P <= p <= TC_MAX_P). On an H100
 # (benchmarks_torch/tc_variants.py, its two-stage lines; ms, tensor-core /
 # CUDA-core tiled, POGO update; field) the CUDA-core kernels were faster
 # at 2048 x (16, 4096) 6.6631 / 3.7574; 4.2318 / 2.7419 and 2048 x (24,
@@ -89,8 +89,23 @@ LANDING_FIELD_TC_MAX_P = 64
 # 3.6149; 2.1888 / 2.6922, 1024 x (48, 2048) 1.7454 / 3.2877; 1.0975 /
 # 2.2511 and 640 x (64, 960) 0.5388 / 1.4915; 0.3371 / 1.0294. The POGO
 # update's wide kernel at 576 x (p, 2048): p = 72 4.3681 / 5.5770, 96
-# 4.4355 / 8.3068, 128 4.5525 / 16.7332.
+# 4.4355 / 8.3068, 128 4.5525 / 16.7332; the field's (a later call): p = 72
+# 2.4731 / 3.4260, 96 2.5098 / 5.4644, 128 2.5745 / 8.9067.
 LANDING_FIELD_TC_MIN_P = 25
+# Newton-Schulz takes csrc/newton_schulz_tc.cu for NS_TC_MIN_P <= p <=
+# NS_TC_MAX_P where one matrix does not fit a block whole and n fits a
+# cluster. Its work per chunk does not shrink with p, the CUDA-core tiled
+# kernel's does. On an H100 (benchmarks_torch/tc_variants.py --ns-shape, 12
+# iterations; ms, tensor-core / CUDA-core tiled): 640 x (64, 960) 1.8397 /
+# 5.8335; 512 x (p, 2048) p = 32 3.7050 / 4.5994, 40 3.7097 / 6.3019;
+# 256 x (p, 4096) p = 32 4.5423 / 4.5597, 40 4.5572 / 6.2831, 48 4.5200 /
+# 7.8868, 64 4.4703 / 10.7892; an earlier build of the kernel (2.05 ms at
+# (64, 960)) lost at 256 x (24, 4096) 4.7512 / 3.6945 and (16, 4096)
+# 4.7974 / 2.5269. p = 32 at n = 4096 is a tie within the spread of the
+# readings (tensor-core 4.4949-4.5720, tiled 4.5507-4.6236); it takes the
+# tensor cores with the rest of p = 32, which won clearly at n = 2048.
+NS_TC_MIN_P = 32
+NS_TC_MAX_P = 64
 # Blocks per SM the tiled kernel's register cap allows (kTiledBlocksPerSm),
 # and the TP kernels' (kTpBlocksPerSm).
 _TILED_BLOCKS_PER_SM = 3
@@ -189,6 +204,37 @@ def ns_tiled_smem_bytes(p: int, tile_n: int) -> int:
     return _tiled_bytes(p, tile_n, 2, 2, _THREADS // 32)
 
 
+# csrc/newton_schulz_tc.cu: 64-column chunks of Y, at most _NS_TC_CHUNKS a
+# CTA, over a cluster of at most _NS_TC_CLUSTER CTAs.
+_NS_TC_CHUNKS = 9
+_NS_TC_CLUSTER = 8
+
+
+def ns_tc_cluster(n: int) -> int:
+    """CTAs of ``newton_schulz_tc``'s cluster for n (``ns_tc_cluster``):
+    the least power of two, at most 8, that leaves a CTA at most nine
+    64-column chunks; 0 when n is too wide."""
+    chunks = -(-n // 64)
+    c = 1
+    while c <= _NS_TC_CLUSTER:
+        if -(-chunks // c) <= _NS_TC_CHUNKS:
+            return c
+        c *= 2
+    return 0
+
+
+def ns_tc_smem_bytes(n: int) -> int:
+    """``newton_schulz_tc``: a CTA's chunks of Y (16 KB each), G hi and lo,
+    the CTA's partial gram (64, 65), the two published (64, 64) partials,
+    the reduction scratch and 1 KB to align the tiles."""
+    c = ns_tc_cluster(n)
+    if c == 0:
+        return 0
+    chunks = -(-n // 64)
+    tile = 64 * 64 * 4
+    return (-(-chunks // c) + 2) * tile + 64 * 65 * 4 + 2 * tile + 64 + 1024
+
+
 def _blocks_per_sm(smem: int, cap: int = _TILED_BLOCKS_PER_SM) -> int:
     """Tiled-kernel blocks that fit one SM, by shared memory and registers."""
     return min(cap, SM_SMEM_BYTES // (smem + _BLOCK_RESERVED_BYTES))
@@ -210,6 +256,12 @@ def _best_tile(p: int, tiled_bytes, cap: int = _TILED_BLOCKS_PER_SM,
     if not fits:
         return None
     return max(fits, key=lambda t: (_blocks_per_sm(tiled_bytes(p, t), cap), t))
+
+
+def ns_tiled_tile_n(p: int) -> int | None:
+    """The CUDA-core tiled Newton-Schulz kernel's column tile for p (None:
+    p too large for it)."""
+    return _best_tile(p, ns_tiled_smem_bytes)
 
 
 def tiled_tile_n(p: int) -> int | None:
@@ -267,7 +319,7 @@ def plan_landing_field(p: int, n: int) -> tuple[str, int]:
     """``("whole", 0)``, ``("tc", 0)`` or ``("tiled", tile_n)`` of the
     landing field."""
     if (landing_whole_smem_bytes(p, n) > SMEM_LIMIT_BYTES
-            and LANDING_FIELD_TC_MIN_P <= p <= LANDING_FIELD_TC_MAX_P):
+            and LANDING_FIELD_TC_MIN_P <= p <= TC_MAX_P):
         return "tc", 0
     return _plan("landing field", p, n, landing_whole_smem_bytes,
                  landing_tiled_smem_bytes, fallback=_TWO_STAGE_FALLBACK)
@@ -288,7 +340,13 @@ def plan_tp(what: str, p: int, tiled_bytes) -> int:
 
 
 def plan_newton_schulz(p: int, n: int) -> tuple[str, int]:
-    """``("whole", 0)`` or ``("tiled", tile_n)`` of Newton-Schulz."""
+    """``("whole", 0)``, ``("tc", 0)`` or ``("tiled", tile_n)`` of
+    Newton-Schulz: whole when one matrix fits a block, else the tensor-core
+    kernel for ``NS_TC_MIN_P <= p <= NS_TC_MAX_P`` when n fits a cluster
+    (``ns_tc_cluster``), else the CUDA-core tiled kernel."""
+    if (ns_whole_smem_bytes(p, n) > SMEM_LIMIT_BYTES and NS_TC_MIN_P <= p <= NS_TC_MAX_P
+            and ns_tc_cluster(n)):
+        return "tc", 0
     return _plan("newton-schulz", p, n, ns_whole_smem_bytes, ns_tiled_smem_bytes)
 
 
@@ -363,6 +421,8 @@ def _ns_launch(x, iters, out, mask, dist):
     kind, tile_n = plan_newton_schulz(*x.shape[-2:])
     if kind == "whole":
         return _ns.newton_schulz_whole(x, iters, out=out, mask=mask, dist=dist)
+    if kind == "tc":
+        return _ns.newton_schulz_tc(x, iters, out=out, mask=mask, dist=dist)
     return _ns.newton_schulz_tiled(x, iters, tile_n=tile_n, out=out, mask=mask,
                                    dist=dist)
 
@@ -375,7 +435,8 @@ KERNELS = (_fs.fused_step_whole, _fs.fused_step_tiled,
            _pu.pogo_update_tiled, _pu.pogo_update_tiled_tc,
            _pu.pogo_update_tiled_tc128, _lf.landing_field,
            _lf.landing_field_tiled, _lf.landing_field_tiled_tc,
-           _ns.newton_schulz_whole, _ns.newton_schulz_tiled,
+           _lf.landing_field_tiled_tc128, _ns.newton_schulz_whole,
+           _ns.newton_schulz_tiled, _ns.newton_schulz_tc,
            _fa.flash_attention_fp32, _fa.flash_attention_tc)
 
 

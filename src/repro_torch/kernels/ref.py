@@ -14,7 +14,8 @@ holds the kernel against on the card, and mirrors ``repro.kernels.ref``
 * ``landing_field_ref``: ``landing_field``/``_tiled`` of ``csrc/two_stage.cu``
   and ``landing_field_tc`` of ``csrc/fused_step_tc.cu``;
 * ``manifold_distance_ref``: the telemetry of the two-stage step;
-* ``newton_schulz_ref``: both kernels of ``csrc/newton_schulz.cu``;
+* ``newton_schulz_ref``: both kernels of ``csrc/newton_schulz.cu`` and
+  ``csrc/newton_schulz_tc.cu``;
 * ``flash_attention_fwd_ref``: ``csrc/flash_attention.cu`` (fp32) and
   ``csrc/flash_attention_tc.cu`` (bf16).
 """

@@ -2,13 +2,21 @@
 // CUDA kernels on a machine without nvcc (tests/test_torch_kernel_emulation.py).
 // A block runs as std::threads (256 for the kernels built on tiles.cuh; any
 // count up to EMU_MAX_THREADS), __syncthreads is a std::barrier, warp
-// shuffles go through a buffer, and blocks run one after another. It checks
-// indexing, masking and barriers; it says nothing about speed.
+// shuffles go through a buffer, and blocks run one after another, except
+// the blocks of a thread block cluster (cudaLaunchKernelExC with a cluster
+// dimension), which run at once, each with its own barriers and shared
+// memory. It checks indexing, masking and barriers; it says nothing about
+// speed.
 //
 // A harness either spawns a block's threads itself and calls the kernel
 // (after emu_block_begin), or registers the kernel in g_emu_kernels and
-// calls the kernel's C launcher: cudaLaunchKernel then runs the grid, so the
-// launcher's own arguments, grid and block size are checked too.
+// calls the kernel's C launcher: cudaLaunchKernel(ExC) then runs the grid,
+// so the launcher's own arguments, grid and block size are checked too.
+//
+// The block a thread runs in is EmuCta: the one default block of the
+// harnesses that run one block at a time (blockIdx, g_smem_base and the
+// barriers below name its fields), or, for a thread of a cluster, the
+// block that t_cta points to.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -64,15 +72,38 @@ inline uint32_t __float_as_uint(float f) {
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 struct uint3 { unsigned x, y, z; };
 inline thread_local uint3 threadIdx;
-inline uint3 blockIdx;
 inline uint3 gridDim;
-inline std::barrier<>* g_bar;
-inline std::barrier<>* g_warp_bar[EMU_MAX_THREADS / 32];
-inline std::barrier<>* g_group_bar[EMU_MAX_THREADS / 128];  // warpgroups of 128
-inline float g_xchg[EMU_MAX_THREADS];
-// Named barriers (bar.sync id, count) of the running block, by id.
+struct EmuCluster;
+// One block's state: its index, its barriers (the block's, one per warp and
+// one per warpgroup of 128), the warp-shuffle and register-A exchange
+// buffers, its named barriers (bar.sync id, count) by id, its shared memory
+// and, in a cluster, the cluster and its rank there.
+struct EmuCta {
+  uint3 idx{};
+  std::barrier<>* bar = nullptr;
+  std::barrier<>* warp_bar[EMU_MAX_THREADS / 32] = {};
+  std::barrier<>* group_bar[EMU_MAX_THREADS / 128] = {};
+  float xchg[EMU_MAX_THREADS] = {};
+  uint32_t a_regs[EMU_MAX_THREADS][4] = {};
+  std::map<int, std::pair<std::unique_ptr<std::barrier<>>, int>> named;
+  std::vector<std::unique_ptr<std::barrier<>>> owned;
+  unsigned char* smem_base = nullptr;
+  size_t smem_size = 0;
+  EmuCluster* cluster = nullptr;
+  unsigned rank = 0;
+};
+inline EmuCta g_cta;
+inline thread_local EmuCta* t_cta = nullptr;
+inline EmuCta& emu_cta() { return t_cta != nullptr ? *t_cta : g_cta; }
+#define blockIdx (emu_cta().idx)
+#define g_bar (emu_cta().bar)
+#define g_warp_bar (emu_cta().warp_bar)
+#define g_group_bar (emu_cta().group_bar)
+#define g_xchg (emu_cta().xchg)
+#define g_named (emu_cta().named)
+#define g_smem_base (emu_cta().smem_base)
+#define g_smem_size (emu_cta().smem_size)
 inline std::mutex g_named_mu;
-inline std::map<int, std::pair<std::unique_ptr<std::barrier<>>, int>> g_named;
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { g_warp_bar[threadIdx.x / 32]->arrive_and_wait(); }
 // Lane src's v, for every lane of the warp (through the same buffer).
@@ -93,21 +124,29 @@ inline float __shfl_xor_sync(unsigned, float v, int o) {
   return r;
 }
 
-// The barriers of one block of `threads` threads: the block's, one per warp
-// and one per whole warpgroup. Call before spawning the block's threads.
-inline void emu_block_begin(unsigned threads) {
-  static std::vector<std::unique_ptr<std::barrier<>>> owned;
-  owned.clear();
-  auto make = [](unsigned n) {
-    owned.push_back(std::make_unique<std::barrier<>>(n));
-    return owned.back().get();
+// The barriers of block `cta` of `threads` threads: the block's, one per
+// warp and one per whole warpgroup. Call before spawning its threads.
+inline void emu_cta_begin(EmuCta& cta, unsigned threads) {
+  cta.owned.clear();
+  auto make = [&cta](unsigned n) {
+    cta.owned.push_back(std::make_unique<std::barrier<>>(n));
+    return cta.owned.back().get();
   };
-  g_named.clear();
-  g_bar = make(threads);
+  cta.named.clear();
+  cta.bar = make(threads);
   for (unsigned w = 0; w < EMU_MAX_THREADS / 32; ++w)
-    g_warp_bar[w] = make(w * 32 < threads ? std::min(32u, threads - w * 32) : 32u);
-  for (unsigned g = 0; g < EMU_MAX_THREADS / 128; ++g) g_group_bar[g] = make(128);
+    cta.warp_bar[w] = make(w * 32 < threads ? std::min(32u, threads - w * 32) : 32u);
+  for (unsigned g = 0; g < EMU_MAX_THREADS / 128; ++g) cta.group_bar[g] = make(128);
 }
+
+// The same for the default block, which runs one block at a time.
+inline void emu_block_begin(unsigned threads) { emu_cta_begin(g_cta, threads); }
+
+// The blocks of one running cluster and the barrier of all their threads.
+struct EmuCluster {
+  std::unique_ptr<std::barrier<>> bar;
+  std::vector<EmuCta*> ctas;
+};
 
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -127,7 +166,7 @@ inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
 typedef void* cudaStream_t;
 struct dim3 {
   unsigned x;
-  dim3(unsigned x_) : x(x_) {}
+  dim3(unsigned x_ = 1) : x(x_) {}
 };
 // kernel -> how to call it from a cudaLaunchKernel argument array
 inline std::map<const void*, std::function<void(void**)>> g_emu_kernels;
@@ -154,3 +193,67 @@ inline cudaError_t cudaLaunchKernel(const void* f, dim3 grid, dim3 block, void**
   return 0;
 }
 inline cudaError_t cudaGetLastError() { return 0; }
+
+// cudaLaunchKernelExC with a cluster dimension: the grid runs one cluster
+// at a time, its blocks at once, each on its own 1024-byte aligned shared
+// memory of the launch's dynamic size.
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttributeValue {
+  struct { unsigned x, y, z; } clusterDim;
+};
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  cudaLaunchAttributeValue val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+inline cudaError_t cudaLaunchKernelExC(const cudaLaunchConfig_t* cfg, const void* f, void** args) {
+  auto it = g_emu_kernels.find(f);
+  if (it == g_emu_kernels.end()) return cudaErrorInvalidValue;
+  unsigned cl = 1;
+  for (unsigned a = 0; a < cfg->numAttrs; ++a)
+    if (cfg->attrs[a].id == cudaLaunchAttributeClusterDimension) {
+      const auto& d = cfg->attrs[a].val.clusterDim;
+      if (d.y != 1 || d.z != 1) return cudaErrorInvalidValue;
+      cl = d.x;
+    }
+  const unsigned threads = cfg->blockDim.x, grid = cfg->gridDim.x;
+  if (threads > EMU_MAX_THREADS || cfg->dynamicSmemBytes > g_emu_smem_limit || cl < 1 ||
+      cl > 8 || grid % cl != 0)
+    return cudaErrorInvalidValue;
+  gridDim.x = grid;
+  for (unsigned first = 0; first < grid; first += cl) {
+    EmuCluster cluster;
+    cluster.bar = std::make_unique<std::barrier<>>(cl * threads);
+    std::vector<std::unique_ptr<EmuCta>> ctas;
+    std::vector<std::vector<unsigned char>> smem(cl);
+    for (unsigned r = 0; r < cl; ++r) {
+      ctas.push_back(std::make_unique<EmuCta>());
+      EmuCta& cta = *ctas.back();
+      emu_cta_begin(cta, threads);
+      cta.idx.x = first + r;
+      cta.rank = r;
+      cta.cluster = &cluster;
+      smem[r].assign(cfg->dynamicSmemBytes + 1024, 0xA5);  // not zero: a kernel must write first
+      const uintptr_t base = reinterpret_cast<uintptr_t>(smem[r].data());
+      cta.smem_base = smem[r].data() + ((1024 - base % 1024) % 1024);
+      cta.smem_size = cfg->dynamicSmemBytes;
+      cluster.ctas.push_back(&cta);
+    }
+    std::vector<std::thread> pool;
+    for (unsigned r = 0; r < cl; ++r)
+      for (unsigned t = 0; t < threads; ++t)
+        pool.emplace_back([&, r, t] {
+          t_cta = ctas[r].get();
+          threadIdx.x = t;
+          it->second(args);
+        });
+    for (auto& t : pool) t.join();
+  }
+  return 0;
+}

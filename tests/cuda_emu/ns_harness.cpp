@@ -1,9 +1,13 @@
-// Runs the kernels of newton_schulz.cu on the CPU through cuda_runtime.h here.
+// Runs the kernels of newton_schulz.cu and newton_schulz_tc.cu on the CPU
+// through cuda_runtime.h and hopper.cuh here.
 // Usage: ns_harness DIR KIND B P N ITERS TILE_N INPLACE MASKED
 // reads DIR/{x,dist,mask}.bin (float32; mask 0/1 per matrix) and writes
-// DIR/{out,dist_out}.bin. KIND 0 = whole, 1 = tiled. INPLACE 1 writes the
-// output over x; MASKED 1 passes the mask (else every matrix runs).
+// DIR/{out,dist_out}.bin. KIND 0 = whole, 1 = tiled (one block at a time),
+// 2 = the tensor-core kernel through its C launcher (a cluster's blocks at
+// once; TILE_N unused). INPLACE 1 writes the output over x; MASKED 1 passes
+// the mask (else every matrix runs).
 #include <cuda_runtime.h>
+#include <hopper.cuh>
 
 #include <cstdio>
 #include <cstdlib>
@@ -11,12 +15,15 @@
 #include <vector>
 
 namespace {
-// The kernels' `extern __shared__` arrays (one block runs at a time).
+// The kernels' `extern __shared__` arrays (one block runs at a time); the
+// tensor-core kernel's blocks take their own (smem_align1024).
 float4 ns_whole_sm[232448 / 16];
 float4 ns_tiled_sm[232448 / 16];
+unsigned char ns_tc_smem[1];
 }  // namespace
 
 #include "newton_schulz.cu"
+#include "newton_schulz_tc.cu"
 
 static std::vector<float> read(const char* dir, const char* name, size_t count) {
   std::vector<float> v(count);
@@ -51,6 +58,22 @@ int main(int argc, char** argv) {
   float* o = inplace ? x.data() : out.data();
   const unsigned char* m = masked ? mask.data() : nullptr;
   const int vec = n % 4 == 0;
+  if (kind == 2) {
+    g_emu_kernels[reinterpret_cast<const void*>(ns_tc_kernel)] = [](void** a) {
+      auto i = [a](int k) { return *static_cast<int*>(a[k]); };
+      ns_tc_kernel(*static_cast<const float**>(a[0]), *static_cast<float**>(a[1]),
+                   *static_cast<const unsigned char**>(a[2]), *static_cast<float**>(a[3]), i(4),
+                   i(5), i(6), i(7), i(8));
+    };
+    const int err = newton_schulz_tc(x.data(), o, m, dist.data(), B, p, n, iters, nullptr);
+    if (err != 0) {
+      fprintf(stderr, "newton_schulz_tc returned %d\n", err);
+      return 3;
+    }
+    write(dir, "out", o, total);
+    write(dir, "dist_out", dist.data(), B);
+    return 0;
+  }
   emu_block_begin(kThreads);
   for (int b = 0; b < B; ++b) {
     blockIdx.x = b;

@@ -1,7 +1,8 @@
 // Runs the tensor-core fused step (fused_step_tc.cu) on the CPU through
 // cuda_runtime.h and hopper.cuh here, by its C launcher: tensor maps, the
 // persistent grid (g_emu_sms blocks) and the block as on the card; p > 64
-// runs the wide kernel, with a park of B x fused_tc_park_floats(n) floats.
+// runs the wide kernel, with a park of B x fused_tc_park_floats(n) floats
+// (the field uses the first B x kWKeep of them).
 // Usage: tc_harness DIR METHOD B P N BASE NESTEROV INPLACE HAS_PV
 // reads DIR/{x,g,mu,nu,scal,pv}.bin (float32) and writes
 // DIR/{x_out,mu_out,nu_out,dist}.bin. METHOD 0 = POGO, 1 = Landing (the
@@ -91,14 +92,16 @@ int main(int argc, char** argv) {
   register_wide_kernel<kPogo, false, true>();
   register_wide_kernel<kLanding, false, true>();
   register_wide_kernel<kPogo, true, true>();
+  register_wide_kernel<kLanding, true, true>();
   register_wide_kernel<kPogo, false, false>();
   register_wide_kernel<kLanding, false, false>();
   register_wide_kernel<kPogo, true, false>();
+  register_wide_kernel<kLanding, true, false>();
   std::vector<float> park(static_cast<size_t>(B) * fused_tc_park_floats(n));
   if (method >= 2) {
     const int err = method == 2
         ? pogo_update_tc(x.data(), g.data(), scal.data(), xo, B, p, n, park.data(), nullptr)
-        : landing_field_tc(x.data(), g.data(), scal.data(), xo, B, p, n, nullptr);
+        : landing_field_tc(x.data(), g.data(), scal.data(), xo, B, p, n, park.data(), nullptr);
     if (err != 0) {
       fprintf(stderr, "two-stage entry returned %d\n", err);
       return 3;

@@ -18,6 +18,7 @@ both keep p to fp32 quality and round once at the end), held at 1/64
 relative.
 """
 
+import functools
 import importlib.util
 import pathlib
 
@@ -619,11 +620,11 @@ def test_two_stage_planner_matches_the_kernels_smem(cuda):
     assert tops.plan_pogo_update(64, 960) == tops.plan_landing_field(64, 960) == ("tc", 0)
     for p in (64, 128):
         assert tfs.tc_lib().fused_tc_smem_bytes(p) == tops.tc_smem_bytes(p)
-    # p = 128: POGO's update takes the wide kernel, the field its 64-column
-    # tile; POGO's CUDA-core kernel fits a block there at 16 columns only
-    assert tops.plan_pogo_update(128, 2048) == ("tc", 0)
-    assert tops.plan_landing_field(128, 2048) == ("tiled", 64)
+    # p = 128: both take the wide kernel; POGO's CUDA-core kernel fits a
+    # block there at 16 columns only, the field's at 64
+    assert tops.plan_pogo_update(128, 2048) == tops.plan_landing_field(128, 2048) == ("tc", 0)
     assert lib.two_stage_tiled_smem_bytes(0, 128, 16) <= tops.SMEM_LIMIT_BYTES
+    assert lib.two_stage_tiled_smem_bytes(1, 128, 64) <= tops.SMEM_LIMIT_BYTES
 
 
 TWO_STAGE_TC = [tpu.pogo_update_tiled_tc, tlf.landing_field_tiled_tc]
@@ -677,17 +678,35 @@ def test_pogo_update_with_a_device_held_eta(cuda, wrapper):
                                           (tlf.landing_field_tiled, False)])
 def test_two_stage_tiled_kernels_at_p128(cuda, wrapper, pogo):
     """internlm2-1.8b's p = 128 on the CUDA-core tiled kernels at their
-    tile (16 for POGO, 64 for the field: the field's plan; POGO's update
-    plans the wide tensor-core kernel there)."""
+    tile (16 for POGO, 64 for the field; both plan the wide tensor-core
+    kernel there)."""
     x, g = _off_manifold_operands((3, 128, 2048), cuda, seed=18)
     tiled = tops.pogo_tiled_smem_bytes if pogo else tops.landing_tiled_smem_bytes
     tile_n = tops.two_stage_tile_n(128, tiled)
     assert tile_n == (16 if pogo else 64)
     assert (tops.plan_pogo_update if pogo else tops.plan_landing_field)(128, 2048) == \
-        (("tc", 0) if pogo else ("tiled", 64))
+        ("tc", 0)
     got = _two_stage_call(wrapper, tile_n, x, g)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, _two_stage_plain(wrapper, x, g), atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(576, 128, 2048), (3, 72, 250), (5, 100, 300),
+                                   (140, 128, 200)])
+def test_two_stage_tc_wide_field_matches_plain(cuda, shape):
+    """``landing_field_tiled_tc128`` at the two-stage tiled tolerance:
+    internlm2-1.8b's q/k stack, plain loads (250), a ragged chunk through
+    TMA (300), more matrices than SMs (140); ``landing_field_tiled_tc``
+    hands it p > 64. X lies off the manifold: dropping lam's term fails."""
+    x, g = _off_manifold_operands(shape, cuda, seed=19)
+    before = tlf.landing_field_tiled_tc128.launches
+    got = tlf.landing_field_tiled_tc(x, g, 1.0)
+    torch.cuda.synchronize()
+    assert tlf.landing_field_tiled_tc128.launches == before + 1
+    tol = dict(atol=2e-5, rtol=1e-4)
+    want = tref.landing_field_ref(x, g, 1.0)
+    assert not torch.allclose(tref.landing_field_ref(x, g, 0.0), want, **tol)
+    torch.testing.assert_close(got, want, **tol)
 
 
 def test_two_stage_kernels_reject_bad_operands(cuda):
@@ -787,19 +806,33 @@ def _drifted(shape, device, seed=0):
     return torch.tensor(np.ascontiguousarray(x), dtype=torch.float32, device=device)
 
 
-@pytest.mark.parametrize("shape", [(64, 64, 960), (256, 16, 256), (7, 10, 250),
-                                   (3, 1, 33)])
-def test_newton_schulz_kernels_match_plain(cuda, shape):
+def _ns_wrapper(p, n):
+    """The planned Newton-Schulz wrapper for (p, n)."""
+    kind, tile_n = tops.plan_newton_schulz(p, n)
+    if kind == "tiled":
+        return functools.partial(tns.newton_schulz_tiled, tile_n=tile_n)
+    return getattr(tns, f"newton_schulz_{kind}")
+
+
+# The planned kernels (the tensor-core one at (64, 960) and (48, 1500), a
+# cluster of 2 and of 4 CTAs, and at (48, 2001), n % 4 != 0: scalar loads;
+# the tiled one at p = 128), and the tensor-core kernel called directly at
+# clusters of 1 and 8 CTAs.
+NS_CASES = [((64, 64, 960), None), ((256, 16, 256), None), ((7, 10, 250), None),
+            ((3, 1, 33), None), ((3, 48, 1500), None), ((3, 48, 2001), None),
+            ((3, 128, 2048), None),
+            ((5, 40, 600), tns.newton_schulz_tc), ((2, 64, 4600), tns.newton_schulz_tc)]
+
+
+@pytest.mark.parametrize("shape,wrapper", NS_CASES)
+def test_newton_schulz_kernels_match_plain(cuda, shape, wrapper):
     """Unmasked, out of place, against ``ref.newton_schulz_ref``: atol 1e-6
     (``tests/test_kernels.py:54-61``); the emitted distance is the
     projection's."""
     x = _drifted(shape, cuda)
-    kind, tile_n = tops.plan_newton_schulz(*shape[1:])
+    wrapper = wrapper or _ns_wrapper(*shape[1:])
     dist = torch.empty(shape[0], device=cuda)
-    if kind == "whole":
-        got = tns.newton_schulz_whole(x, 12, dist=dist)
-    else:
-        got = tns.newton_schulz_tiled(x, 12, tile_n=tile_n, dist=dist)
+    got = wrapper(x, 12, dist=dist)
     torch.cuda.synchronize()
     want = tref.newton_schulz_ref(x, 12)
     torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
@@ -807,7 +840,8 @@ def test_newton_schulz_kernels_match_plain(cuda, shape):
     assert float(dist.max()) < 1e-2
 
 
-@pytest.mark.parametrize("shape", [(64, 64, 960), (256, 16, 256), (7, 10, 250)])
+@pytest.mark.parametrize("shape", [(64, 64, 960), (256, 16, 256), (7, 10, 250),
+                                   (9, 48, 1500)])
 def test_newton_schulz_repair_in_place_with_mask(cuda, shape):
     """The watchdog's repair: every other matrix past the threshold,
     written over the stack; the others keep their bits and distances."""
@@ -824,12 +858,29 @@ def test_newton_schulz_repair_in_place_with_mask(cuda, shape):
     assert float(dist[rep].max()) < 1e-2
 
 
+def test_newton_schulz_repair_with_no_matrix_past_the_threshold(cuda):
+    """The watchdog's launch on every step: no matrix trips, so every
+    cluster exits at once and nothing changes, bit for bit."""
+    x = _drifted((640, 64, 960), cuda, seed=2)
+    dist = torch.full((640,), 1e-6, device=cuda)
+    x0, d0 = x.clone(), dist.clone()
+    before = tns.newton_schulz_tc.launches
+    rep = tops.newton_schulz_repair(x, dist, torch.tensor(0.1, device=cuda), iters=12)
+    torch.cuda.synchronize()
+    assert tns.newton_schulz_tc.launches == before + 1
+    assert not bool(rep.any()) and torch.equal(x, x0) and torch.equal(dist, d0)
+
+
 def test_newton_schulz_planner_matches_the_kernels_smem(cuda):
     lib = tns.lib()
     for p, n in ((16, 256), (10, 250), (64, 960)):
         assert lib.ns_whole_smem_bytes(p, n) == tops.ns_whole_smem_bytes(p, n)
         for t in (32, 64):
             assert lib.ns_tiled_smem_bytes(p, t) == tops.ns_tiled_smem_bytes(p, t)
+    tc = tns.tc_lib()
+    for n in (1, 64, 576, 577, 960, 2304, 4608, 4609):
+        assert tc.ns_tc_cluster(n) == tops.ns_tc_cluster(n)
+        assert tc.ns_tc_smem_bytes(n) == tops.ns_tc_smem_bytes(n) <= tops.SMEM_LIMIT_BYTES
 
 
 # ----------------------------------------------------------------- trainer

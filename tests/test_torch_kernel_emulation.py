@@ -4,15 +4,18 @@ No ``nvcc`` is needed: ``tests/cuda_emu/harness.cpp`` (POGO) and
 ``landing_harness.cpp`` (Landing), ``two_stage_harness.cpp``,
 ``ns_harness.cpp`` and ``tp_harness.cpp`` compile
 ``src/repro_torch/kernels/csrc/fused_step.cu``, ``two_stage.cu``,
-``newton_schulz.cu``, ``tp_step.cu`` and (``flash_harness.cpp``)
-``flash_attention.cu`` (fp32) and ``flash_attention_tc.cu`` (bf16), and
-(``tc_harness.cpp``) ``fused_step_tc.cu``, its fused step and its two-stage
-entries, with
+``newton_schulz.cu`` and ``newton_schulz_tc.cu``, ``tp_step.cu`` and
+(``flash_harness.cpp``) ``flash_attention.cu`` (fp32) and
+``flash_attention_tc.cu`` (bf16), and (``tc_harness.cpp``)
+``fused_step_tc.cu``, its fused step and its two-stage entries, with
 the host C++ compiler against ``tests/cuda_emu/cuda_runtime.h``, which
 runs each block as threads (256, or the launch's count) with
-``std::barrier`` for ``__syncthreads``, and ``tests/cuda_emu/hopper.cuh``,
+``std::barrier`` for ``__syncthreads`` (the blocks of a thread block
+cluster at once, each with its own shared memory), and
+``tests/cuda_emu/hopper.cuh``,
 scalar stand-ins of the TMA loads, mbarriers and ``wgmma`` products that
-follow the PTX ISA's fragment layouts and 128-byte swizzle (a TF32
+follow the PTX ISA's fragment layouts and 128-byte swizzle, and of the
+cluster's barrier and distributed shared memory (a TF32
 product reads its fp32 operands with the low 13 bits dropped, so a
 3xTF32 kernel that lost its lo pieces fails here too). That checks
 the kernels' indexing, edge masking, barriers, pipelines and in-place
@@ -368,6 +371,16 @@ def test_two_stage_tc_wide_pogo_emulated(tc_harness, tmp_path, shape, inplace):
     _run_two_stage_tc(tc_harness, tmp_path, 0, shape, inplace=inplace)
 
 
+@pytest.mark.parametrize("p", [72, 100, 128])
+@pytest.mark.parametrize("n", [300, 250], ids=["tma", "plain_loads"])
+def test_two_stage_tc_wide_field_emulated(tc_harness, tmp_path, p, n):
+    """``landing_field_tc`` at 64 < p <= 128: the wide kernel's field
+    instance (sweep 1 and both passes of sweep 2, Lambda's halves straight
+    to the output, the second half's blocks of A and B kept in the park);
+    two or three matrices on two blocks, a ragged last chunk."""
+    _run_two_stage_tc(tc_harness, tmp_path, 1, (3 if n == 300 else 2, p, n))
+
+
 @pytest.fixture(scope="module")
 def ns_harness(tmp_path_factory):
     return _compile(tmp_path_factory, "ns_harness.cpp")
@@ -426,6 +439,21 @@ def test_ns_kernels_emulated_in_place_with_mask(ns_harness, tmp_path, kind, tile
     masked off (untouched, bit for bit, distance too)."""
     _run_ns(ns_harness, tmp_path, kind, (4, 12, 130), tile_n=tile_n,
             inplace=True, masked=True)
+
+
+@pytest.mark.parametrize("shape,inplace,masked", [
+    ((3, 64, 960), True, True),  # the trainer's (p, n): a cluster of two CTAs
+    ((2, 40, 300), False, False),  # ragged p and n in one CTA's chunks
+    ((2, 40, 301), True, True),  # n % 4 != 0: scalar loads and stores
+    ((4, 48, 1500), True, True),  # a cluster of four, a ragged last chunk
+    ((1, 64, 4600), False, False),  # a cluster of eight
+])
+def test_ns_tc_kernel_emulated(ns_harness, tmp_path, shape, inplace, masked):
+    """``newton_schulz_tc`` through its launcher, each cluster's CTAs at
+    once (their partial grams meet through the stand-in's distributed
+    shared memory), at the Newton-Schulz tolerance; masked-off matrices and
+    distances bit-unchanged."""
+    _run_ns(ns_harness, tmp_path, 2, shape, inplace=inplace, masked=masked)
 
 
 @pytest.fixture(scope="module")

@@ -117,15 +117,21 @@ def test_mask_requires_in_place():
 @pytest.mark.parametrize("p,n,want", [
     (16, 256, ("whole", 0)),  # the many-matrices shape: Y in shared memory
     (10, 250, ("whole", 0)),
-    (64, 960, ("tiled", 64)),  # SmolLM q/k: 245,760 B does not fit a block
-    (124, 4096, ("tiled", 64)),
+    # SmolLM q/k: 245,760 B does not fit a block; the tensor-core kernel
+    # keeps Y in a cluster of two CTAs
+    (64, 960, ("tc", 0)),
+    (48, 1500, ("tc", 0)),  # a cluster of four
+    (124, 4096, ("tiled", 64)),  # p past the tensor-core kernel's 64 rows
+    (16, 4096, ("tiled", 64)),  # p below NS_TC_MIN_P
+    (64, 6000, ("tiled", 64)),  # n past eight CTAs' shared memory
 ])
 def test_newton_schulz_planner(p, n, want):
     assert tops.plan_newton_schulz(p, n) == want
     kind, tile_n = want
-    size = (tops.ns_whole_smem_bytes(p, n) if kind == "whole"
-            else tops.ns_tiled_smem_bytes(p, tile_n))
-    assert size <= tops.SMEM_LIMIT_BYTES
+    size = {"whole": lambda: tops.ns_whole_smem_bytes(p, n),
+            "tc": lambda: tops.ns_tc_smem_bytes(n),
+            "tiled": lambda: tops.ns_tiled_smem_bytes(p, tile_n)}[kind]()
+    assert 0 < size <= tops.SMEM_LIMIT_BYTES
 
 
 def test_newton_schulz_planner_raises_for_large_p():

@@ -152,17 +152,16 @@ def test_landing_field_wrappers_run_the_plain_version_on_cpu():
 @pytest.mark.parametrize("p,n,pogo,landing", [
     (16, 256, ("whole", 0), ("whole", 0)),
     (64, 960, ("tc", 0), ("tc", 0)),
-    (120, 4096, ("tc", 0), ("tiled", 64)),
-    (128, 2048, ("tc", 0), ("tiled", 64)),
+    (120, 4096, ("tc", 0), ("tc", 0)),
+    (128, 2048, ("tc", 0), ("tc", 0)),
     (24, 4096, ("tiled", 64), ("tiled", 64)),
     (28, 2048, ("tiled", 64), ("tc", 0)),
 ])
 def test_two_stage_planners(p, n, pogo, landing):
     """Whole when a matrix fits one block; else the tensor-core entries from
-    p = 32 (POGO) or 28 (the field) to 128 (POGO: the wide kernel, for
-    internlm2-1.8b's (128, 2048)) or 64 (the field: SmolLM's (64, 960));
-    else the tile that lets the most blocks share an SM, the widest of
-    those (the field's two tiles fit 64 columns at p = 128)."""
+    p = 29 (POGO) or 25 (the field) to 128 (the wide kernel above 64, for
+    internlm2-1.8b's (128, 2048)); else the tile that lets the most blocks
+    share an SM, the widest of those."""
     assert tops.plan_pogo_update(p, n) == pogo
     assert tops.plan_landing_field(p, n) == landing
     for kind, whole, tiled in ((pogo, tops.pogo_whole_smem_bytes,
@@ -190,7 +189,7 @@ def test_two_stage_planners_keep_their_plans_outside_the_tc_range(pogo):
     tiled = tops.pogo_tiled_smem_bytes if pogo else tops.landing_tiled_smem_bytes
     plan = tops.plan_pogo_update if pogo else tops.plan_landing_field
     low = tops.TC_MIN_P if pogo else tops.LANDING_FIELD_TC_MIN_P
-    high = tops.TC_MAX_P if pogo else tops.LANDING_FIELD_TC_MAX_P
+    high = tops.TC_MAX_P
     moved = 0
     for p in range(1, 161):
         for n in (16, 100, 256, 960, 2048, 4096, 8192):
@@ -211,19 +210,22 @@ def test_two_stage_planners_keep_their_plans_outside_the_tc_range(pogo):
             else:
                 assert new == old, (p, n, old, new)
     assert moved > 0
-    assert tops.plan_pogo_update(128, 2048) == ("tc", 0)
+    assert plan(128, 2048) == ("tc", 0)
     # the CUDA-core kernel's tile there, which the card times beside it
-    assert tops.two_stage_tile_n(128, tops.pogo_tiled_smem_bytes) == 16
-    assert tops.pogo_tiled_smem_bytes(128, 16) <= tops.SMEM_LIMIT_BYTES
+    assert tops.two_stage_tile_n(128, tiled) == (16 if pogo else 64)
+    assert tiled(128, 16 if pogo else 64) <= tops.SMEM_LIMIT_BYTES
 
 
 def test_landing_field_keeps_its_cuda_core_tile_at_p128():
-    """The field's tensor-core entry has no wide kernel: internlm2-1.8b's
-    (128, 2048) keeps the CUDA-core 64-column tile while POGO's update and
-    the fused step take the wide tensor-core kernel."""
-    assert tops.plan_landing_field(128, 2048) == ("tiled", 64)
-    assert tops.plan_pogo_update(128, 2048) == tops.plan(128, 2048) == ("tc", 0)
-    assert tops.LANDING_FIELD_TC_MAX_P == 64 < tops.TC_MAX_P
+    """internlm2-1.8b's (128, 2048) plans the field's wide tensor-core entry,
+    as it plans POGO's update and the fused step; the CUDA-core kernel,
+    which the card times beside it, keeps its 64-column tile there, and p
+    past 128 keeps the CUDA-core route."""
+    assert tops.plan_landing_field(128, 2048) == tops.plan_pogo_update(128, 2048) == \
+        tops.plan(128, 2048) == ("tc", 0)
+    assert tops.TC_MAX_P == 128
+    assert tops.two_stage_tile_n(128, tops.landing_tiled_smem_bytes) == 64
+    assert tops.plan_landing_field(130, 2048) == ("tiled", 64)
 
 
 def test_two_stage_planners_raise_for_large_p():

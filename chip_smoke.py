@@ -16,7 +16,13 @@ two-stage POGO update and landing field), at the many-matrices shape
 for the fused step, the POGO update and the landing field; 3 steps each),
 and at the paper's squared-unitary-PC sizes, 1048 x (10, 10000) (p < 25:
 the CUDA-core tiled kernels of the fused step, the POGO update and the
-landing field; 3 steps each):
+landing field; 3 steps each), and at the paper's own sizes for p > 128
+(``src/repro/configs/pogo_paper.py``): its six orthogonal CNN filters, as
+(1, p, n) leaves (a step runs the whole kernel at (64, 216), the
+tensor-core kernel at (64, 576), its wide form at (128, 1152) and the
+large route of ``large_p.cu``, gram-then-apply launches, at the three
+(256, 2304) filters), and O-ViT's 18 x (1024, 1024) (the large route);
+3 steps each:
 
 * the fused group step, ``orthogonal("pogo", use_kernel=True,
   base_optimizer=chain(trace(0.9)))``;
@@ -33,17 +39,24 @@ landing field; 3 steps each):
   gradients, eps is 0.5), then one step under the feasibility watchdog
   after a 1.5x drift, which must repair every matrix: at SmolLM's q/k
   (the tensor-core Newton-Schulz kernel of ``newton_schulz_tc.cu``, one
-  thread block cluster a matrix) and at internlm2-1.8b's (its CUDA-core
-  tiled kernel).
+  thread block cluster a matrix), at internlm2-1.8b's (its CUDA-core
+  tiled kernel) and at the CNN filters' 3 x (256, 2304) and O-ViT's 18 x
+  (1024, 1024) (the large route's Landing and Newton-Schulz).
 
-Each path's kernels must launch once per step, its first step must agree
-with the plain route, and its feasibility must hold. The tensor-core
-kernels (the wide ones at 576 x (128, 2048)) are launched 20 times each
-on the same inputs, half of them beside a copy on another stream, and
-must repeat bit for bit, and so must the tensor-core Newton-Schulz
-kernel. The Newton-Schulz kernels are held against their plain version
-with half the matrices masked off, and timed beside the repair launch
-that finds no matrix past the threshold. The tensor-parallel step: its two kernels against their plain
+Each path's kernels, as the planners of ``kernels/ops.py`` pick them for
+its groups, must launch once per group and step, its first step must
+agree with the plain route, and its feasibility must hold. The
+tensor-core kernels (the wide ones at 576 x (128, 2048)) and the large
+route's entries (at both paper sizes) are launched 20 times each on the
+same inputs, half of them beside a copy on another stream, and must
+repeat bit for bit, and so must the tensor-core Newton-Schulz kernel.
+The large route's entries are held against their plain versions and
+timed at both paper sizes in the phases of their functions' other
+kernels; the CUDA-core tiled kernels whose grams still fit a block past
+p = 128 are timed beside them (the crossovers behind the planner's rule).
+The Newton-Schulz kernels are held against their plain version with half
+the matrices masked off, and timed beside the repair launch that finds
+no matrix past the threshold. The tensor-parallel step: its two kernels against their plain
 versions at a rank's share of the q/k stack at width 2, 640 x (64, 480),
 and of the many-matrices stack, 2048 x (16, 128); its single-device
 schedule (four shards of 640 x (64, 960)) against the unsharded fused
@@ -128,6 +141,18 @@ WIDE_SHAPE = (576, 128, 2048)
 # CUDA-core tiled kernels of the fused step, the POGO update and the field.
 PAPER_PC = {"pc": (1048, 10, 10000)}
 PAPER_SHAPE = (1048, 10, 10000)
+# The paper's own sizes (src/repro/configs/pogo_paper.py), synthetic and not
+# cut: the orthogonal CNN filters (:8), six leaves, three of them (256, 2304)
+# (p > 128: the large route of csrc/large_p.cu; the others plan the whole
+# kernel, the tensor-core kernel and its wide form), and O-ViT's 18 matrices
+# of (1024, 1024) (:5).
+CNN_FILTERS = [(64, 216), (256, 2304), (256, 2304), (256, 2304), (64, 576), (128, 1152)]
+CNN = {f"conv{i}": (1, p, n) for i, (p, n) in enumerate(CNN_FILTERS)}
+CNN_SHAPE = (3, 256, 2304)
+OVIT = {"ovit": (18, 1024, 1024)}
+OVIT_SHAPE = (18, 1024, 1024)
+# The large route's checks at n % 4 != 0 (scalar loads), ragged 64-row tiles
+LARGE_ODD = (5, 200, 901)
 # kernel -> (its source, the TPU kernel it replaces)
 KERNELS = {
     "fused_step_whole": ("fused_step", "src/repro/kernels/fused_step.py:175"),
@@ -152,8 +177,22 @@ KERNELS = {
     "tp_apply": ("tp_step", "src/repro/kernels/fused_step.py:417"),
     "flash_attention": ("flash_attention", "src/repro/kernels/flash_attention.py:88"),
     "flash_attention_tc": ("flash_attention_tc", "src/repro/kernels/flash_attention.py:88"),
+    "fused_step_large": ("large_p", "src/repro/kernels/fused_step.py:608"),
+    "fused_step_large_landing": ("large_p", "src/repro/kernels/fused_step.py:559"),
+    "pogo_update_large": ("large_p", "src/repro/kernels/pogo_update.py:143"),
+    "landing_field_large": ("large_p", "src/repro/kernels/landing_field.py:79"),
+    "newton_schulz_large": ("large_p", "src/repro/kernels/newton_schulz.py:37"),
 }
 LANDING_LR = 0.25  # fixed-step Landing: max distance 7e-5 over 12 CPU steps
+# POGO over Adam's distance is ||X X^T - I||_F formed directly in fp32 (the
+# two-stage step's telemetry), so the iterate's own fp32 rounding (about an
+# ulp an entry) shows in it, growing with sqrt(p n): at the CNN filters'
+# (256, 2304) an H100 read 1.03e-5 to 1.38e-5 (the kernels and the plain
+# route alike, lr 1e-3 and 3e-4), at O-ViT's (1024, 1024) 2.56e-5 to
+# 2.80e-5 (an exact Stiefel draw rounded to fp32 reads 1.09e-5 there), so
+# POGO's 1e-5 cannot hold. Its limit at the paper's sizes: 5e-5. The fused
+# step's distance comes from the gram identity on C and keeps 1e-5.
+PAPER_DIRECT_GRAM_LIMIT = 5e-5
 TP_STEPS = 3  # per method on the two-rank TP path
 NS_ITERS = 12
 NS_TOL = dict(atol=1e-6, rtol=0.0)  # tests/test_kernels.py:54-61
@@ -167,14 +206,20 @@ TRAIN_BATCH = 8
 TRAIN_SEQ = 512
 TRAIN_POGO_LR = 0.05
 DRIFT_STEP = 5  # the q/k leaves are scaled by 1.5 just before this step
-# Two-stage function -> the flops per matrix over p^2 n that it needs:
-# six p x p x n products for the POGO update; four for the field, A = X X^T,
-# B = X G^T and Lambda = A G / 2 + (lam (A - I) - B / 2) X, whose B X and
-# A X share one product (the CUDA-core kernels do them apart, five).
-TWO_STAGE_FLOPS = {"pogo_update_whole": 12, "pogo_update_tiled": 12,
-                   "pogo_update_tiled_tc": 12, "pogo_update_tiled_tc128": 12,
-                   "landing_field": 8, "landing_field_tiled": 8, "landing_field_tiled_tc": 8,
-                   "landing_field_tiled_tc128": 8}
+# The flops per matrix over p^2 n that each function needs. A p x p x n
+# product takes 2 p^2 n, a symmetric gram (X X^T, M M^T, X' X'^T, Y Y^T)
+# half of that: p^2 n for the tiles on and above the diagonal, as
+# csrc/large_p.cu computes it. POGO's update and fused step: A = X X^T (1),
+# B = X G^T (2), M's A G and B X (4), C = M M^T (1), C M (2); fused
+# Landing: A, B, the step's A G and (lam (A - I) - B / 2) X (4), the
+# distance's X' X'^T (1); the field: A, B, Lambda = A G / 2 + (lam (A - I)
+# - B / 2) X, whose B X and A X share one product (4); a Newton-Schulz
+# iteration: Y Y^T (1) and (Y Y^T) Y (2). The (p, p) products of POGO's
+# distance are not counted. The tensor-core Newton-Schulz kernel's bound
+# counts its own products (phase_newton_schulz).
+FUSED_FLOPS = {"pogo": 10, "landing": 8}
+TWO_STAGE_FLOPS = {"pogo_update": 10, "landing_field": 7}
+NS_FLOPS = 3
 # Serving. SmolLM-360M's prefill: 4 prompts of 2048 tokens. The flash
 # kernels at that shape, (B, S, H, KV, hd); internlm2-1.8b's heads; S = 2000
 # (not a multiple of the tiles); hd 24. fp32: tests/test_flash_kernel.py's
@@ -285,14 +330,14 @@ def _bound_ms(bytes_, flops, flop_per_s=FP32_FLOP_PER_S):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _bound(b, p, n, base_kind, pieces=0):
+def _bound(b, p, n, base_kind, method, pieces=0):
     """One fused step: 5 HBM passes of the (B, p, n) fp32 operands (read X,
-    g, mu; write X', mu') plus the per-matrix scalars, against six
-    p x p x n products (12 p^2 n flops per matrix) in fp32 on the CUDA
-    cores, or (``pieces`` 3) as 3xTF32 on the tensor cores."""
+    g, mu; write X', mu') plus the per-matrix scalars, against the step's
+    ``FUSED_FLOPS`` in fp32 on the CUDA cores, or (``pieces`` 3) as 3xTF32
+    on the tensor cores."""
     passes = 5 if base_kind != "none" else 3
     scalars = (3 if base_kind == "vadam" else 1) * b * 4
-    flops = 12 * p * p * n * b
+    flops = FUSED_FLOPS[method] * p * p * n * b
     if pieces:
         return _bound_ms(passes * b * p * n * 4 + scalars, pieces * flops, TF32_TC_FLOP_PER_S)
     return _bound_ms(passes * b * p * n * 4 + scalars, flops)
@@ -323,6 +368,16 @@ def phase_tf32_probe(card):
           f"{[summing.get(v, v) for v in sorted(acc)]} [{card}]", flush=True)
     if not exact:
         raise SystemExit("tf32 probe: the wgmma fragment layout or operands are wrong")
+
+
+def _record(records, name, shape, rec):
+    """A kernel's record takes its first shape timed; later shapes go under
+    its ``by_shape``."""
+    old = records.setdefault(name, {})
+    if "ms" not in old:
+        old.update(rec)
+    else:
+        old.setdefault("by_shape", {})["{}x({},{})".format(*shape)] = rec
 
 
 def _operands(gen, b, p, n):
@@ -357,12 +412,16 @@ def phase_fused_kernels(gen):
     kernels at the paper's 1048 x (10, 10000) (their main path: trace
     first, the planner's tile) and at 576 x (128, 2048) and 640 x (64,
     960), where they ran before the tensor-core kernels (checked here, and
-    timed beside them). Each output's error is printed apart: X', mu', nu'
-    and the distance."""
+    timed beside them), and the large route (p > 128) at the paper's CNN
+    filters 3 x (256, 2304) (every base, in place) and O-ViT 18 x (1024,
+    1024), with ragged rows at ``LARGE_ODD``. Each (kernel, shape) is timed
+    at its first case that the planner picks it for; the first shape timed
+    gives the kernel's record, later ones its ``by_shape``. Each output's
+    error is printed apart: X', mu', nu' and the distance."""
     import torch
 
     from repro_torch.kernels import fused_step as fs
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import large_p, ops, ref
 
     tc_shape = (640, 64, 960)
     cases = [  # (kernel, (B, p, n), base, hyper, variant)
@@ -408,7 +467,18 @@ def phase_fused_kernels(gen):
         ("fused_step_tiled_landing", WIDE_SHAPE, "vadam", (0.9, 0.999, 1e-8), ""),
         ("fused_step_tiled_landing", tc_shape, "trace", (0.1, False), ""),
     ]
+    for name, main in (("fused_step_large", ("trace", (0.9, False))),
+                       ("fused_step_large_landing", ("trace", (0.1, False)))):
+        cases += [(name, CNN_SHAPE, *main, ""),
+                  (name, CNN_SHAPE, "vadam", (0.9, 0.999, 1e-8), ""),
+                  (name, CNN_SHAPE, "trace", (0.5, True), ""),
+                  (name, CNN_SHAPE, "none", (), ""),
+                  (name, CNN_SHAPE, "vadam", (0.9, 0.999, 1e-8), "in place"),
+                  (name, LARGE_ODD, "trace", (0.9, False), "ragged"),
+                  (name, OVIT_SHAPE, *main, ""),
+                  (name, OVIT_SHAPE, "vadam", (0.9, 0.999, 1e-8), "in place")]
     records = {}
+    timed_at = set()
     for name, (b, p, n), base, hyper, variant in cases:
         landing = name.endswith("_landing")
         method = "landing" if landing else "pogo"
@@ -428,7 +498,7 @@ def phase_fused_kernels(gen):
         entry = name.removesuffix("_landing")
         planned = {"whole": "fused_step_whole",
                    "tc": "fused_step_tiled_tc" if p <= 64 else "fused_step_tiled_tc128",
-                   "tiled": "fused_step_tiled"}[kind]
+                   "tiled": "fused_step_tiled", "large": "fused_step_large"}[kind]
         if entry == "fused_step_tiled" and kind == "tc":
             tile_n = ops.tiled_tile_n(p)  # where it ran before the tensor-core kernel
         elif planned != entry:
@@ -456,7 +526,8 @@ def phase_fused_kernels(gen):
               f"{ {k: f'{v:.3e}' for k, v in by_output.items()} }", flush=True)
         if not ok:
             raise SystemExit(f"{name} disagrees with its plain version")
-        if name not in records and planned == entry:  # the main path's shape and base
+        if not variant and planned == entry and (name, (b, p, n)) not in timed_at:
+            timed_at.add((name, (b, p, n)))
             tc = "_tc" in name
             timed = [(lambda: ref.fused_group_step_ref(x, g, LR, **kw), 10),
                      (lambda: wrapper(x, g, LR, **kw), 20)]
@@ -465,21 +536,24 @@ def phase_fused_kernels(gen):
                     x, g, LR, tile_n=ops.tiled_tile_n(p), **kw), 20))
             times = _time_rotating(timed)
             plain_ms, ms = times[:2]
-            bound_ms, bound_by = _bound(b, p, n, base, pieces=3 if tc else 0)
-            extra = ""
+            bound_ms, bound_by = _bound(b, p, n, base, method, pieces=3 if tc else 0)
+            flops = FUSED_FLOPS[method] * p * p * n * b
+            extra = f"; 3xTF32 tensor work {1e3 * 3 * flops / TF32_TC_FLOP_PER_S:.4f}"
             if tc:  # the sweeps' HBM passes (the wide kernel's pass 2 runs twice)
                 passes = (10 if landing else 11.5) if p > 64 else (7 if landing else 9)
                 floor_ms = 1e3 * passes * b * p * n * 4 / HBM_BYTES_PER_S
-                ops_ms = 1e3 * 3 * 12 * p * p * n * b / TF32_TC_FLOP_PER_S
-                fp32_ms = 1e3 * 12 * p * p * n * b / FP32_FLOP_PER_S
-                extra = (f"; 3xTF32 tensor work {ops_ms:.4f}; the schedule's {passes} passes "
-                         f"{floor_ms:.4f}; fp32 CUDA cores {fp32_ms:.4f}; the CUDA-core tiled "
-                         f"kernel at this call {times[2]:.4f} ms")
-            print(f"  {name} tile_n {tile_n} ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
-                  f"{bound_ms:.4f} ({bound_by}{extra})", flush=True)
-            records[name] = dict(max_abs_err=max_abs, max_abs_err_by_output=by_output,
-                                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by)
+                extra += (f"; the schedule's {passes} passes {floor_ms:.4f}; fp32 CUDA cores "
+                          f"{1e3 * flops / FP32_FLOP_PER_S:.4f}; the CUDA-core tiled kernel "
+                          f"at this call {times[2]:.4f} ms")
+            elif kind == "large":  # its launches, the n-slices' sums included
+                run = large_p.runner(x)
+                wrapper(x, g, LR, runner=run, **kw)
+                extra += f"; CUDA launches of large_p.cu a call {run.launches}"
+            print(f"  {name} {b}x({p},{n}) tile_n {tile_n} ms {ms:.4f} plain_ms "
+                  f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}{extra})", flush=True)
+            _record(records, name, (b, p, n), dict(
+                max_abs_err=max_abs, max_abs_err_by_output=by_output, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
         del x, g, mu, nu, got, want
     return records
 
@@ -487,7 +561,9 @@ def phase_fused_kernels(gen):
 def phase_tc_repeatability(gen, repeats=20):
     """Each tensor-core kernel launched ``repeats`` times on the same inputs
     at 640 x (64, 960) (the wide ones at 576 x (128, 2048); Newton-Schulz
-    on the watchdog's drifted input, half the matrices masked off), every
+    on the watchdog's drifted input, half the matrices masked off), and
+    each entry of the large route at the CNN filters' 3 x (256, 2304) (its
+    grams split n into slices there) and O-ViT's 18 x (1024, 1024), every
     other launch beside a 1 GiB copy on a second
     stream that takes SMs and HBM from it: every output must equal the first
     launch's bit for bit. The kernels sum in a fixed order, so a difference
@@ -522,11 +598,14 @@ def phase_tc_repeatability(gen, repeats=20):
         if differ:
             raise SystemExit(f"{label} is not repeatable")
 
+    large = (CNN_SHAPE, OVIT_SHAPE)
     for name, base, hyper, shape in (
             ("fused_step_tiled_tc", "vadam", (0.9, 0.999, 1e-8), (640, 64, 960)),
             ("fused_step_tiled_tc_landing", "trace", (0.1, False), (640, 64, 960)),
             ("fused_step_tiled_tc128", "vadam", (0.9, 0.999, 1e-8), WIDE_SHAPE),
-            ("fused_step_tiled_tc128_landing", "trace", (0.1, False), WIDE_SHAPE)):
+            ("fused_step_tiled_tc128_landing", "trace", (0.1, False), WIDE_SHAPE),
+            *((name, "vadam", (0.9, 0.999, 1e-8), shape) for shape in large
+              for name in ("fused_step_large", "fused_step_large_landing"))):
         landing = name.endswith("_landing")
         x, g, mu, nu = _operands(gen, *shape)
         if landing:
@@ -540,7 +619,9 @@ def phase_tc_repeatability(gen, repeats=20):
         del x, g, mu, nu
     for shape, updates in (((640, 64, 960), (pu.pogo_update_tiled_tc, lf.landing_field_tiled_tc)),
                            (WIDE_SHAPE, (pu.pogo_update_tiled_tc128,
-                                         lf.landing_field_tiled_tc128))):
+                                         lf.landing_field_tiled_tc128)),
+                           *((shape, (pu.pogo_update_large, lf.landing_field_large))
+                             for shape in large)):
         x, g, _, _ = _operands(gen, *shape)
         x += 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
         for update in updates:
@@ -548,19 +629,24 @@ def phase_tc_repeatability(gen, repeats=20):
             repeat(f"{update.__name__} {shape[0]}x{shape[1:]}",
                    lambda: (update(x, g, *args),))
         del x, g
-    shape = (640, 64, 960)
-    x = 1.5 * stiefel.random_stiefel(gen, shape, device="cuda")
-    x += 0.05 * torch.randn(shape, generator=gen, device="cuda")
-    mask = torch.arange(shape[0], device="cuda") % 2 == 0
-    dist = torch.ones(shape[0], device="cuda")
+    for kernel, shape in ((ns.newton_schulz_tc, (640, 64, 960)),
+                          *((ns.newton_schulz_large, shape) for shape in large)):
+        # the watchdog's drift (a tenth of it at square matrices, as in
+        # phase_newton_schulz), half the matrices masked off
+        x = 1.5 * stiefel.random_stiefel(gen, shape, device="cuda")
+        x += (0.005 if shape[1] == shape[2] else 0.05) * torch.randn(
+            shape, generator=gen, device="cuda")
+        mask = torch.arange(shape[0], device="cuda") % 2 == 0
+        dist = torch.ones(shape[0], device="cuda")
 
-    def ns_run():
-        y, d = x.clone(), dist.clone()
-        ns.newton_schulz_tc(y, NS_ITERS, out=y, mask=mask, dist=d)
-        return y, d
+        def ns_run():
+            y, d = x.clone(), dist.clone()
+            kernel(y, NS_ITERS, out=y, mask=mask, dist=d)
+            return y, d
 
-    repeat(f"newton_schulz_tc {shape[0]}x{shape[1:]}, half masked", ns_run)
-    del x, big, dst
+        repeat(f"{kernel.__name__} {shape[0]}x{shape[1:]}, half masked", ns_run)
+        del x
+    del big, dst
 
 
 def _tp_bound(name, b, p, n, base_kind="trace", method="pogo"):
@@ -652,32 +738,39 @@ def phase_two_stage_kernels(gen):
     and the wide ones at internlm2-1.8b's 576 x (128, 2048) (each timed
     beside the CUDA-core tiled kernel, their route there before, checked at
     the same call: the field at tile 64, POGO's update at tile 16), the
-    CUDA-core tiled kernels at the paper's 1048 x (10, 10000). Then every
-    kernel at a ragged shape, 7 x (10, 250) (the wide ones at 7 x (100,
-    250)), the tensor-core entries also at 7 x (64, 250) (plain loads),
-    POGO's in place and with a learning rate held on the card (bit for bit
-    the host value's result). X is a Stiefel draw plus 0.01 randn, and each
-    check first shows that dropping lam's term would break the tolerance."""
+    CUDA-core tiled kernels at the paper's 1048 x (10, 10000), the large
+    route at the CNN filters' 3 x (256, 2304) and O-ViT's 18 x (1024, 1024)
+    (both timed). Then every kernel at a ragged shape, 7 x (10, 250) (the
+    wide ones at 7 x (100, 250), the large ones at ``LARGE_ODD``), the
+    tensor-core entries also at 7 x (64, 250) (plain loads), POGO's in
+    place and with a learning rate held on the card (bit for bit the host
+    value's result). X is a Stiefel draw plus 0.01 randn, and each check
+    first shows that dropping lam's term would break the tolerance."""
     import torch
 
     from repro_torch.kernels import landing_field as lf
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import large_p, ops, ref
     from repro_torch.kernels import pogo_update as pu
 
     tc_shape = (640, 64, 960)
     main = {"pogo_update_whole": (2048, 16, 256), "landing_field": (2048, 16, 256),
             "pogo_update_tiled_tc": tc_shape, "landing_field_tiled_tc": tc_shape,
             "pogo_update_tiled_tc128": WIDE_SHAPE, "landing_field_tiled_tc128": WIDE_SHAPE,
-            "pogo_update_tiled": PAPER_SHAPE, "landing_field_tiled": PAPER_SHAPE}
+            "pogo_update_tiled": PAPER_SHAPE, "landing_field_tiled": PAPER_SHAPE,
+            "pogo_update_large": CNN_SHAPE, "landing_field_large": CNN_SHAPE}
+    ragged = {"tc128": (7, 100, 250), "large": LARGE_ODD}
     cases = [(name, shape, "") for name, shape in main.items()]
-    cases += [(name, (7, 100 if name.endswith("tc128") else 10, 250), "ragged")
+    cases += [("pogo_update_large", OVIT_SHAPE, ""), ("landing_field_large", OVIT_SHAPE, "")]
+    cases += [(name, ragged.get(name.rsplit("_", 1)[1], (7, 10, 250)), "ragged")
               for name in main]
     cases += [("pogo_update_tiled_tc", (7, 64, 250), "ragged"),
               ("landing_field_tiled_tc", (7, 64, 250), "ragged"),
               ("pogo_update_tiled_tc", tc_shape, "in place"),
               ("pogo_update_tiled_tc", tc_shape, "device eta"),
               ("pogo_update_tiled_tc128", WIDE_SHAPE, "in place"),
-              ("pogo_update_tiled_tc128", WIDE_SHAPE, "device eta")]
+              ("pogo_update_tiled_tc128", WIDE_SHAPE, "device eta"),
+              ("pogo_update_large", CNN_SHAPE, "in place"),
+              ("pogo_update_large", CNN_SHAPE, "device eta")]
     records = {}
     for name, shape, variant in cases:
         pogo = name.startswith("pogo")
@@ -688,7 +781,7 @@ def phase_two_stage_kernels(gen):
         stem = "pogo_update" if pogo else "landing_field"
         planned = {"whole": "pogo_update_whole" if pogo else "landing_field",
                    "tc": f"{stem}_tiled_tc" + ("128" if p > 64 else ""),
-                   "tiled": f"{stem}_tiled"}[kind]
+                   "tiled": f"{stem}_tiled", "large": f"{stem}_large"}[kind]
         if planned != name:
             raise SystemExit(f"the planner picks {kind} for ({p}, {n}), not {name}")
         wrapper = getattr(mod, name)
@@ -701,8 +794,8 @@ def phase_two_stage_kernels(gen):
             def plain(x, g, lam=0.5):
                 return ref.pogo_update_ref(x, g, LR, lam)
         else:
-            def run(x, g, wrapper=wrapper):
-                return wrapper(x, g, 1.0)
+            def run(x, g, wrapper=wrapper, **kw):
+                return wrapper(x, g, 1.0, **kw)
 
             def plain(x, g, lam=1.0):
                 return ref.landing_field_ref(x, g, lam)
@@ -741,15 +834,16 @@ def phase_two_stage_kernels(gen):
               f"{'ok' if ok else 'MISMATCH'}", flush=True)
         if not ok:
             raise SystemExit(f"{name} disagrees with its plain version")
-        if name in records:
+        if variant:
             records[name]["max_abs_err"] = max(records[name]["max_abs_err"], max_abs)
             del x, g, got, want, without
             continue
-        # The main-path shape comes first: timed, with its bound (read X
-        # and G, write one result).
-        flops = TWO_STAGE_FLOPS[name] * p * p * n * b
+        # The main-path shape comes first (and the large route's O-ViT):
+        # timed, with its bound (read X and G, write one result).
+        b, p, n = shape
+        flops = TWO_STAGE_FLOPS[stem] * p * p * n * b
         timed = [(lambda: plain(x, g), 10), (lambda: run(x, g), 20)]
-        extra = ""
+        extra = f"; 3xTF32 tensor work {1e3 * 3 * flops / TF32_TC_FLOP_PER_S:.4f}"
         if kind == "tc":  # the CUDA-core tiled kernel at the same call
             cc = functools.partial(getattr(mod, f"{stem}_tiled"),
                                    tile_n=ops.two_stage_tile_n(p, tiled_bytes))
@@ -765,16 +859,19 @@ def phase_two_stage_kernels(gen):
         plain_ms, ms = times[:2]
         if kind == "tc":  # the sweeps' HBM passes (the wide kernel's pass 2 runs twice)
             passes = (9.5 if p > 64 else 7) if pogo else (7 if p > 64 else 5)
-            extra = (f"; bytes, 3 passes {1e3 * 3 * b * p * n * 4 / HBM_BYTES_PER_S:.4f}; "
-                     f"3xTF32 tensor work {1e3 * 3 * flops / TF32_TC_FLOP_PER_S:.4f}; the "
-                     f"schedule's {passes} passes "
-                     f"{1e3 * passes * b * p * n * 4 / HBM_BYTES_PER_S:.4f}; fp32 CUDA cores "
-                     f"{1e3 * flops / FP32_FLOP_PER_S:.4f}; the CUDA-core tiled kernel at "
-                     f"this call {times[2]:.4f} ms")
+            extra += (f"; bytes, 3 passes {1e3 * 3 * b * p * n * 4 / HBM_BYTES_PER_S:.4f}; "
+                      f"the schedule's {passes} passes "
+                      f"{1e3 * passes * b * p * n * 4 / HBM_BYTES_PER_S:.4f}; fp32 CUDA cores "
+                      f"{1e3 * flops / FP32_FLOP_PER_S:.4f}; the CUDA-core tiled kernel at "
+                      f"this call {times[2]:.4f} ms")
+        elif kind == "large":  # its launches, the n-slices' sums included
+            counted = large_p.runner(x)
+            run(x, g, runner=counted)
+            extra += f"; CUDA launches of large_p.cu a call {counted.launches}"
         print(f"  {name} {b}x({p},{n}) ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
               f"{bound_ms:.4f} ({bound_by}{extra})", flush=True)
-        records[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
+        _record(records, name, shape, dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                                           bound_ms=bound_ms, bound_by=bound_by))
         del x, g, got, want, without
     return records
 
@@ -785,31 +882,41 @@ def phase_newton_schulz(gen):
     matrices masked off (they must come out bit-unchanged, distances too),
     through the planner: at the trainer's 640 x (64, 960) (the tensor-core
     kernel, a cluster of two CTAs a matrix), internlm2-1.8b's 576 x (128,
-    2048) (the CUDA-core tiled kernel), 2048 x (16, 256) (whole) and 7 x
-    (10, 250); then timed unmasked at the first three, each beside the
-    repair with no matrix past the threshold (the watchdog's launch on
-    every step), the tensor-core kernel in turns with the tiled kernel at
-    its shape and the plain version."""
+    2048) (the CUDA-core tiled kernel), 2048 x (16, 256) (whole), the CNN
+    filters' 3 x (256, 2304) and O-ViT's 18 x (1024, 1024) (the large
+    route), 7 x (10, 250) and ``LARGE_ODD``; then timed unmasked at the
+    others, each beside the repair with no matrix past the threshold (the
+    watchdog's launch on every step), the tensor-core kernel in turns with
+    the tiled kernel at its shape and the plain version. A square matrix
+    takes a tenth of the noise: 0.05 randn gives a (1024, 1024) one
+    singular values near 0, from which 12 iterations after the Frobenius
+    prescale do not converge, in the plain version either (an H100 read
+    ||Y Y^T - I||_F 8.297 from both)."""
     import torch
 
     from repro_torch.core import stiefel
+    from repro_torch.kernels import large_p, ops, ref
     from repro_torch.kernels import newton_schulz as ns
-    from repro_torch.kernels import ops, ref
 
     records = {}
-    for shape in ((640, 64, 960), WIDE_SHAPE, (2048, 16, 256), (7, 10, 250)):
+    counters = (ns.newton_schulz_tc, ns.newton_schulz_large)
+    untimed = ((7, 10, 250), LARGE_ODD)
+    for shape in ((640, 64, 960), WIDE_SHAPE, (2048, 16, 256), CNN_SHAPE, OVIT_SHAPE,
+                  *untimed):
         b, p, n = shape
         x = 1.5 * stiefel.random_stiefel(gen, shape, device="cuda")
-        x += 0.05 * torch.randn(shape, generator=gen, device="cuda")
+        x += (0.005 if p == n else 0.05) * torch.randn(shape, generator=gen, device="cuda")
         dist = torch.where(torch.arange(b, device="cuda") % 2 == 0, 2.0, 0.0).float()
         x0, d0 = x.clone(), dist.clone()
         kind, tile_n = ops.plan_newton_schulz(p, n)
-        name = "newton_schulz_tc" if kind == "tc" else "newton_schulz"
-        before = ns.newton_schulz_tc.launches
+        name = {"tc": "newton_schulz_tc", "large": "newton_schulz_large"}.get(
+            kind, "newton_schulz")
+        before = [c.launches for c in counters]
         rep = ops.newton_schulz_repair(x, dist, torch.tensor(0.1, device="cuda"),
                                        NS_ITERS)
         torch.cuda.synchronize()
-        if (ns.newton_schulz_tc.launches - before) != (kind == "tc"):
+        if [c.launches - k for c, k in zip(counters, before)] != [kind == "tc",
+                                                                  kind == "large"]:
             raise SystemExit(f"newton_schulz {shape}: the planned {kind} kernel did not launch")
         want = ref.newton_schulz_ref(x0[rep], NS_ITERS)
         want_d = ref.manifold_distance_ref(want)
@@ -826,7 +933,7 @@ def phase_newton_schulz(gen):
             raise SystemExit(f"newton_schulz {shape} disagrees with its plain version")
         rec = records.setdefault(name, {})
         rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), max_abs)
-        if b == 7:
+        if shape in untimed:
             continue
         out = torch.empty_like(x0)
         wrapper = getattr(ns, f"newton_schulz_{kind}")
@@ -844,10 +951,9 @@ def phase_newton_schulz(gen):
             timed.append((lambda: cc(x0, NS_ITERS, out=out), 20))
         times = _time_rotating(timed)
         plain_ms, ms = times[:2]
-        # Read X, write Y; 4 p^2 n flops per matrix per iteration: the gram
-        # and the update, 2 p^2 n each. On the tensor cores the update takes
-        # 3 TF32 products, the symmetric gram 2 (G = U + U^T).
-        flops = 4 * NS_ITERS * p * p * n * b
+        # Read X, write Y; NS_FLOPS p^2 n an iteration. On the tensor cores
+        # the update takes 3 TF32 products, the symmetric gram 2 (G = U + U^T).
+        flops = NS_FLOPS * NS_ITERS * p * p * n * b
         if kind == "tc":
             tc_flops = (2 + 3) * 2 * NS_ITERS * p * p * n * b
             bound_ms, bound_by = _bound_ms(2 * b * p * n * 4, tc_flops, TF32_TC_FLOP_PER_S)
@@ -861,13 +967,76 @@ def phase_newton_schulz(gen):
             extra = (f"; the CUDA-core tiled kernel at this call {times[2]:.4f} ms (tile "
                      f"{cc_tile}; fp32 CUDA cores {1e3 * flops / FP32_FLOP_PER_S:.4f}), its "
                      f"repair with no matrix past the threshold {idle_cc:.4f} ms")
+        elif kind == "large":  # its launches, the n-slices' sums included
+            counted = large_p.runner(x0)
+            ns.newton_schulz_large(x0, NS_ITERS, out=out, runner=counted)
+            extra = (f"; 3xTF32 tensor work {1e3 * 3 * flops / TF32_TC_FLOP_PER_S:.4f}; CUDA "
+                     f"launches of large_p.cu a call {counted.launches}")
         print(f"  newton_schulz_{kind} {b}x({p},{n}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
               f"bound_ms {bound_ms:.4f} ({bound_by}); repair with no matrix past the "
               f"threshold {idle_ms:.4f} ms{extra}", flush=True)
         if kind != "whole":  # the tiled kernel's main path is internlm2-1.8b's
-            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+            _record(records, name, shape, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                               bound_by=bound_by))
         del x, x0, out
     return records
+
+
+def phase_large_crossovers(gen):
+    """The readings behind the planner's rule that every p > 128 takes the
+    large route: the field and Newton-Schulz at 576 x (129, 2048) and
+    (136, 2048) and the field at 576 x (160, 2048), where the CUDA-core
+    tiled kernels' grams still fit a block, each timed in turns with the
+    large route; and the large Newton-Schulz at internlm2-1.8b's 576 x
+    (128, 2048) beside its planned kernel there (row 9). Both routes are
+    checked against the plain version first."""
+    import torch
+
+    from repro_torch.kernels import landing_field as lf
+    from repro_torch.kernels import newton_schulz as ns
+    from repro_torch.kernels import ops, ref
+
+    for label, shape in (("landing field", (576, 129, 2048)),
+                         ("landing field", (576, 136, 2048)),
+                         ("landing field", (576, 160, 2048)),
+                         ("newton-schulz", (576, 129, 2048)),
+                         ("newton-schulz", (576, 136, 2048)),
+                         ("newton-schulz", WIDE_SHAPE)):
+        b, p, n = shape
+        field = label == "landing field"
+        if field:
+            tile_n = ops.two_stage_tile_n(p, ops.landing_tiled_smem_bytes)
+            tiled = functools.partial(lf.landing_field_tiled, tile_n=tile_n)
+            large = lf.landing_field_large
+            planned = ops.plan_landing_field(p, n)
+        else:
+            tile_n = ops.ns_tiled_tile_n(p)
+            tiled = functools.partial(ns.newton_schulz_tiled, tile_n=tile_n)
+            large = ns.newton_schulz_large
+            planned = ops.plan_newton_schulz(p, n)
+        if planned != (("tiled", tile_n) if p <= 128 else ("large", 0)):
+            raise SystemExit(f"{label} ({p}, {n}) plans {planned}")
+        x, g, _, _ = _operands(gen, *shape)
+        if field:
+            args = (x, g, 1.0)
+            want = ref.landing_field_ref(x, g, 1.0)
+            tol = TWO_STAGE_TILED_TOL
+        else:
+            x = 1.5 * x + 0.05 * torch.randn(shape, generator=gen, device="cuda")
+            args = (x, NS_ITERS)
+            want = ref.newton_schulz_ref(x, NS_ITERS)
+            tol = NS_TOL
+        errs = [_errors((fn(*args),), (want,), tol) for fn in (tiled, large)]
+        torch.cuda.synchronize()
+        if not all(e[2] for e in errs):
+            raise SystemExit(f"{label} {shape}: a kernel disagrees ({errs})")
+        calls = 10 if field else 3
+        tiled_ms, large_ms = _time_rotating([(lambda: tiled(*args), calls),
+                                             (lambda: large(*args), calls)])
+        print(f"crossover {label} {b}x({p},{n}), planned {planned[0]}: the CUDA-core tiled "
+              f"kernel (tile {tile_n}) {tiled_ms:.4f} ms, max_abs {errs[0][0]:.3e}; the "
+              f"large route {large_ms:.4f} ms, max_abs {errs[1][0]:.3e}", flush=True)
+        del x, g, want, args
 
 
 def _is_qk(path: str) -> bool:
@@ -1116,17 +1285,20 @@ def drive_main_path(gen, shapes, label, steps, card, make_opt, max_dist):
         times.append(start.elapsed_time(end))
         dist = float(api.max_distance(state))
         dists.append(dist)
-        if not bool(health.finite) or not dist <= max_dist:
-            raise SystemExit(f"{label} step {i}: finite={bool(health.finite)} "
-                             f"max_distance={dist} (limit {max_dist})")
         if i == 0:
             got = tuple(cs.stacks) + tuple(state.last_distance.per_group)
             max_abs, _, ok = _errors(got, tuple(want_x) + tuple(want_d), TILED_TOL)
-            print(f"{label} step 0 vs plain route: max_abs {max_abs:.3e} "
-                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+            per_group = [f"{float(a.max()):.3e}/{float(b.max()):.3e}"
+                         for a, b in zip(state.last_distance.per_group, want_d)]
+            print(f"{label} step 0 vs plain route: max_abs {max_abs:.3e}, max distance by "
+                  f"group (kernel/plain) {per_group} {'ok' if ok else 'MISMATCH'}",
+                  flush=True)
             if not ok:
                 raise SystemExit(f"{label}: main path disagrees with the plain route")
             del want_x, want_d
+        if not bool(health.finite) or not dist <= max_dist:
+            raise SystemExit(f"{label} step {i}: finite={bool(health.finite)} "
+                             f"max_distance={dist} (limit {max_dist})")
     launches = ops.launches()
     for s in cs.stacks:
         if not bool(torch.isfinite(s).all()):
@@ -1147,7 +1319,9 @@ def phase_landing_watchdog(gen, card):
     ``repro/core/api.py:1551-1564``): at SmolLM-360M's 640 x (64, 960) (the
     tensor-core repair) and at internlm2-1.8b's 576 x (128, 2048) (the
     wide fused kernel and the CUDA-core tiled repair, whose main path this
-    is). Returns the repair kernels' launches."""
+    is), and at the paper's CNN filters, 3 x (256, 2304), and O-ViT, 18 x
+    (1024, 1024) (the large route's fused Landing and Newton-Schulz).
+    Returns the repair kernels' launches."""
     import torch
 
     from repro_torch.core import api, stiefel
@@ -1158,7 +1332,10 @@ def phase_landing_watchdog(gen, card):
     for shape, fused, repair in (((640, 64, 960), "fused_step_tiled_tc_landing",
                                   "newton_schulz_tc"),
                                  (WIDE_SHAPE, "fused_step_tiled_tc128_landing",
-                                  "newton_schulz_tiled")):
+                                  "newton_schulz_tiled"),
+                                 (CNN_SHAPE, "fused_step_large_landing", "newton_schulz_large"),
+                                 (OVIT_SHAPE, "fused_step_large_landing",
+                                  "newton_schulz_large")):
         opt = make_opt("landing_fused", watchdog=wd)
         cs = api.ConstraintSet.from_tree({"qk": stiefel.random_stiefel(gen, shape,
                                                                        device="cuda")})
@@ -1188,7 +1365,7 @@ def phase_landing_watchdog(gen, card):
                 and dist < wd.hard / 2 and launches == {fused: 1, repair: 1}):
             raise SystemExit(f"landing fused + watchdog at {shape}: the drift step was not "
                              "repaired")
-        repairs[repair] = launches[repair]
+        repairs[repair] = repairs.get(repair, 0) + launches[repair]
         del cs, state, g
     return repairs
 
@@ -1703,10 +1880,35 @@ def phase_serve(card):
     return launches
 
 
-def _expect_launches(label, launches, kernel, steps):
-    """``kernel`` launched once per step, and no other kernel."""
-    want = {name: (steps if name == kernel else 0) for name in launches}
-    if launches != want:
+def planned_kernels(path, shapes):
+    """The kernel wrapper that each group of ``shapes`` (leaves of the same
+    (p, n) stack into one group) runs on main path ``path``, by the
+    planners of ``kernels/ops.py``: ``{wrapper name: groups}``."""
+    from repro_torch.kernels import ops
+
+    fused = path in ("fused", "landing_fused")
+    stem = {"fused": "fused_step", "landing_fused": "fused_step",
+            "pogo_adam": "pogo_update", "landing": "landing_field"}[path]
+    suffix = "_landing" if path == "landing_fused" else ""
+    out = {}
+    for p, n in sorted({s[-2:] for s in shapes.values()}):
+        if fused:
+            kind = ops.plan(p, n, "landing" if suffix else "pogo")[0]
+        else:
+            kind = (ops.plan_pogo_update if stem == "pogo_update" else ops.plan_landing_field)(
+                p, n)[0]
+        name = {"whole": "landing_field" if stem == "landing_field" else f"{stem}_whole",
+                "tc": f"{stem}_tiled_tc" + ("128" if p > 64 else ""),
+                "tiled": f"{stem}_tiled", "large": f"{stem}_large"}[kind] + suffix
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
+def _expect_launches(label, launches, expected, steps):
+    """Each kernel of ``expected`` (wrapper name -> groups) launched that
+    many times per step, and no other kernel."""
+    want = {name: steps * expected.get(name, 0) for name in launches}
+    if launches != want or set(expected) - set(launches):
         raise SystemExit(f"{label}: launches {launches}, expected {want}")
 
 
@@ -1721,6 +1923,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import large_p
     from repro_torch.kernels import newton_schulz as ns
     from repro_torch.kernels import pogo_update as pu
     from repro_torch.kernels import tp_step as tp
@@ -1743,6 +1946,7 @@ def main() -> int:
     tp.lib()
     fa.lib()
     fa.tc_lib()
+    large_p.lib()
     for name in sources:
         for line in build.PTXAS_LOG.get(name, "").splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
@@ -1754,6 +1958,7 @@ def main() -> int:
     phase_tc_repeatability(gen)
     records.update(phase_two_stage_kernels(gen))
     records.update(phase_newton_schulz(gen))
+    phase_large_crossovers(gen)
     records.update(phase_tp_kernels(gen))
 
     smollm = ortho.orthogonal_leaf_shapes(smollm_360m.config())
@@ -1784,14 +1989,27 @@ def main() -> int:
         ("landing fused paper unitary-PC sizes", PAPER_PC, 3, "landing_fused", 0.5,
          "fused_step_tiled_landing"),
     ]
+    # The paper's CNN filters (one step runs the whole, tensor-core, wide
+    # and large routes, one group each) and O-ViT (the large route alone).
+    for path, max_dist, what in (("fused", 1e-5, "fused"),
+                                 ("pogo_adam", PAPER_DIRECT_GRAM_LIMIT, "pogo+adam"),
+                                 ("landing", 0.5, "landing"),
+                                 ("landing_fused", 0.5, "landing fused")):
+        paths += [(f"{what} paper CNN filters", CNN, 3, path, max_dist, None),
+                  (f"{what} paper O-ViT", OVIT, 3, path, max_dist, None)]
     launches = {}
     for label, shapes, steps, path, max_dist, kernel in paths:
+        expected = planned_kernels(path, shapes)
+        if kernel is not None and expected != {kernel: 1}:
+            raise SystemExit(f"{label}: the planners now pick {expected}, not {kernel}")
         counts = drive_main_path(gen, shapes, label, steps, card,
                                  functools.partial(make_opt, path), max_dist)
-        _expect_launches(label, counts, kernel, steps)
-        launches[kernel] = counts[kernel]
+        _expect_launches(label, counts, expected, steps)
+        for name in expected:
+            launches[name] = launches.get(name, 0) + counts[name]
     repairs = phase_landing_watchdog(gen, card)
     launches["newton_schulz"] = repairs["newton_schulz_tiled"]
+    launches["newton_schulz_large"] = repairs["newton_schulz_large"]
     phase_tp_schedule(gen, card)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
         launches.update(phase_tp_ranks(card, workdir))

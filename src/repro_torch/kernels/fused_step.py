@@ -22,7 +22,11 @@ kernels as ``fused_step_tiled`` on the tensor cores for p <= 64: 3xTF32
 64 < p <= 128 (internlm2-1.8b's q/k): two consumer warpgroups, the (p, p)
 operands in 64-row halves, M's rows 0..63 parked in a scratch of the
 wrapper's. ``fused_step_tiled_tc`` hands p > 64 to them. ``ops.plan``
-says which shapes take which.
+says which shapes take which. ``fused_step_large`` and
+``fused_step_large_landing`` (``csrc/large_p.cu``, ``large_p.py``) replace
+``fused_step_tiled``'s TPU kernels for p > 128, where a matrix's (p, p)
+grams outgrow a block: the TPU kernel's phases as gram-then-apply launches,
+the grams between them in HBM and L2.
 
 The wrappers take the arguments of ``ref.fused_group_step_ref`` and return
 its ``(x', mu', nu', dist, finite)``. On a CPU tensor they run that plain
@@ -36,11 +40,12 @@ the Landing branches in their own.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
 
-from . import build, ref
+from . import build, large_p, ref
 
 _BASE_KINDS = {"none": 0, "trace": 1, "vadam": 2}
 _P = ctypes.c_void_p
@@ -181,8 +186,8 @@ def run_plain(x, g, eta, *, inplace=False, **kw):
 _METHODS = {"pogo": 0, "landing": 1}
 
 
-def _launch(entry, x, g, eta, *, method, lam, base_kind, hyper, post_scale,
-            mu, nu, count, pv, inplace, extra=()):
+def _check_operands(x, g, *, method, base_kind, mu, nu, count, pv):
+    """The fused kernels' operand checks; returns x's ``(B, p, n)``."""
     if method not in _METHODS:
         raise ValueError(f"unknown fused method {method!r}")
     if base_kind not in _BASE_KINDS:
@@ -201,6 +206,14 @@ def _launch(entry, x, g, eta, *, method, lam, base_kind, hyper, post_scale,
             raise ValueError("count is required for the vadam base")
     if pv is not None:
         check_operand("pv", pv, (bsz,), torch.int32, dev)
+    return bsz, p, n
+
+
+def _launch(entry, x, g, eta, *, method, lam, base_kind, hyper, post_scale,
+            mu, nu, count, pv, inplace, extra=()):
+    bsz, p, n = _check_operands(x, g, method=method, base_kind=base_kind, mu=mu,
+                                nu=nu, count=count, pv=pv)
+    dev = x.device
     nesterov = bool(hyper[1]) if base_kind == "trace" else False
     scal = pack_scal(eta, lam, base_kind=base_kind, hyper=hyper,
                      post_scale=post_scale, count=count, device=dev)
@@ -308,6 +321,34 @@ def fused_step_tiled_tc128(x, g, eta, *, method="pogo", lam, base_kind="none",
                 extra=(None if scratch is None else scratch.data_ptr(),), **kw)
 
 
+def fused_step_large(x, g, eta, *, method="pogo", lam, base_kind="none",
+                     hyper=(), post_scale=1.0, mu=None, nu=None, count=None,
+                     pv=None, inplace=False, runner=None):
+    """The fused step for p > 128, where one matrix's (p, p) grams do not
+    fit a block: the TPU tiled kernel's phases as gram-then-apply launches
+    of ``csrc/large_p.cu`` through HBM and L2 (``large_p.fused``);
+    ``method="landing"`` runs ``fused_step_large_landing``. ``runner``
+    (a ``large_p.Runner``) launches elsewhere than on x's card: the CPU
+    tests' emulated build."""
+    kw = dict(method=method, lam=lam, base_kind=base_kind, hyper=hyper,
+              post_scale=post_scale, mu=mu, nu=nu, count=count, pv=pv)
+    if runner is None and x.device.type == "cpu":
+        return run_plain(x, g, eta, inplace=inplace, **kw)
+    if runner is None and x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    _check_operands(x, g, method=method, base_kind=base_kind, mu=mu, nu=nu,
+                    count=count, pv=pv)
+    scal = pack_scal(eta, lam, base_kind=base_kind, hyper=hyper,
+                     post_scale=post_scale, count=count, device=x.device)
+    nesterov = base_kind == "trace" and bool(hyper[1])
+    with torch.cuda.device(x.device) if x.is_cuda else contextlib.nullcontext():
+        out = large_p.fused(runner or large_p.runner(x), x, g, scal, method=method,
+                            lam=float(lam), base_kind=base_kind, nesterov=nesterov,
+                            mu=mu, nu=nu, pv=pv, inplace=inplace)
+    _COUNTERS["fused_step_large", method].launches += 1
+    return out
+
+
 def fused_step_whole_landing(x, g, eta, **kw):
     """``fused_step_whole(method="landing")``."""
     return fused_step_whole(x, g, eta, method="landing", **kw)
@@ -328,6 +369,11 @@ def fused_step_tiled_tc128_landing(x, g, eta, **kw):
     return fused_step_tiled_tc128(x, g, eta, method="landing", **kw)
 
 
+def fused_step_large_landing(x, g, eta, **kw):
+    """``fused_step_large(method="landing")``."""
+    return fused_step_large(x, g, eta, method="landing", **kw)
+
+
 _COUNTERS = {
     ("fused_step_whole", "pogo"): fused_step_whole,
     ("fused_step_tiled", "pogo"): fused_step_tiled,
@@ -337,6 +383,8 @@ _COUNTERS = {
     ("fused_step_tc", "landing"): fused_step_tiled_tc_landing,
     ("fused_step_tc128", "pogo"): fused_step_tiled_tc128,
     ("fused_step_tc128", "landing"): fused_step_tiled_tc128_landing,
+    ("fused_step_large", "pogo"): fused_step_large,
+    ("fused_step_large", "landing"): fused_step_large_landing,
 }
 for _k in _COUNTERS.values():
     _k.launches = 0

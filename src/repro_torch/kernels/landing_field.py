@@ -13,9 +13,13 @@ telemetry, writing the field alone in its second sweep.
 ``landing_field_tiled_tc128`` is the wide kernel's for 64 < p <= 128,
 sweep 2 once per 64-row half of Lambda, the kept blocks of A and B in a
 scratch (``fused_step.park(rows=False)``); ``landing_field_tiled_tc``
-hands p > 64 to it.
+hands p > 64 to it. ``landing_field_large`` (``csrc/large_p.cu``)
+replaces the tiled TPU kernels for p > 128 (where it beat the CUDA-core
+tiled kernel on the card, whose grams fit a block up to p ~ 160): the
+TPU's two phases as a gram launch and an apply launch, the grams between
+them in HBM and L2.
 
-All four take a ``(B, p, n)`` fp32 stack ``x`` and gradient ``g`` and return
+All of them take a ``(B, p, n)`` fp32 stack ``x`` and gradient ``g`` and return
 Landing's field ``Lambda = 1/2 (A G - B X) + lam (A X - X)`` with
 ``A = X X^T``, ``B = X G^T``, in a new tensor. On a CPU tensor they run
 the plain version ``ref.landing_field_ref``; on a CUDA tensor they launch
@@ -24,10 +28,12 @@ the kernel or raise. Each wrapper counts its launches in ``.launches``.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-from . import fused_step, ref
-from .pogo_update import launch, lib
+from . import fused_step, large_p, ref
+from .pogo_update import check_operands, launch, lib, scalars
 
 
 def _field(entry, x, g, lam, *extra, lib=lib):
@@ -86,7 +92,26 @@ def landing_field_tiled_tc128(x, g, lam):
     return out
 
 
+def landing_field_large(x, g, lam, *, runner=None):
+    """The landing field for p > 128 (``csrc/large_p.cu``): A and BT, then
+    Lambda, a gram and an apply spread over many blocks
+    (``large_p.landing_field``). ``runner`` (a ``large_p.Runner``)
+    launches elsewhere than on x's card: the CPU tests' emulated build."""
+    if runner is None and x.device.type == "cpu":
+        return ref.landing_field_ref(x, g, lam)
+    if runner is None and x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    out = torch.empty_like(x)
+    check_operands(x, g, out)
+    with torch.cuda.device(x.device) if x.is_cuda else contextlib.nullcontext():
+        large_p.landing_field(runner or large_p.runner(x), x, g,
+                              scalars(0.0, lam, x.device), out)
+    landing_field_large.launches += 1
+    return out
+
+
 landing_field.launches = 0
 landing_field_tiled.launches = 0
 landing_field_tiled_tc.launches = 0
 landing_field_tiled_tc128.launches = 0
+landing_field_large.launches = 0

@@ -8,9 +8,13 @@ column tiles through the output buffer (tiled), IEEE fp32 on the CUDA
 cores. ``newton_schulz_tc`` replaces the same TPU kernel on the tensor
 cores for p <= 64: one thread block cluster per matrix, Y kept in its
 CTAs' shared memory for every iteration, 3xTF32 ``wgmma``, the partial
-grams summed through distributed shared memory.
+grams summed through distributed shared memory. ``newton_schulz_large``
+(``csrc/large_p.cu``) replaces it for p > 128 (past p = 136 the CUDA-core
+tiled kernel's two (p, p) grams outgrow a block; below, it lost to the
+large route on the card): each iteration a gram launch and an apply
+launch, the gram between them in HBM and L2.
 
-All three take a ``(B, p, n)`` fp32 stack ``x`` and write
+All four take a ``(B, p, n)`` fp32 stack ``x`` and write
 ``NS_iters(x / ||x||_F)`` to ``out`` (a new tensor, or ``x`` itself).
 ``mask`` (a ``(B,)`` bool tensor, with ``out=x``) limits the work to the
 matrices it selects: the others keep their values and their ``dist``
@@ -23,11 +27,12 @@ fallback. Each wrapper counts its launches in ``.launches``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
 
-from . import build, ref
+from . import build, large_p, ref
 from .fused_step import check_operand
 
 _P = ctypes.c_void_p
@@ -76,9 +81,7 @@ def run_plain(x, iters, *, out, mask=None, dist=None):
     return out
 
 
-def _launch(entry, x, iters, out, mask, dist, *extra, lib=lib):
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
+def _check_operands(x, out, mask, dist):
     if x.dim() != 3:
         raise ValueError(f"x must be a (B, p, n) stack, got {tuple(x.shape)}")
     dev = x.device
@@ -89,6 +92,13 @@ def _launch(entry, x, iters, out, mask, dist, *extra, lib=lib):
         check_operand("mask", mask, (bsz,), torch.bool, dev)
     if dist is not None:
         check_operand("dist", dist, (bsz,), torch.float32, dev)
+
+
+def _launch(entry, x, iters, out, mask, dist, *extra, lib=lib):
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    _check_operands(x, out, mask, dist)
+    dev = x.device
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -145,6 +155,30 @@ def newton_schulz_tc(x, iters=12, *, out=None, mask=None, dist=None):
     return res
 
 
+def newton_schulz_large(x, iters=12, *, out=None, mask=None, dist=None,
+                        runner=None):
+    """Newton-Schulz for p > 128 (``csrc/large_p.cu``): each iteration a
+    self gram and an apply spread over many blocks, ping-ponging between
+    ``out`` and a scratch, the Frobenius prescale read off the first
+    gram's trace (``large_p.newton_schulz``); the matrices that ``mask``
+    clears are neither read nor written, nor are their ``dist`` entries.
+    ``runner`` (a ``large_p.Runner``) launches elsewhere than on x's card:
+    the CPU tests' emulated build."""
+    out = torch.empty_like(x) if out is None else out
+    if mask is not None and out is not x:
+        raise ValueError("a mask needs out=x: masked-off matrices keep x")
+    if runner is None and x.device.type == "cpu":
+        return run_plain(x, iters, out=out, mask=mask, dist=dist)
+    if runner is None and x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    _check_operands(x, out, mask, dist)
+    with torch.cuda.device(x.device) if x.is_cuda else contextlib.nullcontext():
+        large_p.newton_schulz(runner or large_p.runner(x), x, iters, out, mask, dist)
+    newton_schulz_large.launches += 1
+    return out
+
+
 newton_schulz_whole.launches = 0
 newton_schulz_tiled.launches = 0
 newton_schulz_tc.launches = 0
+newton_schulz_large.launches = 0

@@ -8,7 +8,7 @@ flash-attention forward (``:729-763``). The TPU planner's
 VMEM budget and live-buffer counts become the per-block shared-memory
 footprint of each CUDA kernel, mirrored here from ``csrc/fused_step.cu``,
 ``csrc/fused_step_tc.cu``, ``csrc/tp_step.cu``, ``csrc/two_stage.cu`` and
-``csrc/newton_schulz.cu``:
+``csrc/newton_schulz.cu``, and past it the large route:
 
 * ``whole`` when X and the (transformed) gradient of one matrix plus the
   kernel's (p, p) grams fit in one block's 227 KB;
@@ -22,17 +22,23 @@ footprint of each CUDA kernel, mirrored here from ``csrc/fused_step.cu``,
   memory (``csrc/newton_schulz_tc.cu``, ``ns_tc_cluster``);
 * ``tiled`` otherwise, with the column tile that lets the most blocks
   share an SM (they hide each other's loads and barriers), the widest of
-  those: the fused group step's and the two-stage kernels' p below and
-  above the tensor-core range and every Newton-Schulz stack that does not
-  fit whole;
-* a ``ValueError`` naming the shape and the limit when even the grams
-  and the narrowest tiles do not fit (large p is later work).
+  those: the fused group step's and the two-stage kernels' p below the
+  tensor-core range and Newton-Schulz's up to p = 128 outside it;
+* ``large`` for every p > 128 that does not fit whole: the gram-then-apply
+  launches of ``csrc/large_p.cu`` (``large_p.py``), each phase of the
+  TPU's tiled kernels a launch over many blocks, the (p, p) operands
+  between them in HBM and L2. The fused step's and the POGO update's
+  grams and tiles outgrow one block there; the landing field's and
+  Newton-Schulz's still fit up to p ~ 160 and 136, where the large route
+  was faster on the card (the readings beside ``NS_TC_MAX_P``).
 
 The TP kernels always sweep n in tiles (a shard of a wide matrix rarely
 fits one block whole), with the tile that lets the most blocks share an
-SM. The ragged n-edge is masked inside the kernels, so no operand is
-padded. Each entry point runs the plain version on a CPU tensor and the
-planned kernel, or an error, on a CUDA tensor.
+SM; they have no large route, and ``plan_tp`` refuses p whose grams do
+not fit (ROADMAP: "sharded schedules (large p)"). The ragged n-edge is
+masked inside the kernels, so no operand is padded. Each entry point runs
+the plain version on a CPU tensor and the planned kernel, or an error, on
+a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -106,6 +112,13 @@ LANDING_FIELD_TC_MIN_P = 25
 # tensor cores with the rest of p = 32, which won clearly at n = 2048.
 NS_TC_MIN_P = 32
 NS_TC_MAX_P = 64
+# Past TC_MAX_P the landing field and Newton-Schulz take the
+# large route (csrc/large_p.cu) wherever a matrix does not fit a block whole,
+# although the CUDA-core tiled kernels' grams still fit a block up to p ~ 160
+# (the field) and 136 (Newton-Schulz). On an H100 (chip_smoke.py's
+# crossovers; ms, tiled / large): the field at 576 x (136, 2048) 11.8759 /
+# 10.9079 and (160, 2048) 21.8771 / 11.1318; Newton-Schulz at 576 x (136,
+# 2048) 73.5720 / 55.9646.
 # Blocks per SM the tiled kernel's register cap allows (kTiledBlocksPerSm),
 # and the TP kernels' (kTpBlocksPerSm).
 _TILED_BLOCKS_PER_SM = 3
@@ -273,6 +286,8 @@ def tiled_tile_n(p: int) -> int | None:
 def _plan(what: str, p: int, n: int, whole_bytes, tiled_bytes,
           tiles: tuple[int, ...] = _TILE_NS,
           fallback: tuple[int, ...] = ()) -> tuple[str, int]:
+    """``("whole", 0)`` when one matrix fits a block, else ``("tiled",
+    tile_n)`` when the grams and a tile do, else a ``ValueError``."""
     if whole_bytes(p, n) <= SMEM_LIMIT_BYTES:
         return "whole", 0
     tile = _best_tile(p, tiled_bytes, tiles=tiles, fallback=fallback)
@@ -281,21 +296,34 @@ def _plan(what: str, p: int, n: int, whole_bytes, tiled_bytes,
     raise ValueError(
         f"{what}: p={p} (n={n}) needs {tiled_bytes(p, (tiles + fallback)[-1])} "
         f"bytes of shared memory for its (p, p) grams and tiles, over the "
-        f"{SMEM_LIMIT_BYTES}-byte limit of one block; large-p groups are not "
-        "ported yet"
+        f"{SMEM_LIMIT_BYTES}-byte limit of one block"
     )
 
 
+def _route(what: str, p: int, n: int, whole_bytes, tiled_bytes, tc_low: int,
+           tc_high: int = TC_MAX_P, tiles: tuple[int, ...] = _TILE_NS,
+           fallback: tuple[int, ...] = ()) -> tuple[str, int]:
+    """Whole when one matrix fits a block; else the tensor-core kernel for
+    ``tc_low <= p <= tc_high``; else the large route for p > ``TC_MAX_P``;
+    else :func:`_plan`'s tile (every p <= ``TC_MAX_P`` has one)."""
+    if whole_bytes(p, n) > SMEM_LIMIT_BYTES:
+        if tc_low <= p <= tc_high:
+            return "tc", 0
+        if p > TC_MAX_P:
+            return "large", 0
+    return _plan(what, p, n, whole_bytes, tiled_bytes, tiles, fallback)
+
+
 def plan(p: int, n: int, method: str = "pogo") -> tuple[str, int]:
-    """``("whole", 0)``, ``("tc", 0)`` or ``("tiled", tile_n)`` of the fused
-    group step: whole when one matrix fits a block, else the tensor-core
-    kernel for ``TC_MIN_P`` (``LANDING_TC_MIN_P`` for ``method="landing"``)
-    ``<= p <= TC_MAX_P``, else the CUDA-core tiled kernel."""
+    """``("whole", 0)``, ``("tc", 0)``, ``("tiled", tile_n)`` or
+    ``("large", 0)`` of the fused group step: whole when one matrix fits a
+    block, else the tensor-core kernel for ``TC_MIN_P``
+    (``LANDING_TC_MIN_P`` for ``method="landing"``) ``<= p <= TC_MAX_P``,
+    else the large route for p > ``TC_MAX_P``, else the CUDA-core tiled
+    kernel."""
     low = LANDING_TC_MIN_P if method == "landing" else TC_MIN_P
-    if whole_smem_bytes(p, n) > SMEM_LIMIT_BYTES and low <= p <= TC_MAX_P:
-        return "tc", 0
-    return _plan("fused group step", p, n, whole_smem_bytes, tiled_smem_bytes,
-                 _FUSED_TILE_NS)
+    return _route("fused group step", p, n, whole_smem_bytes, tiled_smem_bytes, low,
+                  tiles=_FUSED_TILE_NS)
 
 
 def two_stage_tile_n(p: int, tiled_bytes) -> int | None:
@@ -307,47 +335,48 @@ def two_stage_tile_n(p: int, tiled_bytes) -> int | None:
 
 
 def plan_pogo_update(p: int, n: int) -> tuple[str, int]:
-    """``("whole", 0)``, ``("tc", 0)`` or ``("tiled", tile_n)`` of the POGO
-    update."""
-    if pogo_whole_smem_bytes(p, n) > SMEM_LIMIT_BYTES and TC_MIN_P <= p <= TC_MAX_P:
-        return "tc", 0
-    return _plan("pogo update", p, n, pogo_whole_smem_bytes, pogo_tiled_smem_bytes,
-                 fallback=_TWO_STAGE_FALLBACK)
+    """``("whole", 0)``, ``("tc", 0)``, ``("tiled", tile_n)`` or
+    ``("large", 0)`` of the POGO update (:func:`_route`)."""
+    return _route("pogo update", p, n, pogo_whole_smem_bytes, pogo_tiled_smem_bytes,
+                  TC_MIN_P, fallback=_TWO_STAGE_FALLBACK)
 
 
 def plan_landing_field(p: int, n: int) -> tuple[str, int]:
-    """``("whole", 0)``, ``("tc", 0)`` or ``("tiled", tile_n)`` of the
-    landing field."""
-    if (landing_whole_smem_bytes(p, n) > SMEM_LIMIT_BYTES
-            and LANDING_FIELD_TC_MIN_P <= p <= TC_MAX_P):
-        return "tc", 0
-    return _plan("landing field", p, n, landing_whole_smem_bytes,
-                 landing_tiled_smem_bytes, fallback=_TWO_STAGE_FALLBACK)
+    """``("whole", 0)``, ``("tc", 0)``, ``("tiled", tile_n)`` or
+    ``("large", 0)`` of the landing field (:func:`_route`; past p = 128 the
+    large route, although the CUDA-core tiled kernel's grams fit a block up
+    to p ~ 160: the readings beside ``NS_TC_MAX_P``)."""
+    return _route("landing field", p, n, landing_whole_smem_bytes,
+                  landing_tiled_smem_bytes, LANDING_FIELD_TC_MIN_P,
+                  fallback=_TWO_STAGE_FALLBACK)
 
 
 def plan_tp(what: str, p: int, tiled_bytes) -> int:
     """Column tile of a TP kernel: the one that lets the most blocks share
-    an SM, the widest of those; a ``ValueError`` when even the narrowest
-    does not fit."""
+    an SM, the widest of those; a ``ValueError`` naming its ROADMAP entry
+    when even the narrowest does not fit (the TP schedule has no large
+    route yet)."""
     tile = _best_tile(p, tiled_bytes, _TP_BLOCKS_PER_SM)
     if tile is None:
         raise ValueError(
             f"{what}: p={p} needs {tiled_bytes(p, _TILE_NS[-1])} bytes of shared "
             f"memory for its (p, p) grams and tiles, over the {SMEM_LIMIT_BYTES}-"
-            "byte limit of one block; large-p groups are not ported yet"
+            "byte limit of one block; the TP step at large p is not ported yet "
+            "(ROADMAP: sharded schedules (large p))"
         )
     return tile
 
 
 def plan_newton_schulz(p: int, n: int) -> tuple[str, int]:
-    """``("whole", 0)``, ``("tc", 0)`` or ``("tiled", tile_n)`` of
-    Newton-Schulz: whole when one matrix fits a block, else the tensor-core
+    """``("whole", 0)``, ``("tc", 0)``, ``("tiled", tile_n)`` or
+    ``("large", 0)`` of Newton-Schulz (:func:`_route`): the tensor-core
     kernel for ``NS_TC_MIN_P <= p <= NS_TC_MAX_P`` when n fits a cluster
-    (``ns_tc_cluster``), else the CUDA-core tiled kernel."""
-    if (ns_whole_smem_bytes(p, n) > SMEM_LIMIT_BYTES and NS_TC_MIN_P <= p <= NS_TC_MAX_P
-            and ns_tc_cluster(n)):
-        return "tc", 0
-    return _plan("newton-schulz", p, n, ns_whole_smem_bytes, ns_tiled_smem_bytes)
+    (``ns_tc_cluster``); past p = 128 the large route, although the
+    CUDA-core tiled kernel's grams fit a block up to p = 136 (the readings
+    beside ``NS_TC_MAX_P``)."""
+    tc_high = NS_TC_MAX_P if ns_tc_cluster(n) else 0
+    return _route("newton-schulz", p, n, ns_whole_smem_bytes, ns_tiled_smem_bytes,
+                  NS_TC_MIN_P, tc_high)
 
 
 def pogo_update(x, g, eta, lam=0.5, *, find_root: bool = False,
@@ -373,6 +402,8 @@ def pogo_update(x, g, eta, lam=0.5, *, find_root: bool = False,
         return _pu.pogo_update_whole(x, g, eta, lam, inplace=inplace)
     if kind == "tc":
         return _pu.pogo_update_tiled_tc(x, g, eta, lam, inplace=inplace)
+    if kind == "large":
+        return _pu.pogo_update_large(x, g, eta, lam, inplace=inplace)
     return _pu.pogo_update_tiled(x, g, eta, lam, tile_n=tile_n, inplace=inplace)
 
 
@@ -388,6 +419,8 @@ def landing_field(x, g, lam=1.0):
         return _lf.landing_field(x, g, lam)
     if kind == "tc":
         return _lf.landing_field_tiled_tc(x, g, lam)
+    if kind == "large":
+        return _lf.landing_field_large(x, g, lam)
     return _lf.landing_field_tiled(x, g, lam, tile_n=tile_n)
 
 
@@ -423,6 +456,8 @@ def _ns_launch(x, iters, out, mask, dist):
         return _ns.newton_schulz_whole(x, iters, out=out, mask=mask, dist=dist)
     if kind == "tc":
         return _ns.newton_schulz_tc(x, iters, out=out, mask=mask, dist=dist)
+    if kind == "large":
+        return _ns.newton_schulz_large(x, iters, out=out, mask=mask, dist=dist)
     return _ns.newton_schulz_tiled(x, iters, tile_n=tile_n, out=out, mask=mask,
                                    dist=dist)
 
@@ -431,13 +466,14 @@ KERNELS = (_fs.fused_step_whole, _fs.fused_step_tiled,
            _fs.fused_step_whole_landing, _fs.fused_step_tiled_landing,
            _fs.fused_step_tiled_tc, _fs.fused_step_tiled_tc_landing,
            _fs.fused_step_tiled_tc128, _fs.fused_step_tiled_tc128_landing,
+           _fs.fused_step_large, _fs.fused_step_large_landing,
            _tp.tp_gram, _tp.tp_apply, _pu.pogo_update_whole,
            _pu.pogo_update_tiled, _pu.pogo_update_tiled_tc,
-           _pu.pogo_update_tiled_tc128, _lf.landing_field,
+           _pu.pogo_update_tiled_tc128, _pu.pogo_update_large, _lf.landing_field,
            _lf.landing_field_tiled, _lf.landing_field_tiled_tc,
-           _lf.landing_field_tiled_tc128, _ns.newton_schulz_whole,
-           _ns.newton_schulz_tiled, _ns.newton_schulz_tc,
-           _fa.flash_attention_fp32, _fa.flash_attention_tc)
+           _lf.landing_field_tiled_tc128, _lf.landing_field_large,
+           _ns.newton_schulz_whole, _ns.newton_schulz_tiled, _ns.newton_schulz_tc,
+           _ns.newton_schulz_large, _fa.flash_attention_fp32, _fa.flash_attention_tc)
 
 
 def launches() -> dict:
@@ -494,6 +530,8 @@ def fused_group_step(
         return _fs.fused_step_whole(x, g, eta, **kw)
     if kind == "tc":
         return _fs.fused_step_tiled_tc(x, g, eta, **kw)
+    if kind == "large":
+        return _fs.fused_step_large(x, g, eta, **kw)
     return _fs.fused_step_tiled(x, g, eta, tile_n=tile_n, **kw)
 
 

@@ -14,9 +14,12 @@ stage and no telemetry, 3xTF32 ``wgmma`` on TMA-fed 64-column chunks, one
 persistent CTA per SM, the same three sweeps. ``pogo_update_tiled_tc128``
 is the wide kernel's for 64 < p <= 128, sweep 2 once per 64-row half of
 M, whose rows 0..63 wait in a scratch (``fused_step.park``);
-``pogo_update_tiled_tc`` hands p > 64 to it.
+``pogo_update_tiled_tc`` hands p > 64 to it. ``pogo_update_large``
+(``csrc/large_p.cu``) replaces the tiled TPU kernels for p > 128, where
+one matrix's (p, p) grams outgrow a block: the TPU's three phases as
+gram-then-apply launches, the grams between them in HBM and L2.
 
-All three take a ``(B, p, n)`` fp32 stack ``x`` and transformed gradient ``g``
+All of them take a ``(B, p, n)`` fp32 stack ``x`` and transformed gradient ``g``
 and return ``X' = (1 + lam) M - lam (M M^T) M`` with ``M = X - eta/2
 (X X^T G - X G^T X)``. On a CPU tensor they run the plain version
 ``ref.pogo_update_ref``; on a CUDA tensor they check the operands, launch
@@ -29,12 +32,13 @@ ones its library.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
 import torch
 
-from . import build, fused_step, ref
+from . import build, fused_step, large_p, ref
 from .fused_step import check_operand
 
 _P = ctypes.c_void_p
@@ -72,25 +76,36 @@ def _scal(eta: float, lam: float, device: torch.device) -> torch.Tensor:
                         device=device)
 
 
+def scalars(eta, lam, device) -> torch.Tensor:
+    """:func:`_scal`'s vector for this call: ``eta`` a Python number, or a
+    learning rate already on the card (one device op, no copy)."""
+    if isinstance(eta, (int, float)):
+        return _scal(float(eta), float(lam), device)
+    eta = torch.as_tensor(eta, dtype=torch.float32, device=device).reshape(1)
+    return torch.cat((eta, _scal(0.0, float(lam), device)[1:]))
+
+
+def check_operands(x, g, out):
+    """The two-stage kernels' operand checks: fp32 ``(B, p, n)`` stacks on
+    x's device, contiguous, ``out`` not ``g``."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be a (B, p, n) stack, got {tuple(x.shape)}")
+    for name, t in (("x", x), ("g", g), ("out", out)):
+        check_operand(name, t, tuple(x.shape), torch.float32, x.device)
+    if out.data_ptr() == g.data_ptr():
+        raise ValueError("out must not alias g")
+
+
 def launch(entry: str, x, g, eta, lam, out, *extra, lib=lib) -> torch.Tensor:
     """Launch ``entry`` of ``lib()`` (``two_stage.cu``, or the two-stage
     entries of ``fused_step_tc.cu``) on CUDA tensors: ``out`` gets the
     result (it may be ``x``, never ``g``)."""
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    if x.dim() != 3:
-        raise ValueError(f"x must be a (B, p, n) stack, got {tuple(x.shape)}")
+    check_operands(x, g, out)
     dev = x.device
     shape = tuple(x.shape)
-    for name, t in (("x", x), ("g", g), ("out", out)):
-        check_operand(name, t, shape, torch.float32, dev)
-    if out.data_ptr() == g.data_ptr():
-        raise ValueError("out must not alias g")
-    if isinstance(eta, (int, float)):
-        scal = _scal(float(eta), float(lam), dev)
-    else:  # a learning rate already on the card: one device op, no copy
-        eta = torch.as_tensor(eta, dtype=torch.float32, device=dev).reshape(1)
-        scal = torch.cat((eta, _scal(0.0, float(lam), dev)[1:]))
+    scal = scalars(eta, lam, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib(), entry)(x.data_ptr(), g.data_ptr(), scal.data_ptr(),
@@ -161,7 +176,26 @@ def pogo_update_tiled_tc128(x, g, eta, lam, *, inplace=False):
     return out
 
 
+def pogo_update_large(x, g, eta, lam, *, inplace=False, runner=None):
+    """The POGO update for p > 128 (``csrc/large_p.cu``): A and BT, M into
+    a scratch, C, then X', each a gram or an apply spread over many blocks
+    (``large_p.pogo_update``). ``runner`` (a ``large_p.Runner``) launches
+    elsewhere than on x's card: the CPU tests' emulated build."""
+    if runner is None and x.device.type == "cpu":
+        return _update(None, x, g, eta, lam, inplace)
+    if runner is None and x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    out = x if inplace else torch.empty_like(x)
+    check_operands(x, g, out)
+    with torch.cuda.device(x.device) if x.is_cuda else contextlib.nullcontext():
+        large_p.pogo_update(runner or large_p.runner(x), x, g,
+                            scalars(eta, lam, x.device), out)
+    pogo_update_large.launches += 1
+    return out
+
+
 pogo_update_whole.launches = 0
 pogo_update_tiled.launches = 0
 pogo_update_tiled_tc.launches = 0
 pogo_update_tiled_tc128.launches = 0
+pogo_update_large.launches = 0

@@ -297,8 +297,11 @@ def test_wide_tensor_core_block_fits_one_sm(p):
 
 
 def test_planner_raises_for_large_p():
-    with pytest.raises(ValueError, match=r"p=256 .*232448"):
-        tops.plan(256, 4096)
+    """p = 256 takes the large route (``csrc/large_p.cu``); only the TP
+    schedule still refuses it, naming its ROADMAP entry."""
+    assert tops.plan(256, 4096) == ("large", 0)
+    with pytest.raises(ValueError, match=r"p=256 .*232448.*sharded schedules \(large p\)"):
+        tops.plan_tp("tp_apply", 256, tops.tp_apply_smem_bytes)
 
 
 def test_cuda_entry_points_raise_without_a_card():

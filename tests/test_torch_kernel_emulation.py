@@ -6,8 +6,10 @@ No ``nvcc`` is needed: ``tests/cuda_emu/harness.cpp`` (POGO) and
 ``src/repro_torch/kernels/csrc/fused_step.cu``, ``two_stage.cu``,
 ``newton_schulz.cu`` and ``newton_schulz_tc.cu``, ``tp_step.cu`` and
 (``flash_harness.cpp``) ``flash_attention.cu`` (fp32) and
-``flash_attention_tc.cu`` (bf16), and (``tc_harness.cpp``)
-``fused_step_tc.cu``, its fused step and its two-stage entries, with
+``flash_attention_tc.cu`` (bf16), (``tc_harness.cpp``)
+``fused_step_tc.cu``, its fused step and its two-stage entries, and
+(``large_p_harness.cpp``, a shared library that the wrappers' own phases
+drive through ``kernels/large_p.py``) ``large_p.cu``, with
 the host C++ compiler against ``tests/cuda_emu/cuda_runtime.h``, which
 runs each block as threads (256, or the launch's count) with
 ``std::barrier`` for ``__syncthreads`` (the blocks of a thread block
@@ -28,44 +30,32 @@ tiled (fp32 sums in another order); for the TP kernels the fused tiled
 tolerance, with rtol 1e-4 covering the payload's sum of squares (a sum of
 p n squares in another order). The tensor-core fused step takes the
 tiled tolerance (3xTF32 products are within ~2^-21 of fp32's), its
-two-stage entries the two-stage tiled one. The
+two-stage entries the two-stage tiled one; the large route's entries
+take their tiled counterparts' (Newton-Schulz its own). The
 flash-attention kernel takes
 ``tests/test_flash_kernel.py``'s fp32 tolerance, atol 2e-5 / rtol 1e-4,
 and in bf16 one output ulp (both sides round an fp32 result once).
 """
 
-import shutil
 import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+from _cuda_emu import compile_harness as _compile
+from _cuda_emu import large_p_library
 
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import fused_step as tfs
+from repro_torch.kernels import landing_field as tlf
+from repro_torch.kernels import large_p as tlp
+from repro_torch.kernels import newton_schulz as tns
+from repro_torch.kernels import pogo_update as tpu
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import tp_step as ttp
 
-ROOT = Path(__file__).resolve().parents[1]
-EMU = ROOT / "tests" / "cuda_emu"
-CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 TOL = dict(atol=3e-5, rtol=1e-4)
 KINDS = {"none": 0, "trace": 1, "vadam": 2}
-
-
-def _compile(tmp_path_factory, source):
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("needs a host C++20 compiler")
-    out = tmp_path_factory.mktemp("cuda_emu") / source.removesuffix(".cpp")
-    res = subprocess.run(
-        [cxx, "-std=c++20", "-O1", "-pthread", f"-I{EMU}", f"-I{CSRC}",
-         "-o", str(out), str(EMU / source)],
-        capture_output=True, text=True,
-    )
-    assert res.returncode == 0, res.stderr
-    return out
 
 
 @pytest.fixture(scope="module")
@@ -581,3 +571,120 @@ def test_flash_kernel_emulated(flash_harness, tmp_path, shape, sk, causal, windo
         np.testing.assert_allclose(got, want, atol=1e-6, rtol=1 / 64)
     else:
         np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
+
+
+# ------------------------------------------------------------- large p
+#
+# large_p.cu built as a shared library (large_p_harness.cpp) and driven
+# through the wrappers' own phases (kernels/large_p.py) with a Runner on
+# CPU tensors: the launchers, the grid, the n-slices and their fixed-order
+# sum, the scratch buffers and the in-place paths all run as on the card.
+# Emulated blocks run one after another, so a block that wrote over an
+# operand another block still reads would show as a wrong answer. p = 136
+# and 130 leave a ragged last 64-row tile; n = 200 a ragged last chunk;
+# n = 201 (n % 4 != 0) the scalar loads; 64 emulated SMs split n = 256
+# into slices of 64 columns.
+
+
+@pytest.fixture(scope="module")
+def large_lib(tmp_path_factory):
+    return large_p_library(tmp_path_factory)
+
+
+def _large_operands(shape, seed, off_manifold=0.0):
+    rng = np.random.default_rng(seed)
+    b, p, n = shape
+    q, _ = np.linalg.qr(rng.standard_normal((b, n, p)))
+    x = np.swapaxes(q, -1, -2) + off_manifold * rng.standard_normal(shape)
+    arrs = (x, 0.2 * rng.standard_normal(shape), 0.1 * rng.standard_normal(shape),
+            np.abs(rng.standard_normal(b)))
+    return [torch.from_numpy(np.ascontiguousarray(a, np.float32)) for a in arrs]
+
+
+LARGE_CASES = [  # (shape, base, hyper, emulated SMs, CUDA launches: POGO, Landing)
+    ((2, 136, 200), "vadam", (0.9, 0.999, 1e-8), 2, (4, 3)),
+    ((1, 130, 201), "trace", (0.5, True), 2, (4, 3)),
+    ((2, 136, 256), "trace", (0.9, False), 64, (6, 5)),  # both grams in 4 n-slices
+]
+
+
+@pytest.mark.parametrize("method", ["pogo", "landing"])
+@pytest.mark.parametrize("shape,base_kind,hyper,sms,launches", LARGE_CASES)
+def test_large_fused_step_emulated(large_lib, method, shape, base_kind, hyper, sms,
+                                   launches):
+    """``fused_step_large`` against ``ref.fused_group_step_ref`` at the
+    fused tiled tolerance."""
+    run = tlp.Runner(large_lib, None, sms, min_slice=64)
+    x, g, mu, nu = _large_operands(shape, 0, 0.01 if method == "landing" else 0.0)
+    kw = dict(method=method, lam=1.0 if method == "landing" else 0.5,
+              base_kind=base_kind, hyper=hyper, mu=mu, nu=nu if base_kind == "vadam" else None,
+              count=torch.tensor(3, dtype=torch.int32))
+    got = tfs.fused_step_large(x, g, 0.1, runner=run, **kw)
+    assert run.launches == launches[method == "landing"]
+    want = tref.fused_group_step_ref(x, g, 0.1, **kw)
+    for name, a, w in zip(("x", "mu", "nu", "dist"), got[:4], want[:4]):
+        if w is not None:
+            np.testing.assert_allclose(a.numpy(), w.numpy(), err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("method", ["pogo", "landing"])
+def test_large_fused_step_emulated_in_place_ragged(large_lib, method):
+    """X', mu' and nu' over X, mu and nu, zero-padded rows masked per
+    matrix (pv), one matrix with none."""
+    shape = (4, 136, 150)
+    x, g, mu, nu = _large_operands(shape, 1)
+    pv = [136, 70, 1, 0]
+    rows = np.arange(136)[None, :, None] < np.asarray(pv)[:, None, None]
+    x, g, mu = (torch.where(torch.from_numpy(rows), a, 0.0) for a in (x, g, mu))
+    kw = dict(method=method, lam=0.5, base_kind="vadam", hyper=(0.9, 0.999, 1e-8), mu=mu,
+              nu=nu, count=torch.tensor(3, dtype=torch.int32),
+              pv=torch.tensor(pv, dtype=torch.int32))
+    want = tref.fused_group_step_ref(x.clone(), g, 0.1, **{**kw, "mu": mu.clone(),
+                                                           "nu": nu.clone()})
+    got = tfs.fused_step_large(x, g, 0.1, inplace=True,
+                               runner=tlp.Runner(large_lib, None, 2), **kw)
+    assert got[0] is x and got[1] is mu and got[2] is nu
+    for name, a, w in zip(("x", "mu", "nu", "dist"), got[:4], want[:4]):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("shape,sms,inplace", [((2, 136, 200), 2, True),
+                                               ((1, 130, 201), 2, False),
+                                               ((1, 136, 256), 64, False)])
+def test_large_two_stage_emulated(large_lib, shape, sms, inplace):
+    """``pogo_update_large`` (X' over X when ``inplace``: M waits in a
+    scratch) and ``landing_field_large`` at the two-stage tiled
+    tolerance."""
+    run = tlp.Runner(large_lib, None, sms, min_slice=64)
+    x, g, _, _ = _large_operands(shape, 2, 0.01)
+    want_u = tref.pogo_update_ref(x, g, 0.1, 0.5)
+    want_f = tref.landing_field_ref(x, g, 1.0)
+    got_f = tlf.landing_field_large(x, g, 1.0, runner=run)
+    got_u = tpu.pogo_update_large(x, g, 0.1, 0.5, inplace=inplace, runner=run)
+    assert (got_u is x) == inplace
+    for got, want in ((got_u, want_u), (got_f, want_f)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape,iters,sms,masked", [((3, 136, 200), 4, 2, True),
+                                                    ((2, 130, 201), 3, 64, False)])
+def test_large_newton_schulz_emulated(large_lib, shape, iters, sms, masked):
+    """``newton_schulz_large`` in place over the watchdog's drift, at the
+    Newton-Schulz tolerance: every other matrix masked off (bit-unchanged,
+    distance too), or an odd count of iterations (the first writes x
+    itself, from a copy)."""
+    b = shape[0]
+    rng = np.random.default_rng(3)
+    x = _large_operands(shape, 3)[0]
+    x = 1.5 * x + torch.from_numpy(0.05 * rng.standard_normal(shape).astype(np.float32))
+    mask = torch.arange(b) % 2 == 0 if masked else None
+    dist = torch.from_numpy(rng.uniform(1.0, 2.0, b).astype(np.float32))
+    x0, d0 = x.clone(), dist.clone()
+    tns.newton_schulz_large(x, iters, out=x, mask=mask, dist=dist,
+                            runner=tlp.Runner(large_lib, None, sms, min_slice=64))
+    on = mask if masked else torch.ones(b, dtype=torch.bool)
+    want = tref.newton_schulz_ref(x0, iters)
+    np.testing.assert_allclose(x[on].numpy(), want[on].numpy(), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(dist[on].numpy(), tref.manifold_distance_ref(want[on]).numpy(),
+                               atol=1e-5, rtol=1e-3)
+    assert torch.equal(x[~on], x0[~on]) and torch.equal(dist[~on], d0[~on])

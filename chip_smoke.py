@@ -20,9 +20,10 @@ landing field; 3 steps each), and at the paper's own sizes for p > 128
 (``src/repro/configs/pogo_paper.py``): its six orthogonal CNN filters, as
 (1, p, n) leaves (a step runs the whole kernel at (64, 216), the
 tensor-core kernel at (64, 576), its wide form at (128, 1152) and the
-large route of ``large_p.cu``, gram-then-apply launches, at the three
-(256, 2304) filters), and O-ViT's 18 x (1024, 1024) (the large route);
-3 steps each:
+large route of ``large_p.cu``, gram-then-apply launches on the tensor
+cores, at the three (256, 2304) filters), O-ViT's 18 x (1024, 1024) (the
+same route), and a stack at n % 4 != 0, ``LARGE_ODD`` (the large route on
+the CUDA cores, where TMA cannot take the row stride); 3 steps each:
 
 * the fused group step, ``orthogonal("pogo", use_kernel=True,
   base_optimizer=chain(trace(0.9)))``;
@@ -40,23 +41,29 @@ large route of ``large_p.cu``, gram-then-apply launches, at the three
   after a 1.5x drift, which must repair every matrix: at SmolLM's q/k
   (the tensor-core Newton-Schulz kernel of ``newton_schulz_tc.cu``, one
   thread block cluster a matrix), at internlm2-1.8b's (its CUDA-core
-  tiled kernel) and at the CNN filters' 3 x (256, 2304) and O-ViT's 18 x
-  (1024, 1024) (the large route's Landing and Newton-Schulz).
+  tiled kernel) and at the CNN filters' 3 x (256, 2304), O-ViT's 18 x
+  (1024, 1024) (the large route's Landing and Newton-Schulz on the tensor
+  cores) and ``LARGE_ODD`` (on the CUDA cores).
 
 Each path's kernels, as the planners of ``kernels/ops.py`` pick them for
 its groups, must launch once per group and step, its first step must
 agree with the plain route, and its feasibility must hold. The
 tensor-core kernels (the wide ones at 576 x (128, 2048)) and the large
-route's entries (at both paper sizes) are launched 20 times each on the
-same inputs, half of them beside a copy on another stream, and must
-repeat bit for bit, and so must the tensor-core Newton-Schulz kernel.
-The large route's entries are held against their plain versions and
-timed at both paper sizes in the phases of their functions' other
-kernels; the CUDA-core tiled kernels whose grams still fit a block past
-p = 128 are timed beside them (the crossovers behind the planner's rule).
-The Newton-Schulz kernels are held against their plain version with half
-the matrices masked off, and timed beside the repair launch that finds
-no matrix past the threshold. The tensor-parallel step: its two kernels against their plain
+route's entries (on the tensor cores at both paper sizes, on the CUDA
+cores at ``LARGE_ODD``) are launched 20 times each on the same inputs,
+half of them beside a copy on another stream, and must repeat bit for
+bit, and so must the tensor-core Newton-Schulz kernel. The large route's
+entries are held against their plain versions and timed at both paper
+sizes in the phases of their functions' other kernels, the tensor cores'
+in turns with the CUDA cores' (their route there before PR 22); the
+CUDA-core tiled kernels whose grams still fit a block past p = 128 are
+timed beside both (the crossovers behind the planner's rule), and the
+tensor-core large Newton-Schulz beside row 9's tiled kernel at 576 x
+(128, 2048), on the drift step and idle. The Newton-Schulz kernels are
+held against their plain version with half the matrices masked off, and
+timed beside the repair launch that finds no matrix past the threshold
+(the CUDA-core large route's also as its Python loop issued it before
+its iterations moved into one C call). The tensor-parallel step: its two kernels against their plain
 versions at a rank's share of the q/k stack at width 2, 640 x (64, 480),
 and of the many-matrices stack, 2048 x (16, 128); its single-device
 schedule (four shards of 640 x (64, 960)) against the unsharded fused
@@ -151,8 +158,11 @@ CNN = {f"conv{i}": (1, p, n) for i, (p, n) in enumerate(CNN_FILTERS)}
 CNN_SHAPE = (3, 256, 2304)
 OVIT = {"ovit": (18, 1024, 1024)}
 OVIT_SHAPE = (18, 1024, 1024)
-# The large route's checks at n % 4 != 0 (scalar loads), ragged 64-row tiles
+# The large route at n % 4 != 0 (a row stride TMA cannot take: the CUDA-core
+# kernels, scalar loads, ragged 64-row tiles), and the tensor-core route's
+# ragged case (p = 200 pads to 256, n to a last partial 128-column block).
 LARGE_ODD = (5, 200, 901)
+LARGE_TC_RAGGED = (5, 200, 904)
 # kernel -> (its source, the TPU kernel it replaces)
 KERNELS = {
     "fused_step_whole": ("fused_step", "src/repro/kernels/fused_step.py:175"),
@@ -182,6 +192,11 @@ KERNELS = {
     "pogo_update_large": ("large_p", "src/repro/kernels/pogo_update.py:143"),
     "landing_field_large": ("large_p", "src/repro/kernels/landing_field.py:79"),
     "newton_schulz_large": ("large_p", "src/repro/kernels/newton_schulz.py:37"),
+    "fused_step_large_tc": ("large_p", "src/repro/kernels/fused_step.py:608"),
+    "fused_step_large_tc_landing": ("large_p", "src/repro/kernels/fused_step.py:559"),
+    "pogo_update_large_tc": ("large_p", "src/repro/kernels/pogo_update.py:143"),
+    "landing_field_large_tc": ("large_p", "src/repro/kernels/landing_field.py:79"),
+    "newton_schulz_large_tc": ("large_p", "src/repro/kernels/newton_schulz.py:37"),
 }
 LANDING_LR = 0.25  # fixed-step Landing: max distance 7e-5 over 12 CPU steps
 # POGO over Adam's distance is ||X X^T - I||_F formed directly in fp32 (the
@@ -412,9 +427,11 @@ def phase_fused_kernels(gen):
     kernels at the paper's 1048 x (10, 10000) (their main path: trace
     first, the planner's tile) and at 576 x (128, 2048) and 640 x (64,
     960), where they ran before the tensor-core kernels (checked here, and
-    timed beside them), and the large route (p > 128) at the paper's CNN
-    filters 3 x (256, 2304) (every base, in place) and O-ViT 18 x (1024,
-    1024), with ragged rows at ``LARGE_ODD``. Each (kernel, shape) is timed
+    timed beside them), and the large route (p > 128): on the tensor cores
+    at the paper's CNN filters 3 x (256, 2304) (every base, in place) and
+    O-ViT 18 x (1024, 1024), ragged rows at ``LARGE_TC_RAGGED``, each timed
+    beside the CUDA cores' large route (checked here too); on the CUDA
+    cores at ``LARGE_ODD`` (n % 4 != 0). Each (kernel, shape) is timed
     at its first case that the planner picks it for; the first shape timed
     gives the kernel's record, later ones its ``by_shape``. Each output's
     error is printed apart: X', mu', nu' and the distance."""
@@ -467,14 +484,18 @@ def phase_fused_kernels(gen):
         ("fused_step_tiled_landing", WIDE_SHAPE, "vadam", (0.9, 0.999, 1e-8), ""),
         ("fused_step_tiled_landing", tc_shape, "trace", (0.1, False), ""),
     ]
-    for name, main in (("fused_step_large", ("trace", (0.9, False))),
-                       ("fused_step_large_landing", ("trace", (0.1, False)))):
-        cases += [(name, CNN_SHAPE, *main, ""),
+    for cc, main in (("fused_step_large", ("trace", (0.9, False))),
+                     ("fused_step_large_landing", ("trace", (0.1, False)))):
+        name = cc.replace("large", "large_tc")
+        cases += [(cc, LARGE_ODD, *main, ""),  # n % 4 != 0: the CUDA cores' main path
+                  (cc, LARGE_ODD, "vadam", (0.9, 0.999, 1e-8), "in place"),
+                  (cc, LARGE_ODD, "trace", (0.9, False), "ragged"),
+                  (name, CNN_SHAPE, *main, ""),
                   (name, CNN_SHAPE, "vadam", (0.9, 0.999, 1e-8), ""),
                   (name, CNN_SHAPE, "trace", (0.5, True), ""),
                   (name, CNN_SHAPE, "none", (), ""),
                   (name, CNN_SHAPE, "vadam", (0.9, 0.999, 1e-8), "in place"),
-                  (name, LARGE_ODD, "trace", (0.9, False), "ragged"),
+                  (name, LARGE_TC_RAGGED, "trace", (0.9, False), "ragged"),
                   (name, OVIT_SHAPE, *main, ""),
                   (name, OVIT_SHAPE, "vadam", (0.9, 0.999, 1e-8), "in place")]
     records = {}
@@ -498,7 +519,8 @@ def phase_fused_kernels(gen):
         entry = name.removesuffix("_landing")
         planned = {"whole": "fused_step_whole",
                    "tc": "fused_step_tiled_tc" if p <= 64 else "fused_step_tiled_tc128",
-                   "tiled": "fused_step_tiled", "large": "fused_step_large"}[kind]
+                   "tiled": "fused_step_tiled", "large": "fused_step_large",
+                   "large_tc": "fused_step_large_tc"}[kind]
         if entry == "fused_step_tiled" and kind == "tc":
             tile_n = ops.tiled_tile_n(p)  # where it ran before the tensor-core kernel
         elif planned != entry:
@@ -528,15 +550,24 @@ def phase_fused_kernels(gen):
             raise SystemExit(f"{name} disagrees with its plain version")
         if not variant and planned == entry and (name, (b, p, n)) not in timed_at:
             timed_at.add((name, (b, p, n)))
-            tc = "_tc" in name
+            tc = kind == "tc"
             timed = [(lambda: ref.fused_group_step_ref(x, g, LR, **kw), 10),
                      (lambda: wrapper(x, g, LR, **kw), 20)]
             if tc:  # the CUDA-core tiled kernel at the same call
                 timed.append((lambda: fs.fused_step_tiled(
                     x, g, LR, tile_n=ops.tiled_tile_n(p), **kw), 20))
+            elif kind == "large_tc":  # the CUDA-core large route, its route before
+                cc_got = fs.fused_step_large(x, g, LR, **kw)
+                torch.cuda.synchronize()
+                cc_err, _, cc_ok = _errors(cc_got, want, tol)
+                if not cc_ok:
+                    raise SystemExit(f"fused_step_large at {(b, p, n)} disagrees")
+                del cc_got
+                timed.append((lambda: fs.fused_step_large(x, g, LR, **kw), 20))
             times = _time_rotating(timed)
             plain_ms, ms = times[:2]
-            bound_ms, bound_by = _bound(b, p, n, base, method, pieces=3 if tc else 0)
+            bound_ms, bound_by = _bound(b, p, n, base, method,
+                                        pieces=3 if kind in ("tc", "large_tc") else 0)
             flops = FUSED_FLOPS[method] * p * p * n * b
             extra = f"; 3xTF32 tensor work {1e3 * 3 * flops / TF32_TC_FLOP_PER_S:.4f}"
             if tc:  # the sweeps' HBM passes (the wide kernel's pass 2 runs twice)
@@ -545,10 +576,17 @@ def phase_fused_kernels(gen):
                 extra += (f"; the schedule's {passes} passes {floor_ms:.4f}; fp32 CUDA cores "
                           f"{1e3 * flops / FP32_FLOP_PER_S:.4f}; the CUDA-core tiled kernel "
                           f"at this call {times[2]:.4f} ms")
-            elif kind == "large":  # its launches, the n-slices' sums included
+            elif kind in ("large", "large_tc"):  # its launches, the slices' sums included
                 run = large_p.runner(x)
                 wrapper(x, g, LR, runner=run, **kw)
                 extra += f"; CUDA launches of large_p.cu a call {run.launches}"
+            if kind == "large_tc":
+                cc_bound = _bound(b, p, n, base, method)
+                extra += (f"; fp32 CUDA cores {cc_bound[0]:.4f}; the CUDA-core large route "
+                          f"at this call {times[2]:.4f} ms")
+                _record(records, name.replace("_tc", ""), (b, p, n), dict(
+                    max_abs_err=cc_err, ms=times[2], plain_ms=plain_ms,
+                    bound_ms=cc_bound[0], bound_by=cc_bound[1]))
             print(f"  {name} {b}x({p},{n}) tile_n {tile_n} ms {ms:.4f} plain_ms "
                   f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}{extra})", flush=True)
             _record(records, name, (b, p, n), dict(
@@ -561,9 +599,10 @@ def phase_fused_kernels(gen):
 def phase_tc_repeatability(gen, repeats=20):
     """Each tensor-core kernel launched ``repeats`` times on the same inputs
     at 640 x (64, 960) (the wide ones at 576 x (128, 2048); Newton-Schulz
-    on the watchdog's drifted input, half the matrices masked off), and
-    each entry of the large route at the CNN filters' 3 x (256, 2304) (its
-    grams split n into slices there) and O-ViT's 18 x (1024, 1024), every
+    on the watchdog's drifted input, half the matrices masked off), each
+    entry of the large route on the tensor cores at the CNN filters' 3 x
+    (256, 2304) (its grams split n into slices there) and O-ViT's 18 x
+    (1024, 1024), and on the CUDA cores at ``LARGE_ODD``, every
     other launch beside a 1 GiB copy on a second
     stream that takes SMs and HBM from it: every output must equal the first
     launch's bit for bit. The kernels sum in a fixed order, so a difference
@@ -598,14 +637,16 @@ def phase_tc_repeatability(gen, repeats=20):
         if differ:
             raise SystemExit(f"{label} is not repeatable")
 
-    large = (CNN_SHAPE, OVIT_SHAPE)
+    large = (CNN_SHAPE, OVIT_SHAPE)  # the tensor-core large route; the CUDA cores' at LARGE_ODD
     for name, base, hyper, shape in (
             ("fused_step_tiled_tc", "vadam", (0.9, 0.999, 1e-8), (640, 64, 960)),
             ("fused_step_tiled_tc_landing", "trace", (0.1, False), (640, 64, 960)),
             ("fused_step_tiled_tc128", "vadam", (0.9, 0.999, 1e-8), WIDE_SHAPE),
             ("fused_step_tiled_tc128_landing", "trace", (0.1, False), WIDE_SHAPE),
             *((name, "vadam", (0.9, 0.999, 1e-8), shape) for shape in large
-              for name in ("fused_step_large", "fused_step_large_landing"))):
+              for name in ("fused_step_large_tc", "fused_step_large_tc_landing")),
+            ("fused_step_large", "vadam", (0.9, 0.999, 1e-8), LARGE_ODD),
+            ("fused_step_large_landing", "vadam", (0.9, 0.999, 1e-8), LARGE_ODD)):
         landing = name.endswith("_landing")
         x, g, mu, nu = _operands(gen, *shape)
         if landing:
@@ -620,8 +661,9 @@ def phase_tc_repeatability(gen, repeats=20):
     for shape, updates in (((640, 64, 960), (pu.pogo_update_tiled_tc, lf.landing_field_tiled_tc)),
                            (WIDE_SHAPE, (pu.pogo_update_tiled_tc128,
                                          lf.landing_field_tiled_tc128)),
-                           *((shape, (pu.pogo_update_large, lf.landing_field_large))
-                             for shape in large)):
+                           *((shape, (pu.pogo_update_large_tc, lf.landing_field_large_tc))
+                             for shape in large),
+                           (LARGE_ODD, (pu.pogo_update_large, lf.landing_field_large))):
         x, g, _, _ = _operands(gen, *shape)
         x += 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
         for update in updates:
@@ -630,7 +672,8 @@ def phase_tc_repeatability(gen, repeats=20):
                    lambda: (update(x, g, *args),))
         del x, g
     for kernel, shape in ((ns.newton_schulz_tc, (640, 64, 960)),
-                          *((ns.newton_schulz_large, shape) for shape in large)):
+                          *((ns.newton_schulz_large_tc, shape) for shape in large),
+                          (ns.newton_schulz_large, LARGE_ODD)):
         # the watchdog's drift (a tenth of it at square matrices, as in
         # phase_newton_schulz), half the matrices masked off
         x = 1.5 * stiefel.random_stiefel(gen, shape, device="cuda")
@@ -651,14 +694,15 @@ def phase_tc_repeatability(gen, repeats=20):
 
 def _tp_bound(name, b, p, n, base_kind="trace", method="pogo"):
     """``tp_gram``: read X, g (and mu), write Gb (and mu'), and the payload
-    row; three p x p x n products (6 p^2 n flops). ``tp_apply``: read X,
+    row; A = X X^T, a symmetric gram (p^2 n flops), and two p x p x n
+    products (5 p^2 n flops). ``tp_apply``: read X,
     Gb and the payload, write X'; three p x p x n products (6 p^2 n) and
     the (p, p) algebra, 20 p^3 flops for POGO (10 products) and 26 p^3 for
     Landing (13)."""
     k = 3 * p * p + (base_kind == "vadam")
     if name == "tp_gram":
         passes = 5 if base_kind != "none" else 3
-        return _bound_ms((passes * p * n + k) * b * 4, 6 * p * p * n * b)
+        return _bound_ms((passes * p * n + k) * b * 4, 5 * p * p * n * b)
     p3 = 20 if method == "pogo" else 26
     return _bound_ms((3 * p * n + k) * b * 4, (6 * p * p * n + p3 * p ** 3) * b)
 
@@ -739,9 +783,12 @@ def phase_two_stage_kernels(gen):
     beside the CUDA-core tiled kernel, their route there before, checked at
     the same call: the field at tile 64, POGO's update at tile 16), the
     CUDA-core tiled kernels at the paper's 1048 x (10, 10000), the large
-    route at the CNN filters' 3 x (256, 2304) and O-ViT's 18 x (1024, 1024)
-    (both timed). Then every kernel at a ragged shape, 7 x (10, 250) (the
-    wide ones at 7 x (100, 250), the large ones at ``LARGE_ODD``), the
+    route on the tensor cores at the CNN filters' 3 x (256, 2304) and
+    O-ViT's 18 x (1024, 1024) (both timed, each beside the CUDA cores'
+    large route, checked at the same call) and on the CUDA cores at
+    ``LARGE_ODD``. Then every kernel at a ragged shape, 7 x (10, 250) (the
+    wide ones at 7 x (100, 250), the large ones at (3, 136, 203) and
+    ``LARGE_TC_RAGGED``), the
     tensor-core entries also at 7 x (64, 250) (plain loads), POGO's in
     place and with a learning rate held on the card (bit for bit the host
     value's result). X is a Stiefel draw plus 0.01 randn, and each check
@@ -757,20 +804,23 @@ def phase_two_stage_kernels(gen):
             "pogo_update_tiled_tc": tc_shape, "landing_field_tiled_tc": tc_shape,
             "pogo_update_tiled_tc128": WIDE_SHAPE, "landing_field_tiled_tc128": WIDE_SHAPE,
             "pogo_update_tiled": PAPER_SHAPE, "landing_field_tiled": PAPER_SHAPE,
-            "pogo_update_large": CNN_SHAPE, "landing_field_large": CNN_SHAPE}
-    ragged = {"tc128": (7, 100, 250), "large": LARGE_ODD}
+            "pogo_update_large": LARGE_ODD, "landing_field_large": LARGE_ODD,
+            "pogo_update_large_tc": CNN_SHAPE, "landing_field_large_tc": CNN_SHAPE}
+    ragged = {"tc128": (7, 100, 250), "large": (3, 136, 203), "large_tc": LARGE_TC_RAGGED}
     cases = [(name, shape, "") for name, shape in main.items()]
-    cases += [("pogo_update_large", OVIT_SHAPE, ""), ("landing_field_large", OVIT_SHAPE, "")]
-    cases += [(name, ragged.get(name.rsplit("_", 1)[1], (7, 10, 250)), "ragged")
-              for name in main]
+    cases += [("pogo_update_large_tc", OVIT_SHAPE, ""),
+              ("landing_field_large_tc", OVIT_SHAPE, "")]
+    cases += [(name, ragged.get(name.removeprefix("pogo_update_").removeprefix(
+        "landing_field_").removeprefix("tiled_"), (7, 10, 250)), "ragged") for name in main]
     cases += [("pogo_update_tiled_tc", (7, 64, 250), "ragged"),
               ("landing_field_tiled_tc", (7, 64, 250), "ragged"),
               ("pogo_update_tiled_tc", tc_shape, "in place"),
               ("pogo_update_tiled_tc", tc_shape, "device eta"),
               ("pogo_update_tiled_tc128", WIDE_SHAPE, "in place"),
               ("pogo_update_tiled_tc128", WIDE_SHAPE, "device eta"),
-              ("pogo_update_large", CNN_SHAPE, "in place"),
-              ("pogo_update_large", CNN_SHAPE, "device eta")]
+              ("pogo_update_large", LARGE_ODD, "in place"),
+              ("pogo_update_large_tc", CNN_SHAPE, "in place"),
+              ("pogo_update_large_tc", CNN_SHAPE, "device eta")]
     records = {}
     for name, shape, variant in cases:
         pogo = name.startswith("pogo")
@@ -781,7 +831,8 @@ def phase_two_stage_kernels(gen):
         stem = "pogo_update" if pogo else "landing_field"
         planned = {"whole": "pogo_update_whole" if pogo else "landing_field",
                    "tc": f"{stem}_tiled_tc" + ("128" if p > 64 else ""),
-                   "tiled": f"{stem}_tiled", "large": f"{stem}_large"}[kind]
+                   "tiled": f"{stem}_tiled", "large": f"{stem}_large",
+                   "large_tc": f"{stem}_large_tc"}[kind]
         if planned != name:
             raise SystemExit(f"the planner picks {kind} for ({p}, {n}), not {name}")
         wrapper = getattr(mod, name)
@@ -853,6 +904,14 @@ def phase_two_stage_kernels(gen):
                 raise SystemExit(f"{stem}_tiled at {shape} disagrees")
             timed.append((lambda: run(x, g, wrapper=cc), 20))
             bound_ms, bound_by = _bound_ms(3 * b * p * n * 4, 3 * flops, TF32_TC_FLOP_PER_S)
+        elif kind == "large_tc":  # the CUDA-core large route, its route before
+            cc = getattr(mod, f"{stem}_large")
+            cc_err, _, cc_ok = _errors((run(x, g, wrapper=cc),), (want,), tol)
+            torch.cuda.synchronize()
+            if not cc_ok:
+                raise SystemExit(f"{stem}_large at {shape} disagrees")
+            timed.append((lambda: run(x, g, wrapper=cc), 20))
+            bound_ms, bound_by = _bound_ms(3 * b * p * n * 4, 3 * flops, TF32_TC_FLOP_PER_S)
         else:
             bound_ms, bound_by = _bound_ms(3 * b * p * n * 4, flops)
         times = _time_rotating(timed)
@@ -864,10 +923,17 @@ def phase_two_stage_kernels(gen):
                       f"{1e3 * passes * b * p * n * 4 / HBM_BYTES_PER_S:.4f}; fp32 CUDA cores "
                       f"{1e3 * flops / FP32_FLOP_PER_S:.4f}; the CUDA-core tiled kernel at "
                       f"this call {times[2]:.4f} ms")
-        elif kind == "large":  # its launches, the n-slices' sums included
+        elif kind in ("large", "large_tc"):  # its launches, the slices' sums included
             counted = large_p.runner(x)
             run(x, g, runner=counted)
             extra += f"; CUDA launches of large_p.cu a call {counted.launches}"
+        if kind == "large_tc":
+            cc_bound = _bound_ms(3 * b * p * n * 4, flops)
+            extra += (f"; fp32 CUDA cores {cc_bound[0]:.4f}; the CUDA-core large route at this "
+                      f"call {times[2]:.4f} ms")
+            _record(records, f"{stem}_large", shape, dict(
+                max_abs_err=cc_err, ms=times[2], plain_ms=plain_ms, bound_ms=cc_bound[0],
+                bound_by=cc_bound[1]))
         print(f"  {name} {b}x({p},{n}) ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
               f"{bound_ms:.4f} ({bound_by}{extra})", flush=True)
         _record(records, name, shape, dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
@@ -882,12 +948,13 @@ def phase_newton_schulz(gen):
     matrices masked off (they must come out bit-unchanged, distances too),
     through the planner: at the trainer's 640 x (64, 960) (the tensor-core
     kernel, a cluster of two CTAs a matrix), internlm2-1.8b's 576 x (128,
-    2048) (the CUDA-core tiled kernel), 2048 x (16, 256) (whole), the CNN
-    filters' 3 x (256, 2304) and O-ViT's 18 x (1024, 1024) (the large
-    route), 7 x (10, 250) and ``LARGE_ODD``; then timed unmasked at the
-    others, each beside the repair with no matrix past the threshold (the
-    watchdog's launch on every step), the tensor-core kernel in turns with
-    the tiled kernel at its shape and the plain version. A square matrix
+    2048) (the CUDA-core tiled kernel), 2048 x (16, 256) (whole),
+    ``LARGE_ODD`` (the CUDA cores' large route), the CNN filters' 3 x (256,
+    2304) and O-ViT's 18 x (1024, 1024) (the tensor cores' large route)
+    and 7 x (10, 250); then timed unmasked at the others, each beside the
+    repair with no matrix past the threshold (the watchdog's launch on
+    every step), the tensor-core kernels in turns with the kernel that
+    planned at their shape before and the plain version. A square matrix
     takes a tenth of the noise: 0.05 randn gives a (1024, 1024) one
     singular values near 0, from which 12 iterations after the Frobenius
     prescale do not converge, in the plain version either (an H100 read
@@ -899,24 +966,24 @@ def phase_newton_schulz(gen):
     from repro_torch.kernels import newton_schulz as ns
 
     records = {}
-    counters = (ns.newton_schulz_tc, ns.newton_schulz_large)
-    untimed = ((7, 10, 250), LARGE_ODD)
-    for shape in ((640, 64, 960), WIDE_SHAPE, (2048, 16, 256), CNN_SHAPE, OVIT_SHAPE,
-                  *untimed):
+    counters = (ns.newton_schulz_tc, ns.newton_schulz_large, ns.newton_schulz_large_tc)
+    untimed = ((7, 10, 250),)
+    for shape in ((640, 64, 960), WIDE_SHAPE, (2048, 16, 256), LARGE_ODD, CNN_SHAPE,
+                  OVIT_SHAPE, *untimed):
         b, p, n = shape
         x = 1.5 * stiefel.random_stiefel(gen, shape, device="cuda")
         x += (0.005 if p == n else 0.05) * torch.randn(shape, generator=gen, device="cuda")
         dist = torch.where(torch.arange(b, device="cuda") % 2 == 0, 2.0, 0.0).float()
         x0, d0 = x.clone(), dist.clone()
         kind, tile_n = ops.plan_newton_schulz(p, n)
-        name = {"tc": "newton_schulz_tc", "large": "newton_schulz_large"}.get(
-            kind, "newton_schulz")
+        name = {"tc": "newton_schulz_tc", "large": "newton_schulz_large",
+                "large_tc": "newton_schulz_large_tc"}.get(kind, "newton_schulz")
         before = [c.launches for c in counters]
         rep = ops.newton_schulz_repair(x, dist, torch.tensor(0.1, device="cuda"),
                                        NS_ITERS)
         torch.cuda.synchronize()
-        if [c.launches - k for c, k in zip(counters, before)] != [kind == "tc",
-                                                                  kind == "large"]:
+        if [c.launches - k for c, k in zip(counters, before)] != [
+                kind == "tc", kind == "large", kind == "large_tc"]:
             raise SystemExit(f"newton_schulz {shape}: the planned {kind} kernel did not launch")
         want = ref.newton_schulz_ref(x0[rep], NS_ITERS)
         want_d = ref.manifold_distance_ref(want)
@@ -949,6 +1016,12 @@ def phase_newton_schulz(gen):
             if not ok_cc:
                 raise SystemExit(f"newton_schulz_tiled at {shape} disagrees ({max_cc:.3e})")
             timed.append((lambda: cc(x0, NS_ITERS, out=out), 20))
+        elif kind == "large_tc":  # the CUDA-core large route, its route before
+            max_cc, _, ok_cc = _errors((ns.newton_schulz_large(x0, NS_ITERS),),
+                                       (ref.newton_schulz_ref(x0, NS_ITERS),), NS_TOL)
+            if not ok_cc:
+                raise SystemExit(f"newton_schulz_large at {shape} disagrees ({max_cc:.3e})")
+            timed.append((lambda: ns.newton_schulz_large(x0, NS_ITERS, out=out), 20))
         times = _time_rotating(timed)
         plain_ms, ms = times[:2]
         # Read X, write Y; NS_FLOPS p^2 n an iteration. On the tensor cores
@@ -957,6 +1030,8 @@ def phase_newton_schulz(gen):
         if kind == "tc":
             tc_flops = (2 + 3) * 2 * NS_ITERS * p * p * n * b
             bound_ms, bound_by = _bound_ms(2 * b * p * n * 4, tc_flops, TF32_TC_FLOP_PER_S)
+        elif kind == "large_tc":  # every product 3xTF32
+            bound_ms, bound_by = _bound_ms(2 * b * p * n * 4, 3 * flops, TF32_TC_FLOP_PER_S)
         else:
             bound_ms, bound_by = _bound_ms(2 * b * p * n * 4, flops)
         idle, thresh = torch.zeros(b, device="cuda"), torch.tensor(0.1, device="cuda")
@@ -967,11 +1042,24 @@ def phase_newton_schulz(gen):
             extra = (f"; the CUDA-core tiled kernel at this call {times[2]:.4f} ms (tile "
                      f"{cc_tile}; fp32 CUDA cores {1e3 * flops / FP32_FLOP_PER_S:.4f}), its "
                      f"repair with no matrix past the threshold {idle_cc:.4f} ms")
-        elif kind == "large":  # its launches, the n-slices' sums included
+        elif kind in ("large", "large_tc"):  # its launches, the n-slices' sums included
             counted = large_p.runner(x0)
-            ns.newton_schulz_large(x0, NS_ITERS, out=out, runner=counted)
+            wrapper(x0, NS_ITERS, out=out, runner=counted)
             extra = (f"; 3xTF32 tensor work {1e3 * 3 * flops / TF32_TC_FLOP_PER_S:.4f}; CUDA "
                      f"launches of large_p.cu a call {counted.launches}")
+        if kind == "large_tc":  # the CUDA-core route's repair, from C and from Python
+            y, none = x0.clone(), torch.zeros(b, dtype=torch.bool, device="cuda")
+            idle_cc = _time_ms(lambda: ns.newton_schulz_large(y, NS_ITERS, out=y, mask=none), 20)
+            idle_py = _time_ms(lambda: _ns_python_loop(y, NS_ITERS, none), 20)
+            if not torch.equal(y, x0):
+                raise SystemExit(f"newton_schulz {shape}: an idle repair wrote a matrix")
+            cc_bound = _bound_ms(2 * b * p * n * 4, flops)
+            extra += (f"; fp32 CUDA cores {cc_bound[0]:.4f}; the CUDA-core large route at this "
+                      f"call {times[2]:.4f} ms, its idle repair {idle_cc:.4f} ms (as PR 21's "
+                      f"Python loop issued it: {idle_py:.4f} ms)")
+            _record(records, "newton_schulz_large", shape, dict(
+                max_abs_err=max_cc, ms=times[2], plain_ms=plain_ms, bound_ms=cc_bound[0],
+                bound_by=cc_bound[1]))
         print(f"  newton_schulz_{kind} {b}x({p},{n}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
               f"bound_ms {bound_ms:.4f} ({bound_by}); repair with no matrix past the "
               f"threshold {idle_ms:.4f} ms{extra}", flush=True)
@@ -982,14 +1070,37 @@ def phase_newton_schulz(gen):
     return records
 
 
+def _ns_python_loop(x, iters, mask):
+    """The CUDA-core large route's Newton-Schulz repair in place as its
+    Python loop issued it before the loop moved into one C call (a gram
+    and an apply an iteration, from Python)."""
+    import torch
+
+    from repro_torch.kernels import large_p
+
+    run = large_p.runner(x)
+    tmp = torch.empty_like(x)
+    src = x
+    for k in range(1, iters + 1):
+        dst = x if (iters - k) % 2 == 0 else tmp
+        gm = large_p.gram(run, src, mask=mask)[0]
+        large_p.apply(run, "ns", gm, src, dst, scal=None, mask=mask, first=k == 1)
+        src = dst
+    return x
+
+
 def phase_large_crossovers(gen):
-    """The readings behind the planner's rule that every p > 128 takes the
-    large route: the field and Newton-Schulz at 576 x (129, 2048) and
-    (136, 2048) and the field at 576 x (160, 2048), where the CUDA-core
-    tiled kernels' grams still fit a block, each timed in turns with the
-    large route; and the large Newton-Schulz at internlm2-1.8b's 576 x
-    (128, 2048) beside its planned kernel there (row 9). Both routes are
-    checked against the plain version first."""
+    """The readings behind the planner's rules around p = 128: the field and
+    Newton-Schulz at 576 x (129, 2048) and (136, 2048) and the field at 576
+    x (160, 2048), where the CUDA-core tiled kernels' grams still fit a
+    block, each timed in turns with the large route on the tensor cores
+    (planned there) and on the CUDA cores (PR 21's); and Newton-Schulz at
+    internlm2-1.8b's 576 x (128, 2048), where row 9's tiled kernel is
+    planned, beside the tensor-core large route on the drift step and as
+    the idle repair (every matrix masked off): ``ops.plan_newton_schulz``
+    reroutes p = 128 only where the large route is faster on the drift step
+    and its idle repair costs at most 0.1 ms more. Every route is checked
+    against the plain version first."""
     import torch
 
     from repro_torch.kernels import landing_field as lf
@@ -1006,16 +1117,18 @@ def phase_large_crossovers(gen):
         field = label == "landing field"
         if field:
             tile_n = ops.two_stage_tile_n(p, ops.landing_tiled_smem_bytes)
-            tiled = functools.partial(lf.landing_field_tiled, tile_n=tile_n)
-            large = lf.landing_field_large
+            routes = [functools.partial(lf.landing_field_tiled, tile_n=tile_n),
+                      lf.landing_field_large_tc, lf.landing_field_large]
             planned = ops.plan_landing_field(p, n)
         else:
             tile_n = ops.ns_tiled_tile_n(p)
-            tiled = functools.partial(ns.newton_schulz_tiled, tile_n=tile_n)
-            large = ns.newton_schulz_large
+            routes = [functools.partial(ns.newton_schulz_tiled, tile_n=tile_n),
+                      ns.newton_schulz_large_tc, ns.newton_schulz_large]
             planned = ops.plan_newton_schulz(p, n)
-        if planned != (("tiled", tile_n) if p <= 128 else ("large", 0)):
+        if planned != (("tiled", tile_n) if p <= 128 else ("large_tc", 0)):
             raise SystemExit(f"{label} ({p}, {n}) plans {planned}")
+        if p <= 128:
+            routes = routes[:2]
         x, g, _, _ = _operands(gen, *shape)
         if field:
             args = (x, g, 1.0)
@@ -1026,16 +1139,30 @@ def phase_large_crossovers(gen):
             args = (x, NS_ITERS)
             want = ref.newton_schulz_ref(x, NS_ITERS)
             tol = NS_TOL
-        errs = [_errors((fn(*args),), (want,), tol) for fn in (tiled, large)]
+        errs = [_errors((fn(*args),), (want,), tol) for fn in routes]
         torch.cuda.synchronize()
         if not all(e[2] for e in errs):
             raise SystemExit(f"{label} {shape}: a kernel disagrees ({errs})")
         calls = 10 if field else 3
-        tiled_ms, large_ms = _time_rotating([(lambda: tiled(*args), calls),
-                                             (lambda: large(*args), calls)])
-        print(f"crossover {label} {b}x({p},{n}), planned {planned[0]}: the CUDA-core tiled "
-              f"kernel (tile {tile_n}) {tiled_ms:.4f} ms, max_abs {errs[0][0]:.3e}; the "
-              f"large route {large_ms:.4f} ms, max_abs {errs[1][0]:.3e}", flush=True)
+        times = _time_rotating([(functools.partial(fn, *args), calls) for fn in routes])
+        line = (f"crossover {label} {b}x({p},{n}), planned {planned[0]}: the CUDA-core tiled "
+                f"kernel (tile {tile_n}) {times[0]:.4f} ms, max_abs {errs[0][0]:.3e}; the "
+                f"tensor-core large route {times[1]:.4f} ms, max_abs {errs[1][0]:.3e}")
+        if p > 128:
+            line += f"; the CUDA-core large route {times[2]:.4f} ms, max_abs {errs[2][0]:.3e}"
+        if not field:  # the idle repair: every matrix masked off
+            y, none = x.clone(), torch.zeros(b, dtype=torch.bool, device="cuda")
+            idle = _time_rotating([(functools.partial(fn, y, NS_ITERS, out=y, mask=none), 20)
+                                   for fn in routes[:2]])
+            if not torch.equal(y, x):
+                raise SystemExit(f"{label} {shape}: an idle repair wrote a matrix")
+            line += (f"; idle repair: tiled {idle[0]:.4f} ms, tensor-core large "
+                     f"{idle[1]:.4f} ms")
+            if p <= 128:
+                reroute = times[1] < times[0] and idle[1] <= idle[0] + 0.1
+                line += (f"; the rule (faster drift step, idle within 0.1 ms) "
+                         f"{'reroutes' if reroute else 'keeps the tiled kernel'}")
+        print(line, flush=True)
         del x, g, want, args
 
 
@@ -1333,9 +1460,11 @@ def phase_landing_watchdog(gen, card):
                                   "newton_schulz_tc"),
                                  (WIDE_SHAPE, "fused_step_tiled_tc128_landing",
                                   "newton_schulz_tiled"),
-                                 (CNN_SHAPE, "fused_step_large_landing", "newton_schulz_large"),
-                                 (OVIT_SHAPE, "fused_step_large_landing",
-                                  "newton_schulz_large")):
+                                 (CNN_SHAPE, "fused_step_large_tc_landing",
+                                  "newton_schulz_large_tc"),
+                                 (OVIT_SHAPE, "fused_step_large_tc_landing",
+                                  "newton_schulz_large_tc"),
+                                 (LARGE_ODD, "fused_step_large_landing", "newton_schulz_large")):
         opt = make_opt("landing_fused", watchdog=wd)
         cs = api.ConstraintSet.from_tree({"qk": stiefel.random_stiefel(gen, shape,
                                                                        device="cuda")})
@@ -1899,7 +2028,8 @@ def planned_kernels(path, shapes):
                 p, n)[0]
         name = {"whole": "landing_field" if stem == "landing_field" else f"{stem}_whole",
                 "tc": f"{stem}_tiled_tc" + ("128" if p > 64 else ""),
-                "tiled": f"{stem}_tiled", "large": f"{stem}_large"}[kind] + suffix
+                "tiled": f"{stem}_tiled", "large": f"{stem}_large",
+                "large_tc": f"{stem}_large_tc"}[kind] + suffix
         out[name] = out.get(name, 0) + 1
     return out
 
@@ -1996,10 +2126,15 @@ def main() -> int:
                                  ("landing", 0.5, "landing"),
                                  ("landing_fused", 0.5, "landing fused")):
         paths += [(f"{what} paper CNN filters", CNN, 3, path, max_dist, None),
-                  (f"{what} paper O-ViT", OVIT, 3, path, max_dist, None)]
+                  (f"{what} paper O-ViT", OVIT, 3, path, max_dist, None),
+                  (f"{what} n % 4 != 0, {LARGE_ODD[0]}x{LARGE_ODD[1:]}", {"odd": LARGE_ODD}, 3,
+                   path, max_dist, "{}_large" + ("_landing" if path == "landing_fused" else ""))]
     launches = {}
     for label, shapes, steps, path, max_dist, kernel in paths:
         expected = planned_kernels(path, shapes)
+        if kernel is not None and "{}" in kernel:
+            kernel = kernel.format({"fused": "fused_step", "landing_fused": "fused_step",
+                                    "pogo_adam": "pogo_update", "landing": "landing_field"}[path])
         if kernel is not None and expected != {kernel: 1}:
             raise SystemExit(f"{label}: the planners now pick {expected}, not {kernel}")
         counts = drive_main_path(gen, shapes, label, steps, card,
@@ -2010,6 +2145,7 @@ def main() -> int:
     repairs = phase_landing_watchdog(gen, card)
     launches["newton_schulz"] = repairs["newton_schulz_tiled"]
     launches["newton_schulz_large"] = repairs["newton_schulz_large"]
+    launches["newton_schulz_large_tc"] = repairs["newton_schulz_large_tc"]
     phase_tp_schedule(gen, card)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
         launches.update(phase_tp_ranks(card, workdir))

@@ -24,7 +24,8 @@
 // registers 2 and 3): the accumulator's pairs 8 k .. 8 k + 7 of 8-column
 // groups 2 k and 2 k + 1, in order, are the A operand of k-step k.
 //
-// TF32 products (m64nNk8, N = 32, 64 or 128, fp32 operands): a K-major
+// TF32 products (m64nNk8, N = 32, 64 or 128, fp32 operands; a register A
+// operand at N = 32, 64 or 128): a K-major
 // tile row is 32 fp32 values, a k8 step advances the start address by 32 bytes, and a register
 // A operand holds, in four 32-bit registers, rows 16 w + l / 4 (+ 8 in
 // registers 1 and 3) and columns l % 4 (+ 4 in registers 2 and 3) of the
@@ -210,6 +211,11 @@ __device__ __forceinline__ int opaque(int v) {
 __device__ __forceinline__ unsigned char* opaque(unsigned char* p) {
   asm volatile("" : "+l"(p));
   return p;
+}
+
+__device__ __forceinline__ size_t opaque_size(size_t v) {
+  asm volatile("" : "+l"(v));
+  return v;
 }
 
 // Moves registers between warpgroups (setmaxnreg): a warpgroup that only
@@ -431,6 +437,21 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16], uint32_t a0, uint3
       "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
       "}\n"
       : HOPPER_D16
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate));
+}
+
+// The same at N = 128 (d[64]).
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {" HOPPER_R64 "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : HOPPER_D64
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate));
 }
 

@@ -26,7 +26,11 @@ says which shapes take which. ``fused_step_large`` and
 ``fused_step_large_landing`` (``csrc/large_p.cu``, ``large_p.py``) replace
 ``fused_step_tiled``'s TPU kernels for p > 128, where a matrix's (p, p)
 grams outgrow a block: the TPU kernel's phases as gram-then-apply launches,
-the grams between them in HBM and L2.
+the grams between them in HBM and L2, IEEE fp32 on the CUDA cores; they
+run where n % 4 != 0. ``fused_step_large_tc`` and
+``fused_step_large_tc_landing`` are the same phases on the tensor cores
+(3xTF32 ``wgmma`` fed by TMA, ``large_p.fused_tc``), the route for p > 128
+at n % 4 == 0.
 
 The wrappers take the arguments of ``ref.fused_group_step_ref`` and return
 its ``(x', mu', nu', dist, finite)``. On a CPU tensor they run that plain
@@ -349,6 +353,31 @@ def fused_step_large(x, g, eta, *, method="pogo", lam, base_kind="none",
     return out
 
 
+def fused_step_large_tc(x, g, eta, *, method="pogo", lam, base_kind="none",
+                        hyper=(), post_scale=1.0, mu=None, nu=None, count=None,
+                        pv=None, inplace=False, runner=None):
+    """:func:`fused_step_large` on the tensor cores (``large_p.fused_tc``:
+    3xTF32 ``wgmma`` grams and applies fed by TMA, n % 4 == 0);
+    ``method="landing"`` runs ``fused_step_large_tc_landing``."""
+    kw = dict(method=method, lam=lam, base_kind=base_kind, hyper=hyper,
+              post_scale=post_scale, mu=mu, nu=nu, count=count, pv=pv)
+    if runner is None and x.device.type == "cpu":
+        return run_plain(x, g, eta, inplace=inplace, **kw)
+    if runner is None and x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    _check_operands(x, g, method=method, base_kind=base_kind, mu=mu, nu=nu,
+                    count=count, pv=pv)
+    scal = pack_scal(eta, lam, base_kind=base_kind, hyper=hyper,
+                     post_scale=post_scale, count=count, device=x.device)
+    nesterov = base_kind == "trace" and bool(hyper[1])
+    with torch.cuda.device(x.device) if x.is_cuda else contextlib.nullcontext():
+        out = large_p.fused_tc(runner or large_p.runner(x), x, g, scal, method=method,
+                               lam=float(lam), base_kind=base_kind, nesterov=nesterov,
+                               mu=mu, nu=nu, pv=pv, inplace=inplace)
+    _COUNTERS["fused_step_large_tc", method].launches += 1
+    return out
+
+
 def fused_step_whole_landing(x, g, eta, **kw):
     """``fused_step_whole(method="landing")``."""
     return fused_step_whole(x, g, eta, method="landing", **kw)
@@ -374,6 +403,11 @@ def fused_step_large_landing(x, g, eta, **kw):
     return fused_step_large(x, g, eta, method="landing", **kw)
 
 
+def fused_step_large_tc_landing(x, g, eta, **kw):
+    """``fused_step_large_tc(method="landing")``."""
+    return fused_step_large_tc(x, g, eta, method="landing", **kw)
+
+
 _COUNTERS = {
     ("fused_step_whole", "pogo"): fused_step_whole,
     ("fused_step_tiled", "pogo"): fused_step_tiled,
@@ -385,6 +419,8 @@ _COUNTERS = {
     ("fused_step_tc128", "landing"): fused_step_tiled_tc128_landing,
     ("fused_step_large", "pogo"): fused_step_large,
     ("fused_step_large", "landing"): fused_step_large_landing,
+    ("fused_step_large_tc", "pogo"): fused_step_large_tc,
+    ("fused_step_large_tc", "landing"): fused_step_large_tc_landing,
 }
 for _k in _COUNTERS.values():
     _k.launches = 0

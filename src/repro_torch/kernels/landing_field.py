@@ -16,8 +16,10 @@ scratch (``fused_step.park(rows=False)``); ``landing_field_tiled_tc``
 hands p > 64 to it. ``landing_field_large`` (``csrc/large_p.cu``)
 replaces the tiled TPU kernels for p > 128 (where it beat the CUDA-core
 tiled kernel on the card, whose grams fit a block up to p ~ 160): the
-TPU's two phases as a gram launch and an apply launch, the grams between
-them in HBM and L2.
+TPU's two phases as gram launches and an apply launch, the grams between
+them in HBM and L2, on the CUDA cores where n % 4 != 0;
+``landing_field_large_tc`` is the same on the tensor cores (3xTF32
+``wgmma`` fed by TMA), the route at n % 4 == 0.
 
 All of them take a ``(B, p, n)`` fp32 stack ``x`` and gradient ``g`` and return
 Landing's field ``Lambda = 1/2 (A G - B X) + lam (A X - X)`` with
@@ -110,8 +112,26 @@ def landing_field_large(x, g, lam, *, runner=None):
     return out
 
 
+def landing_field_large_tc(x, g, lam, *, runner=None):
+    """:func:`landing_field_large` on the tensor cores
+    (``large_p.landing_field_tc``: 3xTF32 ``wgmma`` fed by TMA, n % 4 ==
+    0)."""
+    if runner is None and x.device.type == "cpu":
+        return ref.landing_field_ref(x, g, lam)
+    if runner is None and x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    out = torch.empty_like(x)
+    check_operands(x, g, out)
+    with torch.cuda.device(x.device) if x.is_cuda else contextlib.nullcontext():
+        large_p.landing_field_tc(runner or large_p.runner(x), x, g,
+                                 scalars(0.0, lam, x.device), out)
+    landing_field_large_tc.launches += 1
+    return out
+
+
 landing_field.launches = 0
 landing_field_tiled.launches = 0
 landing_field_tiled_tc.launches = 0
 landing_field_tiled_tc128.launches = 0
 landing_field_large.launches = 0
+landing_field_large_tc.launches = 0

@@ -12,9 +12,12 @@ grams summed through distributed shared memory. ``newton_schulz_large``
 (``csrc/large_p.cu``) replaces it for p > 128 (past p = 136 the CUDA-core
 tiled kernel's two (p, p) grams outgrow a block; below, it lost to the
 large route on the card): each iteration a gram launch and an apply
-launch, the gram between them in HBM and L2.
+launch, the gram between them in HBM and L2, all issued by one C call, on
+the CUDA cores where n % 4 != 0; ``newton_schulz_large_tc`` is the same
+on the tensor cores (3xTF32 ``wgmma`` fed by TMA), the route at n % 4 ==
+0.
 
-All four take a ``(B, p, n)`` fp32 stack ``x`` and write
+All of them take a ``(B, p, n)`` fp32 stack ``x`` and write
 ``NS_iters(x / ||x||_F)`` to ``out`` (a new tensor, or ``x`` itself).
 ``mask`` (a ``(B,)`` bool tensor, with ``out=x``) limits the work to the
 matrices it selects: the others keep their values and their ``dist``
@@ -178,7 +181,28 @@ def newton_schulz_large(x, iters=12, *, out=None, mask=None, dist=None,
     return out
 
 
+def newton_schulz_large_tc(x, iters=12, *, out=None, mask=None, dist=None,
+                           runner=None):
+    """:func:`newton_schulz_large` on the tensor cores
+    (``large_p.newton_schulz_tc``: one C call that issues every 3xTF32
+    gram and apply, n % 4 == 0; each iteration writes Y + E (-Y/2), E = Y
+    Y^T - I)."""
+    out = torch.empty_like(x) if out is None else out
+    if mask is not None and out is not x:
+        raise ValueError("a mask needs out=x: masked-off matrices keep x")
+    if runner is None and x.device.type == "cpu":
+        return run_plain(x, iters, out=out, mask=mask, dist=dist)
+    if runner is None and x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    _check_operands(x, out, mask, dist)
+    with torch.cuda.device(x.device) if x.is_cuda else contextlib.nullcontext():
+        large_p.newton_schulz_tc(runner or large_p.runner(x), x, iters, out, mask, dist)
+    newton_schulz_large_tc.launches += 1
+    return out
+
+
 newton_schulz_whole.launches = 0
 newton_schulz_tiled.launches = 0
 newton_schulz_tc.launches = 0
 newton_schulz_large.launches = 0
+newton_schulz_large_tc.launches = 0

@@ -24,13 +24,16 @@ footprint of each CUDA kernel, mirrored here from ``csrc/fused_step.cu``,
   share an SM (they hide each other's loads and barriers), the widest of
   those: the fused group step's and the two-stage kernels' p below the
   tensor-core range and Newton-Schulz's up to p = 128 outside it;
-* ``large`` for every p > 128 that does not fit whole: the gram-then-apply
-  launches of ``csrc/large_p.cu`` (``large_p.py``), each phase of the
-  TPU's tiled kernels a launch over many blocks, the (p, p) operands
-  between them in HBM and L2. The fused step's and the POGO update's
-  grams and tiles outgrow one block there; the landing field's and
-  Newton-Schulz's still fit up to p ~ 160 and 136, where the large route
-  was faster on the card (the readings beside ``NS_TC_MAX_P``).
+* ``large_tc`` for every p > 128 that does not fit whole, at n % 4 == 0:
+  the gram-then-apply launches of ``csrc/large_p.cu`` (``large_p.py``) on
+  the tensor cores (3xTF32 ``wgmma`` fed by TMA), each phase of the TPU's
+  tiled kernels a launch over many blocks, the (p, p) operands between
+  them in HBM and L2. The fused step's and the POGO update's grams and
+  tiles outgrow one block there; the landing field's and Newton-Schulz's
+  still fit up to p ~ 160 and 136, where the large route was faster on
+  the card (the readings beside ``NS_TC_MAX_P``);
+* ``large`` the same shapes at n % 4 != 0, a row stride TMA cannot take:
+  the same launches on the CUDA cores (IEEE fp32).
 
 The TP kernels always sweep n in tiles (a shard of a wide matrix rarely
 fits one block whole), with the tile that lets the most blocks share an
@@ -112,13 +115,30 @@ LANDING_FIELD_TC_MIN_P = 25
 # tensor cores with the rest of p = 32, which won clearly at n = 2048.
 NS_TC_MIN_P = 32
 NS_TC_MAX_P = 64
+# Above NS_TC_MAX_P and up to TC_MAX_P Newton-Schulz keeps the CUDA-core
+# tiled kernel (row 9) where a matrix does not fit whole. The tensor-core
+# large route is faster there on the watchdog's drift step, but its idle
+# repair (every matrix masked off, the launch of every other step) costs
+# more: its 24 launches each walk the 9,216 items of 576 matrices. The
+# rule: reroute only where the large route wins the drift step and its
+# idle repair costs at most 0.1 ms more. On an H100 (chip_smoke.py's
+# crossovers, PR 22; ms, tiled / large_tc) at internlm2-1.8b's 576 x (128,
+# 2048): drift step 59.5891 / 29.2306, idle repair 0.0300 / 0.2174; so
+# p <= 128 keeps the tiled kernel.
 # Past TC_MAX_P the landing field and Newton-Schulz take the
 # large route (csrc/large_p.cu) wherever a matrix does not fit a block whole,
 # although the CUDA-core tiled kernels' grams still fit a block up to p ~ 160
 # (the field) and 136 (Newton-Schulz). On an H100 (chip_smoke.py's
-# crossovers; ms, tiled / large): the field at 576 x (136, 2048) 11.8759 /
-# 10.9079 and (160, 2048) 21.8771 / 11.1318; Newton-Schulz at 576 x (136,
-# 2048) 73.5720 / 55.9646.
+# crossovers; ms, tiled / large on the CUDA cores) in PR 21: the field at
+# 576 x (136, 2048) 11.8759 / 10.9079 and (160, 2048) 21.8771 / 11.1318;
+# Newton-Schulz at 576 x (136, 2048) 73.5720 / 55.9646. In PR 22 (tiled /
+# large on the tensor cores / on the CUDA cores): the field at 576 x (129,
+# 2048) 11.7740 / 6.6435 / 10.5213, (136, 2048) 11.7979 / 6.6779 /
+# 10.6576, (160, 2048) 21.9452 / 6.9077 / 10.8035; Newton-Schulz at 576 x
+# (129, 2048) 73.3104 / 47.7701 / 54.1802, (136, 2048) 73.0624 / 48.0271 /
+# 54.7195. The tensor cores' large route takes every n % 4 == 0 there
+# (large_kind); it was faster than the CUDA cores' at every shape the card
+# timed (PR 22: the paper's CNN filters and O-ViT, these crossovers).
 # Blocks per SM the tiled kernel's register cap allows (kTiledBlocksPerSm),
 # and the TP kernels' (kTpBlocksPerSm).
 _TILED_BLOCKS_PER_SM = 3
@@ -304,14 +324,22 @@ def _route(what: str, p: int, n: int, whole_bytes, tiled_bytes, tc_low: int,
            tc_high: int = TC_MAX_P, tiles: tuple[int, ...] = _TILE_NS,
            fallback: tuple[int, ...] = ()) -> tuple[str, int]:
     """Whole when one matrix fits a block; else the tensor-core kernel for
-    ``tc_low <= p <= tc_high``; else the large route for p > ``TC_MAX_P``;
-    else :func:`_plan`'s tile (every p <= ``TC_MAX_P`` has one)."""
+    ``tc_low <= p <= tc_high``; else the large route for p > ``TC_MAX_P``
+    (:func:`large_kind`); else :func:`_plan`'s tile (every p <=
+    ``TC_MAX_P`` has one)."""
     if whole_bytes(p, n) > SMEM_LIMIT_BYTES:
         if tc_low <= p <= tc_high:
             return "tc", 0
         if p > TC_MAX_P:
-            return "large", 0
+            return large_kind(n), 0
     return _plan(what, p, n, whole_bytes, tiled_bytes, tiles, fallback)
+
+
+def large_kind(n: int) -> str:
+    """The large route's kernels at row length n: the tensor cores'
+    (``"large_tc"``) where TMA takes the row stride (n % 4 == 0), else
+    the CUDA cores' (``"large"``)."""
+    return "large_tc" if n % 4 == 0 else "large"
 
 
 def plan(p: int, n: int, method: str = "pogo") -> tuple[str, int]:
@@ -404,6 +432,8 @@ def pogo_update(x, g, eta, lam=0.5, *, find_root: bool = False,
         return _pu.pogo_update_tiled_tc(x, g, eta, lam, inplace=inplace)
     if kind == "large":
         return _pu.pogo_update_large(x, g, eta, lam, inplace=inplace)
+    if kind == "large_tc":
+        return _pu.pogo_update_large_tc(x, g, eta, lam, inplace=inplace)
     return _pu.pogo_update_tiled(x, g, eta, lam, tile_n=tile_n, inplace=inplace)
 
 
@@ -421,6 +451,8 @@ def landing_field(x, g, lam=1.0):
         return _lf.landing_field_tiled_tc(x, g, lam)
     if kind == "large":
         return _lf.landing_field_large(x, g, lam)
+    if kind == "large_tc":
+        return _lf.landing_field_large_tc(x, g, lam)
     return _lf.landing_field_tiled(x, g, lam, tile_n=tile_n)
 
 
@@ -458,6 +490,8 @@ def _ns_launch(x, iters, out, mask, dist):
         return _ns.newton_schulz_tc(x, iters, out=out, mask=mask, dist=dist)
     if kind == "large":
         return _ns.newton_schulz_large(x, iters, out=out, mask=mask, dist=dist)
+    if kind == "large_tc":
+        return _ns.newton_schulz_large_tc(x, iters, out=out, mask=mask, dist=dist)
     return _ns.newton_schulz_tiled(x, iters, tile_n=tile_n, out=out, mask=mask,
                                    dist=dist)
 
@@ -467,13 +501,15 @@ KERNELS = (_fs.fused_step_whole, _fs.fused_step_tiled,
            _fs.fused_step_tiled_tc, _fs.fused_step_tiled_tc_landing,
            _fs.fused_step_tiled_tc128, _fs.fused_step_tiled_tc128_landing,
            _fs.fused_step_large, _fs.fused_step_large_landing,
+           _fs.fused_step_large_tc, _fs.fused_step_large_tc_landing,
            _tp.tp_gram, _tp.tp_apply, _pu.pogo_update_whole,
            _pu.pogo_update_tiled, _pu.pogo_update_tiled_tc,
-           _pu.pogo_update_tiled_tc128, _pu.pogo_update_large, _lf.landing_field,
-           _lf.landing_field_tiled, _lf.landing_field_tiled_tc,
+           _pu.pogo_update_tiled_tc128, _pu.pogo_update_large, _pu.pogo_update_large_tc,
+           _lf.landing_field, _lf.landing_field_tiled, _lf.landing_field_tiled_tc,
            _lf.landing_field_tiled_tc128, _lf.landing_field_large,
-           _ns.newton_schulz_whole, _ns.newton_schulz_tiled, _ns.newton_schulz_tc,
-           _ns.newton_schulz_large, _fa.flash_attention_fp32, _fa.flash_attention_tc)
+           _lf.landing_field_large_tc, _ns.newton_schulz_whole, _ns.newton_schulz_tiled,
+           _ns.newton_schulz_tc, _ns.newton_schulz_large, _ns.newton_schulz_large_tc,
+           _fa.flash_attention_fp32, _fa.flash_attention_tc)
 
 
 def launches() -> dict:
@@ -532,6 +568,8 @@ def fused_group_step(
         return _fs.fused_step_tiled_tc(x, g, eta, **kw)
     if kind == "large":
         return _fs.fused_step_large(x, g, eta, **kw)
+    if kind == "large_tc":
+        return _fs.fused_step_large_tc(x, g, eta, **kw)
     return _fs.fused_step_tiled(x, g, eta, tile_n=tile_n, **kw)
 
 

@@ -17,7 +17,9 @@ M, whose rows 0..63 wait in a scratch (``fused_step.park``);
 ``pogo_update_tiled_tc`` hands p > 64 to it. ``pogo_update_large``
 (``csrc/large_p.cu``) replaces the tiled TPU kernels for p > 128, where
 one matrix's (p, p) grams outgrow a block: the TPU's three phases as
-gram-then-apply launches, the grams between them in HBM and L2.
+gram-then-apply launches, the grams between them in HBM and L2, on the
+CUDA cores where n % 4 != 0; ``pogo_update_large_tc`` is the same on the
+tensor cores (3xTF32 ``wgmma`` fed by TMA), the route at n % 4 == 0.
 
 All of them take a ``(B, p, n)`` fp32 stack ``x`` and transformed gradient ``g``
 and return ``X' = (1 + lam) M - lam (M M^T) M`` with ``M = X - eta/2
@@ -194,8 +196,26 @@ def pogo_update_large(x, g, eta, lam, *, inplace=False, runner=None):
     return out
 
 
+def pogo_update_large_tc(x, g, eta, lam, *, inplace=False, runner=None):
+    """:func:`pogo_update_large` on the tensor cores
+    (``large_p.pogo_update_tc``: 3xTF32 ``wgmma`` fed by TMA, n % 4 ==
+    0)."""
+    if runner is None and x.device.type == "cpu":
+        return _update(None, x, g, eta, lam, inplace)
+    if runner is None and x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    out = x if inplace else torch.empty_like(x)
+    check_operands(x, g, out)
+    with torch.cuda.device(x.device) if x.is_cuda else contextlib.nullcontext():
+        large_p.pogo_update_tc(runner or large_p.runner(x), x, g,
+                               scalars(eta, lam, x.device), out)
+    pogo_update_large_tc.launches += 1
+    return out
+
+
 pogo_update_whole.launches = 0
 pogo_update_tiled.launches = 0
 pogo_update_tiled_tc.launches = 0
 pogo_update_tiled_tc128.launches = 0
 pogo_update_large.launches = 0
+pogo_update_large_tc.launches = 0

@@ -85,6 +85,9 @@ struct EmuCta {
   std::barrier<>* group_bar[EMU_MAX_THREADS / 128] = {};
   float xchg[EMU_MAX_THREADS] = {};
   uint32_t a_regs[EMU_MAX_THREADS][4] = {};
+  // TF32 register-A operands of the products issued since a warpgroup's
+  // last wait, by issue order (hopper.cuh's wgmma_tf32_rs)
+  uint32_t a_slots[32][EMU_MAX_THREADS][4] = {};
   std::map<int, std::pair<std::unique_ptr<std::barrier<>>, int>> named;
   std::vector<std::unique_ptr<std::barrier<>>> owned;
   unsigned char* smem_base = nullptr;

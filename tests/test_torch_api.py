@@ -297,9 +297,11 @@ def test_wide_tensor_core_block_fits_one_sm(p):
 
 
 def test_planner_raises_for_large_p():
-    """p = 256 takes the large route (``csrc/large_p.cu``); only the TP
-    schedule still refuses it, naming its ROADMAP entry."""
-    assert tops.plan(256, 4096) == ("large", 0)
+    """p = 256 takes the large route (``csrc/large_p.cu``: the tensor cores'
+    kernels at n % 4 == 0, the CUDA cores' otherwise); only the TP schedule
+    still refuses it, naming its ROADMAP entry."""
+    assert tops.plan(256, 4096) == ("large_tc", 0)
+    assert tops.plan(256, 4097) == ("large", 0)
     with pytest.raises(ValueError, match=r"p=256 .*232448.*sharded schedules \(large p\)"):
         tops.plan_tp("tp_apply", 256, tops.tp_apply_smem_bytes)
 

@@ -885,34 +885,45 @@ def test_newton_schulz_planner_matches_the_kernels_smem(cuda):
 
 # ------------------------------------------------------------- large p
 
-# The large route (csrc/large_p.cu, p > 128): the paper's CNN filters'
-# (256, 2304) stack; p and n off the tiles (136, 250: n % 4 != 0, scalar
-# loads); a ragged last chunk and n-slices (200, 900).
+# The large route (csrc/large_p.cu, p > 128), on the tensor cores where n %
+# 4 == 0 (``*_large_tc``) and on the CUDA cores where not (``*_large``):
+# the paper's CNN filters' (256, 2304) stack; p and n off the tiles (136,
+# 250: n % 4 != 0, scalar loads); a ragged last chunk and n-slices (200,
+# 900).
 LARGE_SHAPES = [(3, 256, 2304), (2, 136, 250), (2, 200, 900)]
+ROUTES = ["large", "large_tc"]
+
+
+def _large(module, stem, route, landing=False):
+    """The large route's wrapper ``<stem>_large[_tc][_landing]`` of ``module``."""
+    return getattr(module, f"{stem}_{route}" + ("_landing" if landing else ""))
 
 
 @pytest.mark.parametrize("shape", LARGE_SHAPES)
 @pytest.mark.parametrize("base_kind,hyper", BASES)
 @pytest.mark.parametrize("method", ["pogo", "landing"])
 def test_large_fused_step_matches_plain(cuda, shape, base_kind, hyper, method):
-    """``fused_step_large`` (and its Landing branch) at the fused tiled
-    tolerance, atol 3e-5 / rtol 1e-4; ``ops.fused_group_step`` plans it."""
+    """``fused_step_large(_tc)`` (and the Landing branches) at the fused
+    tiled tolerance, atol 3e-5 / rtol 1e-4; ``ops.fused_group_step`` plans
+    the tensor cores' at n % 4 == 0, the CUDA cores' otherwise."""
     x, g, mu, nu = _operands(shape, cuda, seed=30)
     if method == "landing":
         x = x + 0.01 * torch.randn(shape, device=cuda)
     kw = dict(_kwargs(base_kind, hyper, mu, nu, cuda), method=method,
               lam=1.0 if method == "landing" else 0.5)
-    wrapper = tfs.fused_step_large if method == "pogo" else tfs.fused_step_large_landing
+    route = tops.large_kind(shape[-1])
+    wrapper = _large(tfs, "fused_step", route, method == "landing")
     before = wrapper.launches
     got = tops.fused_group_step(x, g, 0.1, **kw)
     torch.cuda.synchronize()
-    assert tops.plan(*shape[1:], method) == ("large", 0)
+    assert tops.plan(*shape[1:], method) == (route, 0)
     assert wrapper.launches == before + 1
     _close(got, tref.fused_group_step_ref(x, g, 0.1, **kw), dict(atol=3e-5, rtol=1e-4))
 
 
+@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("method", ["pogo", "landing"])
-def test_large_fused_step_in_place_and_ragged(cuda, method):
+def test_large_fused_step_in_place_and_ragged(cuda, method, route):
     """X' over X (Landing's through a scratch), mu' over mu (through a
     scratch: phase 1 still reads mu), nu' over nu; zero-padded rows masked
     per matrix (pv)."""
@@ -923,7 +934,7 @@ def test_large_fused_step_in_place_and_ragged(cuda, method):
     x, g, mu = (torch.where(rows, a, 0.0) for a in (x, g, mu))
     kw = dict(_kwargs("vadam", (0.9, 0.999, 1e-8), mu, nu, cuda, pv=pv), method=method)
     want = tref.fused_group_step_ref(x, g, 0.1, **kw)
-    got = tfs.fused_step_large(x, g, 0.1, inplace=True, **kw)
+    got = _large(tfs, "fused_step", route)(x, g, 0.1, inplace=True, **kw)
     torch.cuda.synchronize()
     assert got[0] is x and got[1] is mu and got[2] is nu
     _close(got, want, dict(atol=3e-5, rtol=1e-4))
@@ -932,11 +943,12 @@ def test_large_fused_step_in_place_and_ragged(cuda, method):
 @pytest.mark.parametrize("shape", LARGE_SHAPES)
 @pytest.mark.parametrize("pogo", [True, False], ids=["pogo_update", "landing_field"])
 def test_large_two_stage_matches_plain(cuda, shape, pogo):
-    """``pogo_update_large`` and ``landing_field_large`` at the two-stage
-    tiled tolerance, atol 2e-5 / rtol 1e-4, through ``ops``' planners; X
-    off the manifold, so that dropping lam's term would fail."""
+    """``pogo_update_large(_tc)`` and ``landing_field_large(_tc)`` at the
+    two-stage tiled tolerance, atol 2e-5 / rtol 1e-4, through ``ops``'
+    planners; X off the manifold, so that dropping lam's term would fail."""
     x, g = _off_manifold_operands(shape, cuda, seed=32)
-    wrapper = tpu.pogo_update_large if pogo else tlf.landing_field_large
+    route = tops.large_kind(shape[-1])
+    wrapper = _large(tpu, "pogo_update", route) if pogo else _large(tlf, "landing_field", route)
     planned = (tops.plan_pogo_update if pogo else tops.plan_landing_field)(*shape[1:])
     before = wrapper.launches
     if pogo:
@@ -946,17 +958,19 @@ def test_large_two_stage_matches_plain(cuda, shape, pogo):
         got = tops.landing_field(x, g, 1.0)
         want, without = (tref.landing_field_ref(x, g, lam) for lam in (1.0, 0.0))
     torch.cuda.synchronize()
-    assert planned == ("large", 0)
+    assert planned == (route, 0)
     assert wrapper.launches == before + 1
     tol = dict(atol=2e-5, rtol=1e-4)
     assert not torch.allclose(without, want, **tol)
     torch.testing.assert_close(got, want, **tol)
 
 
-def test_large_pogo_update_in_place_with_a_device_held_eta(cuda):
+@pytest.mark.parametrize("route", ROUTES)
+def test_large_pogo_update_in_place_with_a_device_held_eta(cuda, route):
+    update = _large(tpu, "pogo_update", route)
     x, g = _off_manifold_operands((3, 256, 2304), cuda, seed=33)
-    want = tpu.pogo_update_large(x, g, 0.1, 0.5)
-    got = tpu.pogo_update_large(x, g, torch.tensor(0.1, device=cuda), 0.5, inplace=True)
+    want = update(x, g, 0.1, 0.5)
+    got = update(x, g, torch.tensor(0.1, device=cuda), 0.5, inplace=True)
     torch.cuda.synchronize()
     assert got is x and torch.equal(x, want)
     torch.testing.assert_close(want, tref.pogo_update_ref(
@@ -966,10 +980,10 @@ def test_large_pogo_update_in_place_with_a_device_held_eta(cuda):
 
 @pytest.mark.parametrize("shape", [(4, 256, 2304), (3, 200, 250), (5, 136, 300)])
 def test_large_newton_schulz_repair_in_place_with_mask(cuda, shape):
-    """``newton_schulz_large`` as the watchdog runs it: every other matrix
-    past the threshold, written over the stack (12 iterations, an even
-    count: the last lands in x itself), atol 1e-6; the others keep their
-    bits and distances. The emitted distance within 1e-5 of the plain
+    """``newton_schulz_large(_tc)`` as the watchdog runs it: every other
+    matrix past the threshold, written over the stack (12 iterations, an
+    even count: the last lands in x itself), atol 1e-6; the others keep
+    their bits and distances. The emitted distance within 1e-5 of the plain
     version's: both are fp32 grams of a matrix at fp32 feasibility, which
     round apart by about their own size (an exact Stiefel draw rounded to
     fp32 reads 2.2e-6 at (256, 2304); an H100 read the kernel's and the
@@ -979,11 +993,13 @@ def test_large_newton_schulz_repair_in_place_with_mask(cuda, shape):
     b, p, n = shape
     dist = torch.where(torch.arange(b, device=cuda) % 2 == 0, 2.0, 0.01).float()
     x0, d0 = x.clone(), dist.clone()
-    before = tns.newton_schulz_large.launches
-    assert tops.plan_newton_schulz(p, n) == ("large", 0)
+    route = tops.large_kind(n)
+    kernel = _large(tns, "newton_schulz", route)
+    before = kernel.launches
+    assert tops.plan_newton_schulz(p, n) == (route, 0)
     rep = tops.newton_schulz_repair(x, dist, torch.tensor(0.1, device=cuda), iters=12)
     torch.cuda.synchronize()
-    assert tns.newton_schulz_large.launches == before + 1
+    assert kernel.launches == before + 1
     assert torch.equal(rep, d0 > 0.1)
     want = tref.newton_schulz_ref(x0, 12)
     torch.testing.assert_close(x[rep], want[rep], atol=1e-6, rtol=0)
@@ -992,27 +1008,44 @@ def test_large_newton_schulz_repair_in_place_with_mask(cuda, shape):
     assert torch.equal(x[~rep], x0[~rep]) and torch.equal(dist[~rep], d0[~rep])
     assert float(dist[rep].max()) < 1e-2
     y = x0.clone()
-    got = tns.newton_schulz_large(y, 11, out=y)
+    got = kernel(y, 11, out=y)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, tref.newton_schulz_ref(x0, 11), atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("shape", [(3, 256, 2304), (2, 200, 900)])
-def test_large_kernels_repeat_bit_for_bit(cuda, shape):
+def test_large_kernels_repeat_bit_for_bit(cuda, shape, route):
     """The n-slices' partials are summed in a fixed order: two launches of
     each entry give the same bits."""
     x, g, mu, nu = _operands(shape, cuda, seed=35)
     kw = _kwargs("vadam", (0.9, 0.999, 1e-8), mu, nu, cuda)
-    runs = [(lambda: tfs.fused_step_large(x, g, 0.1, **kw)[:4]),
-            (lambda: tfs.fused_step_large(x, g, 0.1, **{**kw, "method": "landing"})[:4]),
-            (lambda: (tpu.pogo_update_large(x, g, 0.1, 0.5),)),
-            (lambda: (tlf.landing_field_large(x, g, 1.0),)),
-            (lambda: (tns.newton_schulz_large(1.5 * x, 12),))]
+    fused = _large(tfs, "fused_step", route)
+    runs = [(lambda: fused(x, g, 0.1, **kw)[:4]),
+            (lambda: fused(x, g, 0.1, **{**kw, "method": "landing"})[:4]),
+            (lambda: (_large(tpu, "pogo_update", route)(x, g, 0.1, 0.5),)),
+            (lambda: (_large(tlf, "landing_field", route)(x, g, 1.0),)),
+            (lambda: (_large(tns, "newton_schulz", route)(1.5 * x, 12),))]
     for run in runs:
         first = [t.clone() for t in run()]
         again = run()
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_large_tc_route_refuses_n_not_a_multiple_of_4(cuda):
+    """The tensor cores' entries raise where TMA cannot take the row stride
+    (the planner sends such n to the CUDA cores); nothing falls back."""
+    x, g, mu, nu = _operands((2, 136, 250), cuda)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        tfs.fused_step_large_tc(x, g, 0.1, lam=0.5)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        tns.newton_schulz_large_tc(x, 12)
+    lib = tfs.large_p.lib()
+    for p in (129, 136, 256, 1024):
+        assert lib.large_tc_padded(p) == tfs.large_p.tc_padded(p)
+        for moments in (0, 1):
+            assert lib.large_tc_gram_blocks(p, moments) == tfs.large_p.tc_gram_blocks(p, moments)
 
 
 def test_large_route_rejects_bad_operands(cuda):

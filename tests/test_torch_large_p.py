@@ -2,13 +2,15 @@
 the CPU.
 
 Where one matrix's (p, p) grams outgrow a block, the port's planners give
-``("large", 0)``: the gram-then-apply launches of ``csrc/large_p.cu``
-(``kernels/large_p.py``) for the fused step (POGO and Landing), the POGO
+``("large_tc", 0)`` (n % 4 == 0) or ``("large", 0)``: the gram-then-apply
+launches of ``csrc/large_p.cu`` (``kernels/large_p.py``), on the tensor
+cores or the CUDA cores, for the fused step (POGO and Landing), the POGO
 update, the landing field and Newton-Schulz. On the CPU every entry point
-runs the kernels' plain version; the kernels themselves run here through
+runs the kernels' plain version; the CUDA-core kernels run here through
 the g++-emulated build of ``large_p.cu`` (``tests/_cuda_emu.py``, a
 ``large_p.Runner`` over it; ``tests/test_torch_kernel_emulation.py`` runs
-them with n split into slices, masks and in place), and on the card
+them with n split into slices, masks and in place;
+``tests/test_torch_large_tc_emulation.py`` the tensor-core ones), and on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``). The same numpy inputs go
 through both packages at p > 128 and small n (the emulated kernels take
 the first matrix of each stack):
@@ -66,6 +68,7 @@ SHAPES = [(2, 136, 200), (2, 192, 320)]
 BASES = [("none", ()), ("trace", (0.37, False)), ("trace", (0.53, True)),
          ("vadam", (0.92, 0.997, 1e-8))]
 LARGE = ("large", 0)
+LARGE_TC = ("large_tc", 0)
 # The fused kernel's cases against JAX, at the first shape and on its first
 # matrix: every base and both methods, each method twice (an emulated call
 # takes seconds; the emulation tests hold every base and method against
@@ -94,12 +97,16 @@ def _operands(shape, seed, off_manifold=0.0):
 PLANS = [
     # the field's and Newton-Schulz's CUDA-core tiled kernels still fit a
     # block at 136 and 160, where the large route was faster on the card
-    (136, 2048, LARGE, LARGE, LARGE, LARGE, LARGE),
-    (160, 2048, LARGE, LARGE, LARGE, LARGE, LARGE),
-    (256, 2304, LARGE, LARGE, LARGE, LARGE, LARGE),  # the CNN filters
-    (1024, 1024, LARGE, LARGE, LARGE, LARGE, LARGE),  # O-ViT
-    (129, 2048, LARGE, LARGE, LARGE, LARGE, LARGE),
-    (136, 200, LARGE, LARGE, LARGE, LARGE, ("whole", 0)),  # NS fits whole
+    (136, 2048, LARGE_TC, LARGE_TC, LARGE_TC, LARGE_TC, LARGE_TC),
+    (160, 2048, LARGE_TC, LARGE_TC, LARGE_TC, LARGE_TC, LARGE_TC),
+    (256, 2304, LARGE_TC, LARGE_TC, LARGE_TC, LARGE_TC, LARGE_TC),  # the CNN filters
+    (1024, 1024, LARGE_TC, LARGE_TC, LARGE_TC, LARGE_TC, LARGE_TC),  # O-ViT
+    (129, 2048, LARGE_TC, LARGE_TC, LARGE_TC, LARGE_TC, LARGE_TC),
+    (136, 200, LARGE_TC, LARGE_TC, LARGE_TC, LARGE_TC, ("whole", 0)),  # NS fits whole
+    # n % 4 != 0, a row stride TMA cannot take: the CUDA cores' large route
+    (256, 2305, LARGE, LARGE, LARGE, LARGE, LARGE),
+    (200, 901, LARGE, LARGE, LARGE, LARGE, LARGE),
+    (1024, 1022, LARGE, LARGE, LARGE, LARGE, LARGE),
     # p <= 128: the routes of PRs 11-20, unchanged
     (128, 2048, ("tc", 0), ("tc", 0), ("tc", 0), ("tc", 0), ("tiled", 64)),
     (128, 1152, ("tc", 0), ("tc", 0), ("tc", 0), ("tc", 0), ("tiled", 64)),
@@ -135,7 +142,7 @@ def test_fused_step_matches_pallas_tiled(shape, base_kind, hyper, method, monkey
     b, p, n = shape
     assert jops.plan_candidates(p, n, b, f"fused_{method}+{base_kind}") == [
         {"kind": "tiled", "block_b": 0, "tile_n": 128}]
-    assert tops.plan(p, n, method) == LARGE
+    assert tops.plan(p, n, method) == LARGE_TC
     x, g, mu, nu = _operands(shape, 0, 0.01 if method == "landing" else 0.0)
     has_mu, has_nu = base_kind != "none", base_kind == "vadam"
     common = dict(method=method, lam=1.0 if method == "landing" else 0.5,
@@ -170,7 +177,7 @@ def test_two_stage_and_newton_schulz_match_jax(shape, emulated):
     an odd and an even count of its ping-pong)."""
     ns_iters = 3 if shape == SHAPES[0] else 2
     b, p, n = shape
-    assert tops.plan_pogo_update(p, n) == LARGE
+    assert tops.plan_pogo_update(p, n) == LARGE_TC
     x, g, _, _ = _operands(shape, 1, 0.01)
     jx, jg = jnp.asarray(x), jnp.asarray(g)
     tx, tg = torch.from_numpy(x), torch.from_numpy(g)

@@ -136,5 +136,7 @@ def test_newton_schulz_planner(p, n, want):
 
 def test_newton_schulz_planner_raises_for_large_p():
     """Where it raised before, the planner now gives the large route
-    (``csrc/large_p.cu``)."""
-    assert tops.plan_newton_schulz(256, 4096) == ("large", 0)
+    (``csrc/large_p.cu``): its tensor-core kernels at n % 4 == 0, its
+    CUDA-core ones elsewhere."""
+    assert tops.plan_newton_schulz(256, 4096) == ("large_tc", 0)
+    assert tops.plan_newton_schulz(256, 4097) == ("large", 0)

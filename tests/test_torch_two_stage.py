@@ -187,7 +187,8 @@ def test_two_stage_planners_keep_their_plans_outside_the_tc_range(pogo):
     POGO's wide kernel (p = 128, where the old planner's 32-column tile did
     not fit); past p = 128 every plan but whole is the large route, which
     beat the field's CUDA-core tiled kernel on the card at 136 and 160
-    (the readings in ``ops.py``)."""
+    (the readings in ``ops.py``): on the tensor cores where n % 4 == 0,
+    on the CUDA cores elsewhere (``ops.large_kind``)."""
     whole = tops.pogo_whole_smem_bytes if pogo else tops.landing_whole_smem_bytes
     tiled = tops.pogo_tiled_smem_bytes if pogo else tops.landing_tiled_smem_bytes
     plan = tops.plan_pogo_update if pogo else tops.plan_landing_field
@@ -208,7 +209,8 @@ def test_two_stage_planners_keep_their_plans_outside_the_tc_range(pogo):
                 assert low <= p <= high and (old is not None or (pogo and p > 64))
                 moved += 1
             elif p > high:
-                assert new == old if old == ("whole", 0) else new == ("large", 0), (p, n)
+                assert new == old if old == ("whole", 0) else new == (tops.large_kind(n), 0), \
+                    (p, n)
             elif old is None:
                 assert new in (None, ("tiled", 16)), (p, n, new)
                 assert new is None or tiled(p, 32) > tops.SMEM_LIMIT_BYTES
@@ -225,20 +227,25 @@ def test_landing_field_keeps_its_cuda_core_tile_at_p128():
     """internlm2-1.8b's (128, 2048) plans the field's wide tensor-core entry,
     as it plans POGO's update and the fused step; the CUDA-core kernel,
     which the card times beside it, keeps its 64-column tile there; p past
-    128 takes the large route, which beat the CUDA-core kernel on the card
-    at 136 and 160 (the readings in ``ops.py``)."""
+    128 takes the large route (on the tensor cores at n % 4 == 0), which
+    beat the CUDA-core kernel on the card at 136 and 160 (the readings in
+    ``ops.py``)."""
     assert tops.plan_landing_field(128, 2048) == tops.plan_pogo_update(128, 2048) == \
         tops.plan(128, 2048) == ("tc", 0)
     assert tops.TC_MAX_P == 128
     assert tops.two_stage_tile_n(128, tops.landing_tiled_smem_bytes) == 64
-    assert tops.plan_landing_field(130, 2048) == ("large", 0)
+    assert tops.plan_landing_field(130, 2048) == ("large_tc", 0)
+    assert tops.plan_landing_field(130, 2049) == ("large", 0)
 
 
 def test_two_stage_planners_raise_for_large_p():
     """Where they raised before, the planners now give the large route
-    (``csrc/large_p.cu``)."""
-    assert tops.plan_pogo_update(256, 4096) == ("large", 0)
-    assert tops.plan_landing_field(300, 4096) == ("large", 0)
+    (``csrc/large_p.cu``): its tensor-core kernels at n % 4 == 0, its
+    CUDA-core ones elsewhere."""
+    assert tops.plan_pogo_update(256, 4096) == ("large_tc", 0)
+    assert tops.plan_landing_field(300, 4096) == ("large_tc", 0)
+    assert tops.plan_pogo_update(256, 4097) == ("large", 0)
+    assert tops.plan_landing_field(300, 4098) == ("large", 0)
 
 
 # ----------------------------------------------------------- quartic, safe step

@@ -15,8 +15,11 @@ two-stage POGO update and landing field), at the many-matrices shape
 (128, 2048) stack (p > 64: the wide tensor-core kernel of the same source
 for the fused step, the POGO update and the landing field; 3 steps each),
 and at the paper's squared-unitary-PC sizes, 1048 x (10, 10000) (p < 25:
-the CUDA-core tiled kernels of the fused step, the POGO update and the
-landing field; 3 steps each), and at the paper's own sizes for p > 128
+the cluster kernels of ``small_p.cu`` for fused POGO and the POGO update,
+one matrix a thread block cluster held in its shared memory; the CUDA-core
+tiled kernels of fused Landing and the landing field; 3 steps each) and
+1048 x (10, 9998) (n % 4 != 0: the CUDA-core tiled kernels of fused POGO
+and the POGO update, rows 2 and 6), and at the paper's own sizes for p > 128
 (``src/repro/configs/pogo_paper.py``): its six orthogonal CNN filters, as
 (1, p, n) leaves (a step runs the whole kernel at (64, 216), the
 tensor-core kernel at (64, 576), its wide form at (128, 1152) and the
@@ -52,7 +55,12 @@ tensor-core kernels (the wide ones at 576 x (128, 2048)) and the large
 route's entries (on the tensor cores at both paper sizes, on the CUDA
 cores at ``LARGE_ODD``) are launched 20 times each on the same inputs,
 half of them beside a copy on another stream, and must repeat bit for
-bit, and so must the tensor-core Newton-Schulz kernel. The large route's
+bit, and so must the tensor-core Newton-Schulz kernel and the cluster
+kernels (at the paper's 1048 x (10, 10000)). The cluster kernels are timed
+beside rows 2 and 6 at that shape, and at the readings behind the cluster
+route's ends (``phase_cluster_crossovers``: p = 4-28 at n = 2048-10000, p
+= 29 and 32 against the tensor-core kernels, and every cluster size that
+fits at the paper's shape). The large route's
 entries are held against their plain versions and timed at both paper
 sizes in the phases of their functions' other kernels, the tensor cores'
 in turns with the CUDA cores' (their route there before PR 22); the
@@ -144,10 +152,15 @@ INTERNLM2 = {"q_proj": (24, 16, 128, 2048), "k_proj": (24, 8, 128, 2048)}
 WIDE_SHAPE = (576, 128, 2048)
 # The paper's squared-unitary-PC sizes (src/repro/configs/pogo_paper.py:10,
 # 1048 matrices of (10, n), n at the top of its 256-10000 range), real-valued
-# (the port refuses complex groups): p < 25, where the planner keeps the
-# CUDA-core tiled kernels of the fused step, the POGO update and the field.
+# (the port refuses complex groups): p < 25, where the planner sends the fused
+# POGO step and the POGO update to the cluster kernels of small_p.cu, and
+# fused Landing and the field to the CUDA-core tiled kernels. At n = 9998
+# (n % 4 != 0, a row stride TMA cannot take) POGO's two keep the CUDA-core
+# tiled kernels too.
 PAPER_PC = {"pc": (1048, 10, 10000)}
 PAPER_SHAPE = (1048, 10, 10000)
+PAPER_PC_ODD = {"pc": (1048, 10, 9998)}
+PAPER_ODD_SHAPE = (1048, 10, 9998)
 # The paper's own sizes (src/repro/configs/pogo_paper.py), synthetic and not
 # cut: the orthogonal CNN filters (:8), six leaves, three of them (256, 2304)
 # (p > 128: the large route of csrc/large_p.cu; the others plan the whole
@@ -167,8 +180,10 @@ LARGE_TC_RAGGED = (5, 200, 904)
 KERNELS = {
     "fused_step_whole": ("fused_step", "src/repro/kernels/fused_step.py:175"),
     "fused_step_tiled": ("fused_step", "src/repro/kernels/fused_step.py:608"),
+    "fused_step_cluster": ("small_p", "src/repro/kernels/fused_step.py:608"),
     "pogo_update_whole": ("two_stage", "src/repro/kernels/pogo_update.py:64"),
     "pogo_update_tiled": ("two_stage", "src/repro/kernels/pogo_update.py:143"),
+    "pogo_update_cluster": ("small_p", "src/repro/kernels/pogo_update.py:143"),
     "landing_field": ("two_stage", "src/repro/kernels/landing_field.py:42"),
     "landing_field_tiled": ("two_stage", "src/repro/kernels/landing_field.py:79"),
     "pogo_update_tiled_tc": ("fused_step_tc", "src/repro/kernels/pogo_update.py:143"),
@@ -424,10 +439,12 @@ def phase_fused_kernels(gen):
     SmolLM's 640 x (64, 960) (every base, in place, ragged), the wide
     tensor-core kernels at internlm2-1.8b's 576 x (128, 2048) (every base,
     in place, ragged; plain loads at 7 x (72, 1002)), the CUDA-core tiled
-    kernels at the paper's 1048 x (10, 10000) (their main path: trace
-    first, the planner's tile) and at 576 x (128, 2048) and 640 x (64,
-    960), where they ran before the tensor-core kernels (checked here, and
-    timed beside them), and the large route (p > 128): on the tensor cores
+    kernels at the paper's 1048 x (10, 9998) (their main path: trace
+    first, the planner's tile) and at 1048 x (10, 10000), 576 x (128, 2048)
+    and 640 x (64, 960), where they ran before the cluster and tensor-core
+    kernels (checked here, and timed beside them), the cluster kernel at
+    1048 x (10, 10000) (every base, in place, ragged), and the large route
+    (p > 128): on the tensor cores
     at the paper's CNN filters 3 x (256, 2304) (every base, in place) and
     O-ViT 18 x (1024, 1024), ragged rows at ``LARGE_TC_RAGGED``, each timed
     beside the CUDA cores' large route (checked here too); on the CUDA
@@ -457,6 +474,13 @@ def phase_fused_kernels(gen):
         ("fused_step_tiled_tc128", WIDE_SHAPE, "vadam", (0.9, 0.999, 1e-8), "in place"),
         ("fused_step_tiled_tc128", (140, 100, 300), "trace", (0.9, False), "ragged"),
         ("fused_step_tiled_tc128", (7, 72, 1002), "vadam", (0.9, 0.999, 1e-8), ""),
+        ("fused_step_tiled", PAPER_ODD_SHAPE, "trace", (0.9, False), ""),
+        ("fused_step_cluster", PAPER_SHAPE, "trace", (0.9, False), ""),
+        ("fused_step_cluster", PAPER_SHAPE, "vadam", (0.9, 0.999, 1e-8), ""),
+        ("fused_step_cluster", PAPER_SHAPE, "trace", (0.9, True), ""),
+        ("fused_step_cluster", PAPER_SHAPE, "none", (), ""),
+        ("fused_step_cluster", PAPER_SHAPE, "vadam", (0.9, 0.999, 1e-8), "in place"),
+        ("fused_step_cluster", PAPER_SHAPE, "trace", (0.9, False), "ragged"),
         ("fused_step_tiled", PAPER_SHAPE, "trace", (0.9, False), ""),
         ("fused_step_tiled", WIDE_SHAPE, "trace", (0.9, False), ""),
         ("fused_step_tiled", WIDE_SHAPE, "vadam", (0.9, 0.999, 1e-8), ""),
@@ -519,10 +543,10 @@ def phase_fused_kernels(gen):
         entry = name.removesuffix("_landing")
         planned = {"whole": "fused_step_whole",
                    "tc": "fused_step_tiled_tc" if p <= 64 else "fused_step_tiled_tc128",
-                   "tiled": "fused_step_tiled", "large": "fused_step_large",
-                   "large_tc": "fused_step_large_tc"}[kind]
-        if entry == "fused_step_tiled" and kind == "tc":
-            tile_n = ops.tiled_tile_n(p)  # where it ran before the tensor-core kernel
+                   "tiled": "fused_step_tiled", "cluster": "fused_step_cluster",
+                   "large": "fused_step_large", "large_tc": "fused_step_large_tc"}[kind]
+        if entry == "fused_step_tiled" and kind in ("tc", "cluster"):
+            tile_n = ops.tiled_tile_n(p)  # where it ran before the tc or cluster kernel
         elif planned != entry:
             raise SystemExit(f"the planner picks {kind} for ({p}, {n}), not {name}")
         wrapper = getattr(fs, entry)
@@ -553,7 +577,7 @@ def phase_fused_kernels(gen):
             tc = kind == "tc"
             timed = [(lambda: ref.fused_group_step_ref(x, g, LR, **kw), 10),
                      (lambda: wrapper(x, g, LR, **kw), 20)]
-            if tc:  # the CUDA-core tiled kernel at the same call
+            if tc or kind == "cluster":  # the CUDA-core tiled kernel at the same call
                 timed.append((lambda: fs.fused_step_tiled(
                     x, g, LR, tile_n=ops.tiled_tile_n(p), **kw), 20))
             elif kind == "large_tc":  # the CUDA-core large route, its route before
@@ -576,6 +600,13 @@ def phase_fused_kernels(gen):
                 extra += (f"; the schedule's {passes} passes {floor_ms:.4f}; fp32 CUDA cores "
                           f"{1e3 * flops / FP32_FLOP_PER_S:.4f}; the CUDA-core tiled kernel "
                           f"at this call {times[2]:.4f} ms")
+            elif kind == "cluster":  # row 2 beside it, by its 9 passes
+                floor_ms = 1e3 * 9 * b * p * n * 4 / HBM_BYTES_PER_S
+                extra += (f"; cluster of {ops.small_p_cluster(p, n)}; row 2 (tile "
+                          f"{ops.tiled_tile_n(p)}, 9 passes {floor_ms:.4f}) at this call "
+                          f"{times[2]:.4f} ms")
+                _record(records, "fused_step_tiled", (b, p, n), dict(
+                    ms=times[2], plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
             elif kind in ("large", "large_tc"):  # its launches, the slices' sums included
                 run = large_p.runner(x)
                 wrapper(x, g, LR, runner=run, **kw)
@@ -598,7 +629,8 @@ def phase_fused_kernels(gen):
 
 def phase_tc_repeatability(gen, repeats=20):
     """Each tensor-core kernel launched ``repeats`` times on the same inputs
-    at 640 x (64, 960) (the wide ones at 576 x (128, 2048); Newton-Schulz
+    at 640 x (64, 960) (the wide ones at 576 x (128, 2048), the cluster
+    kernels at the paper's 1048 x (10, 10000); Newton-Schulz
     on the watchdog's drifted input, half the matrices masked off), each
     entry of the large route on the tensor cores at the CNN filters' 3 x
     (256, 2304) (its grams split n into slices there) and O-ViT's 18 x
@@ -643,6 +675,7 @@ def phase_tc_repeatability(gen, repeats=20):
             ("fused_step_tiled_tc_landing", "trace", (0.1, False), (640, 64, 960)),
             ("fused_step_tiled_tc128", "vadam", (0.9, 0.999, 1e-8), WIDE_SHAPE),
             ("fused_step_tiled_tc128_landing", "trace", (0.1, False), WIDE_SHAPE),
+            ("fused_step_cluster", "vadam", (0.9, 0.999, 1e-8), PAPER_SHAPE),
             *((name, "vadam", (0.9, 0.999, 1e-8), shape) for shape in large
               for name in ("fused_step_large_tc", "fused_step_large_tc_landing")),
             ("fused_step_large", "vadam", (0.9, 0.999, 1e-8), LARGE_ODD),
@@ -661,6 +694,7 @@ def phase_tc_repeatability(gen, repeats=20):
     for shape, updates in (((640, 64, 960), (pu.pogo_update_tiled_tc, lf.landing_field_tiled_tc)),
                            (WIDE_SHAPE, (pu.pogo_update_tiled_tc128,
                                          lf.landing_field_tiled_tc128)),
+                           (PAPER_SHAPE, (pu.pogo_update_cluster,)),
                            *((shape, (pu.pogo_update_large_tc, lf.landing_field_large_tc))
                              for shape in large),
                            (LARGE_ODD, (pu.pogo_update_large, lf.landing_field_large))):
@@ -782,17 +816,20 @@ def phase_two_stage_kernels(gen):
     and the wide ones at internlm2-1.8b's 576 x (128, 2048) (each timed
     beside the CUDA-core tiled kernel, their route there before, checked at
     the same call: the field at tile 64, POGO's update at tile 16), the
-    CUDA-core tiled kernels at the paper's 1048 x (10, 10000), the large
+    cluster POGO update at the paper's 1048 x (10, 10000) (beside row 6,
+    checked at the same call), the CUDA-core tiled kernels at 1048 x (10,
+    9998) (POGO's) and 1048 x (10, 10000) (the field's), the large
     route on the tensor cores at the CNN filters' 3 x (256, 2304) and
     O-ViT's 18 x (1024, 1024) (both timed, each beside the CUDA cores'
     large route, checked at the same call) and on the CUDA cores at
     ``LARGE_ODD``. Then every kernel at a ragged shape, 7 x (10, 250) (the
     wide ones at 7 x (100, 250), the large ones at (3, 136, 203) and
-    ``LARGE_TC_RAGGED``), the
+    ``LARGE_TC_RAGGED``, the cluster one at 7 x (10, 2000)), the
     tensor-core entries also at 7 x (64, 250) (plain loads), POGO's in
     place and with a learning rate held on the card (bit for bit the host
-    value's result). X is a Stiefel draw plus 0.01 randn, and each check
-    first shows that dropping lam's term would break the tolerance."""
+    value's result; the cluster one's too). X is a Stiefel draw plus 0.01
+    randn, and each check first shows that dropping lam's term would break
+    the tolerance."""
     import torch
 
     from repro_torch.kernels import landing_field as lf
@@ -803,10 +840,12 @@ def phase_two_stage_kernels(gen):
     main = {"pogo_update_whole": (2048, 16, 256), "landing_field": (2048, 16, 256),
             "pogo_update_tiled_tc": tc_shape, "landing_field_tiled_tc": tc_shape,
             "pogo_update_tiled_tc128": WIDE_SHAPE, "landing_field_tiled_tc128": WIDE_SHAPE,
-            "pogo_update_tiled": PAPER_SHAPE, "landing_field_tiled": PAPER_SHAPE,
+            "pogo_update_tiled": PAPER_ODD_SHAPE, "landing_field_tiled": PAPER_SHAPE,
+            "pogo_update_cluster": PAPER_SHAPE,
             "pogo_update_large": LARGE_ODD, "landing_field_large": LARGE_ODD,
             "pogo_update_large_tc": CNN_SHAPE, "landing_field_large_tc": CNN_SHAPE}
-    ragged = {"tc128": (7, 100, 250), "large": (3, 136, 203), "large_tc": LARGE_TC_RAGGED}
+    ragged = {"tc128": (7, 100, 250), "large": (3, 136, 203), "large_tc": LARGE_TC_RAGGED,
+              "cluster": (7, 10, 2000)}
     cases = [(name, shape, "") for name, shape in main.items()]
     cases += [("pogo_update_large_tc", OVIT_SHAPE, ""),
               ("landing_field_large_tc", OVIT_SHAPE, "")]
@@ -814,6 +853,8 @@ def phase_two_stage_kernels(gen):
         "landing_field_").removeprefix("tiled_"), (7, 10, 250)), "ragged") for name in main]
     cases += [("pogo_update_tiled_tc", (7, 64, 250), "ragged"),
               ("landing_field_tiled_tc", (7, 64, 250), "ragged"),
+              ("pogo_update_cluster", PAPER_SHAPE, "in place"),
+              ("pogo_update_cluster", PAPER_SHAPE, "device eta"),
               ("pogo_update_tiled_tc", tc_shape, "in place"),
               ("pogo_update_tiled_tc", tc_shape, "device eta"),
               ("pogo_update_tiled_tc128", WIDE_SHAPE, "in place"),
@@ -831,8 +872,8 @@ def phase_two_stage_kernels(gen):
         stem = "pogo_update" if pogo else "landing_field"
         planned = {"whole": "pogo_update_whole" if pogo else "landing_field",
                    "tc": f"{stem}_tiled_tc" + ("128" if p > 64 else ""),
-                   "tiled": f"{stem}_tiled", "large": f"{stem}_large",
-                   "large_tc": f"{stem}_large_tc"}[kind]
+                   "tiled": f"{stem}_tiled", "cluster": f"{stem}_cluster",
+                   "large": f"{stem}_large", "large_tc": f"{stem}_large_tc"}[kind]
         if planned != name:
             raise SystemExit(f"the planner picks {kind} for ({p}, {n}), not {name}")
         wrapper = getattr(mod, name)
@@ -895,15 +936,19 @@ def phase_two_stage_kernels(gen):
         flops = TWO_STAGE_FLOPS[stem] * p * p * n * b
         timed = [(lambda: plain(x, g), 10), (lambda: run(x, g), 20)]
         extra = f"; 3xTF32 tensor work {1e3 * 3 * flops / TF32_TC_FLOP_PER_S:.4f}"
-        if kind == "tc":  # the CUDA-core tiled kernel at the same call
+        if kind in ("tc", "cluster"):  # the CUDA-core tiled kernel at the same call
             cc = functools.partial(getattr(mod, f"{stem}_tiled"),
                                    tile_n=ops.two_stage_tile_n(p, tiled_bytes))
             cc_out = run(x, g, wrapper=cc)
             torch.cuda.synchronize()
-            if not _errors((cc_out,), (want,), tol)[2]:
+            cc_err, _, cc_ok = _errors((cc_out,), (want,), tol)
+            if not cc_ok:
                 raise SystemExit(f"{stem}_tiled at {shape} disagrees")
             timed.append((lambda: run(x, g, wrapper=cc), 20))
-            bound_ms, bound_by = _bound_ms(3 * b * p * n * 4, 3 * flops, TF32_TC_FLOP_PER_S)
+            if kind == "tc":
+                bound_ms, bound_by = _bound_ms(3 * b * p * n * 4, 3 * flops, TF32_TC_FLOP_PER_S)
+            else:
+                bound_ms, bound_by = _bound_ms(3 * b * p * n * 4, flops)
         elif kind == "large_tc":  # the CUDA-core large route, its route before
             cc = getattr(mod, f"{stem}_large")
             cc_err, _, cc_ok = _errors((run(x, g, wrapper=cc),), (want,), tol)
@@ -923,6 +968,14 @@ def phase_two_stage_kernels(gen):
                       f"{1e3 * passes * b * p * n * 4 / HBM_BYTES_PER_S:.4f}; fp32 CUDA cores "
                       f"{1e3 * flops / FP32_FLOP_PER_S:.4f}; the CUDA-core tiled kernel at "
                       f"this call {times[2]:.4f} ms")
+        elif kind == "cluster":  # row 6 beside it, by its 7 passes
+            extra = (f"; cluster of {ops.small_p_cluster(p, n)}; row 6 (tile "
+                     f"{ops.two_stage_tile_n(p, tiled_bytes)}, 7 passes "
+                     f"{1e3 * 7 * b * p * n * 4 / HBM_BYTES_PER_S:.4f}) at this call "
+                     f"{times[2]:.4f} ms")
+            _record(records, f"{stem}_tiled", shape, dict(
+                max_abs_err=cc_err, ms=times[2], plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by))
         elif kind in ("large", "large_tc"):  # its launches, the slices' sums included
             counted = large_p.runner(x)
             run(x, g, runner=counted)
@@ -1164,6 +1217,78 @@ def phase_large_crossovers(gen):
                          f"{'reroutes' if reroute else 'keeps the tiled kernel'}")
         print(line, flush=True)
         del x, g, want, args
+
+
+# The readings behind the cluster route's end (ops.CLUSTER_MAX_P): 1048 matrices (the paper's count) at p = 4, 10, 16, 24, 28
+# and n = 2048, 4096, 10000, and at p = 29 and 32 (the tensor cores' range)
+# at n = 2048.
+CLUSTER_READINGS = [(1048, p, n) for p in (4, 10, 16, 24, 28) for n in (2048, 4096, 10000)]
+CLUSTER_READINGS += [(1048, 29, 2048), (1048, 32, 2048)]
+
+
+def phase_cluster_crossovers(gen, shapes=CLUSTER_READINGS, rounds=3):
+    """At each shape, fused POGO over trace and the POGO update on the
+    cluster kernels (their own cluster size) in turns with the route below
+    them: the CUDA-core tiled kernels (rows 2 and 6), or from ``TC_MIN_P``
+    the tensor-core ones (2tc and 6tc); each checked against the plain
+    version first. A shape no cluster holds says so. Then, at the paper's
+    1048 x (10, 10000), every cluster size that fits a CTA, in turns."""
+    import torch
+
+    from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import pogo_update as pu
+
+    kw = dict(method="pogo", lam=0.5, base_kind="trace", hyper=(0.9, False))
+    for b, p, n in shapes:
+        c = ops.small_p_cluster(p, n)
+        plans = f"{ops.plan(p, n)[0]} / {ops.plan_pogo_update(p, n)[0]}"
+        if c == 0:
+            print(f"crossover cluster {b}x({p},{n}), planned {plans}: no cluster holds it",
+                  flush=True)
+            continue
+        if p >= ops.TC_MIN_P:
+            other, fused, update = "tensor-core", fs.fused_step_tiled_tc, pu.pogo_update_tiled_tc
+        else:
+            other = "CUDA-core tiled"
+            fused = functools.partial(fs.fused_step_tiled, tile_n=ops.tiled_tile_n(p))
+            update = functools.partial(
+                pu.pogo_update_tiled, tile_n=ops.two_stage_tile_n(p, ops.pogo_tiled_smem_bytes))
+        x, g, mu, _ = _operands(gen, b, p, n)
+        want = ref.fused_group_step_ref(x, g, LR, mu=mu, **kw)
+        want_u = ref.pogo_update_ref(x, g, LR, 0.5)
+        for label, got, w, tol in (
+                ("fused cluster", fs.fused_step_cluster(x, g, LR, mu=mu, **kw), want, TILED_TOL),
+                ("fused " + other, fused(x, g, LR, mu=mu, **kw), want, TILED_TOL),
+                ("update cluster", (pu.pogo_update_cluster(x, g, LR, 0.5),), (want_u,),
+                 TWO_STAGE_TILED_TOL),
+                ("update " + other, (update(x, g, LR, 0.5),), (want_u,), TWO_STAGE_TILED_TOL)):
+            if not _errors(got, w, tol)[2]:
+                raise SystemExit(f"crossover {label} at {(b, p, n)} disagrees")
+        del want, want_u
+        t = _time_rotating([(lambda: fs.fused_step_cluster(x, g, LR, mu=mu, **kw), 10),
+                            (lambda: fused(x, g, LR, mu=mu, **kw), 10),
+                            (lambda: pu.pogo_update_cluster(x, g, LR, 0.5), 10),
+                            (lambda: update(x, g, LR, 0.5), 10)], rounds)
+        print(f"crossover cluster {b}x({p},{n}), planned {plans}: fused POGO cluster of {c} "
+              f"{t[0]:.4f} ms, {other} {t[1]:.4f} ms; POGO update cluster {t[2]:.4f} ms, "
+              f"{other} {t[3]:.4f} ms", flush=True)
+        del x, g, mu
+    b, p, n = PAPER_SHAPE
+    sizes = [c for c in (2, 4, 8) if ops.small_p_smem_bytes(p, n, c) <= ops.SMEM_LIMIT_BYTES]
+    x, g, mu, _ = _operands(gen, b, p, n)
+    fns = [(functools.partial(fs.fused_step_cluster, x, g, LR, mu=mu, cluster=c, **kw), 10)
+           for c in sizes]
+    fns += [(functools.partial(pu.pogo_update_cluster, x, g, LR, 0.5, cluster=c), 10)
+            for c in sizes]
+    t = _time_rotating(fns, rounds)
+    k = len(sizes)
+    print(f"cluster sizes at {b}x({p},{n}) (smem a CTA "
+          f"{[ops.small_p_smem_bytes(p, n, c) for c in sizes]} bytes), planned "
+          f"{ops.small_p_cluster(p, n)}: fused POGO "
+          f"{ {c: round(v, 4) for c, v in zip(sizes, t[:k])} } ms; POGO update "
+          f"{ {c: round(v, 4) for c, v in zip(sizes, t[k:])} } ms", flush=True)
+    del x, g, mu
 
 
 def _is_qk(path: str) -> bool:
@@ -2028,8 +2153,8 @@ def planned_kernels(path, shapes):
                 p, n)[0]
         name = {"whole": "landing_field" if stem == "landing_field" else f"{stem}_whole",
                 "tc": f"{stem}_tiled_tc" + ("128" if p > 64 else ""),
-                "tiled": f"{stem}_tiled", "large": f"{stem}_large",
-                "large_tc": f"{stem}_large_tc"}[kind] + suffix
+                "tiled": f"{stem}_tiled", "cluster": f"{stem}_cluster",
+                "large": f"{stem}_large", "large_tc": f"{stem}_large_tc"}[kind] + suffix
         out[name] = out.get(name, 0) + 1
     return out
 
@@ -2073,6 +2198,7 @@ def main() -> int:
     pu.lib()
     ns.lib()
     ns.tc_lib()
+    fs.cluster_lib()
     tp.lib()
     fa.lib()
     fa.tc_lib()
@@ -2089,6 +2215,7 @@ def main() -> int:
     records.update(phase_two_stage_kernels(gen))
     records.update(phase_newton_schulz(gen))
     phase_large_crossovers(gen)
+    phase_cluster_crossovers(gen)
     records.update(phase_tp_kernels(gen))
 
     smollm = ortho.orthogonal_leaf_shapes(smollm_360m.config())
@@ -2097,13 +2224,17 @@ def main() -> int:
          "fused_step_tiled_tc"),
         ("fused 2048x(16,256)", MANY, 10, "fused", 1e-5, "fused_step_whole"),
         ("fused internlm2-1.8b q/k", INTERNLM2, 3, "fused", 1e-5, "fused_step_tiled_tc128"),
-        ("fused paper unitary-PC sizes", PAPER_PC, 3, "fused", 1e-5, "fused_step_tiled"),
+        ("fused paper unitary-PC sizes", PAPER_PC, 3, "fused", 1e-5, "fused_step_cluster"),
+        ("fused paper unitary-PC sizes, n = 9998", PAPER_PC_ODD, 3, "fused", 1e-5,
+         "fused_step_tiled"),
         ("pogo+adam smollm-360m q/k", smollm, 10, "pogo_adam", 1e-5,
          "pogo_update_tiled_tc"),
         ("pogo+adam 2048x(16,256)", MANY, 10, "pogo_adam", 1e-5, "pogo_update_whole"),
         ("pogo+adam internlm2-1.8b q/k", INTERNLM2, 3, "pogo_adam", 1e-5,
          "pogo_update_tiled_tc128"),
         ("pogo+adam paper unitary-PC sizes", PAPER_PC, 3, "pogo_adam", 1e-5,
+         "pogo_update_cluster"),
+        ("pogo+adam paper unitary-PC sizes, n = 9998", PAPER_PC_ODD, 3, "pogo_adam", 1e-5,
          "pogo_update_tiled"),
         ("landing smollm-360m q/k", smollm, 10, "landing", 0.5, "landing_field_tiled_tc"),
         ("landing 2048x(16,256)", MANY, 10, "landing", 0.5, "landing_field"),

@@ -49,12 +49,14 @@ namespace hopper {
 
 // A 4-D tensor map over a dense tensor whose innermost dimension is
 // dims[0]: strides[i] is the byte stride of dims[i + 1] (a multiple of 16),
-// box the tile a load copies, 128-byte swizzled, zero past every edge.
-// cuTensorMapEncodeTiled lives in libcuda; the runtime hands out its
-// address, so that nothing links against libcuda. Returns 0, or a nonzero
-// code: a cudaError_t, or 10000 + the CUresult of the encode.
+// box the tile a load copies, 128-byte swizzled (or as `swizzle` says),
+// zero past every edge. cuTensorMapEncodeTiled lives in libcuda; the
+// runtime hands out its address, so that nothing links against libcuda.
+// Returns 0, or a nonzero code: a cudaError_t, or 10000 + the CUresult of
+// the encode.
 inline int make_tma_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
-                        const uint64_t dims[4], const uint64_t strides[3], const uint32_t box[4]) {
+                        const uint64_t dims[4], const uint64_t strides[3], const uint32_t box[4],
+                        CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -73,7 +75,7 @@ inline int make_tma_map(CUtensorMap* map, CUtensorMapDataType type, const void* 
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult res = encode(
       map, type, 4, const_cast<void*>(base), dims, strides, box,
-      unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : 10000 + static_cast<int>(res);
 }
@@ -87,6 +89,14 @@ inline int make_tma_map_bf16(CUtensorMap* map, const void* base, const uint64_t 
 inline int make_tma_map_f32(CUtensorMap* map, const void* base, const uint64_t dims[4],
                             const uint64_t strides[3], const uint32_t box[4]) {
   return make_tma_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, dims, strides, box);
+}
+
+// The same over fp32 without a swizzle: a box lands dense and row-major
+// (box[0] a multiple of 4, up to 256; the destination 128-byte aligned).
+inline int make_tma_map_f32_rows(CUtensorMap* map, const void* base, const uint64_t dims[4],
+                                 const uint64_t strides[3], const uint32_t box[4]) {
+  return make_tma_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, dims, strides, box,
+                      CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // --------------------------------------------------------- shared memory
@@ -234,7 +244,8 @@ __device__ __forceinline__ void reg_alloc() {
 // ------------------------------------------------------------------- TMA
 
 // Copies the box at coordinates (c0, c1, c2, c3) of `map` to `dst` (1024-
-// byte aligned) and completes its bytes on `bar`. One thread issues it.
+// byte aligned; 128 without a swizzle) and completes its bytes on `bar`.
+// One thread issues it.
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(

@@ -1,0 +1,744 @@
+// The fused POGO step and the two-stage POGO update for small p on Hopper
+// (sm_90a; the planner takes both to p = 24): one (p, n) matrix per
+// thread block cluster, held whole in the cluster's shared memory, IEEE
+// fp32 on the CUDA cores.
+//
+// Replaces the Pallas TPU kernels
+//   fused_step_cluster   <- src/repro/kernels/fused_step.py:608 fused_step_tiled
+//                           (_t1_kernel :476, _t2_pogo_kernel :530,
+//                           pogo_update._phase3_kernel :133), POGO branch
+//   pogo_update_cluster  <- src/repro/kernels/pogo_update.py:143 pogo_update_tiled
+//                           (_phase1/2/3_kernel :91/:110/:133)
+// with the functions of fused_step.cu's fused_step_tiled (POGO) and
+// two_stage.cu's pogo_update_tiled: base stage (none | trace (+nesterov) |
+// vadam), A = X X^T, B = X Geu^T, M = X - coef/2 (A Geu - B X), C = M M^T,
+// X' = (1 + lam) M - lam C M, and (fused) the distance from C by the gram
+// identity, as fused_step.cu's telemetry forms it.
+//
+// Bound: 12 p^2 n flops a matrix against 5 HBM passes of 4 p n bytes (the
+// fused step: X, g, mu read, mu', X' written) or 3 (the update: X, G read,
+// X' written), 0.6 p and p flop/byte: at p = 10 far below the fp32 ridge of
+// 20 (67 TFLOP/s over 3.35 TB/s), so bytes bound both. The CUDA-core tiled
+// kernels sweep n three times (9 and 7 passes) with one synchronous 64-column
+// tile in flight a CTA; these read each operand once and write each result
+// once.
+//
+// Design:
+// * A cluster of c CTAs (2, 4 or 8) a matrix, persistent over the stack
+//   (matrix b = cluster id, stepping by the number of clusters). CTA r holds
+//   columns [r nc, (r + 1) nc) of X and of Geu as `nbox` row-major (p, W)
+//   boxes (W <= 256 columns, W % 4 == 0, nc = nbox W), each loaded by one
+//   TMA copy (no swizzle, zero past n) onto its own mbarrier, all issued up
+//   front, so that the grams start on the first box while the others land.
+// * The base stage runs on each box as it lands: mu read by float4 loads
+//   (for p <= 12 the next box's while this box's products run), mu'
+//   stored, Geu written over g in the box.
+// * Grams: A (its blocks on and above the diagonal, mirrored) and B in 4 x 4
+//   register blocks, each block's k range split over S lanes (a power of two)
+//   and summed by a fixed butterfly (and, past a warp, in warp order). Each
+//   CTA publishes its partial (PB, PB) grams (PB = p rounded up to 4, zero
+//   past p); after a cluster barrier every CTA sums all c partials in rank
+//   order, its own and its peers' through distributed shared memory
+//   (mapa, ld.shared::cluster.v4): the same bits in every CTA. vadam's sum
+//   of squares meets the same way.
+// * Column-local phases (the leap M, written over X in shared memory; the
+//   land X', stored to HBM) give a thread KC whole columns (all p rows in
+//   registers; rows in a rolled loop from PB = 20) and read the (p, p)
+//   operands as broadcast float4 rows. They run box by box in rounds of
+//   kThreads column groups: each box of Geu the leap has finished takes the
+//   next matrix's g, each box of M the land has finished its X, so the next
+//   matrix's loads run under this one's products.
+// * Two cluster barriers a matrix (A and B; C) and one at the end, so that
+//   a CTA never overwrites a published partial a peer may still read and
+//   never leaves while a peer may read its shared memory.
+// * Two CTAs an SM where the slices allow (small_p_cluster), so that one
+//   CTA's products run while the other waits: at the paper's (10, 10000) a
+//   cluster of 8 with two CTAs an SM beat one of 4 with one (readings in
+//   kernels/ops.py), and so did it two sets of slices in one CTA an SM,
+//   the next matrix loaded a whole matrix ahead (1.7026 / 1.2062 ms fused /
+//   update against 1.1815 / 0.8718 in one call on an H100).
+//
+// Shared memory: the X and Geu slices (2 nbox slots of p W floats, each slot
+// rounded up to 128 bytes), the published and summed (PB, PB) grams and a
+// scratch for the distance, a zero row (rows past p read it), the warps'
+// partials, the reduction scratch and 2 nbox mbarriers. Outputs may alias
+// inputs (x_out == x, mu_out == mu, nu_out == nu): X is resident before X'
+// is written, mu is read before mu' is written by the same thread, and nu
+// is read before the cluster barrier after which rank 0 writes nu'. Every
+// launcher returns cudaGetLastError(); a refused launch is its error.
+
+#include "hopper.cuh"
+#include "tiles.cuh"
+
+namespace {
+
+// The route takes p <= CLUSTER_MAX_P (kernels/ops.py); the kernels take
+// p <= 32, so that the readings that set the route's top end reach past it.
+constexpr int kSpMaxP = 32;
+constexpr int kSpMaxCluster = 8;    // the largest portable cluster
+constexpr int kSpBoxCols = 256;     // most columns a TMA box takes
+constexpr int kSpMaxBoxes = 64;     // most boxes a CTA holds
+constexpr int kSpSmSmem = 233472;   // an SM's shared memory, 1 KB of it reserved a CTA
+
+// Whole columns a thread takes in the column-local phases: its p x KC
+// values of X and Geu stay in registers (128 a thread at two CTAs an SM,
+// which the register cap allows up to PB = 28).
+__host__ __device__ constexpr int sp_cols(int PB) { return PB <= 8 ? 4 : PB <= 16 ? 2 : 1; }
+
+// Whether the column-local phases keep their row loop rolled (their PB x KC
+// values and the unrolled rows' temporaries overflow 128 registers).
+__host__ __device__ constexpr bool sp_rolled(int PB) { return PB >= 20; }
+
+// Lanes that split one 4 x 4 gram block's k range: the largest power of two
+// with items x lanes <= kThreads.
+__host__ __device__ constexpr int sp_lanes(int items) {
+  int s = 1;
+  while (s < kThreads && 2 * s * items <= kThreads) s *= 2;
+  return s;
+}
+
+struct SpLayout {
+  int W;     // columns of a box
+  int nbox;  // boxes a CTA
+  int nc;    // columns a CTA, nbox W
+  int sbox;  // bytes of a box's slot, p W floats rounded up to 128 bytes
+};
+
+__host__ __device__ inline SpLayout sp_layout(int p, int n, int c) {
+  SpLayout L;
+  const int cols = (n + c - 1) / c;
+  L.nbox = (cols + kSpBoxCols - 1) / kSpBoxCols;
+  L.W = round4((cols + L.nbox - 1) / L.nbox);
+  L.nc = L.nbox * L.W;
+  L.sbox = (p * L.W * 4 + 127) / 128 * 128;
+  return L;
+}
+
+// Floats past the slices: the published A, B, C, the summed A, B, C, the
+// distance's C^2 (PB^2 each), the zero row, the warps' partials and the
+// reduction scratch (its [8] the published sum of squares).
+__host__ __device__ inline int sp_extra_floats(int PB) {
+  return 7 * PB * PB + kSpBoxCols + kWarps * 16 + 16;
+}
+
+__host__ __device__ inline int sp_smem_bytes(int p, int n, int c) {
+  const SpLayout L = sp_layout(p, n, c);
+  return 2 * L.nbox * L.sbox + 4 * sp_extra_floats(round4(p)) + 16 * L.nbox + 1024;
+}
+
+__host__ __device__ inline bool sp_fits(int p, int n, int c, int ctas) {
+  return sp_layout(p, n, c).nbox <= kSpMaxBoxes && sp_smem_bytes(p, n, c) <= kSmemLimit &&
+         ctas * (sp_smem_bytes(p, n, c) + 1024) <= kSpSmSmem;
+}
+
+// The cluster size for (p, n): the least c in {2, 4, 8} whose CTA leaves
+// an SM room for a second one, so that one CTA's loads run under the
+// other's products (at 1048 x (10, 10000) on an H100, ms fused POGO /
+// POGO update: c = 8, two CTAs an SM, 1.2307 / 0.9033; c = 4, one,
+// 1.5050 / 1.0695); else the least whose slices fit a CTA; 0 when none does.
+__host__ __device__ inline int sp_cluster(int p, int n) {
+  for (int ctas = 2; ctas >= 1; --ctas)
+    for (int c = 2; c <= kSpMaxCluster; c *= 2)
+      if (sp_fits(p, n, c, ctas)) return c;
+  return 0;
+}
+
+// KC consecutive floats from / to shared or global memory (16-, 8- or
+// 4-byte aligned).
+template <int KC>
+__device__ inline void ld_cols(float (&v)[KC], const float* s) {
+  if constexpr (KC == 4) {
+    load4(v, *reinterpret_cast<const float4*>(s));
+  } else if constexpr (KC == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(s);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    v[0] = *s;
+  }
+}
+
+template <int KC>
+__device__ inline void st_cols(float* d, const float (&v)[KC]) {
+  if constexpr (KC == 4) {
+    *reinterpret_cast<float4*>(d) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (KC == 2) {
+    *reinterpret_cast<float2*>(d) = make_float2(v[0], v[1]);
+  } else {
+    *d = v[0];
+  }
+}
+
+// Block (bi, bj), bi <= bj, the item-th of the blocks on and above the
+// diagonal of an nb x nb grid of 4 x 4 blocks, row by row.
+__device__ inline void sym_block(int item, int nb, int& bi, int& bj) {
+  bi = 0;
+  while (item >= nb - bi) {
+    item -= nb - bi;
+    ++bi;
+  }
+  bj = bi + item;
+}
+
+// acc[4 r + c] += sum_k U[4 bi + r, k] V[4 bj + c, k] over the column quads
+// s, s + S, ... of one row-major (p, W) box; rows past p read the zero row.
+__device__ inline void gram_quads(float (&acc)[16], const float* U, const float* V, int bi,
+                                  int bj, int p, int W, const float* zrow, int s, int S) {
+  const float* u[4];
+  const float* v[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    u[r] = 4 * bi + r < p ? U + (4 * bi + r) * W : zrow;
+    v[r] = 4 * bj + r < p ? V + (4 * bj + r) * W : zrow;
+  }
+  for (int q = s; q < W / 4; q += S) {
+    float a[4][4], b[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      load4(a[r], lds4(u[r] + 4 * q));
+      load4(b[r], lds4(v[r] + 4 * q));
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[4 * r + c] = fmaf(a[r][e], b[c][e], acc[4 * r + c]);
+  }
+}
+
+// The items' sums over their S lanes (a butterfly inside the warp, then an
+// item's warps in order through `part`), written by its lane 0 to the
+// row-major (PB, PB) `pub` of its gram, zero past p; a symmetric item also
+// at its transposed place. Every thread calls it.
+template <int S>
+__device__ inline void publish(float (&acc)[16], bool act, bool cross, int bi, int bj, int p,
+                               int PB, float* sym, float* crs, float* part) {
+  constexpr int L = S < 32 ? S : 32;
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+  const int tid = threadIdx.x;
+  if (S > 32) {
+    const int w = tid >> 5;
+    if ((tid & 31) == 0)
+#pragma unroll
+      for (int e = 0; e < 16; ++e) part[16 * w + e] = acc[e];
+    __syncthreads();
+    if (tid % S == 0)
+      for (int k = 1; k < S / 32; ++k)
+#pragma unroll
+        for (int e = 0; e < 16; ++e) acc[e] += part[16 * (w + k) + e];
+  }
+  if (!act || tid % S != 0) return;
+  // Formed here, not hoisted to the kernel's start and spilled (PB = 24).
+  bi = hopper::opaque(bi);
+  bj = hopper::opaque(bj);
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int i = 4 * bi + r, j = 4 * bj + c;
+      const float v = i < p && j < p ? acc[4 * r + c] : 0.f;
+      if (cross) {
+        crs[i * PB + j] = v;
+      } else {
+        sym[i * PB + j] = v;
+        sym[j * PB + i] = v;
+      }
+    }
+}
+
+// out = the sum of every CTA's `pub` (count floats, count % 4 == 0) in rank
+// order: its own from its shared memory, its peers' through mapa.
+__device__ inline void cluster_sum(const float* pub, float* out, int count, int c, int rank) {
+  for (int e = 4 * threadIdx.x; e < count; e += 4 * kThreads) {
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = 0; k < c; ++k) {
+      const float4 v = k == rank ? lds4(pub + e) : hopper::ld_peer4(hopper::map_peer(pub + e, k));
+      if (k == 0) {
+        s = v;
+      } else {
+        s.x += v.x;
+        s.y += v.y;
+        s.z += v.z;
+        s.w += v.w;
+      }
+    }
+    *reinterpret_cast<float4*>(out + e) = s;
+  }
+}
+
+// The base stage on one box of g (row-major (p, W), global columns col0 ..),
+// in two halves so that the box's mu loads fly under the products of the
+// box before it: stage_load reads the thread's quads of mu (KQ at most) into
+// registers; stage_finish forms mu' = h0 mu + g (trace) or h0 mu + (1 - h0)
+// g (vadam, whose squares of g go to sq), stores it to mu_out, and writes
+// Geu (mu', or h0 mu' + g with nesterov) over g in the box. Columns past n
+// stay zero.
+template <int KQ>
+__device__ inline void stage_load(float4 (&mq)[KQ], const float* mu, size_t off, int p, int n,
+                                  int col0, int W) {
+  const int wq = W / 4;
+#pragma unroll
+  for (int k = 0; k < KQ; ++k) {
+    const int u = threadIdx.x + k * kThreads, i = u / wq, col = col0 + 4 * (u - i * wq);
+    if (u < p * wq && col < n)
+      mq[k] = *reinterpret_cast<const float4*>(mu + off + static_cast<size_t>(i) * n + col);
+  }
+}
+
+// One quad: mu' from mu (mv) and g (over which Geu goes) at row i, column
+// col.
+__device__ __forceinline__ void stage_quad(const float4 mv4, float4* gp, float* mu_out,
+                                           size_t at, int base_kind, int nesterov, float h0,
+                                           float& sq) {
+  float gv[4], mv[4], m2[4], ge[4];
+  load4(gv, *gp);
+  load4(mv, mv4);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (base_kind == kTrace) {
+      m2[e] = h0 * mv[e] + gv[e];
+    } else {
+      m2[e] = h0 * mv[e] + (1.f - h0) * gv[e];
+      sq = fmaf(gv[e], gv[e], sq);
+    }
+    ge[e] = (base_kind == kTrace && nesterov) ? h0 * m2[e] + gv[e] : m2[e];
+  }
+  *reinterpret_cast<float4*>(mu_out + at) = make_float4(m2[0], m2[1], m2[2], m2[3]);
+  *gp = make_float4(ge[0], ge[1], ge[2], ge[3]);
+}
+
+template <int KQ>
+__device__ inline void stage_finish(const float4 (&mq)[KQ], float* G, float* mu_out, size_t off,
+                                    int p, int n, int col0, int W, int base_kind, int nesterov,
+                                    float h0, float& sq) {
+  const int wq = W / 4;
+#pragma unroll
+  for (int k = 0; k < KQ; ++k) {
+    const int u = threadIdx.x + k * kThreads, i = u / wq, q = u - i * wq, col = col0 + 4 * q;
+    if (u >= p * wq || col >= n) continue;
+    stage_quad(mq[k], reinterpret_cast<float4*>(G + i * W + 4 * q), mu_out,
+               off + static_cast<size_t>(i) * n + col, base_kind, nesterov, h0, sq);
+  }
+}
+
+// The same in one pass, each quad's mu loaded where it is used (for large
+// p, whose quads would not stay in registers under the products).
+__device__ inline void stage_box(float* G, const float* mu, float* mu_out, size_t off, int p,
+                                 int n, int col0, int W, int base_kind, int nesterov, float h0,
+                                 float& sq) {
+  const int wq = W / 4;
+  for (int u = threadIdx.x; u < p * wq; u += kThreads) {
+    const int i = u / wq, q = u - i * wq, col = col0 + 4 * q;
+    if (col >= n) continue;
+    const size_t at = off + static_cast<size_t>(i) * n + col;
+    stage_quad(*reinterpret_cast<const float4*>(mu + at),
+               reinterpret_cast<float4*>(G + i * W + 4 * q), mu_out, at, base_kind, nesterov,
+               h0, sq);
+  }
+}
+
+// M = X - coef/2 (A Geu - B X) for one group of KC whole columns (xb, gb:
+// its first column in the boxes of X and Geu), written over X; A, Bm
+// row-major (PB, PB).
+template <int PB, int KC>
+__device__ __forceinline__ void leap_group(float* xb, const float* gb, const float* A,
+                                           const float* Bm, float coef, int p, int W,
+                                           const float* zrow) {
+  float xr[PB][KC], gr[PB][KC];
+#pragma unroll
+  for (int i = 0; i < PB; ++i) {
+    ld_cols(xr[i], i < p ? xb + i * W : zrow);
+    ld_cols(gr[i], i < p ? gb + i * W : zrow);
+  }
+  // Rows in a loop the compiler keeps rolled from PB = 20 (sp_rolled), X's
+  // row re-read from shared memory before M's is written over it.
+#pragma unroll
+  for (int r = 0; r < (sp_rolled(PB) ? 1 : PB); ++r)
+  for (int i = r; i < (sp_rolled(PB) ? p : r + 1); ++i) {
+    if (i >= p) continue;
+    float ag[KC] = {}, bx[KC] = {};
+#pragma unroll
+    for (int j4 = 0; j4 < PB / 4; ++j4) {
+      float av[4], bv[4];
+      load4(av, lds4(A + i * PB + 4 * j4));
+      load4(bv, lds4(Bm + i * PB + 4 * j4));
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          ag[c] = fmaf(av[q], gr[4 * j4 + q][c], ag[c]);
+          bx[c] = fmaf(bv[q], xr[4 * j4 + q][c], bx[c]);
+        }
+    }
+    float xi[KC], o[KC];
+    if constexpr (sp_rolled(PB)) {
+      ld_cols(xi, xb + i * W);
+    } else {
+#pragma unroll
+      for (int c = 0; c < KC; ++c) xi[c] = xr[i][c];
+    }
+#pragma unroll
+    for (int c = 0; c < KC; ++c) o[c] = xi[c] - coef * (0.5f * (ag[c] - bx[c]));
+    st_cols(xb + i * W, o);
+  }
+}
+
+// X' = (1 + lam) M - lam C M for one group of KC whole columns (mb: its
+// first column in M's boxes), stored to HBM at `out` (its first element,
+// row stride n); C row-major (PB, PB).
+template <int PB, int KC>
+__device__ __forceinline__ void land_group(const float* mb, const float* C, float lam, int p,
+                                           int n, int W, float* out, const float* zrow) {
+  float m[PB][KC];
+#pragma unroll
+  for (int i = 0; i < PB; ++i) ld_cols(m[i], i < p ? mb + i * W : zrow);
+#pragma unroll
+  for (int r = 0; r < (sp_rolled(PB) ? 1 : PB); ++r)
+  for (int i = r; i < (sp_rolled(PB) ? p : r + 1); ++i) {
+    if (i >= p) continue;
+    float cm[KC] = {};
+#pragma unroll
+    for (int j4 = 0; j4 < PB / 4; ++j4) {
+      float cv[4];
+      load4(cv, lds4(C + i * PB + 4 * j4));
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int c = 0; c < KC; ++c) cm[c] = fmaf(cv[q], m[4 * j4 + q][c], cm[c]);
+    }
+    float mi[KC], o[KC];
+    if constexpr (sp_rolled(PB)) {
+      ld_cols(mi, mb + i * W);
+    } else {
+#pragma unroll
+      for (int c = 0; c < KC; ++c) mi[c] = m[i][c];
+    }
+#pragma unroll
+    for (int c = 0; c < KC; ++c) o[c] = (1.f + lam) * mi[c] - lam * cm[c];
+    st_cols(out + static_cast<size_t>(i) * n, o);
+  }
+}
+
+// The column-local phases over the CTA's live boxes, box by box in rounds
+// of kThreads groups of KC columns: the leap (kLeap) or the land. After each
+// round every thread calls done(from, to) with the boxes [from, to) it
+// finished, at one call site: done's barrier is .aligned, so no warp may
+// reach it from two places.
+template <int PB, int KC, bool kLeap, class Done>
+__device__ __forceinline__ void column_rounds(float* XS, const float* GS, const float* P,
+                                              const float* Q, float coef, float lam, int p,
+                                              int n, int W, int sboxf, int live, int col_lo,
+                                              float* out, const float* zrow, Done done) {
+  const int per = W / KC, total = live * per;
+  int finished = 0;
+  for (int u0 = 0; u0 < total; u0 += kThreads) {
+    const int u = u0 + threadIdx.x, j = u / per, cb = (u - j * per) * KC;
+    const int col = col_lo + j * W + cb;
+    if (u < total && col < n) {
+      if (kLeap)
+        leap_group<PB, KC>(XS + j * sboxf + cb, GS + j * sboxf + cb, P, Q, coef, p, W, zrow);
+      else
+        land_group<PB, KC>(XS + j * sboxf + cb, P, lam, p, n, W, out + col, zrow);
+    }
+    const int now = min(total, u0 + kThreads) / per;
+    done(finished, now);
+    finished = now;
+  }
+}
+
+// dist = ||(1+lam)^2 C - 2 lam (1+lam) C^2 + lam^2 C^3 - I_pv||_F (fused_step.cu's
+// telemetry), C row-major (PB, PB), C^2 built in C2, by one warp (lane 0
+// stores it) while the other warps go on to the land.
+__device__ void sp_telemetry(const float* C, float* C2, int PB, int p, int pv, float lam,
+                             float* dist_out) {
+  const int lane = threadIdx.x & 31;
+  for (int e = lane; e < p * p; e += 32) {
+    const int i = e / p, j = e - i * p;
+    float s = 0.f;
+    for (int l = 0; l < p; ++l) s = fmaf(C[i * PB + l], C[l * PB + j], s);
+    C2[i * PB + j] = s;
+  }
+  __syncwarp();
+  const float k1 = (1.f + lam) * (1.f + lam);
+  const float k2 = 2.f * lam * (1.f + lam);
+  const float k3 = lam * lam;
+  float acc = 0.f;
+  for (int e = lane; e < p * p; e += 32) {
+    const int i = e / p, j = e - i * p;
+    float c3 = 0.f;
+    for (int l = 0; l < p; ++l) c3 = fmaf(C2[i * PB + l], C[l * PB + j], c3);
+    const float w = k1 * C[i * PB + j] - k2 * C2[i * PB + j] + k3 * c3;
+    const float r = w - ((i == j && i < pv) ? 1.f : 0.f);
+    acc = fmaf(r, r, acc);
+  }
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (lane == 0) *dist_out = sqrtf(acc);
+}
+
+// One cluster of c CTAs a matrix; grid (clusters) x c. kUpdate: the
+// two-stage update (no base stage, coef = eta, no distance).
+template <int PB, bool kUpdate>
+__global__ void __launch_bounds__(kThreads, PB <= 28 ? 2 : 1)
+small_p_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_g,
+               const float* mu, const float* nu, const float* scal, const int* pv, float* x_out,
+               float* mu_out, float* nu_out, float* dist, int B, int p, int n, int base_kind,
+               int nesterov, int c) {
+  extern __shared__ unsigned char small_p_smem[];
+  constexpr int KC = sp_cols(PB), nb = PB / 4, nA = nb * (nb + 1) / 2;
+  constexpr int KQ = (PB * kSpBoxCols / 4 + kThreads - 1) / kThreads;  // mu quads a box
+  constexpr bool kAhead = KQ <= 3;  // the next box's mu in registers under the products
+  constexpr int S1 = sp_lanes(nA + nb * nb), S2 = sp_lanes(nA);
+  unsigned char* sm = hopper::smem_align1024(small_p_smem);
+  const SpLayout L = sp_layout(p, n, c);
+  const int W = L.W, sboxf = L.sbox / 4, tid = threadIdx.x;
+  const int rank = static_cast<int>(hopper::cluster_rank());
+  const int col_lo = rank * L.nc;
+  const int live = col_lo >= n ? 0 : min(L.nbox, (n - col_lo + W - 1) / W);  // boxes before n
+  float* XS = reinterpret_cast<float*>(sm);
+  float* GS = XS + L.nbox * sboxf;
+  float* pubA = GS + L.nbox * sboxf;  // pubA, pubB, pubC, then the sums A, B, C
+  float* pubB = pubA + PB * PB;
+  float* pubC = pubB + PB * PB;
+  float* Ag = pubC + PB * PB;
+  float* Bg = Ag + PB * PB;
+  float* Cg = Bg + PB * PB;
+  float* C2 = Cg + PB * PB;
+  float* zrow = C2 + PB * PB;
+  float* part = zrow + kSpBoxCols;
+  float* red = part + kWarps * 16;
+  uint64_t* bar_x = reinterpret_cast<uint64_t*>(red + 16);
+  uint64_t* bar_g = bar_x + L.nbox;
+  const uint32_t box_bytes = static_cast<uint32_t>(p * W * 4);
+  const int cl = blockIdx.x / c, ncl = gridDim.x / c;
+  const float lam = scal[1], h0 = scal[3];
+
+  // This thread's gram blocks: A's on and above the diagonal, then B's
+  // (phase 1, S1 lanes each); C's (phase 3, S2 lanes each).
+  const int it1 = tid / S1, s1 = tid % S1, it2 = tid / S2, s2 = tid % S2;
+  const bool act1 = it1 < nA + nb * nb, cross1 = it1 >= nA, act2 = it2 < nA;
+  int bi1 = 0, bj1 = 0, bi2 = 0, bj2 = 0;
+  if (act1 && !cross1) sym_block(it1, nb, bi1, bj1);
+  if (act1 && cross1) {
+    bi1 = (it1 - nA) / nb;
+    bj1 = (it1 - nA) % nb;
+  }
+  if (act2) sym_block(it2, nb, bi2, bj2);
+
+  if (tid == 0) {
+    for (int j = 0; j < 2 * L.nbox; ++j) hopper::mbar_init(bar_x + j, 1);
+    hopper::mbar_fence_init();
+  }
+  for (int e = tid; e < kSpBoxCols; e += kThreads) zrow[e] = 0.f;
+  __syncthreads();
+
+  // Boxes [j0, j1) of matrix b's X (or g) into their slots, each on its
+  // mbarrier (thread 0). Closures take copies, so that nothing of the
+  // kernel's lives in local memory for them.
+  auto issue = [=](const CUtensorMap* map, float* slice, uint64_t* bars, int b, int j0, int j1) {
+    for (int j = j0; j < j1; ++j) {
+      hopper::mbar_expect_tx(bars + j, box_bytes);
+      hopper::tma_load_4d(slice + j * sboxf, map, bars + j, col_lo + j * W, 0, b, 0);
+    }
+  };
+  if (tid == 0 && cl < B) {
+    issue(&tm_x, XS, bar_x, cl, 0, live);
+    issue(&tm_g, GS, bar_g, cl, 0, live);
+  }
+
+  int it = 0;
+  for (int b = cl; b < B; b += ncl, ++it) {
+    const uint32_t ph = it & 1;
+    const bool next = b + ncl < B;
+    const size_t off = static_cast<size_t>(b) * p * n;
+    const bool vadam = !kUpdate && base_kind == kVAdam;
+    const float nu0 = vadam ? nu[b] : 0.f;
+
+    // 1. Each box as it lands: the base stage (the next box's mu loads
+    // issued before this box's products), then its share of A and B.
+    const bool moments = !kUpdate && base_kind != kNone;
+    float acc[16] = {};
+    float sq = 0.f;
+    float4 mq[KQ];
+    if constexpr (kAhead)
+      if (moments && live > 0) stage_load(mq, mu, off, p, n, col_lo, W);
+    for (int j = 0; j < live; ++j) {
+      hopper::mbar_wait(bar_x + j, ph);
+      hopper::mbar_wait(bar_g + j, ph);
+      if (moments) {
+        if constexpr (kAhead)
+          stage_finish(mq, GS + j * sboxf, mu_out, off, p, n, col_lo + j * W, W, base_kind,
+                       nesterov, h0, sq);
+        else
+          stage_box(GS + j * sboxf, mu, mu_out, off, p, n, col_lo + j * W, W, base_kind,
+                    nesterov, h0, sq);
+      }
+      __syncthreads();
+      if constexpr (kAhead)
+        if (moments && j + 1 < live) stage_load(mq, mu, off, p, n, col_lo + (j + 1) * W, W);
+      if (act1)
+        gram_quads(acc, XS + j * sboxf, (cross1 ? GS : XS) + j * sboxf, bi1, bj1, p, W, zrow, s1,
+                   S1);
+    }
+    publish<S1>(acc, act1, cross1, bi1, bj1, p, PB, pubA, pubB, part);
+    if (vadam) {
+      const float cta_sq = block_sum(sq, red);
+      if (tid == 0) red[8] = cta_sq;
+    }
+    hopper::cluster_sync();
+    cluster_sum(pubA, Ag, 2 * PB * PB, c, rank);  // A and B
+    float coef = scal[0];
+    if (vadam) {
+      float tot = 0.f;
+      for (int k = 0; k < c; ++k)
+        tot += k == rank ? red[8] : hopper::ld_peer(hopper::map_peer(red + 8, k));
+      const float b2 = scal[4], eps = scal[5], c1 = scal[6], c2 = scal[7];
+      const float nu2 = b2 * nu0 + (1.f - b2) * tot;
+      if (rank == 0 && tid == 0) nu_out[b] = nu2;
+      coef = scal[0] * ((scal[2] / c1) / (sqrtf(nu2 / c2) + eps));
+    } else if (!kUpdate) {
+      coef = scal[0] * scal[2];
+    }
+    __syncthreads();
+
+    // 2. The leap over X; each box of Geu it has finished takes the next
+    // matrix's g.
+    auto refill = [=](const CUtensorMap* map, float* slice, uint64_t* bars) {
+      return [=](int from, int to) {
+        hopper::fence_proxy_async_smem();
+        __syncthreads();
+        if (tid == 0 && next) issue(map, slice, bars, b + ncl, from, to);
+      };
+    };
+    column_rounds<PB, KC, true>(XS, GS, Ag, Bg, coef, lam, p, n, W, sboxf, live, col_lo,
+                                nullptr, zrow, refill(&tm_g, GS, bar_g));
+
+    // 3. C = M M^T.
+    float accc[16] = {};
+    if (act2)
+      for (int j = 0; j < live; ++j)
+        gram_quads(accc, XS + j * sboxf, XS + j * sboxf, bi2, bj2, p, W, zrow, s2, S2);
+    publish<S2>(accc, act2, false, bi2, bj2, p, PB, pubC, nullptr, part);
+    hopper::cluster_sync();
+    cluster_sum(pubC, Cg, PB * PB, c, rank);
+    __syncthreads();
+    if (!kUpdate && rank == 0 && tid < 32)
+      sp_telemetry(Cg, C2, PB, p, pv != nullptr ? pv[b] : p, lam, dist + b);
+
+    // 4. The land to HBM; each box of M it has finished takes the next
+    // matrix's X.
+    column_rounds<PB, KC, false>(XS, GS, Cg, nullptr, coef, lam, p, n, W, sboxf, live, col_lo,
+                                 x_out + off, zrow, refill(&tm_x, XS, bar_x));
+  }
+  hopper::cluster_sync();  // no CTA leaves while a peer may read its shared memory
+}
+
+template <bool kUpdate>
+const void* sp_kernel(int PB) {
+  using K = const void*;
+  switch (PB) {
+    case 4: return K(small_p_kernel<4, kUpdate>);
+    case 8: return K(small_p_kernel<8, kUpdate>);
+    case 12: return K(small_p_kernel<12, kUpdate>);
+    case 16: return K(small_p_kernel<16, kUpdate>);
+    case 20: return K(small_p_kernel<20, kUpdate>);
+    case 24: return K(small_p_kernel<24, kUpdate>);
+    case 28: return K(small_p_kernel<28, kUpdate>);
+    case 32: return K(small_p_kernel<32, kUpdate>);
+    default: return nullptr;
+  }
+}
+
+// Tensor maps over X and g ((n, p, B, 1), a (W, p) box), the persistent
+// grid (as many clusters as the card keeps resident, at most B) and the
+// cluster launch.
+int sp_launch(bool update, const float* x, const float* g, const float* mu, const float* nu,
+              const float* scal, const int* pv, float* x_out, float* mu_out, float* nu_out,
+              float* dist, int B, int p, int n, int base_kind, int nesterov, int c,
+              void* stream) {
+  if (B < 0 || p < 1 || p > kSpMaxP || n < 4 || n % 4 != 0 ||
+      (c != 2 && c != 4 && c != 8) || base_kind < kNone || base_kind > kVAdam)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SpLayout L = sp_layout(p, n, c);
+  const int smem = sp_smem_bytes(p, n, c);
+  const bool moments = base_kind != kNone;
+  const void* rows[] = {x, g, x_out, moments ? mu : x, moments ? mu_out : x};
+  if (L.nbox > kSpMaxBoxes || smem > kSmemLimit || !vector_ok(n, rows, 5))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel = update ? sp_kernel<true>(round4(p)) : sp_kernel<false>(round4(p));
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B == 0) return static_cast<int>(cudaGetLastError());
+  CUtensorMap maps[2] = {};
+  const uint64_t e = sizeof(float);
+  const uint64_t dims[4] = {static_cast<uint64_t>(n), static_cast<uint64_t>(p),
+                            static_cast<uint64_t>(B), 1};
+  const uint64_t strides[3] = {n * e, p * n * e, B * p * n * e};
+  const uint32_t box[4] = {static_cast<uint32_t>(L.W), static_cast<uint32_t>(p), 1, 1};
+  const float* srcs[2] = {x, g};
+  for (int i = 0; i < 2; ++i) {
+    const int merr = hopper::make_tma_map_f32_rows(&maps[i], srcs[i], dims, strides, box);
+    if (merr != 0) return merr;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(c);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (clusters < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cfg.gridDim = dim3((B < clusters ? B : clusters) * c);
+  void* args[] = {&maps[0], &maps[1], &mu, &nu, &scal, &pv, &x_out, &mu_out, &nu_out, &dist,
+                  &B, &p, &n, &base_kind, &nesterov, &c};
+  err = cudaLaunchKernelExC(&cfg, kernel, args);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// The cluster size the entries below take for (p, n) (0: none fits) and one
+// CTA's dynamic shared memory at cluster size c (ops.py mirrors both).
+int small_p_cluster(int p, int n) {
+  return p < 1 || p > kSpMaxP || n < 4 || n % 4 != 0 ? 0 : sp_cluster(p, n);
+}
+
+int small_p_smem_bytes(int p, int n, int c) { return sp_smem_bytes(p, n, c); }
+
+// The fused POGO step (method 0; Landing is refused): fused_step_tiled's
+// arguments without tile_n, p <= 32, n % 4 == 0, every operand 16-byte
+// aligned; c CTAs a cluster, 0 for small_p_cluster(p, n).
+int fused_step_cluster(const float* x, const float* g, const float* mu, const float* nu,
+                       const float* scal, const int* pv, float* x_out, float* mu_out,
+                       float* nu_out, float* dist, int B, int p, int n, int base_kind,
+                       int nesterov, int method, int c, void* stream) {
+  if (method != kPogo) return static_cast<int>(cudaErrorInvalidValue);
+  return sp_launch(false, x, g, mu, nu, scal, pv, x_out, mu_out, nu_out, dist, B, p, n,
+                   base_kind, nesterov, c ? c : small_p_cluster(p, n), stream);
+}
+
+// The two-stage POGO update X' = (1 + lam) M - lam (M M^T) M, M = X - eta/2
+// (A G - B X), into out (which may be x, never g); scal = [eta, lam, ...];
+// c as above.
+int pogo_update_cluster(const float* x, const float* g, const float* scal, float* out, int B,
+                        int p, int n, int c, void* stream) {
+  return sp_launch(true, x, g, nullptr, nullptr, scal, nullptr, out, nullptr, nullptr, nullptr,
+                   B, p, n, kNone, 0, c ? c : small_p_cluster(p, n), stream);
+}
+
+}  // extern "C"

@@ -7,11 +7,16 @@ field (``:281-314``), Newton-Schulz (``:700-725``) and the
 flash-attention forward (``:729-763``). The TPU planner's
 VMEM budget and live-buffer counts become the per-block shared-memory
 footprint of each CUDA kernel, mirrored here from ``csrc/fused_step.cu``,
-``csrc/fused_step_tc.cu``, ``csrc/tp_step.cu``, ``csrc/two_stage.cu`` and
-``csrc/newton_schulz.cu``, and past it the large route:
+``csrc/fused_step_tc.cu``, ``csrc/small_p.cu``, ``csrc/tp_step.cu``,
+``csrc/two_stage.cu`` and ``csrc/newton_schulz.cu``, and past it the large
+route:
 
 * ``whole`` when X and the (transformed) gradient of one matrix plus the
   kernel's (p, p) grams fit in one block's 227 KB;
+* ``cluster`` otherwise, for the fused POGO step and the two-stage POGO
+  update at p <= ``CLUSTER_MAX_P``, when n % 4 == 0 and a thread block
+  cluster of at most 8 CTAs holds the matrix (``csrc/small_p.cu``,
+  ``small_p_cluster``);
 * ``tc`` otherwise when ``TC_MIN_P <= p <= TC_MAX_P`` (the tensor-core
   kernels of ``csrc/fused_step_tc.cu``, any n, one CTA per SM: one padded
   64-row ``wgmma`` tile for p <= 64, two 64-row halves up to 128), for
@@ -139,6 +144,28 @@ NS_TC_MAX_P = 64
 # 54.7195. The tensor cores' large route takes every n % 4 == 0 there
 # (large_kind); it was faster than the CUDA cores' at every shape the card
 # timed (PR 22: the paper's CNN filters and O-ViT, these crossovers).
+# The fused POGO step and the POGO update take csrc/small_p.cu (one matrix
+# a thread block cluster, held whole in its shared memory) for p <=
+# CLUSTER_MAX_P where a matrix does not fit a block whole, n % 4 == 0 and a
+# cluster of at most 8 CTAs holds it (small_p_cluster); elsewhere the routes
+# below. On an H100 (two runs of benchmarks_torch/small_p_readings.py,
+# 1048 x (p, n); ms, fused POGO over trace cluster / CUDA-core tiled; POGO
+# update cluster / tiled, each pair from one run): (2, 10000) 0.3110 /
+# 3.3292; 0.2093 / 2.9917, (4, 2048) 0.1234 / 0.7066; 0.0787 / 0.6159, (10,
+# 10000) 1.2316 / 4.4384; 0.9036 / 4.0761, (16, 4096) 0.9398 / 2.2075;
+# 0.6590 / 1.9723, (20, 4096) 1.4878 / 3.0071; 1.0933 / 2.5634, (24, 2048)
+# 1.3298 / 1.7186; 0.8439 / 1.5132, (24, 4096) 2.3564 / 3.4093; 1.6031 /
+# 3.0291, (28, 2048) 1.9457 / 2.0682; 1.2334 / 1.8529, (28, 4096) 4.4077 /
+# 4.0989; 2.6640 / 3.7108. Against the tensor-core kernels (2tc / 6tc; one
+# run, ms cluster / tensor-core, fused; update): (29, 2048) 2.3473 / 1.9227;
+# 1.4419 / 1.7255, (29, 4096) 5.1407 / 3.7678; 3.1278 / 3.3954, (30, 3072)
+# 3.4895 / 2.8507; 2.1887 / 2.5550, (32, 2048) 2.4828 / 1.9336; 1.5141 /
+# 1.7117, (32, 4096) 5.4636 / 3.7604; 3.1873 / 3.3778. The fused step's cluster kernel lost at (28, 4096), so both routes
+# stop at 24 (the update's wins at 28 and 29-32 are left to its tiled and
+# tensor-core kernels: no configuration here has p in 25-32, and one end
+# keeps both POGO paths of a group on one kernel design). Below p = 4 the
+# kernel was read at p = 2 alone (10x), so the route has no low end.
+CLUSTER_MAX_P = 24
 # Blocks per SM the tiled kernel's register cap allows (kTiledBlocksPerSm),
 # and the TP kernels' (kTpBlocksPerSm).
 _TILED_BLOCKS_PER_SM = 3
@@ -268,6 +295,55 @@ def ns_tc_smem_bytes(n: int) -> int:
     return (-(-chunks // c) + 2) * tile + 64 * 65 * 4 + 2 * tile + 64 + 1024
 
 
+# csrc/small_p.cu: a CTA's columns in row-major boxes of at most
+# _SMALL_P_BOX columns, at most _SMALL_P_BOXES of them, over a cluster of
+# 2, 4 or 8 CTAs.
+_SMALL_P_BOX = 256
+_SMALL_P_BOXES = 64
+_SMALL_P_CLUSTERS = (2, 4, 8)
+# The kernels take p <= 32 (kSpMaxP), past the route's CLUSTER_MAX_P, so that
+# the readings beside it can time both sides of its end.
+SMALL_P_MAX_P = 32
+
+
+def _small_p_layout(p: int, n: int, c: int) -> tuple[int, int, int]:
+    """``sp_layout``: (box columns, boxes a CTA, bytes of a box's slot)."""
+    cols = -(-n // c)
+    nbox = -(-cols // _SMALL_P_BOX)
+    w = _round4(-(-cols // nbox))
+    return w, nbox, -(-(p * w * 4) // 128) * 128
+
+
+def small_p_smem_bytes(p: int, n: int, c: int) -> int:
+    """``small_p_smem_bytes``: one CTA's X and Geu slices (a slot of p x W
+    floats a box, rounded up to 128 bytes), the published and summed (PB,
+    PB) grams and the distance's scratch (PB = p rounded up to 4), a zero
+    row, the warps' partials, the reduction scratch, two mbarriers a box and
+    1 KB to align the slices."""
+    _, nbox, sbox = _small_p_layout(p, n, c)
+    pb = _round4(p)
+    return 2 * nbox * sbox + 4 * (7 * pb * pb + _SMALL_P_BOX + 8 * 16 + 16) + 16 * nbox + 1024
+
+
+def small_p_cluster(p: int, n: int) -> int:
+    """``small_p_cluster``: the CTAs of the cluster kernels' cluster for
+    (p, n): the least of 2, 4 and 8 whose CTA leaves its SM room for a
+    second, so that one CTA's loads run under the other's products (on an
+    H100 at 1048 x (10, 10000), ms fused POGO / POGO update, in one run of
+    ``benchmarks_torch/small_p_readings.py``: c = 8, two CTAs an SM, 1.2307
+    / 0.9033; c = 4, one, 1.5050 / 1.0695); else the least whose slices fit
+    a CTA; 0 where none does (or p > ``SMALL_P_MAX_P``, or n % 4 != 0)."""
+    if not 1 <= p <= SMALL_P_MAX_P or n < 4 or n % 4:
+        return 0
+    for ctas in (2, 1):
+        for c in _SMALL_P_CLUSTERS:
+            smem = small_p_smem_bytes(p, n, c)
+            if (_small_p_layout(p, n, c)[1] <= _SMALL_P_BOXES and smem <= SMEM_LIMIT_BYTES
+                    and ctas * (smem + _BLOCK_RESERVED_BYTES) <= SM_SMEM_BYTES):
+                return c
+    return 0
+
+
 def _blocks_per_sm(smem: int, cap: int = _TILED_BLOCKS_PER_SM) -> int:
     """Tiled-kernel blocks that fit one SM, by shared memory and registers."""
     return min(cap, SM_SMEM_BYTES // (smem + _BLOCK_RESERVED_BYTES))
@@ -322,12 +398,16 @@ def _plan(what: str, p: int, n: int, whole_bytes, tiled_bytes,
 
 def _route(what: str, p: int, n: int, whole_bytes, tiled_bytes, tc_low: int,
            tc_high: int = TC_MAX_P, tiles: tuple[int, ...] = _TILE_NS,
-           fallback: tuple[int, ...] = ()) -> tuple[str, int]:
-    """Whole when one matrix fits a block; else the tensor-core kernel for
-    ``tc_low <= p <= tc_high``; else the large route for p > ``TC_MAX_P``
+           fallback: tuple[int, ...] = (), cluster: bool = False) -> tuple[str, int]:
+    """Whole when one matrix fits a block; else, with ``cluster``, the
+    cluster kernel for p <= ``CLUSTER_MAX_P`` where a cluster holds the
+    matrix (:func:`small_p_cluster`); else the tensor-core kernel for ``tc_low <=
+    p <= tc_high``; else the large route for p > ``TC_MAX_P``
     (:func:`large_kind`); else :func:`_plan`'s tile (every p <=
     ``TC_MAX_P`` has one)."""
     if whole_bytes(p, n) > SMEM_LIMIT_BYTES:
+        if cluster and p <= CLUSTER_MAX_P and small_p_cluster(p, n):
+            return "cluster", 0
         if tc_low <= p <= tc_high:
             return "tc", 0
         if p > TC_MAX_P:
@@ -343,15 +423,16 @@ def large_kind(n: int) -> str:
 
 
 def plan(p: int, n: int, method: str = "pogo") -> tuple[str, int]:
-    """``("whole", 0)``, ``("tc", 0)``, ``("tiled", tile_n)`` or
-    ``("large", 0)`` of the fused group step: whole when one matrix fits a
-    block, else the tensor-core kernel for ``TC_MIN_P``
-    (``LANDING_TC_MIN_P`` for ``method="landing"``) ``<= p <= TC_MAX_P``,
-    else the large route for p > ``TC_MAX_P``, else the CUDA-core tiled
-    kernel."""
+    """``("whole", 0)``, ``("cluster", 0)``, ``("tc", 0)``, ``("tiled",
+    tile_n)`` or the large route of the fused group step: whole when one
+    matrix fits a block, else (POGO, p <= ``CLUSTER_MAX_P``) the cluster
+    kernel where a cluster holds the matrix, else the tensor-core kernel for
+    ``TC_MIN_P`` (``LANDING_TC_MIN_P`` for ``method="landing"``) ``<= p <=
+    TC_MAX_P``, else the large route for p > ``TC_MAX_P``, else the
+    CUDA-core tiled kernel."""
     low = LANDING_TC_MIN_P if method == "landing" else TC_MIN_P
     return _route("fused group step", p, n, whole_smem_bytes, tiled_smem_bytes, low,
-                  tiles=_FUSED_TILE_NS)
+                  tiles=_FUSED_TILE_NS, cluster=method == "pogo")
 
 
 def two_stage_tile_n(p: int, tiled_bytes) -> int | None:
@@ -363,10 +444,11 @@ def two_stage_tile_n(p: int, tiled_bytes) -> int | None:
 
 
 def plan_pogo_update(p: int, n: int) -> tuple[str, int]:
-    """``("whole", 0)``, ``("tc", 0)``, ``("tiled", tile_n)`` or
-    ``("large", 0)`` of the POGO update (:func:`_route`)."""
+    """``("whole", 0)``, ``("cluster", 0)``, ``("tc", 0)``, ``("tiled",
+    tile_n)`` or the large route of the POGO update (:func:`_route`, as
+    :func:`plan`'s POGO step)."""
     return _route("pogo update", p, n, pogo_whole_smem_bytes, pogo_tiled_smem_bytes,
-                  TC_MIN_P, fallback=_TWO_STAGE_FALLBACK)
+                  TC_MIN_P, fallback=_TWO_STAGE_FALLBACK, cluster=True)
 
 
 def plan_landing_field(p: int, n: int) -> tuple[str, int]:
@@ -428,6 +510,8 @@ def pogo_update(x, g, eta, lam=0.5, *, find_root: bool = False,
     kind, tile_n = plan_pogo_update(*x.shape[-2:])
     if kind == "whole":
         return _pu.pogo_update_whole(x, g, eta, lam, inplace=inplace)
+    if kind == "cluster":
+        return _pu.pogo_update_cluster(x, g, eta, lam, inplace=inplace)
     if kind == "tc":
         return _pu.pogo_update_tiled_tc(x, g, eta, lam, inplace=inplace)
     if kind == "large":
@@ -496,14 +580,14 @@ def _ns_launch(x, iters, out, mask, dist):
                                    dist=dist)
 
 
-KERNELS = (_fs.fused_step_whole, _fs.fused_step_tiled,
+KERNELS = (_fs.fused_step_whole, _fs.fused_step_tiled, _fs.fused_step_cluster,
            _fs.fused_step_whole_landing, _fs.fused_step_tiled_landing,
            _fs.fused_step_tiled_tc, _fs.fused_step_tiled_tc_landing,
            _fs.fused_step_tiled_tc128, _fs.fused_step_tiled_tc128_landing,
            _fs.fused_step_large, _fs.fused_step_large_landing,
            _fs.fused_step_large_tc, _fs.fused_step_large_tc_landing,
            _tp.tp_gram, _tp.tp_apply, _pu.pogo_update_whole,
-           _pu.pogo_update_tiled, _pu.pogo_update_tiled_tc,
+           _pu.pogo_update_tiled, _pu.pogo_update_cluster, _pu.pogo_update_tiled_tc,
            _pu.pogo_update_tiled_tc128, _pu.pogo_update_large, _pu.pogo_update_large_tc,
            _lf.landing_field, _lf.landing_field_tiled, _lf.landing_field_tiled_tc,
            _lf.landing_field_tiled_tc128, _lf.landing_field_large,
@@ -564,6 +648,8 @@ def fused_group_step(
     kind, tile_n = plan(p, n, method)
     if kind == "whole":
         return _fs.fused_step_whole(x, g, eta, **kw)
+    if kind == "cluster":
+        return _fs.fused_step_cluster(x, g, eta, **kw)
     if kind == "tc":
         return _fs.fused_step_tiled_tc(x, g, eta, **kw)
     if kind == "large":

@@ -1,5 +1,5 @@
 """Wrappers of the two-stage POGO update kernels (``csrc/two_stage.cu``,
-``csrc/fused_step_tc.cu``).
+``csrc/fused_step_tc.cu``, ``csrc/small_p.cu``, ``csrc/large_p.cu``).
 
 ``pogo_update_whole`` replaces ``repro/kernels/pogo_update.py:64``
 (``_pogo_whole_kernel``): one CTA per matrix with X and G resident in
@@ -14,7 +14,10 @@ stage and no telemetry, 3xTF32 ``wgmma`` on TMA-fed 64-column chunks, one
 persistent CTA per SM, the same three sweeps. ``pogo_update_tiled_tc128``
 is the wide kernel's for 64 < p <= 128, sweep 2 once per 64-row half of
 M, whose rows 0..63 wait in a scratch (``fused_step.park``);
-``pogo_update_tiled_tc`` hands p > 64 to it. ``pogo_update_large``
+``pogo_update_tiled_tc`` hands p > 64 to it. ``pogo_update_cluster``
+(``csrc/small_p.cu``) replaces the tiled TPU kernels up to p = 24
+(``ops.CLUSTER_MAX_P``) where a thread block cluster holds one matrix: X
+and G read once, X' written once. ``pogo_update_large``
 (``csrc/large_p.cu``) replaces the tiled TPU kernels for p > 128, where
 one matrix's (p, p) grams outgrow a block: the TPU's three phases as
 gram-then-apply launches, the grams between them in HBM and L2, on the
@@ -178,6 +181,18 @@ def pogo_update_tiled_tc128(x, g, eta, lam, *, inplace=False):
     return out
 
 
+def pogo_update_cluster(x, g, eta, lam, *, inplace=False, cluster=None):
+    """The POGO update for small p (the kernel takes p <= 32) with one
+    matrix a thread block cluster (``csrc/small_p.cu``): X and G held whole
+    in the cluster's shared memory, read once, X' written once. ``cluster`` forces the cluster size
+    (2, 4 or 8); by default the source's own (``ops.small_p_cluster``)."""
+    out = _update("pogo_update_cluster", x, g, eta, lam, inplace, int(cluster or 0),
+                  lib=fused_step.cluster_lib)
+    if x.device.type == "cuda":
+        pogo_update_cluster.launches += 1
+    return out
+
+
 def pogo_update_large(x, g, eta, lam, *, inplace=False, runner=None):
     """The POGO update for p > 128 (``csrc/large_p.cu``): A and BT, M into
     a scratch, C, then X', each a gram or an apply spread over many blocks
@@ -217,5 +232,6 @@ pogo_update_whole.launches = 0
 pogo_update_tiled.launches = 0
 pogo_update_tiled_tc.launches = 0
 pogo_update_tiled_tc128.launches = 0
+pogo_update_cluster.launches = 0
 pogo_update_large.launches = 0
 pogo_update_large_tc.launches = 0

@@ -34,6 +34,7 @@ using std::max;
 using std::min;
 #define __global__
 #define __device__
+#define __forceinline__ inline
 #define __host__
 #define __shared__
 #define __grid_constant__
@@ -43,6 +44,8 @@ using std::min;
 #define EMU_MAX_THREADS 384
 #endif
 struct float4 { float x, y, z, w; };
+struct float2 { float x, y; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
 // bf16 as 16 bits of storage; conversions as the card's intrinsics do them
 // (float -> bf16 rounds to nearest even, NaN stays NaN).
 struct __nv_bfloat16 { uint16_t x; };
@@ -215,6 +218,14 @@ struct cudaLaunchConfig_t {
   cudaLaunchAttribute* attrs;
   unsigned numAttrs;
 };
+// Clusters the emulated card keeps resident: g_emu_sms, so that a persistent
+// cluster grid walks several matrices per cluster.
+inline cudaError_t cudaOccupancyMaxActiveClusters(int* clusters, const void*,
+                                                  const cudaLaunchConfig_t* cfg) {
+  if (cfg->dynamicSmemBytes > g_emu_smem_limit) return cudaErrorInvalidValue;
+  *clusters = g_emu_sms;
+  return 0;
+}
 inline cudaError_t cudaLaunchKernelExC(const cudaLaunchConfig_t* cfg, const void* f, void** args) {
   auto it = g_emu_kernels.find(f);
   if (it == g_emu_kernels.end()) return cudaErrorInvalidValue;

@@ -239,19 +239,27 @@ def test_smollm_leaf_shapes_match_the_jax_model():
 
 @pytest.mark.parametrize("p,n,kind,blocks", [(16, 256, ("whole", 0), None),
                                              (64, 960, ("tc", 0), 1),
-                                             (16, 4096, ("tiled", 64), 3),
+                                             (16, 4096, ("cluster", 0), 3),
+                                             (10, 9998, ("tiled", 64), 3),
+                                             (24, 10000, ("tiled", 64), 3),
                                              (100, 4096, ("tc", 0), 1),
                                              (120, 4096, ("tc", 0), 1),
                                              (128, 2048, ("tc", 0), 1)])
 def test_planner_picks_the_kernel(p, n, kind, blocks):
-    """Whole when a matrix fits a block; else the tensor-core kernel for
-    32 <= p <= 128 (SmolLM's (64, 960), and the wide kernel for
-    internlm2-1.8b's (128, 2048); one persistent block a SM); else the
-    CUDA-core tiled kernel with the tile that lets the most blocks share
-    an SM, the widest of those."""
+    """Whole when a matrix fits a block; else for p <= 24 the cluster
+    kernel where a thread block cluster holds the matrix and n % 4 == 0
+    (blocks: its CTAs an SM; (10, 9998) is n % 4 != 0, (24, 10000)
+    outgrows a cluster of 8); else the tensor-core kernel for 29 <= p <=
+    128 (SmolLM's (64, 960), and the wide kernel for internlm2-1.8b's (128,
+    2048); one persistent block a SM); else the CUDA-core tiled kernel with
+    the tile that lets the most blocks share an SM, the widest of those."""
     assert tops.plan(p, n) == kind
     if kind[0] == "whole":
         assert tops.whole_smem_bytes(p, n) <= tops.SMEM_LIMIT_BYTES
+    elif kind[0] == "cluster":
+        c = tops.small_p_cluster(p, n)
+        assert p <= tops.CLUSTER_MAX_P and c
+        assert tops.SM_SMEM_BYTES // (tops.small_p_smem_bytes(p, n, c) + 1024) == blocks
     elif kind[0] == "tc":
         assert tops.TC_MIN_P <= p <= tops.TC_MAX_P
         assert tops.whole_smem_bytes(p, n) > tops.SMEM_LIMIT_BYTES
@@ -263,14 +271,17 @@ def test_planner_picks_the_kernel(p, n, kind, blocks):
 
 
 @pytest.mark.parametrize("p,n,kind", [
-    (64, 960, "tc"), (1, 100000, "tiled"), (64, 400, "tc"), (65, 960, "tc"),
+    (64, 960, "tc"), (1, 100000, "cluster"), (64, 400, "tc"), (65, 960, "tc"),
     (96, 960, "tc"), (64, 300, "whole"), (8, 200, "whole"), (48, 2048, "tc"),
-    (32, 2048, "tc"), (31, 2048, "tc"), (24, 2048, "tiled"), (128, 2048, "tc"),
+    (32, 2048, "tc"), (31, 2048, "tc"), (24, 2048, "cluster"), (128, 2048, "tc"),
+    (28, 2048, "tiled"), (1, 100001, "tiled"),
 ])
 def test_planner_rule_for_the_tensor_core_kernel(p, n, kind):
     """The rule on (p, n): a shape that does not fit one block whole goes
     to the tensor-core kernels exactly when 29 <= p <= 128 (the wide one
-    above 64), to the CUDA-core tiled kernel below that."""
+    above 64); below that to the cluster kernel up to p = 24 where n % 4
+    == 0 and a cluster holds the matrix, else to the CUDA-core tiled
+    kernel."""
     assert tops.plan(p, n)[0] == kind
 
 

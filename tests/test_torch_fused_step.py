@@ -24,7 +24,9 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import fused_step as tfs
 from repro_torch.kernels import ops as tops
 
-SHAPES = [(3, 5, 40), (2, 10, 250), (4, 16, 256)]
+# (6, 10, 1024): the paper's unitary-PC p at an n that the card's planner
+# sends to the cluster kernel (its CPU path is the same plain version).
+SHAPES = [(3, 5, 40), (2, 10, 250), (4, 16, 256), (6, 10, 1024)]
 
 WHOLE_BASES = [
     ("none", ()),
@@ -132,7 +134,8 @@ def test_fused_step_ragged_pv_matches_jax(use_pallas):
 
 
 @pytest.mark.parametrize("wrapper", [tfs.fused_step_whole, tfs.fused_step_tiled,
-                                     tfs.fused_step_tiled_tc, tfs.fused_step_tiled_tc128])
+                                     tfs.fused_step_cluster, tfs.fused_step_tiled_tc,
+                                     tfs.fused_step_tiled_tc128])
 def test_wrappers_run_the_plain_version_on_cpu(wrapper):
     jkw, tkw, x, g = _both((2, 10, 250), "vadam", (0.9, 0.999, 1e-8), seed=4)
     before = tops.launches()

@@ -1033,6 +1033,108 @@ def test_large_kernels_repeat_bit_for_bit(cuda, shape, route):
         assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
+# The cluster kernels (csrc/small_p.cu), one matrix a thread block cluster:
+# the paper's unitary-PC (10, 10000) (a cluster of 8, two CTAs an SM), a
+# cluster of 2 at (10, 256) and at p = 1, clusters of 8 at (24, 2048) and at
+# (28, 4096) (one CTA an SM, past the route's end), and a cluster of 4 at
+# (16, 2048) with more matrices than resident clusters.
+CLUSTER_SHAPES = [(40, 10, 10000), (7, 10, 256), (5, 24, 2048), (3, 1, 64), (3, 28, 4096),
+                  (300, 16, 2048)]
+
+
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES)
+@pytest.mark.parametrize("base_kind,hyper", BASES)
+def test_cluster_fused_step_matches_plain(cuda, shape, base_kind, hyper):
+    x, g, mu, nu = _operands(shape, cuda, seed=41)
+    kw = _kwargs(base_kind, hyper, mu, nu, cuda)
+    before = tfs.fused_step_cluster.launches
+    got = tfs.fused_step_cluster(x, g, 0.1, **kw)
+    torch.cuda.synchronize()
+    assert tfs.fused_step_cluster.launches == before + 1
+    _close(got, tref.fused_group_step_ref(x, g, 0.1, **kw), dict(atol=3e-5, rtol=1e-4))
+
+
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES)
+def test_cluster_pogo_update_matches_plain(cuda, shape):
+    """The two-stage tiled tolerance; X off the manifold, so that a kernel
+    that dropped lam's term would fail."""
+    x, g = _off_manifold_operands(shape, cuda, seed=42)
+    before = tpu.pogo_update_cluster.launches
+    got = tpu.pogo_update_cluster(x, g, 0.1, 0.5)
+    torch.cuda.synchronize()
+    assert tpu.pogo_update_cluster.launches == before + 1
+    tol = dict(atol=2e-5, rtol=1e-4)
+    want = tref.pogo_update_ref(x, g, 0.1, 0.5)
+    assert not torch.allclose(tref.pogo_update_ref(x, g, 0.1, 0.0), want, **tol)
+    torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.parametrize("c", [2, 4, 8])
+def test_cluster_kernels_at_every_cluster_size(cuda, c):
+    """A forced cluster of 2, 4 or 8 CTAs gives the plain version's result."""
+    x, g, mu, nu = _operands((33, 10, 2048), cuda, seed=43)
+    kw = _kwargs("vadam", (0.9, 0.999, 1e-8), mu, nu, cuda)
+    _close(tfs.fused_step_cluster(x, g, 0.1, cluster=c, **kw),
+           tref.fused_group_step_ref(x, g, 0.1, **kw), dict(atol=3e-5, rtol=1e-4))
+    torch.testing.assert_close(tpu.pogo_update_cluster(x, g, 0.1, 0.5, cluster=c),
+                               tref.pogo_update_ref(x, g, 0.1, 0.5), atol=2e-5, rtol=1e-4)
+
+
+def test_cluster_kernels_in_place_and_ragged(cuda):
+    shape = (5, 8, 2000)
+    x, g, mu, nu = _operands(shape, cuda, seed=44)
+    pv = torch.tensor([8, 5, 1, 0, 8], dtype=torch.int32, device=cuda)
+    rows = torch.arange(8, device=cuda)[None, :, None] < pv[:, None, None]
+    x, g, mu = (torch.where(rows, a, 0.0) for a in (x, g, mu))
+    kw = _kwargs("vadam", (0.9, 0.999, 1e-8), mu, nu, cuda, pv=pv)
+    want = tref.fused_group_step_ref(x, g, 0.1, **kw)
+    got = tfs.fused_step_cluster(x, g, 0.1, inplace=True, **kw)
+    torch.cuda.synchronize()
+    assert got[0] is x and got[1] is mu and got[2] is nu
+    _close(got, want, dict(atol=3e-5, rtol=1e-4))
+    y, g2 = _off_manifold_operands((9, 10, 10000), cuda, seed=45)
+    want = tref.pogo_update_ref(y, g2, 0.1, 0.5)
+    assert tpu.pogo_update_cluster(y, g2, 0.1, 0.5, inplace=True) is y
+    torch.testing.assert_close(y, want, atol=2e-5, rtol=1e-4)
+
+
+def test_cluster_kernels_repeat_bit_for_bit(cuda):
+    """Every CTA sums the cluster's partial grams in rank order: two launches
+    give the same bits."""
+    x, g, mu, nu = _operands((200, 10, 10000), cuda, seed=46)
+    kw = _kwargs("vadam", (0.9, 0.999, 1e-8), mu, nu, cuda)
+    for run in (lambda: tfs.fused_step_cluster(x, g, 0.1, **kw)[:4],
+                lambda: (tpu.pogo_update_cluster(x, g, 0.1, 0.5),)):
+        first = [t.clone() for t in run()]
+        again = run()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_cluster_planner_matches_the_source(cuda):
+    lib = tfs.cluster_lib()
+    for p in (1, 4, 10, 16, 24, 28, 32, 33):
+        for n in (64, 256, 2048, 4096, 9998, 10000, 30000):
+            assert lib.small_p_cluster(p, n) == tops.small_p_cluster(p, n), (p, n)
+            for c in (2, 4, 8):
+                assert lib.small_p_smem_bytes(p, n, c) == tops.small_p_smem_bytes(p, n, c)
+
+
+def test_cluster_kernels_refuse_what_they_do_not_take(cuda):
+    """n % 4 != 0 (a row stride TMA cannot take), p > 32, Landing: the
+    wrappers raise; nothing falls back."""
+    x, g, mu, nu = _operands((2, 10, 250), cuda, seed=47)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        tfs.fused_step_cluster(x, g, 0.1, lam=0.5)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        tpu.pogo_update_cluster(x, g, 0.1, 0.5)
+    x, g, _, _ = _operands((2, 33, 256), cuda, seed=47)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        tpu.pogo_update_cluster(x, g, 0.1, 0.5)
+    with pytest.raises(ValueError, match="POGO"):
+        tfs.fused_step_cluster(x, g, 0.1, method="landing", lam=1.0)
+
+
 def test_large_tc_route_refuses_n_not_a_multiple_of_4(cuda):
     """The tensor cores' entries raise where TMA cannot take the row stride
     (the planner sends such n to the CUDA cores); nothing falls back."""

@@ -68,6 +68,7 @@ SHAPES = [(2, 136, 200), (2, 192, 320)]
 BASES = [("none", ()), ("trace", (0.37, False)), ("trace", (0.53, True)),
          ("vadam", (0.92, 0.997, 1e-8))]
 LARGE = ("large", 0)
+CLUSTER = ("cluster", 0)
 LARGE_TC = ("large_tc", 0)
 # The fused kernel's cases against JAX, at the first shape and on its first
 # matrix: every base and both methods, each method twice (an emulated call
@@ -114,8 +115,13 @@ PLANS = [
     (64, 576, ("tc", 0), ("tc", 0), ("tc", 0), ("tc", 0), ("whole", 0)),
     (64, 216, ("whole", 0), ("whole", 0), ("whole", 0), ("whole", 0), ("whole", 0)),
     (16, 256, ("whole", 0), ("whole", 0), ("whole", 0), ("whole", 0), ("whole", 0)),
-    (10, 10000, ("tiled", 64), ("tiled", 64), ("tiled", 64), ("tiled", 64), ("tiled", 64)),
+    # POGO's cluster kernels (csrc/small_p.cu) where a cluster holds the
+    # matrix and n % 4 == 0, both up to p = 24 (ops.CLUSTER_MAX_P)
+    (10, 10000, CLUSTER, ("tiled", 64), CLUSTER, ("tiled", 64), ("tiled", 64)),
     (28, 2048, ("tiled", 64), ("tc", 0), ("tiled", 64), ("tc", 0), ("tiled", 64)),
+    (10, 9998, ("tiled", 64), ("tiled", 64), ("tiled", 64), ("tiled", 64), ("tiled", 64)),
+    (32, 4096, ("tc", 0), ("tc", 0), ("tc", 0), ("tc", 0), ("tc", 0)),
+    (24, 10000, ("tiled", 64), ("tiled", 64), ("tiled", 64), ("tiled", 64), ("tiled", 64)),
 ]
 
 

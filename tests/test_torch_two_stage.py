@@ -130,7 +130,8 @@ def test_manifold_distance_ref_matches_jax():
 
 
 @pytest.mark.parametrize("wrapper", [tpu.pogo_update_whole, tpu.pogo_update_tiled,
-                                     tpu.pogo_update_tiled_tc, tpu.pogo_update_tiled_tc128])
+                                     tpu.pogo_update_cluster, tpu.pogo_update_tiled_tc,
+                                     tpu.pogo_update_tiled_tc128])
 def test_pogo_update_wrappers_write_in_place_on_cpu(wrapper):
     x, g = (torch.from_numpy(a) for a in _xg((2, 6, 50), seed=5))
     want = tref.pogo_update_ref(x, g, 0.1, 0.5)
@@ -154,14 +155,20 @@ def test_landing_field_wrappers_run_the_plain_version_on_cpu():
     (64, 960, ("tc", 0), ("tc", 0)),
     (120, 4096, ("tc", 0), ("tc", 0)),
     (128, 2048, ("tc", 0), ("tc", 0)),
-    (24, 4096, ("tiled", 64), ("tiled", 64)),
+    (24, 4096, ("cluster", 0), ("tiled", 64)),
     (28, 2048, ("tiled", 64), ("tc", 0)),
+    (10, 9998, ("tiled", 64), ("tiled", 64)),
+    (24, 10000, ("tiled", 64), ("tiled", 64)),
+    (32, 2048, ("tc", 0), ("tc", 0)),
+    (32, 8192, ("tc", 0), ("tc", 0)),
 ])
 def test_two_stage_planners(p, n, pogo, landing):
-    """Whole when a matrix fits one block; else the tensor-core entries from
-    p = 29 (POGO) or 25 (the field) to 128 (the wide kernel above 64, for
-    internlm2-1.8b's (128, 2048)); else the tile that lets the most blocks
-    share an SM, the widest of those."""
+    """Whole when a matrix fits one block; else POGO's cluster kernel up to
+    p = 24 where a thread block cluster holds the matrix and n % 4 == 0
+    (not (10, 9998), nor (24, 10000), whose slices outgrow a cluster of 8);
+    else the tensor-core entries from p = 29 (POGO) or 25 (the field) to
+    128 (the wide kernel above 64, for internlm2-1.8b's (128, 2048)); else
+    the tile that lets the most blocks share an SM, the widest of those."""
     assert tops.plan_pogo_update(p, n) == pogo
     assert tops.plan_landing_field(p, n) == landing
     for kind, whole, tiled in ((pogo, tops.pogo_whole_smem_bytes,
@@ -170,6 +177,9 @@ def test_two_stage_planners(p, n, pogo, landing):
                                 tops.landing_tiled_smem_bytes)):
         if kind[0] == "whole":
             assert whole(p, n) <= tops.SMEM_LIMIT_BYTES
+        elif kind[0] == "cluster":
+            assert whole(p, n) > tops.SMEM_LIMIT_BYTES
+            assert p <= tops.CLUSTER_MAX_P and tops.small_p_cluster(p, n)
         elif kind[0] == "tc":
             assert whole(p, n) > tops.SMEM_LIMIT_BYTES
             assert tops.tc_smem_bytes(p) <= tops.SMEM_LIMIT_BYTES
@@ -188,13 +198,16 @@ def test_two_stage_planners_keep_their_plans_outside_the_tc_range(pogo):
     not fit); past p = 128 every plan but whole is the large route, which
     beat the field's CUDA-core tiled kernel on the card at 136 and 160
     (the readings in ``ops.py``): on the tensor cores where n % 4 == 0,
-    on the CUDA cores elsewhere (``ops.large_kind``)."""
+    on the CUDA cores elsewhere (``ops.large_kind``). POGO's cluster
+    kernel (``csrc/small_p.cu``) takes over a tiled plan, and only that,
+    where a cluster holds the matrix, p <= ``CLUSTER_MAX_P`` and n % 4 ==
+    0."""
     whole = tops.pogo_whole_smem_bytes if pogo else tops.landing_whole_smem_bytes
     tiled = tops.pogo_tiled_smem_bytes if pogo else tops.landing_tiled_smem_bytes
     plan = tops.plan_pogo_update if pogo else tops.plan_landing_field
     low = tops.TC_MIN_P if pogo else tops.LANDING_FIELD_TC_MIN_P
     high = tops.TC_MAX_P
-    moved = 0
+    moved = clustered = 0
     for p in range(1, 161):
         for n in (16, 100, 256, 960, 2048, 4096, 8192):
             try:
@@ -205,7 +218,12 @@ def test_two_stage_planners_keep_their_plans_outside_the_tc_range(pogo):
                 new = plan(p, n)
             except ValueError:
                 new = None
-            if new == ("tc", 0):
+            if new == ("cluster", 0):
+                assert pogo and old is not None and old[0] == "tiled", (p, n, old)
+                assert p <= tops.CLUSTER_MAX_P and n % 4 == 0
+                assert tops.small_p_cluster(p, n) > 0
+                clustered += 1
+            elif new == ("tc", 0):
                 assert low <= p <= high and (old is not None or (pogo and p > 64))
                 moved += 1
             elif p > high:
@@ -217,6 +235,7 @@ def test_two_stage_planners_keep_their_plans_outside_the_tc_range(pogo):
             else:
                 assert new == old, (p, n, old, new)
     assert moved > 0
+    assert clustered > 0 if pogo else clustered == 0
     assert plan(128, 2048) == ("tc", 0)
     # the CUDA-core kernel's tile there, which the card times beside it
     assert tops.two_stage_tile_n(128, tiled) == (16 if pogo else 64)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The cluster kernels of ``csrc/small_p.cu`` on the card, beside the routes
-below them, in one call.
+"""The cluster kernel of ``csrc/small_p.cu`` on the card, its four entries
+beside the routes below them, in one call.
 
     python3 benchmarks_torch/small_p_readings.py [--shape B,P,N ...]
         [--rounds 3] [--check-only] [--source LABEL=PATH ...]
@@ -9,15 +9,17 @@ Builds ``small_p.cu`` with the sources it is timed against and prints its
 ptxas lines (registers, spills), then runs ``chip_smoke.py``'s
 ``phase_cluster_crossovers`` at each ``--shape`` (default the paper's 1048 x
 (10, 10000) and the script's ``CLUSTER_READINGS``): fused POGO over
-trace(0.9) and the POGO update on the cluster kernels, checked against the
-plain version (3e-5 / 1e-4 and 2e-5 / 1e-4), timed in turns with the
-CUDA-core tiled kernels (or the tensor-core ones from ``ops.TC_MIN_P``),
-then every cluster size that fits at the paper's shape. ``--check-only``
-checks the first shape and stops. With ``--source`` (copies of
-``csrc/small_p.cu``, built with ``-I`` of the checkout's ``csrc``; the
-label ``checkout`` is the checkout's own) each build's fused POGO over
-trace(0.9) and POGO update run at each ``--shape`` instead (default the
-paper's), checked against the plain version, timed in turns, with each
+trace(0.9), the POGO update, fused Landing over trace(0.1) and the landing
+field on the cluster kernel, checked against the plain version (3e-5 /
+1e-4 for the fused step, 2e-5 / 1e-4 for the two-stage entries), timed in
+turns with the CUDA-core tiled kernels (or the tensor-core ones from
+``ops.TC_MIN_P``, Landing's from ``ops.LANDING_TC_MIN_P``), then every
+cluster size that fits at the paper's shape. ``--check-only`` checks the
+first shape and stops. With ``--source`` (copies of ``csrc/small_p.cu``,
+built with ``-I`` of the checkout's ``csrc``; the label ``checkout`` is the
+checkout's own) each build's four entries run at each ``--shape`` instead
+(default the paper's), checked against the plain version, timed in turns,
+with each
 build's ptxas lines (``--no-check`` times builds whose results are not
 meant to agree, such as a copy with the products taken out, which shows
 what the loads, stores and barriers cost alone). Prints the card's name
@@ -82,8 +84,7 @@ def main() -> int:
 
 
 def _variants(args, shapes, gen, chip_smoke):
-    """Each ``--source`` build's fused POGO step and POGO update at each
-    shape, in turns."""
+    """Each ``--source`` build's four entries at each shape, in turns."""
     import ctypes
     import functools
 
@@ -104,34 +105,50 @@ def _variants(args, shapes, gen, chip_smoke):
         for line in regs:
             print(f"ptxas[{label}] {line}", flush=True)
         lib = ctypes.CDLL(so)
-        lib.fused_step_cluster.argtypes = fs.cluster_lib().fused_step_cluster.argtypes
-        lib.pogo_update_cluster.argtypes = fs.cluster_lib().pogo_update_cluster.argtypes
-        lib.fused_step_cluster.restype = lib.pogo_update_cluster.restype = ctypes.c_int
+        for entry in ("fused_step_cluster", "pogo_update_cluster", "landing_field_cluster"):
+            getattr(lib, entry).argtypes = getattr(fs.cluster_lib(), entry).argtypes
+            getattr(lib, entry).restype = ctypes.c_int
         libs[label] = lib
     kw = dict(method="pogo", lam=0.5, base_kind="trace", hyper=(0.9, False), post_scale=1.0,
               nu=None, count=None, pv=None)
+    lkw = dict(kw, method="landing", lam=1.0, hyper=(0.1, False))
+    lr, llr = chip_smoke.LR, chip_smoke.LANDING_LR
     for b, p, n in shapes:
         x, g, mu, _ = chip_smoke._operands(gen, b, p, n)
-        want = ref.fused_group_step_ref(x, g, chip_smoke.LR, mu=mu, **kw)
-        want_u = ref.pogo_update_ref(x, g, chip_smoke.LR, 0.5)
+        xl = x + 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
+        wants = (ref.fused_group_step_ref(x, g, lr, mu=mu, **kw),
+                 (ref.pogo_update_ref(x, g, lr, 0.5),),
+                 ref.fused_group_step_ref(xl, g, llr, mu=mu, **lkw),
+                 (ref.landing_field_ref(xl, g, 1.0),))
         fns = []
         for label, lib in libs.items():
-            fused = functools.partial(fs._launch, lib.fused_step_cluster, x, g, chip_smoke.LR,
-                                      mu=mu, inplace=False, **kw)
-            update = functools.partial(pu.launch, "pogo_update_cluster", x, g, chip_smoke.LR,
-                                       0.5, torch.empty_like(x), lib=lambda lib=lib: lib)
-            for what, fn, w, tol in (
-                    ("fused", fused, want, chip_smoke.TILED_TOL),
-                    ("update", update, (want_u,), chip_smoke.TWO_STAGE_TILED_TOL)):
+            def own(lib=lib):
+                return lib
+            entries = (
+                functools.partial(fs._launch, lib.fused_step_cluster, x, g, lr, mu=mu,
+                                  inplace=False, extra=(0,), **kw),
+                functools.partial(pu.launch, "pogo_update_cluster", x, g, lr, 0.5,
+                                  torch.empty_like(x), 0, lib=own),
+                functools.partial(fs._launch, lib.fused_step_cluster, xl, g, llr, mu=mu,
+                                  inplace=False, extra=(0,), **lkw),
+                functools.partial(pu.launch, "landing_field_cluster", xl, g, 0.0, 1.0,
+                                  torch.empty_like(x), 0, lib=own))
+            tols = (chip_smoke.TILED_TOL, chip_smoke.TWO_STAGE_TILED_TOL) * 2
+            for what, fn, w, tol in zip(ENTRIES, entries, wants, tols):
                 got = fn()
                 got = got if isinstance(got, tuple) else (got,)
                 if not args.no_check and not chip_smoke._errors(got, w, tol)[2]:
                     raise SystemExit(f"{label} {what} at {(b, p, n)} disagrees")
-            fns += [(fused, 10), (update, 10)]
+            fns += [(fn, 10) for fn in entries]
         t = chip_smoke._time_rotating(fns, args.rounds)
+        k = len(ENTRIES)
         for i, label in enumerate(libs):
-            print(f"variant {label} {b}x({p},{n}): fused POGO {t[2 * i]:.4f} ms, POGO update "
-                  f"{t[2 * i + 1]:.4f} ms", flush=True)
+            times = ", ".join(f"{what} {v:.4f} ms" for what, v in zip(ENTRIES, t[k * i:]))
+            print(f"variant {label} {b}x({p},{n}): {times}", flush=True)
+        del x, g, mu, xl, wants
+
+
+ENTRIES = ("fused POGO", "POGO update", "fused Landing", "field")
 
 
 if __name__ == "__main__":

@@ -15,11 +15,11 @@ two-stage POGO update and landing field), at the many-matrices shape
 (128, 2048) stack (p > 64: the wide tensor-core kernel of the same source
 for the fused step, the POGO update and the landing field; 3 steps each),
 and at the paper's squared-unitary-PC sizes, 1048 x (10, 10000) (p < 25:
-the cluster kernels of ``small_p.cu`` for fused POGO and the POGO update,
-one matrix a thread block cluster held in its shared memory; the CUDA-core
-tiled kernels of fused Landing and the landing field; 3 steps each) and
-1048 x (10, 9998) (n % 4 != 0: the CUDA-core tiled kernels of fused POGO
-and the POGO update, rows 2 and 6), and at the paper's own sizes for p > 128
+the cluster kernel of ``small_p.cu``, one matrix a thread block cluster
+held in its shared memory, for fused POGO, the POGO update, fused Landing
+and the landing field; 3 steps each) and 1048 x (10, 9998) (n % 4 != 0:
+the CUDA-core tiled kernels of all four, rows 2, 6, 2L and 8), and at the
+paper's own sizes for p > 128
 (``src/repro/configs/pogo_paper.py``): its six orthogonal CNN filters, as
 (1, p, n) leaves (a step runs the whole kernel at (64, 216), the
 tensor-core kernel at (64, 576), its wide form at (128, 1152) and the
@@ -56,11 +56,11 @@ route's entries (on the tensor cores at both paper sizes, on the CUDA
 cores at ``LARGE_ODD``) are launched 20 times each on the same inputs,
 half of them beside a copy on another stream, and must repeat bit for
 bit, and so must the tensor-core Newton-Schulz kernel and the cluster
-kernels (at the paper's 1048 x (10, 10000)). The cluster kernels are timed
-beside rows 2 and 6 at that shape, and at the readings behind the cluster
-route's ends (``phase_cluster_crossovers``: p = 4-28 at n = 2048-10000, p
-= 29 and 32 against the tensor-core kernels, and every cluster size that
-fits at the paper's shape). The large route's
+kernel's four entries (at the paper's 1048 x (10, 10000)). They are timed
+beside rows 2, 6, 2L and 8 at that shape, and at the readings behind the
+cluster route's ends (``phase_cluster_crossovers``: p = 4-28 at n =
+2048-10000, p = 29 and 32 against the tensor-core kernels, and every
+cluster size that fits at the paper's shape). The large route's
 entries are held against their plain versions and timed at both paper
 sizes in the phases of their functions' other kernels, the tensor cores'
 in turns with the CUDA cores' (their route there before PR 22); the
@@ -153,10 +153,9 @@ WIDE_SHAPE = (576, 128, 2048)
 # The paper's squared-unitary-PC sizes (src/repro/configs/pogo_paper.py:10,
 # 1048 matrices of (10, n), n at the top of its 256-10000 range), real-valued
 # (the port refuses complex groups): p < 25, where the planner sends the fused
-# POGO step and the POGO update to the cluster kernels of small_p.cu, and
-# fused Landing and the field to the CUDA-core tiled kernels. At n = 9998
-# (n % 4 != 0, a row stride TMA cannot take) POGO's two keep the CUDA-core
-# tiled kernels too.
+# step (POGO and Landing), the POGO update and the landing field to the
+# cluster kernel of small_p.cu. At n = 9998 (n % 4 != 0, a row stride TMA
+# cannot take) all four keep the CUDA-core tiled kernels (rows 2, 2L, 6, 8).
 PAPER_PC = {"pc": (1048, 10, 10000)}
 PAPER_SHAPE = (1048, 10, 10000)
 PAPER_PC_ODD = {"pc": (1048, 10, 9998)}
@@ -184,6 +183,8 @@ KERNELS = {
     "pogo_update_whole": ("two_stage", "src/repro/kernels/pogo_update.py:64"),
     "pogo_update_tiled": ("two_stage", "src/repro/kernels/pogo_update.py:143"),
     "pogo_update_cluster": ("small_p", "src/repro/kernels/pogo_update.py:143"),
+    "fused_step_cluster_landing": ("small_p", "src/repro/kernels/fused_step.py:559"),
+    "landing_field_cluster": ("small_p", "src/repro/kernels/landing_field.py:79"),
     "landing_field": ("two_stage", "src/repro/kernels/landing_field.py:42"),
     "landing_field_tiled": ("two_stage", "src/repro/kernels/landing_field.py:79"),
     "pogo_update_tiled_tc": ("fused_step_tc", "src/repro/kernels/pogo_update.py:143"),
@@ -442,8 +443,10 @@ def phase_fused_kernels(gen):
     kernels at the paper's 1048 x (10, 9998) (their main path: trace
     first, the planner's tile) and at 1048 x (10, 10000), 576 x (128, 2048)
     and 640 x (64, 960), where they ran before the cluster and tensor-core
-    kernels (checked here, and timed beside them), the cluster kernel at
-    1048 x (10, 10000) (every base, in place, ragged), and the large route
+    kernels (checked here, and timed beside them), the cluster kernel's
+    POGO and Landing entries at 1048 x (10, 10000) (every base, in place,
+    ragged; Landing's also with a learning rate held on the card, bit for
+    bit the host value's result), and the large route
     (p > 128): on the tensor cores
     at the paper's CNN filters 3 x (256, 2304) (every base, in place) and
     O-ViT 18 x (1024, 1024), ragged rows at ``LARGE_TC_RAGGED``, each timed
@@ -503,6 +506,14 @@ def phase_fused_kernels(gen):
          "in place"),
         ("fused_step_tiled_tc128_landing", (140, 100, 300), "trace", (0.1, False), "ragged"),
         ("fused_step_tiled_tc128_landing", (7, 72, 1002), "trace", (0.1, False), ""),
+        ("fused_step_tiled_landing", PAPER_ODD_SHAPE, "trace", (0.1, False), ""),
+        ("fused_step_cluster_landing", PAPER_SHAPE, "trace", (0.1, False), ""),
+        ("fused_step_cluster_landing", PAPER_SHAPE, "none", (), ""),
+        ("fused_step_cluster_landing", PAPER_SHAPE, "trace", (0.5, True), ""),
+        ("fused_step_cluster_landing", PAPER_SHAPE, "vadam", (0.9, 0.999, 1e-8), ""),
+        ("fused_step_cluster_landing", PAPER_SHAPE, "vadam", (0.9, 0.999, 1e-8), "in place"),
+        ("fused_step_cluster_landing", PAPER_SHAPE, "trace", (0.1, False), "ragged"),
+        ("fused_step_cluster_landing", PAPER_SHAPE, "trace", (0.1, False), "device eta"),
         ("fused_step_tiled_landing", PAPER_SHAPE, "trace", (0.1, False), ""),
         ("fused_step_tiled_landing", WIDE_SHAPE, "trace", (0.1, False), ""),
         ("fused_step_tiled_landing", WIDE_SHAPE, "vadam", (0.9, 0.999, 1e-8), ""),
@@ -559,16 +570,24 @@ def phase_fused_kernels(gen):
             got = wrapper(x, g, LR, inplace=True, **kw)
             if got[0] is not x or (base != "none" and got[1] is not mu):
                 raise SystemExit(f"{name} in place returned new tensors")
+        elif variant == "device eta":
+            got = wrapper(x, g, torch.tensor(LR, device="cuda"), **kw)
         else:
             got = wrapper(x, g, LR, **kw)
         if getattr(fs, name).launches != before + 1:
             raise SystemExit(f"{name} did not count its launch")
         torch.cuda.synchronize()
+        note = ""
+        if variant == "device eta":
+            if not all(torch.equal(a, h) for a, h in zip(got[:4], wrapper(x, g, LR, **kw)[:4])
+                       if a is not None):
+                raise SystemExit(f"{name}: a device-held eta changed the result")
+            note = "; bit for bit the host eta's"
         max_abs, max_rel, ok = _errors(got, want, tol)
         by_output = _errors_by_output(got, want)
         print(f"kernel {name} {b}x({p},{n}) {base}{hyper}{' ' + variant if variant else ''}: "
               f"max_abs {max_abs:.3e} max_rel {max_rel:.3e} (atol {tol['atol']}, rtol "
-              f"{tol['rtol']}) {'ok' if ok else 'MISMATCH'}; max_abs by output "
+              f"{tol['rtol']}{note}) {'ok' if ok else 'MISMATCH'}; max_abs by output "
               f"{ {k: f'{v:.3e}' for k, v in by_output.items()} }", flush=True)
         if not ok:
             raise SystemExit(f"{name} disagrees with its plain version")
@@ -600,13 +619,15 @@ def phase_fused_kernels(gen):
                 extra += (f"; the schedule's {passes} passes {floor_ms:.4f}; fp32 CUDA cores "
                           f"{1e3 * flops / FP32_FLOP_PER_S:.4f}; the CUDA-core tiled kernel "
                           f"at this call {times[2]:.4f} ms")
-            elif kind == "cluster":  # row 2 beside it, by its 9 passes
-                floor_ms = 1e3 * 9 * b * p * n * 4 / HBM_BYTES_PER_S
-                extra += (f"; cluster of {ops.small_p_cluster(p, n)}; row 2 (tile "
-                          f"{ops.tiled_tile_n(p)}, 9 passes {floor_ms:.4f}) at this call "
-                          f"{times[2]:.4f} ms")
-                _record(records, "fused_step_tiled", (b, p, n), dict(
-                    ms=times[2], plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
+            elif kind == "cluster":  # row 2 (2L) beside it, by its 9 (7) passes
+                row, passes = ("2L", 7) if landing else ("2", 9)
+                floor_ms = 1e3 * passes * b * p * n * 4 / HBM_BYTES_PER_S
+                extra += (f"; cluster of {ops.small_p_cluster(p, n)}; row {row} (tile "
+                          f"{ops.tiled_tile_n(p)}, {passes} passes {floor_ms:.4f}) at this "
+                          f"call {times[2]:.4f} ms")
+                _record(records, "fused_step_tiled" + ("_landing" if landing else ""), (b, p, n),
+                        dict(ms=times[2], plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by))
             elif kind in ("large", "large_tc"):  # its launches, the slices' sums included
                 run = large_p.runner(x)
                 wrapper(x, g, LR, runner=run, **kw)
@@ -630,7 +651,7 @@ def phase_fused_kernels(gen):
 def phase_tc_repeatability(gen, repeats=20):
     """Each tensor-core kernel launched ``repeats`` times on the same inputs
     at 640 x (64, 960) (the wide ones at 576 x (128, 2048), the cluster
-    kernels at the paper's 1048 x (10, 10000); Newton-Schulz
+    kernel's four entries at the paper's 1048 x (10, 10000); Newton-Schulz
     on the watchdog's drifted input, half the matrices masked off), each
     entry of the large route on the tensor cores at the CNN filters' 3 x
     (256, 2304) (its grams split n into slices there) and O-ViT's 18 x
@@ -676,6 +697,7 @@ def phase_tc_repeatability(gen, repeats=20):
             ("fused_step_tiled_tc128", "vadam", (0.9, 0.999, 1e-8), WIDE_SHAPE),
             ("fused_step_tiled_tc128_landing", "trace", (0.1, False), WIDE_SHAPE),
             ("fused_step_cluster", "vadam", (0.9, 0.999, 1e-8), PAPER_SHAPE),
+            ("fused_step_cluster_landing", "vadam", (0.9, 0.999, 1e-8), PAPER_SHAPE),
             *((name, "vadam", (0.9, 0.999, 1e-8), shape) for shape in large
               for name in ("fused_step_large_tc", "fused_step_large_tc_landing")),
             ("fused_step_large", "vadam", (0.9, 0.999, 1e-8), LARGE_ODD),
@@ -694,7 +716,7 @@ def phase_tc_repeatability(gen, repeats=20):
     for shape, updates in (((640, 64, 960), (pu.pogo_update_tiled_tc, lf.landing_field_tiled_tc)),
                            (WIDE_SHAPE, (pu.pogo_update_tiled_tc128,
                                          lf.landing_field_tiled_tc128)),
-                           (PAPER_SHAPE, (pu.pogo_update_cluster,)),
+                           (PAPER_SHAPE, (pu.pogo_update_cluster, lf.landing_field_cluster)),
                            *((shape, (pu.pogo_update_large_tc, lf.landing_field_large_tc))
                              for shape in large),
                            (LARGE_ODD, (pu.pogo_update_large, lf.landing_field_large))):
@@ -816,15 +838,15 @@ def phase_two_stage_kernels(gen):
     and the wide ones at internlm2-1.8b's 576 x (128, 2048) (each timed
     beside the CUDA-core tiled kernel, their route there before, checked at
     the same call: the field at tile 64, POGO's update at tile 16), the
-    cluster POGO update at the paper's 1048 x (10, 10000) (beside row 6,
-    checked at the same call), the CUDA-core tiled kernels at 1048 x (10,
-    9998) (POGO's) and 1048 x (10, 10000) (the field's), the large
+    cluster POGO update and field at the paper's 1048 x (10, 10000) (beside
+    rows 6 and 8, checked at the same call), the CUDA-core tiled kernels at
+    1048 x (10, 9998), the large
     route on the tensor cores at the CNN filters' 3 x (256, 2304) and
     O-ViT's 18 x (1024, 1024) (both timed, each beside the CUDA cores'
     large route, checked at the same call) and on the CUDA cores at
     ``LARGE_ODD``. Then every kernel at a ragged shape, 7 x (10, 250) (the
     wide ones at 7 x (100, 250), the large ones at (3, 136, 203) and
-    ``LARGE_TC_RAGGED``, the cluster one at 7 x (10, 2000)), the
+    ``LARGE_TC_RAGGED``, the cluster ones at 7 x (10, 2000)), the
     tensor-core entries also at 7 x (64, 250) (plain loads), POGO's in
     place and with a learning rate held on the card (bit for bit the host
     value's result; the cluster one's too). X is a Stiefel draw plus 0.01
@@ -840,8 +862,8 @@ def phase_two_stage_kernels(gen):
     main = {"pogo_update_whole": (2048, 16, 256), "landing_field": (2048, 16, 256),
             "pogo_update_tiled_tc": tc_shape, "landing_field_tiled_tc": tc_shape,
             "pogo_update_tiled_tc128": WIDE_SHAPE, "landing_field_tiled_tc128": WIDE_SHAPE,
-            "pogo_update_tiled": PAPER_ODD_SHAPE, "landing_field_tiled": PAPER_SHAPE,
-            "pogo_update_cluster": PAPER_SHAPE,
+            "pogo_update_tiled": PAPER_ODD_SHAPE, "landing_field_tiled": PAPER_ODD_SHAPE,
+            "pogo_update_cluster": PAPER_SHAPE, "landing_field_cluster": PAPER_SHAPE,
             "pogo_update_large": LARGE_ODD, "landing_field_large": LARGE_ODD,
             "pogo_update_large_tc": CNN_SHAPE, "landing_field_large_tc": CNN_SHAPE}
     ragged = {"tc128": (7, 100, 250), "large": (3, 136, 203), "large_tc": LARGE_TC_RAGGED,
@@ -968,10 +990,11 @@ def phase_two_stage_kernels(gen):
                       f"{1e3 * passes * b * p * n * 4 / HBM_BYTES_PER_S:.4f}; fp32 CUDA cores "
                       f"{1e3 * flops / FP32_FLOP_PER_S:.4f}; the CUDA-core tiled kernel at "
                       f"this call {times[2]:.4f} ms")
-        elif kind == "cluster":  # row 6 beside it, by its 7 passes
-            extra = (f"; cluster of {ops.small_p_cluster(p, n)}; row 6 (tile "
-                     f"{ops.two_stage_tile_n(p, tiled_bytes)}, 7 passes "
-                     f"{1e3 * 7 * b * p * n * 4 / HBM_BYTES_PER_S:.4f}) at this call "
+        elif kind == "cluster":  # row 6 (8) beside it, by its 7 (5) passes
+            row, passes = ("6", 7) if pogo else ("8", 5)
+            extra = (f"; cluster of {ops.small_p_cluster(p, n)}; row {row} (tile "
+                     f"{ops.two_stage_tile_n(p, tiled_bytes)}, {passes} passes "
+                     f"{1e3 * passes * b * p * n * 4 / HBM_BYTES_PER_S:.4f}) at this call "
                      f"{times[2]:.4f} ms")
             _record(records, f"{stem}_tiled", shape, dict(
                 max_abs_err=cc_err, ms=times[2], plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1227,22 +1250,28 @@ CLUSTER_READINGS += [(1048, 29, 2048), (1048, 32, 2048)]
 
 
 def phase_cluster_crossovers(gen, shapes=CLUSTER_READINGS, rounds=3):
-    """At each shape, fused POGO over trace and the POGO update on the
-    cluster kernels (their own cluster size) in turns with the route below
-    them: the CUDA-core tiled kernels (rows 2 and 6), or from ``TC_MIN_P``
-    the tensor-core ones (2tc and 6tc); each checked against the plain
-    version first. A shape no cluster holds says so. Then, at the paper's
-    1048 x (10, 10000), every cluster size that fits a CTA, in turns."""
+    """At each shape, the cluster kernel's four entries (their own cluster
+    size) in turns with the routes below them: fused POGO over trace and
+    the POGO update against the CUDA-core tiled kernels (rows 2 and 6), or
+    from ``TC_MIN_P`` the tensor-core ones (2tc and 6tc); fused Landing over
+    trace and the landing field against rows 2L and 8, or from
+    ``LANDING_TC_MIN_P`` 2Ltc and 8tc (X off the manifold for Landing's
+    two); each checked against the plain version first. A shape no cluster
+    holds says so. Then, at the paper's 1048 x (10, 10000), every cluster
+    size that fits a CTA, in turns."""
     import torch
 
     from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import landing_field as lf
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import pogo_update as pu
 
     kw = dict(method="pogo", lam=0.5, base_kind="trace", hyper=(0.9, False))
+    lkw = dict(method="landing", lam=1.0, base_kind="trace", hyper=(0.1, False))
     for b, p, n in shapes:
         c = ops.small_p_cluster(p, n)
-        plans = f"{ops.plan(p, n)[0]} / {ops.plan_pogo_update(p, n)[0]}"
+        plans = (f"{ops.plan(p, n)[0]} / {ops.plan_pogo_update(p, n)[0]} / "
+                 f"{ops.plan(p, n, 'landing')[0]} / {ops.plan_landing_field(p, n)[0]}")
         if c == 0:
             print(f"crossover cluster {b}x({p},{n}), planned {plans}: no cluster holds it",
                   flush=True)
@@ -1254,41 +1283,68 @@ def phase_cluster_crossovers(gen, shapes=CLUSTER_READINGS, rounds=3):
             fused = functools.partial(fs.fused_step_tiled, tile_n=ops.tiled_tile_n(p))
             update = functools.partial(
                 pu.pogo_update_tiled, tile_n=ops.two_stage_tile_n(p, ops.pogo_tiled_smem_bytes))
+        if p >= ops.LANDING_TC_MIN_P:
+            lother, lfused, field = ("tensor-core", fs.fused_step_tiled_tc,
+                                     lf.landing_field_tiled_tc)
+        else:
+            lother = "CUDA-core tiled"
+            lfused = functools.partial(fs.fused_step_tiled, tile_n=ops.tiled_tile_n(p))
+            field = functools.partial(lf.landing_field_tiled, tile_n=ops.two_stage_tile_n(
+                p, ops.landing_tiled_smem_bytes))
         x, g, mu, _ = _operands(gen, b, p, n)
+        xl = x + 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
         want = ref.fused_group_step_ref(x, g, LR, mu=mu, **kw)
         want_u = ref.pogo_update_ref(x, g, LR, 0.5)
+        want_l = ref.fused_group_step_ref(xl, g, LANDING_LR, mu=mu, **lkw)
+        want_f = ref.landing_field_ref(xl, g, 1.0)
         for label, got, w, tol in (
                 ("fused cluster", fs.fused_step_cluster(x, g, LR, mu=mu, **kw), want, TILED_TOL),
                 ("fused " + other, fused(x, g, LR, mu=mu, **kw), want, TILED_TOL),
                 ("update cluster", (pu.pogo_update_cluster(x, g, LR, 0.5),), (want_u,),
                  TWO_STAGE_TILED_TOL),
-                ("update " + other, (update(x, g, LR, 0.5),), (want_u,), TWO_STAGE_TILED_TOL)):
+                ("update " + other, (update(x, g, LR, 0.5),), (want_u,), TWO_STAGE_TILED_TOL),
+                ("fused Landing cluster", fs.fused_step_cluster(xl, g, LANDING_LR, mu=mu, **lkw),
+                 want_l, TILED_TOL),
+                ("fused Landing " + lother, lfused(xl, g, LANDING_LR, mu=mu, **lkw), want_l,
+                 TILED_TOL),
+                ("field cluster", (lf.landing_field_cluster(xl, g, 1.0),), (want_f,),
+                 TWO_STAGE_TILED_TOL),
+                ("field " + lother, (field(xl, g, 1.0),), (want_f,), TWO_STAGE_TILED_TOL)):
             if not _errors(got, w, tol)[2]:
                 raise SystemExit(f"crossover {label} at {(b, p, n)} disagrees")
-        del want, want_u
+        del want, want_u, want_l, want_f
         t = _time_rotating([(lambda: fs.fused_step_cluster(x, g, LR, mu=mu, **kw), 10),
                             (lambda: fused(x, g, LR, mu=mu, **kw), 10),
                             (lambda: pu.pogo_update_cluster(x, g, LR, 0.5), 10),
-                            (lambda: update(x, g, LR, 0.5), 10)], rounds)
+                            (lambda: update(x, g, LR, 0.5), 10),
+                            (lambda: fs.fused_step_cluster(xl, g, LANDING_LR, mu=mu, **lkw), 10),
+                            (lambda: lfused(xl, g, LANDING_LR, mu=mu, **lkw), 10),
+                            (lambda: lf.landing_field_cluster(xl, g, 1.0), 10),
+                            (lambda: field(xl, g, 1.0), 10)], rounds)
         print(f"crossover cluster {b}x({p},{n}), planned {plans}: fused POGO cluster of {c} "
               f"{t[0]:.4f} ms, {other} {t[1]:.4f} ms; POGO update cluster {t[2]:.4f} ms, "
-              f"{other} {t[3]:.4f} ms", flush=True)
-        del x, g, mu
+              f"{other} {t[3]:.4f} ms; fused Landing cluster {t[4]:.4f} ms, {lother} "
+              f"{t[5]:.4f} ms; field cluster {t[6]:.4f} ms, {lother} {t[7]:.4f} ms", flush=True)
+        del x, g, mu, xl
     b, p, n = PAPER_SHAPE
     sizes = [c for c in (2, 4, 8) if ops.small_p_smem_bytes(p, n, c) <= ops.SMEM_LIMIT_BYTES]
     x, g, mu, _ = _operands(gen, b, p, n)
-    fns = [(functools.partial(fs.fused_step_cluster, x, g, LR, mu=mu, cluster=c, **kw), 10)
-           for c in sizes]
-    fns += [(functools.partial(pu.pogo_update_cluster, x, g, LR, 0.5, cluster=c), 10)
-            for c in sizes]
-    t = _time_rotating(fns, rounds)
+    xl = x + 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
+    entries = (
+        ("fused POGO", lambda c: fs.fused_step_cluster(x, g, LR, mu=mu, cluster=c, **kw)),
+        ("POGO update", lambda c: pu.pogo_update_cluster(x, g, LR, 0.5, cluster=c)),
+        ("fused Landing",
+         lambda c: fs.fused_step_cluster(xl, g, LANDING_LR, mu=mu, cluster=c, **lkw)),
+        ("field", lambda c: lf.landing_field_cluster(xl, g, 1.0, cluster=c)))
+    t = _time_rotating([(functools.partial(fn, c), 10) for _, fn in entries for c in sizes],
+                       rounds)
     k = len(sizes)
+    line = "; ".join(f"{label} { {c: round(v, 4) for c, v in zip(sizes, t[i * k:(i + 1) * k])} }"
+                     " ms" for i, (label, _) in enumerate(entries))
     print(f"cluster sizes at {b}x({p},{n}) (smem a CTA "
           f"{[ops.small_p_smem_bytes(p, n, c) for c in sizes]} bytes), planned "
-          f"{ops.small_p_cluster(p, n)}: fused POGO "
-          f"{ {c: round(v, 4) for c, v in zip(sizes, t[:k])} } ms; POGO update "
-          f"{ {c: round(v, 4) for c, v in zip(sizes, t[k:])} } ms", flush=True)
-    del x, g, mu
+          f"{ops.small_p_cluster(p, n)}: {line}", flush=True)
+    del x, g, mu, xl
 
 
 def _is_qk(path: str) -> bool:
@@ -2240,7 +2296,10 @@ def main() -> int:
         ("landing 2048x(16,256)", MANY, 10, "landing", 0.5, "landing_field"),
         ("landing internlm2-1.8b q/k", INTERNLM2, 3, "landing", 0.5,
          "landing_field_tiled_tc128"),
-        ("landing paper unitary-PC sizes", PAPER_PC, 3, "landing", 0.5, "landing_field_tiled"),
+        ("landing paper unitary-PC sizes", PAPER_PC, 3, "landing", 0.5,
+         "landing_field_cluster"),
+        ("landing paper unitary-PC sizes, n = 9998", PAPER_PC_ODD, 3, "landing", 0.5,
+         "landing_field_tiled"),
         ("landing fused smollm-360m q/k", smollm, 10, "landing_fused", 0.5,
          "fused_step_tiled_tc_landing"),
         ("landing fused 2048x(16,256)", MANY, 10, "landing_fused", 0.5,
@@ -2248,7 +2307,9 @@ def main() -> int:
         ("landing fused internlm2-1.8b q/k", INTERNLM2, 3, "landing_fused", 0.5,
          "fused_step_tiled_tc128_landing"),
         ("landing fused paper unitary-PC sizes", PAPER_PC, 3, "landing_fused", 0.5,
-         "fused_step_tiled_landing"),
+         "fused_step_cluster_landing"),
+        ("landing fused paper unitary-PC sizes, n = 9998", PAPER_PC_ODD, 3, "landing_fused",
+         0.5, "fused_step_tiled_landing"),
     ]
     # The paper's CNN filters (one step runs the whole, tensor-core, wide
     # and large routes, one group each) and O-ViT (the large route alone).

@@ -1,27 +1,35 @@
-// The fused POGO step and the two-stage POGO update for small p on Hopper
-// (sm_90a; the planner takes both to p = 24): one (p, n) matrix per
-// thread block cluster, held whole in the cluster's shared memory, IEEE
-// fp32 on the CUDA cores.
+// The fused step (POGO and Landing) and the two-stage POGO update and
+// landing field for small p on Hopper (sm_90a; the planner takes all four
+// to p = 24): one (p, n) matrix per thread block cluster, held whole in the
+// cluster's shared memory, IEEE fp32 on the CUDA cores.
 //
 // Replaces the Pallas TPU kernels
 //   fused_step_cluster   <- src/repro/kernels/fused_step.py:608 fused_step_tiled
-//                           (_t1_kernel :476, _t2_pogo_kernel :530,
-//                           pogo_update._phase3_kernel :133), POGO branch
+//                           (_t1_kernel :476; POGO: _t2_pogo_kernel :530,
+//                           pogo_update._phase3_kernel :133; Landing, method 1:
+//                           _t2_landing_kernel :559, its branch :701)
 //   pogo_update_cluster  <- src/repro/kernels/pogo_update.py:143 pogo_update_tiled
 //                           (_phase1/2/3_kernel :91/:110/:133)
-// with the functions of fused_step.cu's fused_step_tiled (POGO) and
-// two_stage.cu's pogo_update_tiled: base stage (none | trace (+nesterov) |
-// vadam), A = X X^T, B = X Geu^T, M = X - coef/2 (A Geu - B X), C = M M^T,
-// X' = (1 + lam) M - lam C M, and (fused) the distance from C by the gram
-// identity, as fused_step.cu's telemetry forms it.
+//   landing_field_cluster <- src/repro/kernels/landing_field.py:79 landing_field_tiled
+//                           (pogo_update._phase1_kernel, _field_tile_kernel :65)
+// with the functions of fused_step.cu's fused_step_tiled and two_stage.cu's
+// pogo_update_tiled and landing_field_tiled: base stage (none | trace
+// (+nesterov) | vadam), A = X X^T, B = X Geu^T, then
+//   POGO     M = X - coef/2 (A Geu - B X), C = M M^T, X' = (1 + lam) M -
+//            lam C M, and (fused) the distance from C by the gram identity,
+//            as fused_step.cu's telemetry forms it;
+//   Landing  X' = X - (coef/2 (A Geu - B X) + eta lam (A X - X)), W = X' X'^T
+//            and dist = ||W - I_pv||_F, as fused_step.cu forms it;
+//   field    Lambda = 1/2 (A G - B X) + lam (A X - X).
 //
-// Bound: 12 p^2 n flops a matrix against 5 HBM passes of 4 p n bytes (the
-// fused step: X, g, mu read, mu', X' written) or 3 (the update: X, G read,
-// X' written), 0.6 p and p flop/byte: at p = 10 far below the fp32 ridge of
-// 20 (67 TFLOP/s over 3.35 TB/s), so bytes bound both. The CUDA-core tiled
-// kernels sweep n three times (9 and 7 passes) with one synchronous 64-column
-// tile in flight a CTA; these read each operand once and write each result
-// once.
+// Bound: 12 p^2 n flops a matrix (the field 10) against 5
+// HBM passes of 4 p n bytes (the fused step: X, g, mu read, mu', X' written)
+// or 3 (the update and the field: X, G read, one result written), at most
+// p flop/byte: at p = 10 far below the fp32 ridge of 20 (67 TFLOP/s over
+// 3.35 TB/s), so bytes bound all four. The CUDA-core tiled kernels sweep n
+// three times (POGO: 9 and 7 passes) or twice (Landing and the field: 7 and
+// 5) with one synchronous 64-column tile in flight a CTA; these read each
+// operand once and write each result once.
 //
 // Design:
 // * A cluster of c CTAs (2, 4 or 8) a matrix, persistent over the stack
@@ -30,9 +38,9 @@
 //   boxes (W <= 256 columns, W % 4 == 0, nc = nbox W), each loaded by one
 //   TMA copy (no swizzle, zero past n) onto its own mbarrier, all issued up
 //   front, so that the grams start on the first box while the others land.
-// * The base stage runs on each box as it lands: mu read by float4 loads
-//   (for p <= 12 the next box's while this box's products run), mu'
-//   stored, Geu written over g in the box.
+// * The base stage (the fused step) runs on each box as it lands: mu read
+//   by float4 loads (for p <= 12 the next box's while this box's products
+//   run), mu' stored, Geu written over g in the box.
 // * Grams: A (its blocks on and above the diagonal, mirrored) and B in 4 x 4
 //   register blocks, each block's k range split over S lanes (a power of two)
 //   and summed by a fixed butterfly (and, past a warp, in warp order). Each
@@ -41,16 +49,29 @@
 //   order, its own and its peers' through distributed shared memory
 //   (mapa, ld.shared::cluster.v4): the same bits in every CTA. vadam's sum
 //   of squares meets the same way.
-// * Column-local phases (the leap M, written over X in shared memory; the
-//   land X', stored to HBM) give a thread KC whole columns (all p rows in
+// * Column-local rounds give a thread KC whole columns (all p rows in
 //   registers; rows in a rolled loop from PB = 20) and read the (p, p)
 //   operands as broadcast float4 rows. They run box by box in rounds of
-//   kThreads column groups: each box of Geu the leap has finished takes the
-//   next matrix's g, each box of M the land has finished its X, so the next
-//   matrix's loads run under this one's products.
-// * Two cluster barriers a matrix (A and B; C) and one at the end, so that
-//   a CTA never overwrites a published partial a peer may still read and
-//   never leaves while a peer may read its shared memory.
+//   kThreads column groups, and each box a round has finished takes the
+//   next matrix's data, so that its loads run under this one's products:
+//   POGO's leap (M over X; Geu's box takes the next g) and land (X' to HBM;
+//   M's box takes the next X); Landing's step (X' to HBM and over X; Geu's
+//   box takes the next g), after which W's partial runs over the X' boxes
+//   and they take the next X; the field's one round (Lambda to HBM; both
+//   boxes take the next X and g). W's partial summed box by box inside
+//   Landing's rounds, each box then refilled at once, gives the same bits
+//   but was no faster (1.0909 against 1.0731 ms at 1048 x (10, 10000) in
+//   one call on an H100) and spilled at PB = 8 and 16 (its 16 running sums
+//   beside the round's registers).
+// * Published grams: a CTA never writes a partial a peer may still read.
+//   POGO and Landing publish two grams a matrix (A and B; C or W), each
+//   read by the peers between the cluster barrier after it and their
+//   arrival at the next one, before which no CTA publishes that gram again.
+//   The field has one barrier a matrix, so it alternates two sets by the
+//   matrix's parity (A and B, then the free C and C^2 slots): set s, read by
+//   the peers after matrix k's barrier and before they arrive at k + 1's,
+//   is written again at k + 2, after that barrier. A last cluster barrier
+//   keeps every CTA resident while a peer may read its shared memory.
 // * Two CTAs an SM where the slices allow (small_p_cluster), so that one
 //   CTA's products run while the other waits: at the paper's (10, 10000) a
 //   cluster of 8 with two CTAs an SM beat one of 4 with one (readings in
@@ -59,13 +80,14 @@
 //   update against 1.1815 / 0.8718 in one call on an H100).
 //
 // Shared memory: the X and Geu slices (2 nbox slots of p W floats, each slot
-// rounded up to 128 bytes), the published and summed (PB, PB) grams and a
-// scratch for the distance, a zero row (rows past p read it), the warps'
-// partials, the reduction scratch and 2 nbox mbarriers. Outputs may alias
-// inputs (x_out == x, mu_out == mu, nu_out == nu): X is resident before X'
-// is written, mu is read before mu' is written by the same thread, and nu
-// is read before the cluster barrier after which rank 0 writes nu'. Every
-// launcher returns cudaGetLastError(); a refused launch is its error.
+// rounded up to 128 bytes), the published and summed (PB, PB) grams (POGO's
+// C, Landing's W) and a scratch for the distance, a zero row (rows past p
+// read it), the warps' partials, the reduction scratch and 2 nbox mbarriers.
+// Outputs may alias inputs (x_out == x, mu_out == mu, nu_out == nu): X is
+// resident before X' is written, mu is read before mu' is written by the
+// same thread, and nu is read before the cluster barrier after which rank 0
+// writes nu'. Every launcher returns cudaGetLastError(); a refused launch is
+// its error.
 
 #include "hopper.cuh"
 #include "tiles.cuh"
@@ -79,6 +101,10 @@ constexpr int kSpMaxCluster = 8;    // the largest portable cluster
 constexpr int kSpBoxCols = 256;     // most columns a TMA box takes
 constexpr int kSpMaxBoxes = 64;     // most boxes a CTA holds
 constexpr int kSpSmSmem = 233472;   // an SM's shared memory, 1 KB of it reserved a CTA
+
+// The kernel's four entries: the fused step's two methods (Method's values)
+// and the two-stage POGO update and landing field.
+enum SpMode { kSpPogo = kPogo, kSpLanding = kLanding, kSpUpdate = 2, kSpField = 3 };
 
 // Whole columns a thread takes in the column-local phases: its p x KC
 // values of X and Geu stay in registers (128 a thread at two CTAs an SM,
@@ -341,13 +367,17 @@ __device__ inline void stage_box(float* G, const float* mu, float* mu_out, size_
   }
 }
 
-// M = X - coef/2 (A Geu - B X) for one group of KC whole columns (xb, gb:
-// its first column in the boxes of X and Geu), written over X; A, Bm
-// row-major (PB, PB).
-template <int PB, int KC>
-__device__ __forceinline__ void leap_group(float* xb, const float* gb, const float* A,
-                                           const float* Bm, float coef, int p, int W,
-                                           const float* zrow) {
+// One group of KC whole columns (xb, gb: its first column in the boxes of X
+// and Geu; A, Bm row-major (PB, PB)), its rows to `out` (row stride n):
+//   POGO (kSpPogo, kSpUpdate)  M = X - coef/2 (A Geu - B X), over X;
+//   kSpLanding                 X' = X - (coef/2 (A Geu - B X) + el (A X - X)),
+//                              over X and to out;
+//   kSpField                   Lambda = 1/2 (A G - B X) + el (A X - X), to out.
+template <int PB, int KC, int kMode>
+__device__ __forceinline__ void direction_group(float* xb, const float* gb, const float* A,
+                                                const float* Bm, float coef, float el, int p,
+                                                int n, int W, float* out, const float* zrow) {
+  constexpr bool kNormal = kMode == kSpLanding || kMode == kSpField;  // Landing's A X - X
   float xr[PB][KC], gr[PB][KC];
 #pragma unroll
   for (int i = 0; i < PB; ++i) {
@@ -355,12 +385,12 @@ __device__ __forceinline__ void leap_group(float* xb, const float* gb, const flo
     ld_cols(gr[i], i < p ? gb + i * W : zrow);
   }
   // Rows in a loop the compiler keeps rolled from PB = 20 (sp_rolled), X's
-  // row re-read from shared memory before M's is written over it.
+  // row re-read from shared memory before the result is written over it.
 #pragma unroll
   for (int r = 0; r < (sp_rolled(PB) ? 1 : PB); ++r)
   for (int i = r; i < (sp_rolled(PB) ? p : r + 1); ++i) {
     if (i >= p) continue;
-    float ag[KC] = {}, bx[KC] = {};
+    float ag[KC] = {}, bx[KC] = {}, ax[KC] = {};
 #pragma unroll
     for (int j4 = 0; j4 < PB / 4; ++j4) {
       float av[4], bv[4];
@@ -372,6 +402,7 @@ __device__ __forceinline__ void leap_group(float* xb, const float* gb, const flo
         for (int c = 0; c < KC; ++c) {
           ag[c] = fmaf(av[q], gr[4 * j4 + q][c], ag[c]);
           bx[c] = fmaf(bv[q], xr[4 * j4 + q][c], bx[c]);
+          if (kNormal) ax[c] = fmaf(av[q], xr[4 * j4 + q][c], ax[c]);
         }
     }
     float xi[KC], o[KC];
@@ -382,8 +413,16 @@ __device__ __forceinline__ void leap_group(float* xb, const float* gb, const flo
       for (int c = 0; c < KC; ++c) xi[c] = xr[i][c];
     }
 #pragma unroll
-    for (int c = 0; c < KC; ++c) o[c] = xi[c] - coef * (0.5f * (ag[c] - bx[c]));
-    st_cols(xb + i * W, o);
+    for (int c = 0; c < KC; ++c) {
+      if (kMode == kSpLanding)
+        o[c] = xi[c] - (coef * (0.5f * (ag[c] - bx[c])) + el * (ax[c] - xi[c]));
+      else if (kMode == kSpField)
+        o[c] = 0.5f * (ag[c] - bx[c]) + el * (ax[c] - xi[c]);
+      else
+        o[c] = xi[c] - coef * (0.5f * (ag[c] - bx[c]));
+    }
+    if (kMode != kSpField) st_cols(xb + i * W, o);
+    if (kNormal) st_cols(out + static_cast<size_t>(i) * n, o);
   }
 }
 
@@ -423,14 +462,14 @@ __device__ __forceinline__ void land_group(const float* mb, const float* C, floa
   }
 }
 
-// The column-local phases over the CTA's live boxes, box by box in rounds
-// of kThreads groups of KC columns: the leap (kLeap) or the land. After each
-// round every thread calls done(from, to) with the boxes [from, to) it
-// finished, at one call site: done's barrier is .aligned, so no warp may
-// reach it from two places.
-template <int PB, int KC, bool kLeap, class Done>
+// A column-local phase over the CTA's live boxes, box by box in rounds of
+// kThreads groups of KC columns: kMode's direction_group, or (kLand) POGO's
+// land. After each round every thread calls done(from, to) with the boxes
+// [from, to) it finished, at one call site: done's barriers are .aligned,
+// so no warp may reach them from two places.
+template <int PB, int KC, int kMode, bool kLand, class Done>
 __device__ __forceinline__ void column_rounds(float* XS, const float* GS, const float* P,
-                                              const float* Q, float coef, float lam, int p,
+                                              const float* Q, float coef, float el, int p,
                                               int n, int W, int sboxf, int live, int col_lo,
                                               float* out, const float* zrow, Done done) {
   const int per = W / KC, total = live * per;
@@ -439,10 +478,11 @@ __device__ __forceinline__ void column_rounds(float* XS, const float* GS, const 
     const int u = u0 + threadIdx.x, j = u / per, cb = (u - j * per) * KC;
     const int col = col_lo + j * W + cb;
     if (u < total && col < n) {
-      if (kLeap)
-        leap_group<PB, KC>(XS + j * sboxf + cb, GS + j * sboxf + cb, P, Q, coef, p, W, zrow);
+      if (kLand)
+        land_group<PB, KC>(XS + j * sboxf + cb, P, el, p, n, W, out + col, zrow);
       else
-        land_group<PB, KC>(XS + j * sboxf + cb, P, lam, p, n, W, out + col, zrow);
+        direction_group<PB, KC, kMode>(XS + j * sboxf + cb, GS + j * sboxf + cb, P, Q, coef,
+                                       el, p, n, W, out + col, zrow);
     }
     const int now = min(total, u0 + kThreads) / per;
     done(finished, now);
@@ -479,9 +519,24 @@ __device__ void sp_telemetry(const float* C, float* C2, int PB, int p, int pv, f
   if (lane == 0) *dist_out = sqrtf(acc);
 }
 
-// One cluster of c CTAs a matrix; grid (clusters) x c. kUpdate: the
-// two-stage update (no base stage, coef = eta, no distance).
-template <int PB, bool kUpdate>
+// dist = ||W - I_pv||_F (fused_step.cu's residual_dist), W row-major (PB,
+// PB), by one warp (lane 0 stores it).
+__device__ void sp_residual(const float* Wm, int PB, int p, int pv, float* dist_out) {
+  const int lane = threadIdx.x & 31;
+  float acc = 0.f;
+  for (int e = lane; e < p * p; e += 32) {
+    const int i = e / p, j = e - i * p;
+    const float r = Wm[i * PB + j] - ((i == j && i < pv) ? 1.f : 0.f);
+    acc = fmaf(r, r, acc);
+  }
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (lane == 0) *dist_out = sqrtf(acc);
+}
+
+// One cluster of c CTAs a matrix; grid (clusters) x c. kMode: the entry
+// (the two-stage ones, kSpUpdate and kSpField: no base stage, no distance;
+// the update's coef is eta).
+template <int PB, int kMode>
 __global__ void __launch_bounds__(kThreads, PB <= 28 ? 2 : 1)
 small_p_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_g,
                const float* mu, const float* nu, const float* scal, const int* pv, float* x_out,
@@ -492,6 +547,7 @@ small_p_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
   constexpr int KQ = (PB * kSpBoxCols / 4 + kThreads - 1) / kThreads;  // mu quads a box
   constexpr bool kAhead = KQ <= 3;  // the next box's mu in registers under the products
   constexpr int S1 = sp_lanes(nA + nb * nb), S2 = sp_lanes(nA);
+  constexpr bool kTwoStage = kMode == kSpUpdate || kMode == kSpField;
   unsigned char* sm = hopper::smem_align1024(small_p_smem);
   const SpLayout L = sp_layout(p, n, c);
   const int W = L.W, sboxf = L.sbox / 4, tid = threadIdx.x;
@@ -515,9 +571,11 @@ small_p_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
   const uint32_t box_bytes = static_cast<uint32_t>(p * W * 4);
   const int cl = blockIdx.x / c, ncl = gridDim.x / c;
   const float lam = scal[1], h0 = scal[3];
+  const CUtensorMap* const map_x = &tm_x;  // closures copy these, never the maps
+  const CUtensorMap* const map_g = &tm_g;
 
   // This thread's gram blocks: A's on and above the diagonal, then B's
-  // (phase 1, S1 lanes each); C's (phase 3, S2 lanes each).
+  // (phase 1, S1 lanes each); C's or W's (phase 3, S2 lanes each).
   const int it1 = tid / S1, s1 = tid % S1, it2 = tid / S2, s2 = tid % S2;
   const bool act1 = it1 < nA + nb * nb, cross1 = it1 >= nA, act2 = it2 < nA;
   int bi1 = 0, bj1 = 0, bi2 = 0, bj2 = 0;
@@ -545,8 +603,8 @@ small_p_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
     }
   };
   if (tid == 0 && cl < B) {
-    issue(&tm_x, XS, bar_x, cl, 0, live);
-    issue(&tm_g, GS, bar_g, cl, 0, live);
+    issue(map_x, XS, bar_x, cl, 0, live);
+    issue(map_g, GS, bar_g, cl, 0, live);
   }
 
   int it = 0;
@@ -554,12 +612,12 @@ small_p_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
     const uint32_t ph = it & 1;
     const bool next = b + ncl < B;
     const size_t off = static_cast<size_t>(b) * p * n;
-    const bool vadam = !kUpdate && base_kind == kVAdam;
+    const bool vadam = !kTwoStage && base_kind == kVAdam;
     const float nu0 = vadam ? nu[b] : 0.f;
 
     // 1. Each box as it lands: the base stage (the next box's mu loads
     // issued before this box's products), then its share of A and B.
-    const bool moments = !kUpdate && base_kind != kNone;
+    const bool moments = !kTwoStage && base_kind != kNone;
     float acc[16] = {};
     float sq = 0.f;
     float4 mq[KQ];
@@ -583,13 +641,16 @@ small_p_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
         gram_quads(acc, XS + j * sboxf, (cross1 ? GS : XS) + j * sboxf, bi1, bj1, p, W, zrow, s1,
                    S1);
     }
-    publish<S1>(acc, act1, cross1, bi1, bj1, p, PB, pubA, pubB, part);
+    // The field's odd matrices publish into the C and C^2 slots (the
+    // design's rule for published grams).
+    float* const pub = kMode == kSpField && (it & 1) ? Cg : pubA;
+    publish<S1>(acc, act1, cross1, bi1, bj1, p, PB, pub, pub + PB * PB, part);
     if (vadam) {
       const float cta_sq = block_sum(sq, red);
       if (tid == 0) red[8] = cta_sq;
     }
     hopper::cluster_sync();
-    cluster_sum(pubA, Ag, 2 * PB * PB, c, rank);  // A and B
+    cluster_sum(pub, Ag, 2 * PB * PB, c, rank);  // A and B
     float coef = scal[0];
     if (vadam) {
       float tot = 0.f;
@@ -599,13 +660,12 @@ small_p_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
       const float nu2 = b2 * nu0 + (1.f - b2) * tot;
       if (rank == 0 && tid == 0) nu_out[b] = nu2;
       coef = scal[0] * ((scal[2] / c1) / (sqrtf(nu2 / c2) + eps));
-    } else if (!kUpdate) {
+    } else if (!kTwoStage) {
       coef = scal[0] * scal[2];
     }
     __syncthreads();
 
-    // 2. The leap over X; each box of Geu it has finished takes the next
-    // matrix's g.
+    // Each box of `slice` a round has finished takes the next matrix's.
     auto refill = [=](const CUtensorMap* map, float* slice, uint64_t* bars) {
       return [=](int from, int to) {
         hopper::fence_proxy_async_smem();
@@ -613,41 +673,67 @@ small_p_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
         if (tid == 0 && next) issue(map, slice, bars, b + ncl, from, to);
       };
     };
-    column_rounds<PB, KC, true>(XS, GS, Ag, Bg, coef, lam, p, n, W, sboxf, live, col_lo,
-                                nullptr, zrow, refill(&tm_g, GS, bar_g));
+    if constexpr (kMode == kSpField) {
+      // 2. The field to HBM; each box of X and G it has finished takes the
+      // next matrix's X and g.
+      column_rounds<PB, KC, kMode, false>(
+          XS, GS, Ag, Bg, 1.f, lam, p, n, W, sboxf, live, col_lo, x_out + off, zrow,
+          [=](int from, int to) {
+            __syncthreads();
+            if (tid == 0 && next) {
+              issue(map_x, XS, bar_x, b + ncl, from, to);
+              issue(map_g, GS, bar_g, b + ncl, from, to);
+            }
+          });
+    } else {
+      // 2. POGO's leap (M over X) or Landing's step (X' over X and to HBM);
+      // each box of Geu it has finished takes the next matrix's g.
+      const float el = kMode == kSpLanding ? scal[0] * lam : lam;
+      column_rounds<PB, KC, kMode, false>(XS, GS, Ag, Bg, coef, el, p, n, W, sboxf, live,
+                                          col_lo, x_out + off, zrow, refill(map_g, GS, bar_g));
 
-    // 3. C = M M^T.
-    float accc[16] = {};
-    if (act2)
-      for (int j = 0; j < live; ++j)
-        gram_quads(accc, XS + j * sboxf, XS + j * sboxf, bi2, bj2, p, W, zrow, s2, S2);
-    publish<S2>(accc, act2, false, bi2, bj2, p, PB, pubC, nullptr, part);
-    hopper::cluster_sync();
-    cluster_sum(pubC, Cg, PB * PB, c, rank);
-    __syncthreads();
-    if (!kUpdate && rank == 0 && tid < 32)
-      sp_telemetry(Cg, C2, PB, p, pv != nullptr ? pv[b] : p, lam, dist + b);
+      // 3. C = M M^T, or W = X' X'^T, after which Landing's X' boxes take
+      // the next matrix's X.
+      float accc[16] = {};
+      if (act2)
+        for (int j = 0; j < live; ++j)
+          gram_quads(accc, XS + j * sboxf, XS + j * sboxf, bi2, bj2, p, W, zrow, s2, S2);
+      if constexpr (kMode == kSpLanding) {
+        __syncthreads();
+        if (tid == 0 && next) issue(map_x, XS, bar_x, b + ncl, 0, live);
+      }
+      publish<S2>(accc, act2, false, bi2, bj2, p, PB, pubC, nullptr, part);
+      hopper::cluster_sync();
+      cluster_sum(pubC, Cg, PB * PB, c, rank);
+      __syncthreads();
+      const int pvb = pv != nullptr ? pv[b] : p;
+      if (kMode == kSpPogo && rank == 0 && tid < 32)
+        sp_telemetry(Cg, C2, PB, p, pvb, lam, dist + b);
+      if (kMode == kSpLanding && rank == 0 && tid < 32) sp_residual(Cg, PB, p, pvb, dist + b);
 
-    // 4. The land to HBM; each box of M it has finished takes the next
-    // matrix's X.
-    column_rounds<PB, KC, false>(XS, GS, Cg, nullptr, coef, lam, p, n, W, sboxf, live, col_lo,
-                                 x_out + off, zrow, refill(&tm_x, XS, bar_x));
+      // 4. POGO's land to HBM; each box of M it has finished takes the next
+      // matrix's X.
+      if constexpr (kMode != kSpLanding)
+        column_rounds<PB, KC, kMode, true>(XS, GS, Cg, nullptr, coef, lam, p, n, W, sboxf,
+                                           live, col_lo, x_out + off, zrow,
+                                           refill(map_x, XS, bar_x));
+    }
   }
   hopper::cluster_sync();  // no CTA leaves while a peer may read its shared memory
 }
 
-template <bool kUpdate>
+template <int kMode>
 const void* sp_kernel(int PB) {
   using K = const void*;
   switch (PB) {
-    case 4: return K(small_p_kernel<4, kUpdate>);
-    case 8: return K(small_p_kernel<8, kUpdate>);
-    case 12: return K(small_p_kernel<12, kUpdate>);
-    case 16: return K(small_p_kernel<16, kUpdate>);
-    case 20: return K(small_p_kernel<20, kUpdate>);
-    case 24: return K(small_p_kernel<24, kUpdate>);
-    case 28: return K(small_p_kernel<28, kUpdate>);
-    case 32: return K(small_p_kernel<32, kUpdate>);
+    case 4: return K(small_p_kernel<4, kMode>);
+    case 8: return K(small_p_kernel<8, kMode>);
+    case 12: return K(small_p_kernel<12, kMode>);
+    case 16: return K(small_p_kernel<16, kMode>);
+    case 20: return K(small_p_kernel<20, kMode>);
+    case 24: return K(small_p_kernel<24, kMode>);
+    case 28: return K(small_p_kernel<28, kMode>);
+    case 32: return K(small_p_kernel<32, kMode>);
     default: return nullptr;
   }
 }
@@ -655,7 +741,7 @@ const void* sp_kernel(int PB) {
 // Tensor maps over X and g ((n, p, B, 1), a (W, p) box), the persistent
 // grid (as many clusters as the card keeps resident, at most B) and the
 // cluster launch.
-int sp_launch(bool update, const float* x, const float* g, const float* mu, const float* nu,
+int sp_launch(int mode, const float* x, const float* g, const float* mu, const float* nu,
               const float* scal, const int* pv, float* x_out, float* mu_out, float* nu_out,
               float* dist, int B, int p, int n, int base_kind, int nesterov, int c,
               void* stream) {
@@ -668,7 +754,11 @@ int sp_launch(bool update, const float* x, const float* g, const float* mu, cons
   const void* rows[] = {x, g, x_out, moments ? mu : x, moments ? mu_out : x};
   if (L.nbox > kSpMaxBoxes || smem > kSmemLimit || !vector_ok(n, rows, 5))
     return static_cast<int>(cudaErrorInvalidValue);
-  const void* kernel = update ? sp_kernel<true>(round4(p)) : sp_kernel<false>(round4(p));
+  const int PB = round4(p);
+  const void* kernel = mode == kSpPogo      ? sp_kernel<kSpPogo>(PB)
+                       : mode == kSpLanding ? sp_kernel<kSpLanding>(PB)
+                       : mode == kSpUpdate  ? sp_kernel<kSpUpdate>(PB)
+                                            : sp_kernel<kSpField>(PB);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -720,15 +810,15 @@ int small_p_cluster(int p, int n) {
 
 int small_p_smem_bytes(int p, int n, int c) { return sp_smem_bytes(p, n, c); }
 
-// The fused POGO step (method 0; Landing is refused): fused_step_tiled's
-// arguments without tile_n, p <= 32, n % 4 == 0, every operand 16-byte
-// aligned; c CTAs a cluster, 0 for small_p_cluster(p, n).
+// The fused step, method 0 POGO or 1 Landing: fused_step_tiled's arguments
+// without tile_n, p <= 32, n % 4 == 0, every operand 16-byte aligned; c CTAs
+// a cluster, 0 for small_p_cluster(p, n).
 int fused_step_cluster(const float* x, const float* g, const float* mu, const float* nu,
                        const float* scal, const int* pv, float* x_out, float* mu_out,
                        float* nu_out, float* dist, int B, int p, int n, int base_kind,
                        int nesterov, int method, int c, void* stream) {
-  if (method != kPogo) return static_cast<int>(cudaErrorInvalidValue);
-  return sp_launch(false, x, g, mu, nu, scal, pv, x_out, mu_out, nu_out, dist, B, p, n,
+  if (method != kPogo && method != kLanding) return static_cast<int>(cudaErrorInvalidValue);
+  return sp_launch(method, x, g, mu, nu, scal, pv, x_out, mu_out, nu_out, dist, B, p, n,
                    base_kind, nesterov, c ? c : small_p_cluster(p, n), stream);
 }
 
@@ -737,8 +827,16 @@ int fused_step_cluster(const float* x, const float* g, const float* mu, const fl
 // c as above.
 int pogo_update_cluster(const float* x, const float* g, const float* scal, float* out, int B,
                         int p, int n, int c, void* stream) {
-  return sp_launch(true, x, g, nullptr, nullptr, scal, nullptr, out, nullptr, nullptr, nullptr,
-                   B, p, n, kNone, 0, c ? c : small_p_cluster(p, n), stream);
+  return sp_launch(kSpUpdate, x, g, nullptr, nullptr, scal, nullptr, out, nullptr, nullptr,
+                   nullptr, B, p, n, kNone, 0, c ? c : small_p_cluster(p, n), stream);
+}
+
+// Landing's field Lambda = 1/2 (A G - B X) + lam (A X - X) into out (which
+// may be x, never g); scal = [eta (unused), lam, ...]; c as above.
+int landing_field_cluster(const float* x, const float* g, const float* scal, float* out, int B,
+                          int p, int n, int c, void* stream) {
+  return sp_launch(kSpField, x, g, nullptr, nullptr, scal, nullptr, out, nullptr, nullptr,
+                   nullptr, B, p, n, kNone, 0, c ? c : small_p_cluster(p, n), stream);
 }
 
 }  // extern "C"

@@ -23,10 +23,12 @@ kernels as ``fused_step_tiled`` on the tensor cores for p <= 64: 3xTF32
 operands in 64-row halves, M's rows 0..63 parked in a scratch of the
 wrapper's. ``fused_step_tiled_tc`` hands p > 64 to them.
 ``fused_step_cluster`` (``csrc/small_p.cu``) replaces ``fused_step_tiled``'s
-TPU kernels for POGO up to p = 24: one matrix a thread block cluster, X
-and Geu TMA-loaded once into the CTAs' shared memory, the partial grams
-summed over distributed shared memory, 5 HBM passes (IEEE fp32 on the
-CUDA cores; n % 4 == 0). ``ops.plan`` says which shapes take which.
+TPU kernels up to p = 24: one matrix a thread block cluster, X and Geu
+TMA-loaded once into the CTAs' shared memory, the partial grams summed
+over distributed shared memory, 5 HBM passes (IEEE fp32 on the CUDA cores;
+n % 4 == 0); ``fused_step_cluster_landing`` is its Landing entry (the TPU
+kernel's ``_t2_landing_kernel``, :559). ``ops.plan`` says which shapes
+take which.
 ``fused_step_large`` and ``fused_step_large_landing`` (``csrc/large_p.cu``,
 ``large_p.py``) replace
 ``fused_step_tiled``'s TPU kernels for p > 128, where a matrix's (p, p)
@@ -96,16 +98,18 @@ def tc_lib() -> ctypes.CDLL:
 
 
 def cluster_lib() -> ctypes.CDLL:
-    """The loaded ``small_p.cu`` library (the cluster kernels of the fused
-    POGO step and the two-stage POGO update), built on first use."""
+    """The loaded ``small_p.cu`` library (the cluster kernel's entries: the
+    fused step, POGO and Landing, and the two-stage POGO update and landing
+    field), built on first use."""
     lib = build.load("small_p")
     if not getattr(lib, "_typed", False):
         lib.fused_step_cluster.argtypes = [_P] * 10 + [_I] * 7 + [_P]
         lib.pogo_update_cluster.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+        lib.landing_field_cluster.argtypes = [_P] * 4 + [_I] * 4 + [_P]
         lib.small_p_cluster.argtypes = [_I, _I]
         lib.small_p_smem_bytes.argtypes = [_I] * 3
-        for fn in (lib.fused_step_cluster, lib.pogo_update_cluster, lib.small_p_cluster,
-                   lib.small_p_smem_bytes):
+        for fn in (lib.fused_step_cluster, lib.pogo_update_cluster, lib.landing_field_cluster,
+                   lib.small_p_cluster, lib.small_p_smem_bytes):
             fn.restype = _I
         lib._typed = True
     return lib
@@ -349,16 +353,14 @@ def fused_step_tiled_tc128(x, g, eta, *, method="pogo", lam, base_kind="none",
 def fused_step_cluster(x, g, eta, *, method="pogo", lam, base_kind="none",
                        hyper=(), post_scale=1.0, mu=None, nu=None, count=None,
                        pv=None, inplace=False, cluster=None):
-    """The fused POGO step for small p with one matrix a thread block
-    cluster (``csrc/small_p.cu``): the cluster's CTAs hold X and Geu whole
-    in shared memory, TMA-loaded once, their partial grams summed over
+    """The fused step for small p with one matrix a thread block cluster
+    (``csrc/small_p.cu``): the cluster's CTAs hold X and Geu whole in
+    shared memory, TMA-loaded once, their partial grams summed over
     distributed shared memory, so X, g and mu are read once and X', mu'
     written once. ``cluster`` forces the cluster size (2, 4 or 8); by
-    default the source's own (``ops.small_p_cluster``). POGO only: fused
-    Landing keeps its routes."""
-    if method != "pogo":
-        raise ValueError("fused_step_cluster runs the POGO step only, not "
-                         f"method={method!r}")
+    default the source's own (``ops.small_p_cluster``).
+    ``method="landing"`` runs ``fused_step_cluster_landing`` (X' written
+    over X in shared memory too, then W = X' X'^T for the distance)."""
     kw = dict(method=method, lam=lam, base_kind=base_kind, hyper=hyper,
               post_scale=post_scale, mu=mu, nu=nu, count=count, pv=pv, inplace=inplace)
     return _run("fused_step_cluster", x, g, eta, lib=cluster_lib, extra=(int(cluster or 0),),
@@ -438,6 +440,11 @@ def fused_step_tiled_tc128_landing(x, g, eta, **kw):
     return fused_step_tiled_tc128(x, g, eta, method="landing", **kw)
 
 
+def fused_step_cluster_landing(x, g, eta, **kw):
+    """``fused_step_cluster(method="landing")``."""
+    return fused_step_cluster(x, g, eta, method="landing", **kw)
+
+
 def fused_step_large_landing(x, g, eta, **kw):
     """``fused_step_large(method="landing")``."""
     return fused_step_large(x, g, eta, method="landing", **kw)
@@ -458,6 +465,7 @@ _COUNTERS = {
     ("fused_step_tc128", "pogo"): fused_step_tiled_tc128,
     ("fused_step_tc128", "landing"): fused_step_tiled_tc128_landing,
     ("fused_step_cluster", "pogo"): fused_step_cluster,
+    ("fused_step_cluster", "landing"): fused_step_cluster_landing,
     ("fused_step_large", "pogo"): fused_step_large,
     ("fused_step_large", "landing"): fused_step_large_landing,
     ("fused_step_large_tc", "pogo"): fused_step_large_tc,

@@ -13,7 +13,10 @@ telemetry, writing the field alone in its second sweep.
 ``landing_field_tiled_tc128`` is the wide kernel's for 64 < p <= 128,
 sweep 2 once per 64-row half of Lambda, the kept blocks of A and B in a
 scratch (``fused_step.park(rows=False)``); ``landing_field_tiled_tc``
-hands p > 64 to it. ``landing_field_large`` (``csrc/large_p.cu``)
+hands p > 64 to it. ``landing_field_cluster`` (``csrc/small_p.cu``)
+replaces the tiled TPU kernels up to p = 24 (``ops.CLUSTER_MAX_P``) where
+a thread block cluster holds one matrix: X and G read once, Lambda
+written once. ``landing_field_large`` (``csrc/large_p.cu``)
 replaces the tiled TPU kernels for p > 128 (where it beat the CUDA-core
 tiled kernel on the card, whose grams fit a block up to p ~ 160): the
 TPU's two phases as gram launches and an apply launch, the grams between
@@ -94,6 +97,19 @@ def landing_field_tiled_tc128(x, g, lam):
     return out
 
 
+def landing_field_cluster(x, g, lam, *, cluster=None):
+    """The landing field for small p (the kernel takes p <= 32) with one
+    matrix a thread block cluster (``csrc/small_p.cu``): X and G held whole
+    in the cluster's shared memory, read once, Lambda written once.
+    ``cluster`` forces the cluster size (2, 4 or 8); by default the
+    source's own (``ops.small_p_cluster``)."""
+    out = _field("landing_field_cluster", x, g, lam, int(cluster or 0),
+                 lib=fused_step.cluster_lib)
+    if x.device.type == "cuda":
+        landing_field_cluster.launches += 1
+    return out
+
+
 def landing_field_large(x, g, lam, *, runner=None):
     """The landing field for p > 128 (``csrc/large_p.cu``): A and BT, then
     Lambda, a gram and an apply spread over many blocks
@@ -133,5 +149,6 @@ landing_field.launches = 0
 landing_field_tiled.launches = 0
 landing_field_tiled_tc.launches = 0
 landing_field_tiled_tc128.launches = 0
+landing_field_cluster.launches = 0
 landing_field_large.launches = 0
 landing_field_large_tc.launches = 0

@@ -13,10 +13,10 @@ route:
 
 * ``whole`` when X and the (transformed) gradient of one matrix plus the
   kernel's (p, p) grams fit in one block's 227 KB;
-* ``cluster`` otherwise, for the fused POGO step and the two-stage POGO
-  update at p <= ``CLUSTER_MAX_P``, when n % 4 == 0 and a thread block
-  cluster of at most 8 CTAs holds the matrix (``csrc/small_p.cu``,
-  ``small_p_cluster``);
+* ``cluster`` otherwise, for the fused step (POGO and Landing) and the
+  two-stage POGO update and landing field at p <= ``CLUSTER_MAX_P``, when
+  n % 4 == 0 and a thread block cluster of at most 8 CTAs holds the matrix
+  (``csrc/small_p.cu``, ``small_p_cluster``);
 * ``tc`` otherwise when ``TC_MIN_P <= p <= TC_MAX_P`` (the tensor-core
   kernels of ``csrc/fused_step_tc.cu``, any n, one CTA per SM: one padded
   64-row ``wgmma`` tile for p <= 64, two 64-row halves up to 128), for
@@ -144,12 +144,13 @@ NS_TC_MAX_P = 64
 # 54.7195. The tensor cores' large route takes every n % 4 == 0 there
 # (large_kind); it was faster than the CUDA cores' at every shape the card
 # timed (PR 22: the paper's CNN filters and O-ViT, these crossovers).
-# The fused POGO step and the POGO update take csrc/small_p.cu (one matrix
-# a thread block cluster, held whole in its shared memory) for p <=
-# CLUSTER_MAX_P where a matrix does not fit a block whole, n % 4 == 0 and a
-# cluster of at most 8 CTAs holds it (small_p_cluster); elsewhere the routes
-# below. On an H100 (two runs of benchmarks_torch/small_p_readings.py,
-# 1048 x (p, n); ms, fused POGO over trace cluster / CUDA-core tiled; POGO
+# The fused step (POGO and Landing), the POGO update and the landing field
+# take csrc/small_p.cu (one matrix a thread block cluster, held whole in its
+# shared memory) for p <= CLUSTER_MAX_P where a matrix does not fit a block
+# whole, n % 4 == 0 and a cluster of at most 8 CTAs holds it
+# (small_p_cluster); elsewhere the routes below. On an H100 (two runs of
+# benchmarks_torch/small_p_readings.py, 1048 x (p, n); ms, fused POGO over
+# trace cluster / CUDA-core tiled; POGO
 # update cluster / tiled, each pair from one run): (2, 10000) 0.3110 /
 # 3.3292; 0.2093 / 2.9917, (4, 2048) 0.1234 / 0.7066; 0.0787 / 0.6159, (10,
 # 10000) 1.2316 / 4.4384; 0.9036 / 4.0761, (16, 4096) 0.9398 / 2.2075;
@@ -165,6 +166,16 @@ NS_TC_MAX_P = 64
 # tensor-core kernels: no configuration here has p in 25-32, and one end
 # keeps both POGO paths of a group on one kernel design). Below p = 4 the
 # kernel was read at p = 2 alone (10x), so the route has no low end.
+# Landing's two end there too. Below LANDING_TC_MIN_P the cluster won
+# everywhere (chip_smoke.py's crossovers, one run; ms, fused Landing over
+# trace cluster / CUDA-core tiled; field cluster / tiled): (4, 10000)
+# 0.4371 / 3.0640; 0.2189 / 2.2371, (10, 10000) 1.0754 / 3.8587; 0.6461 /
+# 3.0023, (16, 10000) 2.8632 / 4.4531; 1.3259 / 3.3646, (24, 2048) 0.9104
+# / 1.4913; 0.6309 / 1.0998, (24, 4096) 2.0894 / 2.9372; 1.2224 / 2.1810.
+# Against the tensor cores (2Ltc / 8tc) it was mixed: (28, 2048) 1.2383 /
+# 1.5102; 0.9679 / 1.0868, (28, 4096) 3.1960 / 2.9710; 2.0506 / 2.1453,
+# (29, 2048) 1.4227 / 1.5058; 1.1224 / 1.0819, (32, 2048) 1.4722 /
+# 1.5149; 1.1458 / 1.0825, on shapes no configuration has.
 CLUSTER_MAX_P = 24
 # Blocks per SM the tiled kernel's register cap allows (kTiledBlocksPerSm),
 # and the TP kernels' (kTpBlocksPerSm).
@@ -425,14 +436,14 @@ def large_kind(n: int) -> str:
 def plan(p: int, n: int, method: str = "pogo") -> tuple[str, int]:
     """``("whole", 0)``, ``("cluster", 0)``, ``("tc", 0)``, ``("tiled",
     tile_n)`` or the large route of the fused group step: whole when one
-    matrix fits a block, else (POGO, p <= ``CLUSTER_MAX_P``) the cluster
-    kernel where a cluster holds the matrix, else the tensor-core kernel for
+    matrix fits a block, else (p <= ``CLUSTER_MAX_P``) the cluster kernel
+    where a cluster holds the matrix, else the tensor-core kernel for
     ``TC_MIN_P`` (``LANDING_TC_MIN_P`` for ``method="landing"``) ``<= p <=
     TC_MAX_P``, else the large route for p > ``TC_MAX_P``, else the
     CUDA-core tiled kernel."""
     low = LANDING_TC_MIN_P if method == "landing" else TC_MIN_P
     return _route("fused group step", p, n, whole_smem_bytes, tiled_smem_bytes, low,
-                  tiles=_FUSED_TILE_NS, cluster=method == "pogo")
+                  tiles=_FUSED_TILE_NS, cluster=True)
 
 
 def two_stage_tile_n(p: int, tiled_bytes) -> int | None:
@@ -452,13 +463,13 @@ def plan_pogo_update(p: int, n: int) -> tuple[str, int]:
 
 
 def plan_landing_field(p: int, n: int) -> tuple[str, int]:
-    """``("whole", 0)``, ``("tc", 0)``, ``("tiled", tile_n)`` or
-    ``("large", 0)`` of the landing field (:func:`_route`; past p = 128 the
-    large route, although the CUDA-core tiled kernel's grams fit a block up
-    to p ~ 160: the readings beside ``NS_TC_MAX_P``)."""
+    """``("whole", 0)``, ``("cluster", 0)``, ``("tc", 0)``, ``("tiled",
+    tile_n)`` or the large route of the landing field (:func:`_route`; past
+    p = 128 the large route, although the CUDA-core tiled kernel's grams
+    fit a block up to p ~ 160: the readings beside ``NS_TC_MAX_P``)."""
     return _route("landing field", p, n, landing_whole_smem_bytes,
                   landing_tiled_smem_bytes, LANDING_FIELD_TC_MIN_P,
-                  fallback=_TWO_STAGE_FALLBACK)
+                  fallback=_TWO_STAGE_FALLBACK, cluster=True)
 
 
 def plan_tp(what: str, p: int, tiled_bytes) -> int:
@@ -531,6 +542,8 @@ def landing_field(x, g, lam=1.0):
     kind, tile_n = plan_landing_field(*x.shape[-2:])
     if kind == "whole":
         return _lf.landing_field(x, g, lam)
+    if kind == "cluster":
+        return _lf.landing_field_cluster(x, g, lam)
     if kind == "tc":
         return _lf.landing_field_tiled_tc(x, g, lam)
     if kind == "large":
@@ -582,6 +595,7 @@ def _ns_launch(x, iters, out, mask, dist):
 
 KERNELS = (_fs.fused_step_whole, _fs.fused_step_tiled, _fs.fused_step_cluster,
            _fs.fused_step_whole_landing, _fs.fused_step_tiled_landing,
+           _fs.fused_step_cluster_landing,
            _fs.fused_step_tiled_tc, _fs.fused_step_tiled_tc_landing,
            _fs.fused_step_tiled_tc128, _fs.fused_step_tiled_tc128_landing,
            _fs.fused_step_large, _fs.fused_step_large_landing,
@@ -589,7 +603,8 @@ KERNELS = (_fs.fused_step_whole, _fs.fused_step_tiled, _fs.fused_step_cluster,
            _tp.tp_gram, _tp.tp_apply, _pu.pogo_update_whole,
            _pu.pogo_update_tiled, _pu.pogo_update_cluster, _pu.pogo_update_tiled_tc,
            _pu.pogo_update_tiled_tc128, _pu.pogo_update_large, _pu.pogo_update_large_tc,
-           _lf.landing_field, _lf.landing_field_tiled, _lf.landing_field_tiled_tc,
+           _lf.landing_field, _lf.landing_field_tiled, _lf.landing_field_cluster,
+           _lf.landing_field_tiled_tc,
            _lf.landing_field_tiled_tc128, _lf.landing_field_large,
            _lf.landing_field_large_tc, _ns.newton_schulz_whole, _ns.newton_schulz_tiled,
            _ns.newton_schulz_tc, _ns.newton_schulz_large, _ns.newton_schulz_large_tc,

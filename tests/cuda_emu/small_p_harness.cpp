@@ -5,8 +5,9 @@
 // Usage: small_p_harness DIR METHOD B P N BASE NESTEROV INPLACE HAS_PV C
 // reads DIR/{x,g,mu,nu,scal,pv}.bin (float32) and writes
 // DIR/{x_out,mu_out,nu_out,dist}.bin. METHOD 0 = fused_step_cluster (POGO),
-// 2 = pogo_update_cluster (x, g and scal in, x_out out; BASE, NESTEROV and
-// HAS_PV unused). C is the cluster size (0: the launcher's own,
+// 1 = fused_step_cluster (Landing), 2 = pogo_update_cluster, 3 =
+// landing_field_cluster (the last two: x, g and scal in, x_out out; BASE,
+// NESTEROV and HAS_PV unused). C is the cluster size (0: the launcher's own,
 // small_p_cluster).
 #include <cuda_runtime.h>
 #include <hopper.cuh>
@@ -42,28 +43,28 @@ static void write(const char* dir, const char* name, const float* data, size_t c
   fclose(f);
 }
 
-template <int PB, bool U>
+template <int PB, int M>
 static void register_kernel() {
-  g_emu_kernels[reinterpret_cast<const void*>(small_p_kernel<PB, U>)] = [](void** a) {
+  g_emu_kernels[reinterpret_cast<const void*>(small_p_kernel<PB, M>)] = [](void** a) {
     auto map = [a](int n) { return *static_cast<CUtensorMap*>(a[n]); };
     auto cf = [a](int n) { return *static_cast<const float**>(a[n]); };
     auto f = [a](int n) { return *static_cast<float**>(a[n]); };
     auto i = [a](int n) { return *static_cast<int*>(a[n]); };
-    small_p_kernel<PB, U>(map(0), map(1), cf(2), cf(3), cf(4), *static_cast<const int**>(a[5]),
+    small_p_kernel<PB, M>(map(0), map(1), cf(2), cf(3), cf(4), *static_cast<const int**>(a[5]),
                           f(6), f(7), f(8), f(9), i(10), i(11), i(12), i(13), i(14), i(15));
   };
 }
 
-template <bool U>
+template <int M>
 static void register_kernels() {
-  register_kernel<4, U>();
-  register_kernel<8, U>();
-  register_kernel<12, U>();
-  register_kernel<16, U>();
-  register_kernel<20, U>();
-  register_kernel<24, U>();
-  register_kernel<28, U>();
-  register_kernel<32, U>();
+  register_kernel<4, M>();
+  register_kernel<8, M>();
+  register_kernel<12, M>();
+  register_kernel<16, M>();
+  register_kernel<20, M>();
+  register_kernel<24, M>();
+  register_kernel<28, M>();
+  register_kernel<32, M>();
 }
 
 int main(int argc, char** argv) {
@@ -80,11 +81,15 @@ int main(int argc, char** argv) {
   float* xo = inplace ? x.data() : x_out.data();
   float* muo = inplace ? mu.data() : mu_out.data();
   float* nuo = inplace ? nu.data() : nu_out.data();
-  register_kernels<false>();
-  register_kernels<true>();
+  register_kernels<kSpPogo>();
+  register_kernels<kSpLanding>();
+  register_kernels<kSpUpdate>();
+  register_kernels<kSpField>();
   int err;
-  if (method == 2) {
+  if (method == kSpUpdate) {
     err = pogo_update_cluster(x.data(), g.data(), scal.data(), xo, B, p, n, c, nullptr);
+  } else if (method == kSpField) {
+    err = landing_field_cluster(x.data(), g.data(), scal.data(), xo, B, p, n, c, nullptr);
   } else {
     const float* m = base != kNone ? mu.data() : nullptr;
     const float* v = base == kVAdam ? nu.data() : nullptr;

@@ -286,7 +286,7 @@ def test_planner_rule_for_the_tensor_core_kernel(p, n, kind):
 
 
 @pytest.mark.parametrize("p,method,kind", [
-    (28, "pogo", "tiled"), (29, "pogo", "tc"), (24, "landing", "tiled"),
+    (28, "pogo", "tiled"), (29, "pogo", "tc"), (24, "landing", "cluster"),
     (25, "landing", "tc"), (28, "landing", "tc"), (128, "landing", "tc"),
 ])
 def test_planner_lower_end_by_method(p, method, kind):

@@ -135,9 +135,13 @@ def test_fused_step_ragged_pv_matches_jax(use_pallas):
 
 @pytest.mark.parametrize("wrapper", [tfs.fused_step_whole, tfs.fused_step_tiled,
                                      tfs.fused_step_cluster, tfs.fused_step_tiled_tc,
-                                     tfs.fused_step_tiled_tc128])
+                                     tfs.fused_step_tiled_tc128,
+                                     tfs.fused_step_cluster_landing])
 def test_wrappers_run_the_plain_version_on_cpu(wrapper):
     jkw, tkw, x, g = _both((2, 10, 250), "vadam", (0.9, 0.999, 1e-8), seed=4)
+    if wrapper.__name__.endswith("_landing"):  # the method is the wrapper's own
+        tkw.pop("method")
+        jkw["method"] = "landing"
     before = tops.launches()
     got = wrapper(torch.from_numpy(x), torch.from_numpy(g), 0.1, **tkw)
     want = jref.fused_group_step_ref(jnp.asarray(x), jnp.asarray(g), 0.1, **jkw)

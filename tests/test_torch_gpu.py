@@ -1069,6 +1069,36 @@ def test_cluster_pogo_update_matches_plain(cuda, shape):
     torch.testing.assert_close(got, want, **tol)
 
 
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES)
+@pytest.mark.parametrize("base_kind,hyper", BASES)
+def test_cluster_fused_landing_matches_plain(cuda, shape, base_kind, hyper):
+    """Fused Landing's entry; X off the manifold, so that lam (A X - X)
+    shows."""
+    x, g = _off_manifold_operands(shape, cuda, seed=48)
+    _, _, mu, nu = _operands(shape, cuda, seed=49)
+    kw = dict(_kwargs(base_kind, hyper, mu, nu, cuda), method="landing", lam=1.0)
+    before = tfs.fused_step_cluster_landing.launches
+    got = tfs.fused_step_cluster(x, g, 0.1, **kw)
+    torch.cuda.synchronize()
+    assert tfs.fused_step_cluster_landing.launches == before + 1
+    _close(got, tref.fused_group_step_ref(x, g, 0.1, **kw), dict(atol=3e-5, rtol=1e-4))
+
+
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES)
+def test_cluster_landing_field_matches_plain(cuda, shape):
+    """The two-stage tiled tolerance; X off the manifold, so that a kernel
+    that dropped lam's term would fail."""
+    x, g = _off_manifold_operands(shape, cuda, seed=50)
+    before = tlf.landing_field_cluster.launches
+    got = tlf.landing_field_cluster(x, g, 1.0)
+    torch.cuda.synchronize()
+    assert tlf.landing_field_cluster.launches == before + 1
+    tol = dict(atol=2e-5, rtol=1e-4)
+    want = tref.landing_field_ref(x, g, 1.0)
+    assert not torch.allclose(tref.landing_field_ref(x, g, 0.0), want, **tol)
+    torch.testing.assert_close(got, want, **tol)
+
+
 @pytest.mark.parametrize("c", [2, 4, 8])
 def test_cluster_kernels_at_every_cluster_size(cuda, c):
     """A forced cluster of 2, 4 or 8 CTAs gives the plain version's result."""
@@ -1078,6 +1108,11 @@ def test_cluster_kernels_at_every_cluster_size(cuda, c):
            tref.fused_group_step_ref(x, g, 0.1, **kw), dict(atol=3e-5, rtol=1e-4))
     torch.testing.assert_close(tpu.pogo_update_cluster(x, g, 0.1, 0.5, cluster=c),
                                tref.pogo_update_ref(x, g, 0.1, 0.5), atol=2e-5, rtol=1e-4)
+    kw.update(method="landing", lam=1.0)
+    _close(tfs.fused_step_cluster(x, g, 0.1, cluster=c, **kw),
+           tref.fused_group_step_ref(x, g, 0.1, **kw), dict(atol=3e-5, rtol=1e-4))
+    torch.testing.assert_close(tlf.landing_field_cluster(x, g, 1.0, cluster=c),
+                               tref.landing_field_ref(x, g, 1.0), atol=2e-5, rtol=1e-4)
 
 
 def test_cluster_kernels_in_place_and_ragged(cuda):
@@ -1096,6 +1131,15 @@ def test_cluster_kernels_in_place_and_ragged(cuda):
     want = tref.pogo_update_ref(y, g2, 0.1, 0.5)
     assert tpu.pogo_update_cluster(y, g2, 0.1, 0.5, inplace=True) is y
     torch.testing.assert_close(y, want, atol=2e-5, rtol=1e-4)
+    x, g, mu, nu = _operands(shape, cuda, seed=51)
+    x, g, mu = (torch.where(rows, a, 0.0) for a in (x, g, mu))
+    kw = dict(_kwargs("vadam", (0.9, 0.999, 1e-8), mu, nu, cuda, pv=pv), method="landing",
+              lam=1.0)
+    want = tref.fused_group_step_ref(x, g, 0.1, **kw)
+    got = tfs.fused_step_cluster(x, g, 0.1, inplace=True, **kw)
+    torch.cuda.synchronize()
+    assert got[0] is x and got[1] is mu and got[2] is nu
+    _close(got, want, dict(atol=3e-5, rtol=1e-4))
 
 
 def test_cluster_kernels_repeat_bit_for_bit(cuda):
@@ -1103,8 +1147,11 @@ def test_cluster_kernels_repeat_bit_for_bit(cuda):
     give the same bits."""
     x, g, mu, nu = _operands((200, 10, 10000), cuda, seed=46)
     kw = _kwargs("vadam", (0.9, 0.999, 1e-8), mu, nu, cuda)
+    lkw = dict(kw, method="landing", lam=1.0)
     for run in (lambda: tfs.fused_step_cluster(x, g, 0.1, **kw)[:4],
-                lambda: (tpu.pogo_update_cluster(x, g, 0.1, 0.5),)):
+                lambda: tfs.fused_step_cluster(x, g, 0.1, **lkw)[:4],
+                lambda: (tpu.pogo_update_cluster(x, g, 0.1, 0.5),),
+                lambda: (tlf.landing_field_cluster(x, g, 1.0),)):
         first = [t.clone() for t in run()]
         again = run()
         torch.cuda.synchronize()
@@ -1121,18 +1168,22 @@ def test_cluster_planner_matches_the_source(cuda):
 
 
 def test_cluster_kernels_refuse_what_they_do_not_take(cuda):
-    """n % 4 != 0 (a row stride TMA cannot take), p > 32, Landing: the
-    wrappers raise; nothing falls back."""
+    """n % 4 != 0 (a row stride TMA cannot take), p > 32: every entry
+    raises; nothing falls back."""
     x, g, mu, nu = _operands((2, 10, 250), cuda, seed=47)
     with pytest.raises(RuntimeError, match="cudaError"):
         tfs.fused_step_cluster(x, g, 0.1, lam=0.5)
     with pytest.raises(RuntimeError, match="cudaError"):
         tpu.pogo_update_cluster(x, g, 0.1, 0.5)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        tlf.landing_field_cluster(x, g, 1.0)
     x, g, _, _ = _operands((2, 33, 256), cuda, seed=47)
     with pytest.raises(RuntimeError, match="cudaError"):
         tpu.pogo_update_cluster(x, g, 0.1, 0.5)
-    with pytest.raises(ValueError, match="POGO"):
+    with pytest.raises(RuntimeError, match="cudaError"):
         tfs.fused_step_cluster(x, g, 0.1, method="landing", lam=1.0)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        tlf.landing_field_cluster(x, g, 1.0)
 
 
 def test_large_tc_route_refuses_n_not_a_multiple_of_4(cuda):

@@ -141,6 +141,7 @@ def test_landing_ragged_pv_matches_jax(use_pallas):
 
 @pytest.mark.parametrize("wrapper", [tfs.fused_step_whole_landing,
                                      tfs.fused_step_tiled_landing,
+                                     tfs.fused_step_cluster_landing,
                                      tfs.fused_step_tiled_tc_landing,
                                      tfs.fused_step_tiled_tc128_landing])
 def test_landing_wrappers_run_the_plain_version_on_cpu(wrapper):

@@ -115,9 +115,9 @@ PLANS = [
     (64, 576, ("tc", 0), ("tc", 0), ("tc", 0), ("tc", 0), ("whole", 0)),
     (64, 216, ("whole", 0), ("whole", 0), ("whole", 0), ("whole", 0), ("whole", 0)),
     (16, 256, ("whole", 0), ("whole", 0), ("whole", 0), ("whole", 0), ("whole", 0)),
-    # POGO's cluster kernels (csrc/small_p.cu) where a cluster holds the
-    # matrix and n % 4 == 0, both up to p = 24 (ops.CLUSTER_MAX_P)
-    (10, 10000, CLUSTER, ("tiled", 64), CLUSTER, ("tiled", 64), ("tiled", 64)),
+    # the cluster kernel (csrc/small_p.cu) where a cluster holds the matrix
+    # and n % 4 == 0, all four entries up to p = 24 (ops.CLUSTER_MAX_P)
+    (10, 10000, CLUSTER, CLUSTER, CLUSTER, CLUSTER, ("tiled", 64)),
     (28, 2048, ("tiled", 64), ("tc", 0), ("tiled", 64), ("tc", 0), ("tiled", 64)),
     (10, 9998, ("tiled", 64), ("tiled", 64), ("tiled", 64), ("tiled", 64), ("tiled", 64)),
     (32, 4096, ("tc", 0), ("tc", 0), ("tc", 0), ("tc", 0), ("tc", 0)),

@@ -144,7 +144,8 @@ def test_pogo_update_wrappers_write_in_place_on_cpu(wrapper):
 def test_landing_field_wrappers_run_the_plain_version_on_cpu():
     x, g = (torch.from_numpy(a) for a in _xg((2, 6, 50), seed=6))
     want = tref.landing_field_ref(x, g, 1.0)
-    for wrapper in (tlf.landing_field, tlf.landing_field_tiled, tlf.landing_field_tiled_tc):
+    for wrapper in (tlf.landing_field, tlf.landing_field_tiled, tlf.landing_field_cluster,
+                    tlf.landing_field_tiled_tc):
         before = wrapper.launches
         torch.testing.assert_close(wrapper(x, g, 1.0), want, atol=0, rtol=0)
         assert wrapper.launches == before
@@ -155,7 +156,7 @@ def test_landing_field_wrappers_run_the_plain_version_on_cpu():
     (64, 960, ("tc", 0), ("tc", 0)),
     (120, 4096, ("tc", 0), ("tc", 0)),
     (128, 2048, ("tc", 0), ("tc", 0)),
-    (24, 4096, ("cluster", 0), ("tiled", 64)),
+    (24, 4096, ("cluster", 0), ("cluster", 0)),
     (28, 2048, ("tiled", 64), ("tc", 0)),
     (10, 9998, ("tiled", 64), ("tiled", 64)),
     (24, 10000, ("tiled", 64), ("tiled", 64)),
@@ -163,7 +164,7 @@ def test_landing_field_wrappers_run_the_plain_version_on_cpu():
     (32, 8192, ("tc", 0), ("tc", 0)),
 ])
 def test_two_stage_planners(p, n, pogo, landing):
-    """Whole when a matrix fits one block; else POGO's cluster kernel up to
+    """Whole when a matrix fits one block; else the cluster kernel up to
     p = 24 where a thread block cluster holds the matrix and n % 4 == 0
     (not (10, 9998), nor (24, 10000), whose slices outgrow a cluster of 8);
     else the tensor-core entries from p = 29 (POGO) or 25 (the field) to
@@ -198,8 +199,8 @@ def test_two_stage_planners_keep_their_plans_outside_the_tc_range(pogo):
     not fit); past p = 128 every plan but whole is the large route, which
     beat the field's CUDA-core tiled kernel on the card at 136 and 160
     (the readings in ``ops.py``): on the tensor cores where n % 4 == 0,
-    on the CUDA cores elsewhere (``ops.large_kind``). POGO's cluster
-    kernel (``csrc/small_p.cu``) takes over a tiled plan, and only that,
+    on the CUDA cores elsewhere (``ops.large_kind``). The cluster kernel
+    (``csrc/small_p.cu``) takes over a tiled plan, and only that,
     where a cluster holds the matrix, p <= ``CLUSTER_MAX_P`` and n % 4 ==
     0."""
     whole = tops.pogo_whole_smem_bytes if pogo else tops.landing_whole_smem_bytes
@@ -219,7 +220,7 @@ def test_two_stage_planners_keep_their_plans_outside_the_tc_range(pogo):
             except ValueError:
                 new = None
             if new == ("cluster", 0):
-                assert pogo and old is not None and old[0] == "tiled", (p, n, old)
+                assert old is not None and old[0] == "tiled", (p, n, old)
                 assert p <= tops.CLUSTER_MAX_P and n % 4 == 0
                 assert tops.small_p_cluster(p, n) > 0
                 clustered += 1
@@ -235,7 +236,7 @@ def test_two_stage_planners_keep_their_plans_outside_the_tc_range(pogo):
             else:
                 assert new == old, (p, n, old, new)
     assert moved > 0
-    assert clustered > 0 if pogo else clustered == 0
+    assert clustered > 0
     assert plan(128, 2048) == ("tc", 0)
     # the CUDA-core kernel's tile there, which the card times beside it
     assert tops.two_stage_tile_n(128, tiled) == (16 if pogo else 64)

@@ -43,10 +43,13 @@ the CUDA cores, where TMA cannot take the row stride); 3 steps each:
   gradients, eps is 0.5), then one step under the feasibility watchdog
   after a 1.5x drift, which must repair every matrix: at SmolLM's q/k
   (the tensor-core Newton-Schulz kernel of ``newton_schulz_tc.cu``, one
-  thread block cluster a matrix), at internlm2-1.8b's (its CUDA-core
-  tiled kernel) and at the CNN filters' 3 x (256, 2304), O-ViT's 18 x
-  (1024, 1024) (the large route's Landing and Newton-Schulz on the tensor
-  cores) and ``LARGE_ODD`` (on the CUDA cores).
+  thread block cluster a matrix), at internlm2-1.8b's (the same source's
+  kernel for p <= 128, a persistent grid of clusters of 16 CTAs; the drift
+  step timed with it and with row 9's CUDA-core tiled kernel, its route
+  before), at the paper's unitary-PC sizes (the cluster kernel's Landing,
+  row 9's tiled repair) and at the CNN filters' 3 x (256, 2304), O-ViT's
+  18 x (1024, 1024) (the large route's Landing and Newton-Schulz on the
+  tensor cores) and ``LARGE_ODD`` (on the CUDA cores).
 
 Each path's kernels, as the planners of ``kernels/ops.py`` pick them for
 its groups, must launch once per group and step, its first step must
@@ -55,7 +58,7 @@ tensor-core kernels (the wide ones at 576 x (128, 2048)) and the large
 route's entries (on the tensor cores at both paper sizes, on the CUDA
 cores at ``LARGE_ODD``) are launched 20 times each on the same inputs,
 half of them beside a copy on another stream, and must repeat bit for
-bit, and so must the tensor-core Newton-Schulz kernel and the cluster
+bit, and so must the tensor-core Newton-Schulz kernels and the cluster
 kernel's four entries (at the paper's 1048 x (10, 10000)). They are timed
 beside rows 2, 6, 2L and 8 at that shape, and at the readings behind the
 cluster route's ends (``phase_cluster_crossovers``: p = 4-28 at n =
@@ -66,8 +69,9 @@ sizes in the phases of their functions' other kernels, the tensor cores'
 in turns with the CUDA cores' (their route there before PR 22); the
 CUDA-core tiled kernels whose grams still fit a block past p = 128 are
 timed beside both (the crossovers behind the planner's rule), and the
-tensor-core large Newton-Schulz beside row 9's tiled kernel at 576 x
-(128, 2048), on the drift step and idle. The Newton-Schulz kernels are
+tensor-core large Newton-Schulz and the tensor-core kernel for p <= 128
+beside row 9's tiled kernel at 576 x (p, 2048), p = 72, 96 and 128, on
+the drift step and idle. The Newton-Schulz kernels are
 held against their plain version with half the matrices masked off, and
 timed beside the repair launch that finds no matrix past the threshold
 (the CUDA-core large route's also as its Python loop issued it before
@@ -113,6 +117,7 @@ bounds); the last line is the device record. Without a CUDA card it exits
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -192,6 +197,7 @@ KERNELS = {
     "landing_field_tiled_tc128": ("fused_step_tc", "src/repro/kernels/landing_field.py:79"),
     "newton_schulz": ("newton_schulz", "src/repro/kernels/newton_schulz.py:37"),
     "newton_schulz_tc": ("newton_schulz_tc", "src/repro/kernels/newton_schulz.py:37"),
+    "newton_schulz_tc128": ("newton_schulz_tc", "src/repro/kernels/newton_schulz.py:37"),
     "fused_step_whole_landing": ("fused_step", "src/repro/kernels/fused_step.py:164"),
     "fused_step_tiled_landing": ("fused_step", "src/repro/kernels/fused_step.py:559"),
     "fused_step_tiled_tc": ("fused_step_tc", "src/repro/kernels/fused_step.py:608"),
@@ -332,6 +338,20 @@ def _time_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def _row9_planned(p):
+    """Inside the block ``ops.plan_newton_schulz`` gives row 9's tiled
+    kernel at every shape, as it did before the tensor-core routes."""
+    from repro_torch.kernels import ops
+
+    planner, tile_n = ops.plan_newton_schulz, ops.ns_tiled_tile_n(p)
+    ops.plan_newton_schulz = lambda p_, n: ("tiled", tile_n)
+    try:
+        yield
+    finally:
+        ops.plan_newton_schulz = planner
 
 
 def _time_rotating(fns, rounds=3):
@@ -650,9 +670,10 @@ def phase_fused_kernels(gen):
 
 def phase_tc_repeatability(gen, repeats=20):
     """Each tensor-core kernel launched ``repeats`` times on the same inputs
-    at 640 x (64, 960) (the wide ones at 576 x (128, 2048), the cluster
-    kernel's four entries at the paper's 1048 x (10, 10000); Newton-Schulz
-    on the watchdog's drifted input, half the matrices masked off), each
+    at 640 x (64, 960) (the wide ones and Newton-Schulz's for p <= 128 at
+    576 x (128, 2048), the cluster kernel's four entries at the paper's
+    1048 x (10, 10000); Newton-Schulz on the watchdog's drifted input, half
+    the matrices masked off), each
     entry of the large route on the tensor cores at the CNN filters' 3 x
     (256, 2304) (its grams split n into slices there) and O-ViT's 18 x
     (1024, 1024), and on the CUDA cores at ``LARGE_ODD``, every
@@ -728,6 +749,7 @@ def phase_tc_repeatability(gen, repeats=20):
                    lambda: (update(x, g, *args),))
         del x, g
     for kernel, shape in ((ns.newton_schulz_tc, (640, 64, 960)),
+                          (ns.newton_schulz_tc128, WIDE_SHAPE),
                           *((ns.newton_schulz_large_tc, shape) for shape in large),
                           (ns.newton_schulz_large, LARGE_ODD)):
         # the watchdog's drift (a tenth of it at square matrices, as in
@@ -1023,8 +1045,11 @@ def phase_newton_schulz(gen):
     input, 1.5 x Stiefel + 0.05 randn, 12 iterations, with half the
     matrices masked off (they must come out bit-unchanged, distances too),
     through the planner: at the trainer's 640 x (64, 960) (the tensor-core
-    kernel, a cluster of two CTAs a matrix), internlm2-1.8b's 576 x (128,
-    2048) (the CUDA-core tiled kernel), 2048 x (16, 256) (whole),
+    kernel, a cluster of two CTAs a matrix), the paper's unitary-PC 1048 x
+    (10, 10000) (the CUDA-core tiled kernel, row 9), internlm2-1.8b's 576 x
+    (128, 2048) (the tensor-core kernel for p <= 128, 16 CTAs a matrix, row
+    9w; row 9's tiled kernel, its route before, is held against the plain
+    version and timed beside it), 2048 x (16, 256) (whole),
     ``LARGE_ODD`` (the CUDA cores' large route), the CNN filters' 3 x (256,
     2304) and O-ViT's 18 x (1024, 1024) (the tensor cores' large route)
     and 7 x (10, 250); then timed unmasked at the others, each beside the
@@ -1042,24 +1067,26 @@ def phase_newton_schulz(gen):
     from repro_torch.kernels import newton_schulz as ns
 
     records = {}
-    counters = (ns.newton_schulz_tc, ns.newton_schulz_large, ns.newton_schulz_large_tc)
+    counters = (ns.newton_schulz_tc, ns.newton_schulz_tc128, ns.newton_schulz_large,
+                ns.newton_schulz_large_tc)
     untimed = ((7, 10, 250),)
-    for shape in ((640, 64, 960), WIDE_SHAPE, (2048, 16, 256), LARGE_ODD, CNN_SHAPE,
-                  OVIT_SHAPE, *untimed):
+    for shape in ((640, 64, 960), PAPER_SHAPE, WIDE_SHAPE, (2048, 16, 256), LARGE_ODD,
+                  CNN_SHAPE, OVIT_SHAPE, *untimed):
         b, p, n = shape
         x = 1.5 * stiefel.random_stiefel(gen, shape, device="cuda")
         x += (0.005 if p == n else 0.05) * torch.randn(shape, generator=gen, device="cuda")
         dist = torch.where(torch.arange(b, device="cuda") % 2 == 0, 2.0, 0.0).float()
         x0, d0 = x.clone(), dist.clone()
         kind, tile_n = ops.plan_newton_schulz(p, n)
-        name = {"tc": "newton_schulz_tc", "large": "newton_schulz_large",
+        name = {"tc": "newton_schulz_tc", "tc128": "newton_schulz_tc128",
+                "large": "newton_schulz_large",
                 "large_tc": "newton_schulz_large_tc"}.get(kind, "newton_schulz")
         before = [c.launches for c in counters]
         rep = ops.newton_schulz_repair(x, dist, torch.tensor(0.1, device="cuda"),
                                        NS_ITERS)
         torch.cuda.synchronize()
         if [c.launches - k for c, k in zip(counters, before)] != [
-                kind == "tc", kind == "large", kind == "large_tc"]:
+                kind == "tc", kind == "tc128", kind == "large", kind == "large_tc"]:
             raise SystemExit(f"newton_schulz {shape}: the planned {kind} kernel did not launch")
         want = ref.newton_schulz_ref(x0[rep], NS_ITERS)
         want_d = ref.manifold_distance_ref(want)
@@ -1084,7 +1111,7 @@ def phase_newton_schulz(gen):
             wrapper = functools.partial(wrapper, tile_n=tile_n)
         timed = [(lambda: ref.newton_schulz_ref(x0, NS_ITERS), 10),
                  (lambda: wrapper(x0, NS_ITERS, out=out), 20)]
-        if kind == "tc":  # the CUDA-core tiled kernel, its route here before
+        if kind in ("tc", "tc128"):  # the CUDA-core tiled kernel, its route here before
             cc_tile = ops.ns_tiled_tile_n(p)
             cc = functools.partial(ns.newton_schulz_tiled, tile_n=cc_tile)
             max_cc, _, ok_cc = _errors((cc(x0, NS_ITERS),), (ref.newton_schulz_ref(x0, NS_ITERS),),
@@ -1103,7 +1130,7 @@ def phase_newton_schulz(gen):
         # Read X, write Y; NS_FLOPS p^2 n an iteration. On the tensor cores
         # the update takes 3 TF32 products, the symmetric gram 2 (G = U + U^T).
         flops = NS_FLOPS * NS_ITERS * p * p * n * b
-        if kind == "tc":
+        if kind in ("tc", "tc128"):
             tc_flops = (2 + 3) * 2 * NS_ITERS * p * p * n * b
             bound_ms, bound_by = _bound_ms(2 * b * p * n * 4, tc_flops, TF32_TC_FLOP_PER_S)
         elif kind == "large_tc":  # every product 3xTF32
@@ -1113,11 +1140,29 @@ def phase_newton_schulz(gen):
         idle, thresh = torch.zeros(b, device="cuda"), torch.tensor(0.1, device="cuda")
         idle_ms = _time_ms(lambda: ops.newton_schulz_repair(x0, idle, thresh, NS_ITERS), 20)
         extra = ""
-        if kind == "tc":
-            idle_cc = _time_ms(lambda: cc(x0, NS_ITERS, out=x0, mask=idle > thresh), 20)
-            extra = (f"; the CUDA-core tiled kernel at this call {times[2]:.4f} ms (tile "
-                     f"{cc_tile}; fp32 CUDA cores {1e3 * flops / FP32_FLOP_PER_S:.4f}), its "
+        if kind in ("tc", "tc128"):  # row 9's idle repair through the same entry
+            with _row9_planned(p):
+                ops.reset_launches()
+                idle_cc = _time_ms(lambda: ops.newton_schulz_repair(x0, idle, thresh,
+                                                                    NS_ITERS), 20)
+                if ops.launches()["newton_schulz_tiled"] != 22:
+                    raise SystemExit(f"newton_schulz {shape}: row 9's idle repair did not run")
+            cc_bound = _bound_ms(2 * b * p * n * 4, flops)
+            extra = (f"; 3xTF32 tensor work (the gram 2 TF32 products, the update 3); the "
+                     f"CUDA-core tiled kernel at this call {times[2]:.4f} ms (tile "
+                     f"{cc_tile}; fp32 CUDA cores {cc_bound[0]:.4f}), its "
                      f"repair with no matrix past the threshold {idle_cc:.4f} ms")
+        if kind == "tc128":  # row 9's reading here, the planner's rule, the grid
+            c = ops.ns_tc128_cluster(n)
+            extra += (f"; clusters of {c} CTAs, {ns.tc_lib().ns_tc128_max_clusters(n)} "
+                      f"resident at once")
+            _record(records, "newton_schulz", shape, dict(
+                max_abs_err=max_cc, ms=times[2], plain_ms=plain_ms, bound_ms=cc_bound[0],
+                bound_by=cc_bound[1]))
+            if not (ms < times[2] and idle_ms <= idle_cc + 0.1):
+                raise SystemExit(f"newton_schulz_tc128 at {shape}: {ms:.4f} ms, idle "
+                                 f"{idle_ms:.4f}, against row 9's {times[2]:.4f} / "
+                                 f"{idle_cc:.4f}: the planner's rule no longer holds")
         elif kind in ("large", "large_tc"):  # its launches, the n-slices' sums included
             counted = large_p.runner(x0)
             wrapper(x0, NS_ITERS, out=out, runner=counted)
@@ -1139,7 +1184,7 @@ def phase_newton_schulz(gen):
         print(f"  newton_schulz_{kind} {b}x({p},{n}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
               f"bound_ms {bound_ms:.4f} ({bound_by}); repair with no matrix past the "
               f"threshold {idle_ms:.4f} ms{extra}", flush=True)
-        if kind != "whole":  # the tiled kernel's main path is internlm2-1.8b's
+        if kind != "whole":  # the tiled kernel's record: the paper's 1048 x (10, 10000)
             _record(records, name, shape, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                                bound_by=bound_by))
         del x, x0, out
@@ -1171,12 +1216,13 @@ def phase_large_crossovers(gen):
     x (160, 2048), where the CUDA-core tiled kernels' grams still fit a
     block, each timed in turns with the large route on the tensor cores
     (planned there) and on the CUDA cores (PR 21's); and Newton-Schulz at
-    internlm2-1.8b's 576 x (128, 2048), where row 9's tiled kernel is
-    planned, beside the tensor-core large route on the drift step and as
-    the idle repair (every matrix masked off): ``ops.plan_newton_schulz``
-    reroutes p = 128 only where the large route is faster on the drift step
-    and its idle repair costs at most 0.1 ms more. Every route is checked
-    against the plain version first."""
+    internlm2-1.8b's 576 x (128, 2048) and at 576 x (72, 2048) and (96,
+    2048), where the tensor-core kernel for p <= 128 (row 9w) is planned,
+    beside row 9's tiled kernel and the tensor-core large route on the
+    drift step and as the idle repair (every matrix masked off):
+    ``ops.plan_newton_schulz`` takes a route from row 9 at p <= 128 only
+    where it is faster on the drift step and its idle repair costs at most
+    0.1 ms more. Every route is checked against the plain version first."""
     import torch
 
     from repro_torch.kernels import landing_field as lf
@@ -1188,7 +1234,9 @@ def phase_large_crossovers(gen):
                          ("landing field", (576, 160, 2048)),
                          ("newton-schulz", (576, 129, 2048)),
                          ("newton-schulz", (576, 136, 2048)),
-                         ("newton-schulz", WIDE_SHAPE)):
+                         ("newton-schulz", WIDE_SHAPE),
+                         ("newton-schulz", (576, 72, 2048)),
+                         ("newton-schulz", (576, 96, 2048))):
         b, p, n = shape
         field = label == "landing field"
         if field:
@@ -1199,12 +1247,11 @@ def phase_large_crossovers(gen):
         else:
             tile_n = ops.ns_tiled_tile_n(p)
             routes = [functools.partial(ns.newton_schulz_tiled, tile_n=tile_n),
-                      ns.newton_schulz_large_tc, ns.newton_schulz_large]
+                      ns.newton_schulz_large_tc,
+                      ns.newton_schulz_large if p > 128 else ns.newton_schulz_tc128]
             planned = ops.plan_newton_schulz(p, n)
-        if planned != (("tiled", tile_n) if p <= 128 else ("large_tc", 0)):
+        if planned != (("tc128", 0) if p <= 128 else ("large_tc", 0)):
             raise SystemExit(f"{label} ({p}, {n}) plans {planned}")
-        if p <= 128:
-            routes = routes[:2]
         x, g, _, _ = _operands(gen, *shape)
         if field:
             args = (x, g, 1.0)
@@ -1226,18 +1273,23 @@ def phase_large_crossovers(gen):
                 f"tensor-core large route {times[1]:.4f} ms, max_abs {errs[1][0]:.3e}")
         if p > 128:
             line += f"; the CUDA-core large route {times[2]:.4f} ms, max_abs {errs[2][0]:.3e}"
+        elif not field:
+            line += (f"; the tensor-core kernel for p <= 128 {times[2]:.4f} ms, max_abs "
+                     f"{errs[2][0]:.3e}")
         if not field:  # the idle repair: every matrix masked off
             y, none = x.clone(), torch.zeros(b, dtype=torch.bool, device="cuda")
             idle = _time_rotating([(functools.partial(fn, y, NS_ITERS, out=y, mask=none), 20)
-                                   for fn in routes[:2]])
+                                   for fn in routes])
             if not torch.equal(y, x):
                 raise SystemExit(f"{label} {shape}: an idle repair wrote a matrix")
             line += (f"; idle repair: tiled {idle[0]:.4f} ms, tensor-core large "
-                     f"{idle[1]:.4f} ms")
+                     f"{idle[1]:.4f} ms, " + ("CUDA-core large" if p > 128 else "p <= 128")
+                     + f" {idle[2]:.4f} ms")
             if p <= 128:
-                reroute = times[1] < times[0] and idle[1] <= idle[0] + 0.1
-                line += (f"; the rule (faster drift step, idle within 0.1 ms) "
-                         f"{'reroutes' if reroute else 'keeps the tiled kernel'}")
+                wins = [k for k in (1, 2) if times[k] < times[0] and idle[k] <= idle[0] + 0.1]
+                best = min(wins, key=lambda k: times[k]) if wins else 0
+                line += (f"; the rule (faster drift step, idle within 0.1 ms of row 9's) "
+                         f"takes {('row 9', 'the large route', 'row 9w')[best]}")
         print(line, flush=True)
         del x, g, want, args
 
@@ -1625,11 +1677,16 @@ def phase_landing_watchdog(gen, card):
     kernel and the Newton-Schulz repair launch once each and every matrix
     is repaired (the fused watchdog only tightens the repair threshold,
     ``repro/core/api.py:1551-1564``): at SmolLM-360M's 640 x (64, 960) (the
-    tensor-core repair) and at internlm2-1.8b's 576 x (128, 2048) (the
-    wide fused kernel and the CUDA-core tiled repair, whose main path this
-    is), and at the paper's CNN filters, 3 x (256, 2304), and O-ViT, 18 x
-    (1024, 1024) (the large route's fused Landing and Newton-Schulz).
-    Returns the repair kernels' launches."""
+    tensor-core repair), at internlm2-1.8b's 576 x (128, 2048) (the wide
+    fused kernel and the tensor-core repair for p <= 128, row 9w), at the
+    paper's unitary-PC 1048 x (10, 10000) (the cluster kernel's Landing and
+    the CUDA-core tiled repair, row 9, whose main path this is), and at the
+    paper's CNN filters, 3 x (256, 2304), and O-ViT, 18 x (1024, 1024) (the
+    large route's fused Landing and Newton-Schulz). At internlm2-1.8b's
+    q/k the drift step and an undrifted one (the repair's idle launch) are
+    timed first, medians of three on copies of the state, the drift step
+    also with row 9 planned in place of row 9w. Returns the repair kernels'
+    launches."""
     import torch
 
     from repro_torch.core import api, stiefel
@@ -1640,6 +1697,8 @@ def phase_landing_watchdog(gen, card):
     for shape, fused, repair in (((640, 64, 960), "fused_step_tiled_tc_landing",
                                   "newton_schulz_tc"),
                                  (WIDE_SHAPE, "fused_step_tiled_tc128_landing",
+                                  "newton_schulz_tc128"),
+                                 (PAPER_SHAPE, "fused_step_cluster_landing",
                                   "newton_schulz_tiled"),
                                  (CNN_SHAPE, "fused_step_large_tc_landing",
                                   "newton_schulz_large_tc"),
@@ -1658,6 +1717,8 @@ def phase_landing_watchdog(gen, card):
 
         for _ in range(2):
             cs, state, _ = step(cs, state, grads())
+        if shape == WIDE_SHAPE:
+            _time_drift_step(step, cs, state, grads(), card)
         for s in cs.stacks:
             s.mul_(1.5)
         g = grads()
@@ -1678,6 +1739,49 @@ def phase_landing_watchdog(gen, card):
         repairs[repair] = repairs.get(repair, 0) + launches[repair]
         del cs, state, g
     return repairs
+
+
+def _time_drift_step(step, cs, state, g, card, repeats=3):
+    """Medians of ``repeats`` fused Landing steps with the watchdog from
+    copies of (cs, state): undrifted (the repair's idle launch), after the
+    1.5x drift (the repair of every matrix), and the drift step again with
+    a stand-in planner that gives Newton-Schulz row 9's tiled kernel. Each
+    run must launch the planned repair once a step."""
+    import torch
+
+    from repro_torch.core import api
+    from repro_torch.kernels import ops
+
+    def median_ms(scale):
+        times = []
+        for _ in range(repeats):
+            cs2 = api.ConstraintSet(cs.plan, [scale * s for s in cs.stacks])
+            state2 = _clone_state(state)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(cs2, state2, g)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    def repairs(scale, want):
+        ops.reset_launches()
+        ms = median_ms(scale)
+        got = {k: v for k, v in ops.launches().items() if k.startswith("newton_schulz") and v}
+        if got != {want: repeats}:
+            raise SystemExit(f"landing fused + watchdog timing: {got} repaired, not {want}")
+        return ms
+
+    still = repairs(1.0, "newton_schulz_tc128")
+    drift = repairs(1.5, "newton_schulz_tc128")
+    with _row9_planned(WIDE_SHAPE[1]):
+        drift_row9 = repairs(1.5, "newton_schulz_tiled")
+    print(f"landing fused + watchdog, {WIDE_SHAPE[0]}x{WIDE_SHAPE[1:]}: median step "
+          f"{still:.4f} ms undrifted (the repair idle), {drift:.4f} ms on the drift step "
+          f"(row 9w repairs), {drift_row9:.4f} ms with row 9 repairing [{card}]", flush=True)
 
 
 def phase_tp_schedule(gen, card):
@@ -2263,6 +2367,10 @@ def main() -> int:
         for line in build.PTXAS_LOG.get(name, "").splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"ptxas[{name}] {line.strip()}", flush=True)
+    spills = [line for line in build.PTXAS_LOG["newton_schulz_tc"].splitlines()
+              if "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line]
+    if spills:  # the tensor-core Newton-Schulz kernels keep every value in registers
+        raise SystemExit(f"newton_schulz_tc.cu spills: {spills}")
 
     phase_tf32_probe(card)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2336,6 +2444,7 @@ def main() -> int:
             launches[name] = launches.get(name, 0) + counts[name]
     repairs = phase_landing_watchdog(gen, card)
     launches["newton_schulz"] = repairs["newton_schulz_tiled"]
+    launches["newton_schulz_tc128"] = repairs["newton_schulz_tc128"]
     launches["newton_schulz_large"] = repairs["newton_schulz_large"]
     launches["newton_schulz_large_tc"] = repairs["newton_schulz_large_tc"]
     phase_tp_schedule(gen, card)

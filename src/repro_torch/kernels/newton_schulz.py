@@ -8,7 +8,11 @@ column tiles through the output buffer (tiled), IEEE fp32 on the CUDA
 cores. ``newton_schulz_tc`` replaces the same TPU kernel on the tensor
 cores for p <= 64: one thread block cluster per matrix, Y kept in its
 CTAs' shared memory for every iteration, 3xTF32 ``wgmma``, the partial
-grams summed through distributed shared memory. ``newton_schulz_large``
+grams summed through distributed shared memory. ``newton_schulz_tc128``
+is its counterpart for 64 < p <= 128 (same source): clusters of up to 16
+CTAs, two 64-column chunks of Y a CTA, the gram reduce-scattered and
+gathered over distributed shared memory, a persistent grid of clusters
+walking the stack. ``newton_schulz_large``
 (``csrc/large_p.cu``) replaces it for p > 128 (past p = 136 the CUDA-core
 tiled kernel's two (p, p) grams outgrow a block; below, it lost to the
 large route on the card): each iteration a gram launch and an apply
@@ -47,9 +51,15 @@ def tc_lib() -> ctypes.CDLL:
     lib_ = build.load("newton_schulz_tc")
     if not getattr(lib_, "_typed", False):
         lib_.newton_schulz_tc.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+        lib_.newton_schulz_tc128.argtypes = [_P] * 4 + [_I] * 4 + [_P]
         lib_.ns_tc_cluster.argtypes = [_I]
         lib_.ns_tc_smem_bytes.argtypes = [_I]
-        for fn in (lib_.newton_schulz_tc, lib_.ns_tc_cluster, lib_.ns_tc_smem_bytes):
+        lib_.ns_tc128_cluster.argtypes = [_I]
+        lib_.ns_tc128_smem_bytes.argtypes = [_I]
+        lib_.ns_tc128_max_clusters.argtypes = [_I]
+        for fn in (lib_.newton_schulz_tc, lib_.newton_schulz_tc128, lib_.ns_tc_cluster,
+                   lib_.ns_tc_smem_bytes, lib_.ns_tc128_cluster, lib_.ns_tc128_smem_bytes,
+                   lib_.ns_tc128_max_clusters):
             fn.restype = _I
         lib_._typed = True
     return lib_
@@ -158,6 +168,19 @@ def newton_schulz_tc(x, iters=12, *, out=None, mask=None, dist=None):
     return res
 
 
+def newton_schulz_tc128(x, iters=12, *, out=None, mask=None, dist=None):
+    """Tensor-core Newton-Schulz for ``64 < p <= 128`` (any p <= 128
+    runs, but its products keep 128 rows: at p <= 64 ``newton_schulz_tc``
+    is about 4x faster, the readings beside ``ops.NS_TC_MAX_P``): clusters of ``ops.ns_tc128_cluster(n)`` CTAs (16 at n = 2048),
+    each keeping at most two 64-column chunks of Y in shared memory
+    through every iteration (``ops.ns_tc128_smem_bytes``), as many
+    clusters as the card keeps resident walking the stack."""
+    res = _run("newton_schulz_tc128", x, iters, out, mask, dist, lib=tc_lib)
+    if x.device.type == "cuda":
+        newton_schulz_tc128.launches += 1
+    return res
+
+
 def newton_schulz_large(x, iters=12, *, out=None, mask=None, dist=None,
                         runner=None):
     """Newton-Schulz for p > 128 (``csrc/large_p.cu``): each iteration a
@@ -204,5 +227,6 @@ def newton_schulz_large_tc(x, iters=12, *, out=None, mask=None, dist=None,
 newton_schulz_whole.launches = 0
 newton_schulz_tiled.launches = 0
 newton_schulz_tc.launches = 0
+newton_schulz_tc128.launches = 0
 newton_schulz_large.launches = 0
 newton_schulz_large_tc.launches = 0

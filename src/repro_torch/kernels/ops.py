@@ -25,6 +25,9 @@ route:
   ``LANDING_FIELD_TC_MIN_P`` for the landing field; for Newton-Schulz
   ``NS_TC_MIN_P <= p <= 64`` where n fits a thread block cluster's shared
   memory (``csrc/newton_schulz_tc.cu``, ``ns_tc_cluster``);
+* ``tc128`` for Newton-Schulz at ``NS_TC_MAX_P < p <= TC_MAX_P``
+  where n fits a cluster of up to 16 CTAs (the same source's second
+  kernel, ``ns_tc128_cluster``);
 * ``tiled`` otherwise, with the column tile that lets the most blocks
   share an SM (they hide each other's loads and barriers), the widest of
   those: the fused group step's and the two-stage kernels' p below the
@@ -120,16 +123,26 @@ LANDING_FIELD_TC_MIN_P = 25
 # tensor cores with the rest of p = 32, which won clearly at n = 2048.
 NS_TC_MIN_P = 32
 NS_TC_MAX_P = 64
-# Above NS_TC_MAX_P and up to TC_MAX_P Newton-Schulz keeps the CUDA-core
-# tiled kernel (row 9) where a matrix does not fit whole. The tensor-core
-# large route is faster there on the watchdog's drift step, but its idle
-# repair (every matrix masked off, the launch of every other step) costs
-# more: its 24 launches each walk the 9,216 items of 576 matrices. The
-# rule: reroute only where the large route wins the drift step and its
-# idle repair costs at most 0.1 ms more. On an H100 (chip_smoke.py's
-# crossovers, PR 22; ms, tiled / large_tc) at internlm2-1.8b's 576 x (128,
-# 2048): drift step 59.5891 / 29.2306, idle repair 0.0300 / 0.2174; so
-# p <= 128 keeps the tiled kernel.
+# Above NS_TC_MAX_P and up to TC_MAX_P a route other than the CUDA-core
+# tiled kernel (row 9) takes Newton-Schulz where a matrix does not fit
+# whole only if it wins the watchdog's drift step and its idle repair
+# (every matrix masked off, the launch of every other step) costs at most
+# 0.1 ms more. The tensor-core large route wins the drift step but not the
+# idle repair: its 24 launches each walk the 9,216 items of 576 matrices.
+# Past NS_TC_MAX_P and up to TC_MAX_P the same source's kernel for p
+# <= 128 wins both where n fits a cluster of 16 CTAs (ns_tc128_cluster:
+# n <= 2048). On an H100 (chip_smoke.py's crossovers; ms at 576 x (p,
+# 2048), drift step then idle repair, tiled / large_tc / tc128): p = 72
+# 22.9319 / 18.7431 / 16.7919, 0.0306 / 0.2134 / 0.0334; p = 96 34.7598
+# / 23.1556 / 16.4663, 0.0391 / 0.2146 / 0.0276; p = 128 (internlm2-1.8b's
+# q/k) 59.5427 / 29.2676 / 17.6470, 0.0325 / 0.2165 / 0.0380. Row 9
+# keeps p < NS_TC_MIN_P and n past 2048. That kernel takes p <= 64 too,
+# but its products keep 128 rows whatever p, so NS_TC_MAX_P stays where
+# the p <= 64 kernel ends. On an H100 (benchmarks_torch/ns_tc_readings.py;
+# ms, p <= 64 kernel / p <= 128 kernel, drift step then idle): 640 x (64,
+# 960) 1.8203 / 8.1161, 0.0164 / 0.0162; 512 x (32, 2048) 3.6329 /
+# 13.0075, 0.0156 / 0.0156; 576 x (64, 2048) 4.0033 / 15.8711, 0.0159 /
+# 0.0159.
 # Past TC_MAX_P the landing field and Newton-Schulz take the
 # large route (csrc/large_p.cu) wherever a matrix does not fit a block whole,
 # although the CUDA-core tiled kernels' grams still fit a block up to p ~ 160
@@ -292,6 +305,36 @@ def ns_tc_cluster(n: int) -> int:
             return c
         c *= 2
     return 0
+
+
+# csrc/newton_schulz_tc.cu's kernel for p <= 128: at most two 64-column
+# chunks of Y a CTA over a cluster of 2 to 16 CTAs (16 is past the portable
+# 8: cudaFuncAttributeNonPortableClusterSizeAllowed).
+_NS_TC128_CHUNKS = 2
+_NS_TC128_CLUSTERS = (2, 4, 8, 16)
+
+
+def ns_tc128_cluster(n: int) -> int:
+    """CTAs of ``newton_schulz_tc128``'s cluster for n
+    (``ns_tc128_cluster``): the least of 2, 4, 8, 16 that leaves a CTA at
+    most two 64-column chunks; 0 when n is too wide (past 2048)."""
+    chunks = -(-n // 64)
+    for c in _NS_TC128_CLUSTERS:
+        if n >= 1 and -(-chunks // c) <= _NS_TC128_CHUNKS:
+            return c
+    return 0
+
+
+def ns_tc128_smem_bytes(n: int) -> int:
+    """``newton_schulz_tc128``: a CTA's chunks of Y (128 rows, 32 KB
+    each), G hi and lo (64 KB each), its slice of the summed gram (64 KB /
+    c), the reduction scratch and 1 KB to align the tiles; 0 when n is too
+    wide."""
+    c = ns_tc128_cluster(n)
+    if c == 0:
+        return 0
+    chunks, g = -(-n // 64), 128 * 128 * 4
+    return -(-chunks // c) * 128 * 64 * 4 + 2 * g + g // c + 64 + 1024
 
 
 def ns_tc_smem_bytes(n: int) -> int:
@@ -489,12 +532,17 @@ def plan_tp(what: str, p: int, tiled_bytes) -> int:
 
 
 def plan_newton_schulz(p: int, n: int) -> tuple[str, int]:
-    """``("whole", 0)``, ``("tc", 0)``, ``("tiled", tile_n)`` or
-    ``("large", 0)`` of Newton-Schulz (:func:`_route`): the tensor-core
-    kernel for ``NS_TC_MIN_P <= p <= NS_TC_MAX_P`` when n fits a cluster
-    (``ns_tc_cluster``); past p = 128 the large route, although the
+    """``("whole", 0)``, ``("tc", 0)``, ``("tc128", 0)``, ``("tiled",
+    tile_n)`` or the large route of Newton-Schulz (:func:`_route`): the
+    tensor-core kernel for ``NS_TC_MIN_P <= p <= NS_TC_MAX_P`` when n fits
+    a cluster (``ns_tc_cluster``), its p <= 128 kernel above that up to
+    ``TC_MAX_P`` when n fits one of up to 16 CTAs
+    (``ns_tc128_cluster``); past p = 128 the large route, although the
     CUDA-core tiled kernel's grams fit a block up to p = 136 (the readings
     beside ``NS_TC_MAX_P``)."""
+    if (NS_TC_MAX_P < p <= TC_MAX_P and ns_tc128_cluster(n)
+            and ns_whole_smem_bytes(p, n) > SMEM_LIMIT_BYTES):
+        return "tc128", 0
     tc_high = NS_TC_MAX_P if ns_tc_cluster(n) else 0
     return _route("newton-schulz", p, n, ns_whole_smem_bytes, ns_tiled_smem_bytes,
                   NS_TC_MIN_P, tc_high)
@@ -585,6 +633,8 @@ def _ns_launch(x, iters, out, mask, dist):
         return _ns.newton_schulz_whole(x, iters, out=out, mask=mask, dist=dist)
     if kind == "tc":
         return _ns.newton_schulz_tc(x, iters, out=out, mask=mask, dist=dist)
+    if kind == "tc128":
+        return _ns.newton_schulz_tc128(x, iters, out=out, mask=mask, dist=dist)
     if kind == "large":
         return _ns.newton_schulz_large(x, iters, out=out, mask=mask, dist=dist)
     if kind == "large_tc":
@@ -607,7 +657,8 @@ KERNELS = (_fs.fused_step_whole, _fs.fused_step_tiled, _fs.fused_step_cluster,
            _lf.landing_field_tiled_tc,
            _lf.landing_field_tiled_tc128, _lf.landing_field_large,
            _lf.landing_field_large_tc, _ns.newton_schulz_whole, _ns.newton_schulz_tiled,
-           _ns.newton_schulz_tc, _ns.newton_schulz_large, _ns.newton_schulz_large_tc,
+           _ns.newton_schulz_tc, _ns.newton_schulz_tc128, _ns.newton_schulz_large,
+           _ns.newton_schulz_large_tc,
            _fa.flash_attention_fp32, _fa.flash_attention_tc)
 
 

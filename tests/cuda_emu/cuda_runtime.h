@@ -156,7 +156,10 @@ struct EmuCluster {
 
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum cudaFuncAttribute {
+  cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncAttributeNonPortableClusterSizeAllowed
+};
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
 // SMs of the emulated card: few, so that a persistent grid walks several
 // matrices per block.
@@ -177,7 +180,17 @@ struct dim3 {
 // kernel -> how to call it from a cudaLaunchKernel argument array
 inline std::map<const void*, std::function<void(void**)>> g_emu_kernels;
 inline size_t g_emu_smem_limit = 232448;
-inline cudaError_t cudaFuncSetAttribute(const void*, cudaFuncAttribute, int) { return 0; }
+// Kernels allowed clusters past the portable 8 (up to 16, as on an H100).
+inline std::map<const void*, bool> g_emu_nonportable;
+inline cudaError_t cudaFuncSetAttribute(const void* f, cudaFuncAttribute attr, int value) {
+  if (attr == cudaFuncAttributeNonPortableClusterSizeAllowed) g_emu_nonportable[f] = value != 0;
+  return 0;
+}
+// The most CTAs a cluster of kernel f may have.
+inline unsigned emu_max_cluster(const void* f) {
+  auto it = g_emu_nonportable.find(f);
+  return it != g_emu_nonportable.end() && it->second ? 16u : 8u;
+}
 inline cudaError_t cudaLaunchKernel(const void* f, dim3 grid, dim3 block, void** args,
                                     size_t smem, cudaStream_t) {
   auto it = g_emu_kernels.find(f);
@@ -202,7 +215,8 @@ inline cudaError_t cudaGetLastError() { return 0; }
 
 // cudaLaunchKernelExC with a cluster dimension: the grid runs one cluster
 // at a time, its blocks at once, each on its own 1024-byte aligned shared
-// memory of the launch's dynamic size.
+// memory of the launch's dynamic size; at most 8 blocks a cluster, 16 after
+// cudaFuncAttributeNonPortableClusterSizeAllowed.
 enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
 struct cudaLaunchAttributeValue {
   struct { unsigned x, y, z; } clusterDim;
@@ -220,9 +234,13 @@ struct cudaLaunchConfig_t {
 };
 // Clusters the emulated card keeps resident: g_emu_sms, so that a persistent
 // cluster grid walks several matrices per cluster.
-inline cudaError_t cudaOccupancyMaxActiveClusters(int* clusters, const void*,
+inline cudaError_t cudaOccupancyMaxActiveClusters(int* clusters, const void* f,
                                                   const cudaLaunchConfig_t* cfg) {
   if (cfg->dynamicSmemBytes > g_emu_smem_limit) return cudaErrorInvalidValue;
+  for (unsigned a = 0; a < cfg->numAttrs; ++a)
+    if (cfg->attrs[a].id == cudaLaunchAttributeClusterDimension &&
+        cfg->attrs[a].val.clusterDim.x > emu_max_cluster(f))
+      return cudaErrorInvalidValue;
   *clusters = g_emu_sms;
   return 0;
 }
@@ -238,7 +256,7 @@ inline cudaError_t cudaLaunchKernelExC(const cudaLaunchConfig_t* cfg, const void
     }
   const unsigned threads = cfg->blockDim.x, grid = cfg->gridDim.x;
   if (threads > EMU_MAX_THREADS || cfg->dynamicSmemBytes > g_emu_smem_limit || cl < 1 ||
-      cl > 8 || grid % cl != 0)
+      cl > emu_max_cluster(f) || grid % cl != 0)
     return cudaErrorInvalidValue;
   gridDim.x = grid;
   for (unsigned first = 0; first < grid; first += cl) {

@@ -4,7 +4,8 @@
 // reads DIR/{x,dist,mask}.bin (float32; mask 0/1 per matrix) and writes
 // DIR/{out,dist_out}.bin. KIND 0 = whole, 1 = tiled (one block at a time),
 // 2 = the tensor-core kernel through its C launcher (a cluster's blocks at
-// once; TILE_N unused). INPLACE 1 writes the output over x; MASKED 1 passes
+// once; TILE_N unused), 3 = the p <= 128 tensor-core kernel through its C
+// launcher (a persistent grid of g_emu_sms clusters; TILE_N unused). INPLACE 1 writes the output over x; MASKED 1 passes
 // the mask (else every matrix runs).
 #include <cuda_runtime.h>
 #include <hopper.cuh>
@@ -68,6 +69,22 @@ int main(int argc, char** argv) {
     const int err = newton_schulz_tc(x.data(), o, m, dist.data(), B, p, n, iters, nullptr);
     if (err != 0) {
       fprintf(stderr, "newton_schulz_tc returned %d\n", err);
+      return 3;
+    }
+    write(dir, "out", o, total);
+    write(dir, "dist_out", dist.data(), B);
+    return 0;
+  }
+  if (kind == 3) {
+    g_emu_kernels[reinterpret_cast<const void*>(ns_tc128_kernel)] = [](void** a) {
+      auto i = [a](int k) { return *static_cast<int*>(a[k]); };
+      ns_tc128_kernel(*static_cast<const float**>(a[0]), *static_cast<float**>(a[1]),
+                      *static_cast<const unsigned char**>(a[2]), *static_cast<float**>(a[3]),
+                      i(4), i(5), i(6), i(7), i(8), i(9));
+    };
+    const int err = newton_schulz_tc128(x.data(), o, m, dist.data(), B, p, n, iters, nullptr);
+    if (err != 0) {
+      fprintf(stderr, "newton_schulz_tc128 returned %d\n", err);
       return 3;
     }
     write(dir, "out", o, total);

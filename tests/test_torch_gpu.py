@@ -883,6 +883,63 @@ def test_newton_schulz_planner_matches_the_kernels_smem(cuda):
         assert tc.ns_tc_smem_bytes(n) == tops.ns_tc_smem_bytes(n) <= tops.SMEM_LIMIT_BYTES
 
 
+def test_newton_schulz_tc128_planner_matches_the_kernels_smem(cuda):
+    """``ops.ns_tc128_cluster`` / ``ns_tc128_smem_bytes`` mirror the C
+    launcher's, and the card keeps at least one cluster resident at each."""
+    tc = tns.tc_lib()
+    for n in (1, 60, 64, 256, 300, 960, 1024, 1025, 1500, 2048, 2049):
+        assert tc.ns_tc128_cluster(n) == tops.ns_tc128_cluster(n)
+        assert tc.ns_tc128_smem_bytes(n) == tops.ns_tc128_smem_bytes(n) <= tops.SMEM_LIMIT_BYTES
+        if tops.ns_tc128_cluster(n):
+            assert tc.ns_tc128_max_clusters(n) >= 1
+
+
+# newton_schulz_tc128 (64 < p <= 128): internlm2-1.8b's (128, 2048) on 16
+# CTAs a matrix, ragged p on 8 (n = 1000), n % 4 != 0 (scalar loads, 16),
+# clusters of 8 and 4 with a ragged last chunk, and of 2 where one CTA
+# holds no chunk (n = 60, p <= 64: the kernel takes any p up to 128).
+NS_TC128_CASES = [(3, 128, 2048), (4, 72, 1000), (3, 100, 1501), (5, 96, 520),
+                  (3, 128, 300), (3, 40, 60)]
+
+
+@pytest.mark.parametrize("shape", NS_TC128_CASES)
+def test_newton_schulz_tc128_matches_plain(cuda, shape):
+    """Unmasked out of place, then masked in place (every other matrix:
+    the others and their distances keep their bits), against
+    ``ref.newton_schulz_ref`` at atol 1e-6."""
+    x = _drifted(shape, cuda, seed=3)
+    b = shape[0]
+    dist = torch.empty(b, device=cuda)
+    got = tns.newton_schulz_tc128(x, 12, dist=dist)
+    torch.cuda.synchronize()
+    want = tref.newton_schulz_ref(x, 12)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+    torch.testing.assert_close(dist, tref.manifold_distance_ref(want), atol=2e-6, rtol=1e-3)
+    mask = torch.arange(b, device=cuda) % 2 == 0
+    dist = torch.full((b,), 7.0, device=cuda)
+    y = x.clone()
+    tns.newton_schulz_tc128(y, 12, out=y, mask=mask, dist=dist)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y[mask], want[mask], atol=1e-6, rtol=0)
+    assert torch.equal(y[~mask], x[~mask]) and bool((dist[~mask] == 7.0).all())
+    assert float(dist[mask].max()) < 1e-2
+
+
+def test_newton_schulz_tc128_idle_repair_writes_nothing(cuda):
+    """The watchdog's launch on a step with no drift at internlm2-1.8b's
+    q/k: the planned kernel launches once, every cluster skips every
+    matrix, nothing changes, bit for bit."""
+    x = _drifted((576, 128, 2048), cuda, seed=4)
+    dist = torch.full((576,), 1e-6, device=cuda)
+    x0, d0 = x.clone(), dist.clone()
+    assert tops.plan_newton_schulz(128, 2048) == ("tc128", 0)
+    before = tns.newton_schulz_tc128.launches
+    rep = tops.newton_schulz_repair(x, dist, torch.tensor(0.1, device=cuda), iters=12)
+    torch.cuda.synchronize()
+    assert tns.newton_schulz_tc128.launches == before + 1
+    assert not bool(rep.any()) and torch.equal(x, x0) and torch.equal(dist, d0)
+
+
 # ------------------------------------------------------------- large p
 
 # The large route (csrc/large_p.cu, p > 128), on the tensor cores where n %

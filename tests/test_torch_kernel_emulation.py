@@ -39,12 +39,15 @@ and in bf16 one output ulp (both sides round an fp32 result once).
 
 import subprocess
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from _cuda_emu import compile_harness as _compile
 from _cuda_emu import large_p_library
 
+from repro.core import stiefel as jst
+from repro.kernels import ops as jops
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import fused_step as tfs
 from repro_torch.kernels import landing_field as tlf
@@ -377,13 +380,17 @@ def ns_harness(tmp_path_factory):
 
 
 def _run_ns(harness, tmp_path, kind, shape, tile_n=0, inplace=False,
-            masked=False, iters=4, seed=0):
+            masked=False, iters=4, seed=0, against_jax=False):
     """One Newton-Schulz kernel through the emulator against the plain
     version, at 1.5 x Stiefel + 0.05 randn (the watchdog's drift), with the
     odd matrices masked off when ``masked``. Masked-off matrices and their
     distances must come out bit for bit as they went in. Four iterations:
     enough to run the tiled kernel's gram swap twice over; the card holds
-    the kernels at 12 (``tests/test_torch_gpu.py``)."""
+    the kernels at 12 (``tests/test_torch_gpu.py``). With ``against_jax``
+    the masked-in matrices and distances are also held, at the same
+    tolerance, against the JAX package's ``ops.newton_schulz`` (its Pallas
+    kernel in interpret mode where it plans one) and
+    ``stiefel.manifold_distance``."""
     rng = np.random.default_rng(seed)
     b, p, n = shape
     q, _ = np.linalg.qr(rng.standard_normal((b, n, p)))
@@ -405,6 +412,11 @@ def _run_ns(harness, tmp_path, kind, shape, tile_n=0, inplace=False,
     on = mask
     np.testing.assert_allclose(got[on], want.numpy()[on], atol=1e-6, rtol=0)
     np.testing.assert_allclose(got_d[on], want_d[on], atol=1e-5, rtol=1e-3)
+    if against_jax:
+        jx = jops.newton_schulz(jnp.asarray(x), iters=iters, interpret=True)
+        np.testing.assert_allclose(got[on], np.asarray(jx)[on], atol=1e-6, rtol=0)
+        np.testing.assert_allclose(got_d[on], np.asarray(jst.manifold_distance(jx))[on],
+                                   atol=1e-5, rtol=1e-3)
     if masked:
         if inplace:
             np.testing.assert_array_equal(got[~on], x[~on])
@@ -444,6 +456,25 @@ def test_ns_tc_kernel_emulated(ns_harness, tmp_path, shape, inplace, masked):
     shared memory), at the Newton-Schulz tolerance; masked-off matrices and
     distances bit-unchanged."""
     _run_ns(ns_harness, tmp_path, 2, shape, inplace=inplace, masked=masked)
+
+
+@pytest.mark.parametrize("shape,inplace,masked,iters", [
+    # internlm2-1.8b's (p, n): 16 CTAs a matrix, the watchdog's 12 iterations
+    ((3, 128, 2048), True, True, 12),
+    ((3, 72, 300), False, False, 4),  # ragged p and n, a cluster of four
+    ((4, 100, 301), True, True, 4),  # n % 4 != 0: scalar loads and stores
+    ((5, 128, 520), True, True, 4),  # five matrices walked by two clusters of 8
+    # a cluster of two, one CTA without a chunk (p <= 64 runs too)
+    ((3, 40, 60), False, False, 4),
+])
+def test_ns_tc128_kernel_emulated(ns_harness, tmp_path, shape, inplace, masked, iters):
+    """``newton_schulz_tc128`` through its launcher: a persistent grid of
+    the stand-in's two resident clusters, each cluster's CTAs at once, the
+    gram reduce-scattered and gathered through the stand-in's distributed
+    shared memory; at the Newton-Schulz tolerance, masked-off matrices and
+    distances bit-unchanged; against the JAX package's Newton-Schulz too."""
+    _run_ns(ns_harness, tmp_path, 3, shape, inplace=inplace, masked=masked, iters=iters,
+            against_jax=True)
 
 
 @pytest.fixture(scope="module")

@@ -108,9 +108,9 @@ PLANS = [
     (256, 2305, LARGE, LARGE, LARGE, LARGE, LARGE),
     (200, 901, LARGE, LARGE, LARGE, LARGE, LARGE),
     (1024, 1022, LARGE, LARGE, LARGE, LARGE, LARGE),
-    # p <= 128: the routes of PRs 11-20, unchanged
-    (128, 2048, ("tc", 0), ("tc", 0), ("tc", 0), ("tc", 0), ("tiled", 64)),
-    (128, 1152, ("tc", 0), ("tc", 0), ("tc", 0), ("tc", 0), ("tiled", 64)),
+    # p <= 128: Newton-Schulz past p = 64 on its cluster kernel where n <= 2048
+    (128, 2048, ("tc", 0), ("tc", 0), ("tc", 0), ("tc", 0), ("tc128", 0)),
+    (128, 1152, ("tc", 0), ("tc", 0), ("tc", 0), ("tc", 0), ("tc128", 0)),
     (64, 960, ("tc", 0), ("tc", 0), ("tc", 0), ("tc", 0), ("tc", 0)),
     (64, 576, ("tc", 0), ("tc", 0), ("tc", 0), ("tc", 0), ("whole", 0)),
     (64, 216, ("whole", 0), ("whole", 0), ("whole", 0), ("whole", 0), ("whole", 0)),

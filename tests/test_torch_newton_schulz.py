@@ -35,7 +35,7 @@ from repro_torch.kernels import ref as tref
 # QR: Householder in both LAPACKs. Polar: (X X^T)^{-1/2} from two fp32
 # eigh implementations, whose eigenvalue errors 1/sqrt(w) amplifies.
 PROJ_TOL = {"project_qr": 1e-5, "project_polar": 1e-4}
-SHAPES = [(1, 3, 3), (4, 16, 32), (2, 10, 250), (3, 16, 256), (2, 7, 33)]
+SHAPES = [(1, 3, 3), (4, 16, 32), (2, 10, 250), (3, 16, 256), (2, 7, 33), (1, 128, 256)]
 
 
 def _drifted(shape, seed=0, scale=1.5, noise=0.05):
@@ -121,7 +121,12 @@ def test_mask_requires_in_place():
     # keeps Y in a cluster of two CTAs
     (64, 960, ("tc", 0)),
     (48, 1500, ("tc", 0)),  # a cluster of four
-    (124, 4096, ("tiled", 64)),  # p past the tensor-core kernel's 64 rows
+    # internlm2-1.8b's q/k: the p <= 128 tensor-core kernel, 16 CTAs a matrix
+    (128, 2048, ("tc128", 0)),
+    (100, 1500, ("tc128", 0)),  # a ragged p in 65..128
+    (72, 2048, ("tc128", 0)),
+    (124, 4096, ("tiled", 64)),  # n past 16 CTAs of two chunks each
+    (128, 2049, ("tiled", 64)),
     (16, 4096, ("tiled", 64)),  # p below NS_TC_MIN_P
     (64, 6000, ("tiled", 64)),  # n past eight CTAs' shared memory
 ])
@@ -130,6 +135,7 @@ def test_newton_schulz_planner(p, n, want):
     kind, tile_n = want
     size = {"whole": lambda: tops.ns_whole_smem_bytes(p, n),
             "tc": lambda: tops.ns_tc_smem_bytes(n),
+            "tc128": lambda: tops.ns_tc128_smem_bytes(n),
             "tiled": lambda: tops.ns_tiled_smem_bytes(p, tile_n)}[kind]()
     assert 0 < size <= tops.SMEM_LIMIT_BYTES
 

@@ -46,10 +46,13 @@ the CUDA cores, where TMA cannot take the row stride); 3 steps each:
   thread block cluster a matrix), at internlm2-1.8b's (the same source's
   kernel for p <= 128, a persistent grid of clusters of 16 CTAs; the drift
   step timed with it and with row 9's CUDA-core tiled kernel, its route
-  before), at the paper's unitary-PC sizes (the cluster kernel's Landing,
-  row 9's tiled repair) and at the CNN filters' 3 x (256, 2304), O-ViT's
-  18 x (1024, 1024) (the large route's Landing and Newton-Schulz on the
-  tensor cores) and ``LARGE_ODD`` (on the CUDA cores).
+  before), at the paper's unitary-PC sizes (the cluster kernel's Landing
+  and its Newton-Schulz, row 9cl, one matrix's Y held in a thread block
+  cluster; the drift step timed with it and with row 9), at 1048 x (10,
+  9998) (the tiled Landing and row 9's tiled repair) and at the CNN
+  filters' 3 x (256, 2304), O-ViT's 18 x (1024, 1024) (the large route's
+  Landing and Newton-Schulz on the tensor cores) and ``LARGE_ODD`` (on
+  the CUDA cores).
 
 Each path's kernels, as the planners of ``kernels/ops.py`` pick them for
 its groups, must launch once per group and step, its first step must
@@ -59,7 +62,8 @@ route's entries (on the tensor cores at both paper sizes, on the CUDA
 cores at ``LARGE_ODD``) are launched 20 times each on the same inputs,
 half of them beside a copy on another stream, and must repeat bit for
 bit, and so must the tensor-core Newton-Schulz kernels and the cluster
-kernel's four entries (at the paper's 1048 x (10, 10000)). They are timed
+kernels of ``small_p.cu`` (its four entries and Newton-Schulz's, at the
+paper's 1048 x (10, 10000)). They are timed
 beside rows 2, 6, 2L and 8 at that shape, and at the readings behind the
 cluster route's ends (``phase_cluster_crossovers``: p = 4-28 at n =
 2048-10000, p = 29 and 32 against the tensor-core kernels, and every
@@ -198,6 +202,7 @@ KERNELS = {
     "newton_schulz": ("newton_schulz", "src/repro/kernels/newton_schulz.py:37"),
     "newton_schulz_tc": ("newton_schulz_tc", "src/repro/kernels/newton_schulz.py:37"),
     "newton_schulz_tc128": ("newton_schulz_tc", "src/repro/kernels/newton_schulz.py:37"),
+    "newton_schulz_cluster": ("small_p", "src/repro/kernels/newton_schulz.py:37"),
     "fused_step_whole_landing": ("fused_step", "src/repro/kernels/fused_step.py:164"),
     "fused_step_tiled_landing": ("fused_step", "src/repro/kernels/fused_step.py:559"),
     "fused_step_tiled_tc": ("fused_step_tc", "src/repro/kernels/fused_step.py:608"),
@@ -232,6 +237,7 @@ LANDING_LR = 0.25  # fixed-step Landing: max distance 7e-5 over 12 CPU steps
 PAPER_DIRECT_GRAM_LIMIT = 5e-5
 TP_STEPS = 3  # per method on the two-rank TP path
 NS_ITERS = 12
+IDLE_CALLS = 100  # calls of each idle repair timed beside row 9's
 NS_TOL = dict(atol=1e-6, rtol=0.0)  # tests/test_kernels.py:54-61
 # The trainer phase: the launcher's defaults (src/repro_torch/launch/train.py)
 # but POGO's lr. At the default 0.5 VAdam's unit-norm first step lands a
@@ -352,6 +358,41 @@ def _row9_planned(p):
         yield
     finally:
         ops.plan_newton_schulz = planner
+
+
+def _idle_in_turns(repair, p, calls=None):
+    """Medians of ``calls`` timings of ``repair`` (an idle repair through
+    ``ops.newton_schulz_repair``) as planned and with row 9 planned
+    (``_row9_planned``), a call of each in turns whose order reverses every
+    pair, after two calls of each. Each timing is one call from an idle
+    card: a pair of CUDA events around it, the card synchronized before, so
+    that it holds the host's work and the card's. The two differ by
+    microseconds; medians of 20 calls in a row spread wider than that
+    (an H100 read one route's 0.0717 and 0.1110 ms in two calls, and 9cl's
+    0.1235 against row 9's 0.1111 in one)."""
+    import torch
+
+    def one(planned):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with contextlib.ExitStack() as stack:
+            if not planned:
+                stack.enter_context(_row9_planned(p))
+            torch.cuda.synchronize()
+            start.record()
+            repair()
+            end.record()
+        return start, end
+
+    for _ in range(2):
+        one(True), one(False)
+    pairs = {True: [], False: []}
+    for i in range(calls or IDLE_CALLS):
+        for planned in ((True, False) if i % 2 == 0 else (False, True)):
+            pairs[planned].append(one(planned))
+    torch.cuda.synchronize()
+    return tuple(statistics.median(s.elapsed_time(e) for s, e in pairs[k])
+                 for k in (True, False))
 
 
 def _time_rotating(fns, rounds=3):
@@ -671,8 +712,9 @@ def phase_fused_kernels(gen):
 def phase_tc_repeatability(gen, repeats=20):
     """Each tensor-core kernel launched ``repeats`` times on the same inputs
     at 640 x (64, 960) (the wide ones and Newton-Schulz's for p <= 128 at
-    576 x (128, 2048), the cluster kernel's four entries at the paper's
-    1048 x (10, 10000); Newton-Schulz on the watchdog's drifted input, half
+    576 x (128, 2048), the cluster kernels of small_p.cu, its four entries
+    and Newton-Schulz's, at the paper's 1048 x (10, 10000); Newton-Schulz
+    on the watchdog's drifted input, half
     the matrices masked off), each
     entry of the large route on the tensor cores at the CNN filters' 3 x
     (256, 2304) (its grams split n into slices there) and O-ViT's 18 x
@@ -750,6 +792,7 @@ def phase_tc_repeatability(gen, repeats=20):
         del x, g
     for kernel, shape in ((ns.newton_schulz_tc, (640, 64, 960)),
                           (ns.newton_schulz_tc128, WIDE_SHAPE),
+                          (ns.newton_schulz_cluster, PAPER_SHAPE),
                           *((ns.newton_schulz_large_tc, shape) for shape in large),
                           (ns.newton_schulz_large, LARGE_ODD)):
         # the watchdog's drift (a tenth of it at square matrices, as in
@@ -1045,8 +1088,13 @@ def phase_newton_schulz(gen):
     input, 1.5 x Stiefel + 0.05 randn, 12 iterations, with half the
     matrices masked off (they must come out bit-unchanged, distances too),
     through the planner: at the trainer's 640 x (64, 960) (the tensor-core
-    kernel, a cluster of two CTAs a matrix), the paper's unitary-PC 1048 x
-    (10, 10000) (the CUDA-core tiled kernel, row 9), internlm2-1.8b's 576 x
+    kernel, a cluster of two CTAs a matrix), 1048 x (10, 9998) (row 9's
+    tiled kernel, whose main path the paper's stack at n % 4 != 0 is: its
+    record's shape), the paper's unitary-PC 1048 x
+    (10, 10000) (row 9cl, the cluster kernel of ``small_p.cu``; row 9's
+    tiled kernel, its route before, is held against the plain version and
+    timed beside it, and the idle repair must stay within 0.01 ms of row
+    9's through the same entry), internlm2-1.8b's 576 x
     (128, 2048) (the tensor-core kernel for p <= 128, 16 CTAs a matrix, row
     9w; row 9's tiled kernel, its route before, is held against the plain
     version and timed beside it), 2048 x (16, 256) (whole),
@@ -1063,15 +1111,16 @@ def phase_newton_schulz(gen):
     import torch
 
     from repro_torch.core import stiefel
+    from repro_torch.kernels import fused_step as fs
     from repro_torch.kernels import large_p, ops, ref
     from repro_torch.kernels import newton_schulz as ns
 
     records = {}
     counters = (ns.newton_schulz_tc, ns.newton_schulz_tc128, ns.newton_schulz_large,
-                ns.newton_schulz_large_tc)
+                ns.newton_schulz_large_tc, ns.newton_schulz_cluster)
     untimed = ((7, 10, 250),)
-    for shape in ((640, 64, 960), PAPER_SHAPE, WIDE_SHAPE, (2048, 16, 256), LARGE_ODD,
-                  CNN_SHAPE, OVIT_SHAPE, *untimed):
+    for shape in ((640, 64, 960), PAPER_ODD_SHAPE, PAPER_SHAPE, WIDE_SHAPE, (2048, 16, 256),
+                  LARGE_ODD, CNN_SHAPE, OVIT_SHAPE, *untimed):
         b, p, n = shape
         x = 1.5 * stiefel.random_stiefel(gen, shape, device="cuda")
         x += (0.005 if p == n else 0.05) * torch.randn(shape, generator=gen, device="cuda")
@@ -1079,14 +1128,15 @@ def phase_newton_schulz(gen):
         x0, d0 = x.clone(), dist.clone()
         kind, tile_n = ops.plan_newton_schulz(p, n)
         name = {"tc": "newton_schulz_tc", "tc128": "newton_schulz_tc128",
-                "large": "newton_schulz_large",
-                "large_tc": "newton_schulz_large_tc"}.get(kind, "newton_schulz")
+                "large": "newton_schulz_large", "large_tc": "newton_schulz_large_tc",
+                "cluster": "newton_schulz_cluster"}.get(kind, "newton_schulz")
         before = [c.launches for c in counters]
         rep = ops.newton_schulz_repair(x, dist, torch.tensor(0.1, device="cuda"),
                                        NS_ITERS)
         torch.cuda.synchronize()
         if [c.launches - k for c, k in zip(counters, before)] != [
-                kind == "tc", kind == "tc128", kind == "large", kind == "large_tc"]:
+                kind == "tc", kind == "tc128", kind == "large", kind == "large_tc",
+                kind == "cluster"]:
             raise SystemExit(f"newton_schulz {shape}: the planned {kind} kernel did not launch")
         want = ref.newton_schulz_ref(x0[rep], NS_ITERS)
         want_d = ref.manifold_distance_ref(want)
@@ -1111,7 +1161,7 @@ def phase_newton_schulz(gen):
             wrapper = functools.partial(wrapper, tile_n=tile_n)
         timed = [(lambda: ref.newton_schulz_ref(x0, NS_ITERS), 10),
                  (lambda: wrapper(x0, NS_ITERS, out=out), 20)]
-        if kind in ("tc", "tc128"):  # the CUDA-core tiled kernel, its route here before
+        if kind in ("tc", "tc128", "cluster"):  # row 9's tiled kernel, its route here before
             cc_tile = ops.ns_tiled_tile_n(p)
             cc = functools.partial(ns.newton_schulz_tiled, tile_n=cc_tile)
             max_cc, _, ok_cc = _errors((cc(x0, NS_ITERS),), (ref.newton_schulz_ref(x0, NS_ITERS),),
@@ -1138,20 +1188,35 @@ def phase_newton_schulz(gen):
         else:
             bound_ms, bound_by = _bound_ms(2 * b * p * n * 4, flops)
         idle, thresh = torch.zeros(b, device="cuda"), torch.tensor(0.1, device="cuda")
-        idle_ms = _time_ms(lambda: ops.newton_schulz_repair(x0, idle, thresh, NS_ITERS), 20)
+
+        def idle_repair():
+            ops.newton_schulz_repair(x0, idle, thresh, NS_ITERS)
+
         extra = ""
-        if kind in ("tc", "tc128"):  # row 9's idle repair through the same entry
-            with _row9_planned(p):
-                ops.reset_launches()
-                idle_cc = _time_ms(lambda: ops.newton_schulz_repair(x0, idle, thresh,
-                                                                    NS_ITERS), 20)
-                if ops.launches()["newton_schulz_tiled"] != 22:
-                    raise SystemExit(f"newton_schulz {shape}: row 9's idle repair did not run")
+        if kind in ("tc", "tc128", "cluster"):  # row 9's idle repair through the same entry
+            ops.reset_launches()
+            idle_ms, idle_cc = _idle_in_turns(idle_repair, p)
+            if ops.launches()["newton_schulz_tiled"] != 2 + IDLE_CALLS:
+                raise SystemExit(f"newton_schulz {shape}: row 9's idle repair did not run")
             cc_bound = _bound_ms(2 * b * p * n * 4, flops)
-            extra = (f"; 3xTF32 tensor work (the gram 2 TF32 products, the update 3); the "
-                     f"CUDA-core tiled kernel at this call {times[2]:.4f} ms (tile "
+            extra = (f"; the CUDA-core tiled kernel at this call {times[2]:.4f} ms (tile "
                      f"{cc_tile}; fp32 CUDA cores {cc_bound[0]:.4f}), its "
                      f"repair with no matrix past the threshold {idle_cc:.4f} ms")
+            if kind != "cluster":
+                extra = "; 3xTF32 tensor work (the gram 2 TF32 products, the update 3)" + extra
+        else:
+            idle_ms = _time_ms(idle_repair, 20)
+        if kind == "cluster":  # row 9's reading here, the planner's rule, the grid
+            c = ops.ns_cluster(p, n)
+            extra += (f"; clusters of {c} CTAs, "
+                      f"{fs.cluster_lib().ns_cluster_max_clusters(p, n, c)} resident at once")
+            _record(records, "newton_schulz", shape, dict(
+                max_abs_err=max_cc, ms=times[2], plain_ms=plain_ms, bound_ms=cc_bound[0],
+                bound_by=cc_bound[1]))
+            if not (ms < times[2] and idle_ms <= idle_cc + 0.01):
+                raise SystemExit(f"newton_schulz_cluster at {shape}: {ms:.4f} ms, idle "
+                                 f"{idle_ms:.4f}, against row 9's {times[2]:.4f} / "
+                                 f"{idle_cc:.4f}: the planner's rule no longer holds")
         if kind == "tc128":  # row 9's reading here, the planner's rule, the grid
             c = ops.ns_tc128_cluster(n)
             extra += (f"; clusters of {c} CTAs, {ns.tc_lib().ns_tc128_max_clusters(n)} "
@@ -1184,7 +1249,7 @@ def phase_newton_schulz(gen):
         print(f"  newton_schulz_{kind} {b}x({p},{n}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
               f"bound_ms {bound_ms:.4f} ({bound_by}); repair with no matrix past the "
               f"threshold {idle_ms:.4f} ms{extra}", flush=True)
-        if kind != "whole":  # the tiled kernel's record: the paper's 1048 x (10, 10000)
+        if kind != "whole":
             _record(records, name, shape, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                                bound_by=bound_by))
         del x, x0, out
@@ -1680,13 +1745,15 @@ def phase_landing_watchdog(gen, card):
     tensor-core repair), at internlm2-1.8b's 576 x (128, 2048) (the wide
     fused kernel and the tensor-core repair for p <= 128, row 9w), at the
     paper's unitary-PC 1048 x (10, 10000) (the cluster kernel's Landing and
-    the CUDA-core tiled repair, row 9, whose main path this is), and at the
-    paper's CNN filters, 3 x (256, 2304), and O-ViT, 18 x (1024, 1024) (the
-    large route's fused Landing and Newton-Schulz). At internlm2-1.8b's
-    q/k the drift step and an undrifted one (the repair's idle launch) are
-    timed first, medians of three on copies of the state, the drift step
-    also with row 9 planned in place of row 9w. Returns the repair kernels'
-    launches."""
+    Newton-Schulz, rows 2Lcl and 9cl), at 1048 x (10, 9998) (the CUDA-core
+    tiled Landing and repair, rows 2L and 9, whose main path this is), at
+    the paper's CNN filters, 3 x (256, 2304), and O-ViT, 18 x (1024, 1024)
+    (the large route's fused Landing and Newton-Schulz), and at
+    ``LARGE_ODD`` (the CUDA-core large route). At internlm2-1.8b's q/k and
+    the paper's 1048 x (10, 10000) the drift step and an undrifted one (the
+    repair's idle launch) are timed first, medians of three on copies of the
+    state, the drift step also with row 9 planned in place of row 9w or 9cl.
+    Returns the repair kernels' launches."""
     import torch
 
     from repro_torch.core import api, stiefel
@@ -1699,6 +1766,8 @@ def phase_landing_watchdog(gen, card):
                                  (WIDE_SHAPE, "fused_step_tiled_tc128_landing",
                                   "newton_schulz_tc128"),
                                  (PAPER_SHAPE, "fused_step_cluster_landing",
+                                  "newton_schulz_cluster"),
+                                 (PAPER_ODD_SHAPE, "fused_step_tiled_landing",
                                   "newton_schulz_tiled"),
                                  (CNN_SHAPE, "fused_step_large_tc_landing",
                                   "newton_schulz_large_tc"),
@@ -1717,8 +1786,8 @@ def phase_landing_watchdog(gen, card):
 
         for _ in range(2):
             cs, state, _ = step(cs, state, grads())
-        if shape == WIDE_SHAPE:
-            _time_drift_step(step, cs, state, grads(), card)
+        if shape in (WIDE_SHAPE, PAPER_SHAPE):
+            _time_drift_step(step, cs, state, grads(), card, shape, repair)
         for s in cs.stacks:
             s.mul_(1.5)
         g = grads()
@@ -1741,12 +1810,13 @@ def phase_landing_watchdog(gen, card):
     return repairs
 
 
-def _time_drift_step(step, cs, state, g, card, repeats=3):
+def _time_drift_step(step, cs, state, g, card, shape, repair, repeats=3):
     """Medians of ``repeats`` fused Landing steps with the watchdog from
-    copies of (cs, state): undrifted (the repair's idle launch), after the
-    1.5x drift (the repair of every matrix), and the drift step again with
-    a stand-in planner that gives Newton-Schulz row 9's tiled kernel. Each
-    run must launch the planned repair once a step."""
+    copies of (cs, state) at ``shape``: undrifted (the repair's idle
+    launch), after the 1.5x drift (the repair of every matrix), and the
+    drift step again with a stand-in planner that gives Newton-Schulz row
+    9's tiled kernel. Each run must launch the planned repair (``repair``)
+    once a step."""
     import torch
 
     from repro_torch.core import api
@@ -1775,13 +1845,14 @@ def _time_drift_step(step, cs, state, g, card, repeats=3):
             raise SystemExit(f"landing fused + watchdog timing: {got} repaired, not {want}")
         return ms
 
-    still = repairs(1.0, "newton_schulz_tc128")
-    drift = repairs(1.5, "newton_schulz_tc128")
-    with _row9_planned(WIDE_SHAPE[1]):
+    still = repairs(1.0, repair)
+    drift = repairs(1.5, repair)
+    with _row9_planned(shape[1]):
         drift_row9 = repairs(1.5, "newton_schulz_tiled")
-    print(f"landing fused + watchdog, {WIDE_SHAPE[0]}x{WIDE_SHAPE[1:]}: median step "
+    row = {"newton_schulz_tc128": "row 9w", "newton_schulz_cluster": "row 9cl"}[repair]
+    print(f"landing fused + watchdog, {shape[0]}x{shape[1:]}: median step "
           f"{still:.4f} ms undrifted (the repair idle), {drift:.4f} ms on the drift step "
-          f"(row 9w repairs), {drift_row9:.4f} ms with row 9 repairing [{card}]", flush=True)
+          f"({row} repairs), {drift_row9:.4f} ms with row 9 repairing [{card}]", flush=True)
 
 
 def phase_tp_schedule(gen, card):
@@ -2367,10 +2438,11 @@ def main() -> int:
         for line in build.PTXAS_LOG.get(name, "").splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"ptxas[{name}] {line.strip()}", flush=True)
-    spills = [line for line in build.PTXAS_LOG["newton_schulz_tc"].splitlines()
-              if "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line]
-    if spills:  # the tensor-core Newton-Schulz kernels keep every value in registers
-        raise SystemExit(f"newton_schulz_tc.cu spills: {spills}")
+    for name in ("newton_schulz_tc", "small_p"):  # every value kept in registers
+        spills = [line for line in build.PTXAS_LOG[name].splitlines()
+                  if "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line]
+        if spills:
+            raise SystemExit(f"{name}.cu spills: {spills}")
 
     phase_tf32_probe(card)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2444,6 +2516,7 @@ def main() -> int:
             launches[name] = launches.get(name, 0) + counts[name]
     repairs = phase_landing_watchdog(gen, card)
     launches["newton_schulz"] = repairs["newton_schulz_tiled"]
+    launches["newton_schulz_cluster"] = repairs["newton_schulz_cluster"]
     launches["newton_schulz_tc128"] = repairs["newton_schulz_tc128"]
     launches["newton_schulz_large"] = repairs["newton_schulz_large"]
     launches["newton_schulz_large_tc"] = repairs["newton_schulz_large_tc"]

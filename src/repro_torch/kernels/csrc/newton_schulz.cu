@@ -27,9 +27,10 @@
 //   tiles, columns past n load as zero and are not stored); nothing is
 //   padded.
 //
-// Bound: 4 p^2 n flops per matrix per iteration (the gram and G Y), so
-// 48 p^2 n at 12 iterations against 8 p n bytes moved (X read once, Y
-// written once): 6 p flop/byte, above the fp32 ridge of 20 for p >= 4.
+// Bound: 3 p^2 n flops per matrix per iteration (the symmetric gram Y Y^T
+// p^2 n, G Y 2 p^2 n), so 36 p^2 n at 12 iterations against 8 p n bytes
+// moved (X read once, Y written once): 4.5 p flop/byte, above the fp32
+// ridge of 20 for p >= 5.
 // Operations bound it; the products are the IEEE fp32 register blocks of
 // tiles.cuh on the CUDA cores (no TF32, no fast math).
 //

@@ -1,7 +1,9 @@
 // The fused step (POGO and Landing) and the two-stage POGO update and
 // landing field for small p on Hopper (sm_90a; the planner takes all four
 // to p = 24): one (p, n) matrix per thread block cluster, held whole in the
-// cluster's shared memory, IEEE fp32 on the CUDA cores.
+// cluster's shared memory, IEEE fp32 on the CUDA cores. Newton-Schulz for
+// p < 32 (small_p_ns_kernel, row 9cl) shares the layout; its notes are
+// at its kernel, at the end of this file.
 //
 // Replaces the Pallas TPU kernels
 //   fused_step_cluster   <- src/repro/kernels/fused_step.py:608 fused_step_tiled
@@ -89,6 +91,9 @@
 // writes nu'. Every launcher returns cudaGetLastError(); a refused launch is
 // its error.
 
+#include <mutex>
+#include <vector>
+
 #include "hopper.cuh"
 #include "tiles.cuh"
 
@@ -152,22 +157,25 @@ __host__ __device__ inline int sp_smem_bytes(int p, int n, int c) {
   return 2 * L.nbox * L.sbox + 4 * sp_extra_floats(round4(p)) + 16 * L.nbox + 1024;
 }
 
-__host__ __device__ inline bool sp_fits(int p, int n, int c, int ctas) {
-  return sp_layout(p, n, c).nbox <= kSpMaxBoxes && sp_smem_bytes(p, n, c) <= kSmemLimit &&
-         ctas * (sp_smem_bytes(p, n, c) + 1024) <= kSpSmSmem;
-}
-
-// The cluster size for (p, n): the least c in {2, 4, 8} whose CTA leaves
-// an SM room for a second one, so that one CTA's loads run under the
-// other's products (at 1048 x (10, 10000) on an H100, ms fused POGO /
-// POGO update: c = 8, two CTAs an SM, 1.2307 / 0.9033; c = 4, one,
-// 1.5050 / 1.0695); else the least whose slices fit a CTA; 0 when none does.
-__host__ __device__ inline int sp_cluster(int p, int n) {
-  for (int ctas = 2; ctas >= 1; --ctas)
-    for (int c = 2; c <= kSpMaxCluster; c *= 2)
-      if (sp_fits(p, n, c, ctas)) return c;
+// The least c in {2, 4, 8} whose CTA (`bytes(p, n, c)` of shared memory)
+// leaves an SM room for a second one (where the kernel's registers allow
+// `most` CTAs an SM, two), so that one CTA's loads run under the other's
+// products; else the least whose slices fit a CTA; 0 when none does.
+inline int sp_least_cluster(int p, int n, int (*bytes)(int, int, int), int most = 2) {
+  for (int ctas = most; ctas >= 1; --ctas)
+    for (int c = 2; c <= kSpMaxCluster; c *= 2) {
+      const int smem = bytes(p, n, c);
+      if (sp_layout(p, n, c).nbox <= kSpMaxBoxes && smem <= kSmemLimit &&
+          ctas * (smem + 1024) <= kSpSmSmem)
+        return c;
+    }
   return 0;
 }
+
+// The four entries' cluster size for (p, n) (at 1048 x (10, 10000) on an
+// H100, ms fused POGO / POGO update: c = 8, two CTAs an SM, 1.2307 /
+// 0.9033; c = 4, one, 1.5050 / 1.0695).
+inline int sp_cluster(int p, int n) { return sp_least_cluster(p, n, sp_smem_bytes); }
 
 // KC consecutive floats from / to shared or global memory (16-, 8- or
 // 4-byte aligned).
@@ -738,9 +746,86 @@ const void* sp_kernel(int PB) {
   }
 }
 
-// Tensor maps over X and g ((n, p, B, 1), a (W, p) box), the persistent
-// grid (as many clusters as the card keeps resident, at most B) and the
-// cluster launch.
+// A launch of ctas CTAs in clusters of c, smem bytes of dynamic shared
+// memory each (attr, the cluster's shape, outlives the configuration).
+cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int c, int smem, int ctas,
+                                  void* stream) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = c;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The clusters of c CTAs, smem bytes each, the card keeps resident at once
+// for kernel, or minus a CUDA error. Under a lock: once a (device, kernel),
+// the kernel's shared-memory limit, set at kSmemLimit (one value a
+// function, whatever a launch asks); once a (device, kernel, c, smem), the
+// count. A launch after the first costs a lookup, so that the watchdog's
+// idle repair stays cheap.
+int resident_clusters(const void* kernel, int c, int smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  struct Known {
+    int dev;
+    const void* kernel;
+    int c, smem, clusters;  // c = 0: the limit is set
+  };
+  static std::mutex lock;
+  static std::vector<Known> known;
+  const std::lock_guard<std::mutex> hold(lock);
+  bool ready = false;
+  for (const Known& k : known) {
+    if (k.dev == dev && k.kernel == kernel && k.c == c && k.smem == smem) return k.clusters;
+    ready |= k.dev == dev && k.kernel == kernel && k.c == 0;
+  }
+  if (!ready) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    known.push_back({dev, kernel, 0, 0, 0});
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(&attr, c, smem, c, nullptr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  known.push_back({dev, kernel, c, smem, clusters});
+  return clusters;
+}
+
+// A tensor map over a (B, p, n) fp32 stack as (n, p, B, 1), a (W, p) box.
+int rows_map(CUtensorMap* map, const float* src, int B, int p, int n, int W) {
+  const uint64_t e = sizeof(float);
+  const uint64_t dims[4] = {static_cast<uint64_t>(n), static_cast<uint64_t>(p),
+                            static_cast<uint64_t>(B), 1};
+  const uint64_t strides[3] = {n * e, p * n * e, B * p * n * e};
+  const uint32_t box[4] = {static_cast<uint32_t>(W), static_cast<uint32_t>(p), 1, 1};
+  return hopper::make_tma_map_f32_rows(map, src, dims, strides, box);
+}
+
+// kernel on the persistent grid: as many clusters of c CTAs as the card
+// keeps resident, at most B (> 0).
+int cluster_launch(const void* kernel, int c, int smem, int B, void** args, void* stream) {
+  const int clusters = resident_clusters(kernel, c, smem);
+  if (clusters < 0) return -clusters;
+  if (clusters == 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(&attr, c, smem, (B < clusters ? B : clusters) * c, stream);
+  const cudaError_t err = cudaLaunchKernelExC(&cfg, kernel, args);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Tensor maps over X and g and the cluster launch.
 int sp_launch(int mode, const float* x, const float* g, const float* mu, const float* nu,
               const float* scal, const int* pv, float* x_out, float* mu_out, float* nu_out,
               float* dist, int B, int p, int n, int base_kind, int nesterov, int c,
@@ -759,43 +844,469 @@ int sp_launch(int mode, const float* x, const float* g, const float* mu, const f
                        : mode == kSpLanding ? sp_kernel<kSpLanding>(PB)
                        : mode == kSpUpdate  ? sp_kernel<kSpUpdate>(PB)
                                             : sp_kernel<kSpField>(PB);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0) return static_cast<int>(cudaGetLastError());
   CUtensorMap maps[2] = {};
-  const uint64_t e = sizeof(float);
-  const uint64_t dims[4] = {static_cast<uint64_t>(n), static_cast<uint64_t>(p),
-                            static_cast<uint64_t>(B), 1};
-  const uint64_t strides[3] = {n * e, p * n * e, B * p * n * e};
-  const uint32_t box[4] = {static_cast<uint32_t>(L.W), static_cast<uint32_t>(p), 1, 1};
   const float* srcs[2] = {x, g};
   for (int i = 0; i < 2; ++i) {
-    const int merr = hopper::make_tma_map_f32_rows(&maps[i], srcs[i], dims, strides, box);
+    const int merr = rows_map(&maps[i], srcs[i], B, p, n, L.W);
     if (merr != 0) return merr;
   }
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = c;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(c);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (clusters < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cfg.gridDim = dim3((B < clusters ? B : clusters) * c);
   void* args[] = {&maps[0], &maps[1], &mu, &nu, &scal, &pv, &x_out, &mu_out, &nu_out, &dist,
                   &B, &p, &n, &base_kind, &nesterov, &c};
-  err = cudaLaunchKernelExC(&cfg, kernel, args);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return cluster_launch(kernel, c, smem, B, args, stream);
+}
+
+// ---------------------------------------------------------------------------
+// Newton-Schulz for p < 32 (row 9cl): small_p_ns_kernel, a sibling of
+// small_p_kernel on its layout, that holds one matrix's Y in a cluster's
+// shared memory through every iteration.
+//
+// Replaces src/repro/kernels/newton_schulz.py:37 (newton_schulz, _ns_kernel
+// :21), reached through kernels/ops.py:700 (_ns_dispatch) from the
+// watchdog's repair, as newton_schulz.cu's kernels do, with their function
+// per (p, n) matrix of a (B, p, n) fp32 stack:
+//   f = max(||X||_F, 1e-30),  Y = X / f
+//   iters times:  Y <- 1.5 Y - 0.5 (Y Y^T) Y
+//   dist = ||Y Y^T - I||_F
+// and their (B,) byte mask: a matrix whose byte is 0, and its distance,
+// stay as they were.
+//
+// Bound: 3 p^2 n flops an iteration (the symmetric gram p^2 n, G Y 2 p^2 n)
+// against X read once and Y written once: at 1048 x (10, 10000) and 12
+// iterations 0.5631 ms of fp32 operations against 0.2503 of bytes.
+// Operations bound it. newton_schulz.cu's tiled kernel (row 9) sweeps Y
+// through the output buffer in every iteration, one 64-column tile in
+// flight a CTA.
+//
+// Design:
+// * small_p_kernel's layout with Y's slots alone: CTA r of a cluster of c
+//   holds columns [r nc, (r + 1) nc) of the matrix as row-major (p, W)
+//   boxes, each TMA-loaded once onto its own mbarrier; a persistent grid of
+//   clusters walks the stack. Y never goes to HBM between iterations.
+// * 13 grams a matrix (12 with no distance): X X^T, whose trace is
+//   ||X||_F^2 (the prescale; the gram then scaled by 1 / f^2 is Y_0's, as
+//   csrc/large_p.cu's Newton-Schulz reads it), then each iterate's. A
+//   thread sums a pair of 4 x 4 blocks that share a block row (the
+//   diagonal block's rows loaded once, its upper half alone) over its
+//   column quads of all the boxes in one loop (ns_gram_pair; the pairs
+//   cover each block on or above the diagonal, or its mirror, once:
+//   ns_item), the lanes meet (publish), and the CTAs' partials are summed
+//   in rank order with every peer's load in flight (ns_sum): one cluster
+//   barrier a gram. On an H100 at 1048 x (10, 10000) (ms, builds in turns,
+//   benchmarks_torch/small_p_readings.py --ns --source): a 4 x 4 block a
+//   thread 3.4920; the pairs, 4 columns a thread and the peers' loads in
+//   flight 3.3691; the upper half and one loop over the boxes 3.0962,
+//   unrolled twice 3.0179. Meeting the lanes' sums by halving (31
+//   shuffles for 32 sums, not 160) lost, 3.2109 against 3.0171: its
+//   levels are serial.
+//   The published sets alternate by the gram's parity, counted over the
+//   launch: set s, read by the peers after gram k's barrier and before
+//   they arrive at gram k + 1's, is written again at k + 2, after that
+//   barrier.
+// * The update is a column round as small_p_kernel's land: a thread's KC
+//   whole columns (ns_cols) with every row in registers (X / f in the
+//   first), G read
+//   as broadcast rows, Y' written over its columns; the last iterate also
+//   to HBM. The last gram gives the distance (sp_residual, rank 0's first
+//   warp). Then the boxes take the next matrix's loads (with no distance,
+//   each box as the last round has finished it).
+// * The mask: every CTA of a cluster reads the same bytes and skips a
+//   masked-off matrix, issuing no load and no barrier for it; the CTA reads
+//   the next kThreads of its cluster's bytes at once, so that an idle
+//   launch (every matrix masked off) waits for one load, not for B /
+//   clusters loads in a row.
+//
+// Shared memory: Y's slots (a slot of p W floats a box, rounded up to 128
+// bytes), two sets of published (PB, PB) grams, the summed gram, a zero
+// row, the warps' partials and an mbarrier a box. out may alias x: a CTA
+// reads its columns before it writes them, and writes only its own.
+
+// Floats past Y's slots: the two published sets and the summed gram (PB^2
+// each), the zero row and the warps' partials.
+__host__ __device__ inline int ns_extra_floats(int PB) {
+  return 3 * PB * PB + kSpBoxCols + kWarps * 16;
+}
+
+__host__ __device__ inline int ns_smem_bytes(int p, int n, int c) {
+  const SpLayout L = sp_layout(p, n, c);
+  return L.nbox * L.sbox + 4 * ns_extra_floats(round4(p)) + 8 * L.nbox + 1024;
+}
+
+// Whole columns a thread takes in Newton-Schulz's rounds: Y alone is in
+// registers, so twice small_p_kernel's sp_cols.
+__host__ __device__ constexpr int ns_cols(int PB) { return PB <= 16 ? 4 : 2; }
+
+// The CTAs an SM the Newton-Schulz kernel's registers are capped for: two
+// to PB = 12; past it the gram's off-diagonal pairs (two blocks' rows and
+// sums) spilled at 128 registers (PB = 16-28 on an H100), so one.
+__host__ __device__ constexpr int ns_ctas_per_sm(int PB) { return PB <= 12 ? 2 : 1; }
+
+// Blocks of block row bi in the circulant cover of an nb x nb grid of 4 x 4
+// blocks: (bi, (bi + d) % nb) for d < ns_row_blocks(nb, bi) covers every
+// block on and above the diagonal, or its mirror, once.
+__host__ __device__ constexpr int ns_row_blocks(int nb, int bi) {
+  return nb % 2 ? (nb + 1) / 2 : bi < nb / 2 ? nb / 2 + 1 : nb / 2;
+}
+
+// The gram's items (a thread's share): each row's blocks in pairs that
+// share the row's four rows, the nb pairs holding a diagonal block first.
+__host__ __device__ constexpr int ns_items(int nb) {
+  int t = 0;
+  for (int bi = 0; bi < nb; ++bi) t += (ns_row_blocks(nb, bi) + 1) / 2;
+  return t;
+}
+
+// Item `item`'s block row bi and its blocks' columns bj1, bj2 (-1: none).
+__device__ inline void ns_item(int item, int nb, int& bi, int& bj1, int& bj2) {
+  if (item < nb) {
+    bi = bj1 = item;
+    bj2 = ns_row_blocks(nb, item) > 1 ? (item + 1) % nb : -1;
+    return;
+  }
+  item -= nb;
+  for (bi = 0; bi < nb - 1 && item >= (ns_row_blocks(nb, bi) - 1) / 2; ++bi)
+    item -= (ns_row_blocks(nb, bi) - 1) / 2;
+  const int d = 2 * item + 2;
+  bj1 = (bi + d) % nb;
+  bj2 = d + 1 < ns_row_blocks(nb, bi) ? (bi + d + 1) % nb : -1;
+}
+
+// acc[16 k + 4 r + c] += sum_q Y[4 bi + r, q] Y[4 bj_k + c, q] (k = 0, 1)
+// over the column quads s, s + S, ... of `boxes` row-major (p, W) boxes
+// sboxf floats apart, counted box after box; rows past p and a missing
+// block (bj = -1) read the zero row. With kDiag (bj_0 = bi) the first
+// block's rows are loaded once and only its entries r <= c are summed
+// (ns_meet mirrors them). The second block's rows reuse the first's
+// registers.
+template <bool kDiag>
+__device__ inline void ns_gram_pair(float (&acc)[32], const float* Y, int sboxf, int boxes,
+                                    int bi, int bj1, int bj2, int p, int W, const float* zrow,
+                                    int s, int S) {
+  const float* u[4];
+  const float* v[4];
+  const float* w[4];
+  int mu = 0, mv = 0, mw = 0;  // bit r: row r of the block lies in the boxes
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    u[r] = 4 * bi + r < p ? Y + (4 * bi + r) * W : zrow;
+    v[r] = 4 * bj1 + r < p ? Y + (4 * bj1 + r) * W : zrow;
+    w[r] = bj2 >= 0 && 4 * bj2 + r < p ? Y + (4 * bj2 + r) * W : zrow;
+    mu |= (4 * bi + r < p) << r;
+    mv |= (4 * bj1 + r < p) << r;
+    mw |= (bj2 >= 0 && 4 * bj2 + r < p) << r;
+  }
+  const int wq = W / 4;
+  int box = 0, q = s;
+  while (q >= wq) {
+    q -= wq;
+    ++box;
+  }
+#pragma unroll 2
+  for (; box < boxes;) {
+    const int at = 4 * q, bat = box * sboxf + at;  // the zero row takes no box offset
+    float a[4][4], b[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) load4(a[r], lds4(u[r] + (mu >> r & 1 ? bat : at)));
+    if (kDiag) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int k = r; k < 4; ++k)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[4 * r + k] = fmaf(a[r][e], a[k][e], acc[4 * r + k]);
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) load4(b[r], lds4(v[r] + (mv >> r & 1 ? bat : at)));
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[4 * r + k] = fmaf(a[r][e], b[k][e], acc[4 * r + k]);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) load4(b[r], lds4(w[r] + (mw >> r & 1 ? bat : at)));
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[16 + 4 * r + k] = fmaf(a[r][e], b[k][e], acc[16 + 4 * r + k]);
+    for (q += S; q >= wq; q -= wq) ++box;
+  }
+}
+
+// out = the sum of every CTA's `pub` (count floats, count % 4 == 0) in rank
+// order, as cluster_sum adds them (the same bits), a thread's c loads in
+// flight at once.
+__device__ inline void ns_sum(const float* pub, float* out, int count, int c, int rank) {
+  for (int e = 4 * threadIdx.x; e < count; e += 4 * kThreads) {
+    float4 v[kSpMaxCluster];
+#pragma unroll
+    for (int k = 0; k < kSpMaxCluster; ++k)
+      if (k < c)
+        v[k] = k == rank ? lds4(pub + e) : hopper::ld_peer4(hopper::map_peer(pub + e, k));
+    float4 t = v[0];
+#pragma unroll
+    for (int k = 1; k < kSpMaxCluster; ++k)
+      if (k < c) {
+        t.x += v[k].x;
+        t.y += v[k].y;
+        t.z += v[k].z;
+        t.w += v[k].w;
+      }
+    *reinterpret_cast<float4*>(out + e) = t;
+  }
+}
+
+// One group of KC whole columns of Y (yb: its first column in the boxes; G
+// row-major (PB, PB)): Y' = 1.5 Y - 0.5 G Y (Y as it is with `apply`
+// false), each row over the boxes (`keep`) and to HBM at `hbm` (its first
+// element, row stride n; null: not there). With `first` the boxes hold X,
+// read as X / f.
+template <int PB, int KC>
+__device__ __forceinline__ void ns_group(float* yb, const float* G, bool first, float f,
+                                         bool apply, bool keep, int p, int n, int W, float* hbm,
+                                         const float* zrow) {
+  float y[PB][KC];
+#pragma unroll
+  for (int i = 0; i < PB; ++i) {
+    ld_cols(y[i], i < p ? yb + i * W : zrow);
+    if (first)
+#pragma unroll
+      for (int c = 0; c < KC; ++c) y[i][c] = y[i][c] / f;
+  }
+#pragma unroll
+  for (int r = 0; r < (sp_rolled(PB) ? 1 : PB); ++r)
+  for (int i = r; i < (sp_rolled(PB) ? p : r + 1); ++i) {
+    if (i >= p) continue;
+    float gy[KC] = {};
+    if (apply)
+#pragma unroll
+      for (int j4 = 0; j4 < PB / 4; ++j4) {
+        float gv[4];
+        load4(gv, lds4(G + i * PB + 4 * j4));
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int c = 0; c < KC; ++c) gy[c] = fmaf(gv[q], y[4 * j4 + q][c], gy[c]);
+      }
+    float yi[KC], o[KC];
+    if constexpr (sp_rolled(PB)) {
+      ld_cols(yi, yb + i * W);
+      if (first)
+#pragma unroll
+        for (int c = 0; c < KC; ++c) yi[c] = yi[c] / f;
+    } else {
+#pragma unroll
+      for (int c = 0; c < KC; ++c) yi[c] = y[i][c];
+    }
+#pragma unroll
+    for (int c = 0; c < KC; ++c) o[c] = apply ? 1.5f * yi[c] - 0.5f * gy[c] : yi[c];
+    if (keep) st_cols(yb + i * W, o);
+    if (hbm != nullptr) st_cols(hbm + static_cast<size_t>(i) * n, o);
+  }
+}
+
+// This thread's share of the gram (its item's blocks (bi, bj1) and (bi,
+// bj2)) over `boxes` boxes from Y, added to acc.
+__device__ __forceinline__ void ns_box_gram(float (&acc)[32], const float* Y, int sboxf,
+                                            int boxes, bool act, int bi, int bj1, int bj2, int p,
+                                            int W, const float* zrow, int s, int S) {
+  if (!act) return;
+  if (bj1 == bi)
+    ns_gram_pair<true>(acc, Y, sboxf, boxes, bi, bj1, bj2, p, W, zrow, s, S);
+  else
+    ns_gram_pair<false>(acc, Y, sboxf, boxes, bi, bj1, bj2, p, W, zrow, s, S);
+}
+
+// The CTA's gram partial (acc, S lanes an item) published into `set`, a
+// cluster barrier, and the cluster's sum into G (the same bits in every
+// CTA).
+template <int S>
+__device__ __forceinline__ void ns_meet(const float (&acc)[32], bool act, int bi, int bj1,
+                                        int bj2, int p, int PB, float* set, float* G,
+                                        float* part, int c, int rank) {
+  float acc0[16], acc1[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    acc0[e] = acc[e];
+    acc1[e] = acc[16 + e];
+  }
+  if (bj1 == bi)  // the diagonal block's sums below its diagonal: their mirrors
+#pragma unroll
+    for (int r = 1; r < 4; ++r)
+#pragma unroll
+      for (int k = 0; k < r; ++k) acc0[4 * r + k] = acc0[4 * k + r];
+  publish<S>(acc0, act, false, bi, bj1, p, PB, set, nullptr, part);
+  if (S > 32) __syncthreads();  // every warp's partials of the first block are read
+  publish<S>(acc1, act && bj2 >= 0, false, bi, bj2 < 0 ? 0 : bj2, p, PB, set, nullptr, part);
+  hopper::cluster_sync();
+  ns_sum(set, G, PB * PB, c, rank);
+  __syncthreads();
+}
+
+// One cluster of c CTAs a matrix; grid (clusters) x c.
+template <int PB>
+__global__ void __launch_bounds__(kThreads, ns_ctas_per_sm(PB))
+small_p_ns_kernel(const __grid_constant__ CUtensorMap tm_x, float* out,
+                  const unsigned char* mask, float* dist, int B, int p, int n, int iters,
+                  int c) {
+  extern __shared__ unsigned char small_p_smem[];
+  constexpr int KC = ns_cols(PB), nb = PB / 4, S = sp_lanes(ns_items(nb));
+  unsigned char* sm = hopper::smem_align1024(small_p_smem);
+  const SpLayout L = sp_layout(p, n, c);
+  const int W = L.W, sboxf = L.sbox / 4, tid = threadIdx.x;
+  const int rank = static_cast<int>(hopper::cluster_rank());
+  const int col_lo = rank * L.nc;
+  const int live = col_lo >= n ? 0 : min(L.nbox, (n - col_lo + W - 1) / W);  // boxes before n
+  float* YS = reinterpret_cast<float*>(sm);
+  float* pub = YS + L.nbox * sboxf;  // two published sets, then the summed gram
+  float* Gs = pub + 2 * PB * PB;
+  float* zrow = Gs + PB * PB;
+  float* part = zrow + kSpBoxCols;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(part + kWarps * 16);
+  const uint32_t box_bytes = static_cast<uint32_t>(p * W * 4);
+  const int cl = blockIdx.x / c, ncl = gridDim.x / c;
+  const CUtensorMap* const map = &tm_x;  // closures copy this, never the map
+  const int rounds = iters > 0 ? iters : 1;  // iters = 0: one round storing X / f
+
+  // This thread's gram item, S lanes each.
+  const int item = tid / S, s = tid % S;
+  const bool act = item < ns_items(nb);
+  int bi = 0, bj1 = 0, bj2 = -1;
+  if (act) ns_item(item, nb, bi, bj1, bj2);
+
+  if (tid == 0) {
+    for (int j = 0; j < L.nbox; ++j) hopper::mbar_init(bar + j, 1);
+    hopper::mbar_fence_init();
+  }
+  for (int e = tid; e < kSpBoxCols; e += kThreads) zrow[e] = 0.f;
+  __syncthreads();
+
+  // The first matrix at or after b (stepping by the clusters) that the mask
+  // keeps; B when none. Every thread calls it: the CTA reads kThreads of
+  // the mask's bytes at once, and each warp's least kept index meets the
+  // others' in `red` (the warps' partials, free between grams).
+  int* const red = reinterpret_cast<int*>(part);
+  auto kept = [=](int b) {
+    if (mask == nullptr) return min(b, B);
+    for (; b < B; b += kThreads * ncl) {
+      const int mine = b + tid * ncl;
+      int first = mine < B && mask[mine] != 0 ? mine : B;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) first = min(first, __shfl_xor_sync(~0u, first, o));
+      if (tid % 32 == 0) red[tid / 32] = first;
+      __syncthreads();
+      first = B;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) first = min(first, red[w]);
+      __syncthreads();  // every thread has read red
+      if (first < B) return first;
+    }
+    return B;
+  };
+  // Boxes [j0, j1) of matrix b into their slots, each on its mbarrier.
+  auto issue = [=](int b, int j0, int j1) {
+    for (int j = j0; j < j1; ++j) {
+      hopper::mbar_expect_tx(bar + j, box_bytes);
+      hopper::tma_load_4d(YS + j * sboxf, map, bar + j, col_lo + j * W, 0, b, 0);
+    }
+  };
+  uint32_t gk = 0;  // grams met so far: their published set alternates
+
+  int b = kept(cl);
+  if (tid == 0 && b < B) issue(b, 0, live);
+  for (int it = 0; b < B; ++it) {
+    const uint32_t ph = it & 1;
+    const int bn = kept(b + ncl);
+    float* const yout = out + static_cast<size_t>(b) * p * n;
+
+    // 1. X X^T, each box as it lands; f from its trace, and G of Y_0.
+    float acc[32] = {};
+    for (int j = 0; j < live; ++j) {
+      hopper::mbar_wait(bar + j, ph);
+      ns_box_gram(acc, YS + j * sboxf, sboxf, 1, act, bi, bj1, bj2, p, W, zrow, s, S);
+    }
+    ns_meet<S>(acc, act, bi, bj1, bj2, p, PB, pub + (gk++ & 1) * PB * PB, Gs, part, c, rank);
+    float tr = 0.f;
+    for (int i = 0; i < p; ++i) tr += Gs[i * PB + i];
+    const float f = fmaxf(sqrtf(tr), 1e-30f);
+    __syncthreads();  // every thread has read the diagonal
+    for (int e = tid; e < PB * PB; e += kThreads) Gs[e] = Gs[e] / f / f;
+    __syncthreads();
+
+    // 2. An update round over the boxes an iteration, then the new
+    // iterate's gram (after the last only for the distance).
+    for (int k = 0; k < rounds; ++k) {
+      const bool last = k + 1 == rounds;
+      const bool gram = !last || (dist != nullptr && iters > 0);
+      const int per = W / KC, total = live * per;
+      int finished = 0;
+      for (int u0 = 0; u0 < total; u0 += kThreads) {
+        const int u = u0 + tid, j = u / per, cb = (u - j * per) * KC;
+        const int col = col_lo + j * W + cb;
+        if (u < total && col < n)
+          ns_group<PB, KC>(YS + j * sboxf + cb, Gs, k == 0, f, iters > 0, gram, p, n, W,
+                           last ? yout + col : nullptr, zrow);
+        if (!gram) {  // each finished box takes the next matrix's load
+          const int now = min(total, u0 + kThreads) / per;
+          hopper::fence_proxy_async_smem();
+          __syncthreads();
+          if (tid == 0 && bn < B) issue(bn, finished, now);
+          finished = now;
+        }
+      }
+      if (!gram) break;
+      __syncthreads();  // Y' is the gram's operand
+      float accy[32] = {};
+      ns_box_gram(accy, YS, sboxf, live, act, bi, bj1, bj2, p, W, zrow, s, S);
+      if (last) {  // the boxes take the next matrix's loads
+        hopper::fence_proxy_async_smem();
+        __syncthreads();
+        if (tid == 0 && bn < B) issue(bn, 0, live);
+      }
+      ns_meet<S>(accy, act, bi, bj1, bj2, p, PB, pub + (gk++ & 1) * PB * PB, Gs, part, c, rank);
+    }
+    if (dist != nullptr && rank == 0 && tid < 32) sp_residual(Gs, PB, p, p, dist + b);
+    b = bn;
+  }
+  hopper::cluster_sync();  // no CTA leaves while a peer may read its shared memory
+}
+
+const void* ns_kernel(int PB) {
+  using K = const void*;
+  switch (PB) {
+    case 4: return K(small_p_ns_kernel<4>);
+    case 8: return K(small_p_ns_kernel<8>);
+    case 12: return K(small_p_ns_kernel<12>);
+    case 16: return K(small_p_ns_kernel<16>);
+    case 20: return K(small_p_ns_kernel<20>);
+    case 24: return K(small_p_ns_kernel<24>);
+    case 28: return K(small_p_ns_kernel<28>);
+    case 32: return K(small_p_ns_kernel<32>);
+    default: return nullptr;
+  }
+}
+
+// A tensor map over x and the cluster launch.
+int ns_launch(const float* x, float* out, const unsigned char* mask, float* dist, int B, int p,
+              int n, int iters, int c, void* stream) {
+  if (B < 0 || p < 1 || p > kSpMaxP || n < 4 || n % 4 != 0 || iters < 0 ||
+      (c != 2 && c != 4 && c != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SpLayout L = sp_layout(p, n, c);
+  const int smem = ns_smem_bytes(p, n, c);
+  const void* rows[] = {x, out};
+  if (L.nbox > kSpMaxBoxes || smem > kSmemLimit || !vector_ok(n, rows, 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return static_cast<int>(cudaGetLastError());
+  CUtensorMap map = {};
+  const int merr = rows_map(&map, x, B, p, n, L.W);
+  if (merr != 0) return merr;
+  void* args[] = {&map, &out, &mask, &dist, &B, &p, &n, &iters, &c};
+  return cluster_launch(ns_kernel(round4(p)), c, smem, B, args, stream);
 }
 
 }  // namespace
@@ -837,6 +1348,41 @@ int landing_field_cluster(const float* x, const float* g, const float* scal, flo
                           int p, int n, int c, void* stream) {
   return sp_launch(kSpField, x, g, nullptr, nullptr, scal, nullptr, out, nullptr, nullptr,
                    nullptr, B, p, n, kNone, 0, c ? c : small_p_cluster(p, n), stream);
+}
+
+// Newton-Schulz's cluster size for (p, n) (0: none holds Y) and one CTA's
+// dynamic shared memory at cluster size c (ops.py mirrors both): as
+// small_p_cluster's, counting Y's slots alone.
+int ns_cluster_smem_bytes(int p, int n, int c) { return ns_smem_bytes(p, n, c); }
+
+int ns_cluster(int p, int n) {
+  return p < 1 || p > kSpMaxP || n < 4 || n % 4 != 0
+             ? 0
+             : sp_least_cluster(p, n, ns_smem_bytes, ns_ctas_per_sm(round4(p)));
+}
+
+// The clusters of c CTAs the card keeps resident at once for
+// newton_schulz_cluster at (p, n), the persistent grid's width; -1 where the
+// kernel does not take (p, n, c), or minus the CUDA error of the query.
+int ns_cluster_max_clusters(int p, int n, int c) {
+  if (p < 1 || p > kSpMaxP || n < 4 || n % 4 != 0 || (c != 2 && c != 4 && c != 8) ||
+      ns_smem_bytes(p, n, c) > kSmemLimit || sp_layout(p, n, c).nbox > kSpMaxBoxes)
+    return -1;
+  return resident_clusters(ns_kernel(round4(p)), c, ns_smem_bytes(p, n, c));
+}
+
+// x, out: (B, p, n) fp32, p <= 32, n % 4 == 0, both 16-byte aligned (out
+// may be x); mask: (B,) bytes or null (every matrix); dist: (B,) fp32
+// written for the matrices processed, or null. Clusters of ns_cluster(p,
+// n) CTAs, or (the _c entry) of c.
+int newton_schulz_cluster_c(const float* x, float* out, const unsigned char* mask, float* dist,
+                            int B, int p, int n, int iters, int c, void* stream) {
+  return ns_launch(x, out, mask, dist, B, p, n, iters, c, stream);
+}
+
+int newton_schulz_cluster(const float* x, float* out, const unsigned char* mask, float* dist,
+                          int B, int p, int n, int iters, void* stream) {
+  return ns_launch(x, out, mask, dist, B, p, n, iters, ns_cluster(p, n), stream);
 }
 
 }  // extern "C"

@@ -100,7 +100,7 @@ def tc_lib() -> ctypes.CDLL:
 def cluster_lib() -> ctypes.CDLL:
     """The loaded ``small_p.cu`` library (the cluster kernel's entries: the
     fused step, POGO and Landing, and the two-stage POGO update and landing
-    field), built on first use."""
+    field; and Newton-Schulz's cluster kernel), built on first use."""
     lib = build.load("small_p")
     if not getattr(lib, "_typed", False):
         lib.fused_step_cluster.argtypes = [_P] * 10 + [_I] * 7 + [_P]
@@ -108,8 +108,15 @@ def cluster_lib() -> ctypes.CDLL:
         lib.landing_field_cluster.argtypes = [_P] * 4 + [_I] * 4 + [_P]
         lib.small_p_cluster.argtypes = [_I, _I]
         lib.small_p_smem_bytes.argtypes = [_I] * 3
+        lib.newton_schulz_cluster.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+        lib.newton_schulz_cluster_c.argtypes = [_P] * 4 + [_I] * 5 + [_P]
+        lib.ns_cluster.argtypes = [_I, _I]
+        lib.ns_cluster_smem_bytes.argtypes = [_I] * 3
+        lib.ns_cluster_max_clusters.argtypes = [_I] * 3
         for fn in (lib.fused_step_cluster, lib.pogo_update_cluster, lib.landing_field_cluster,
-                   lib.small_p_cluster, lib.small_p_smem_bytes):
+                   lib.small_p_cluster, lib.small_p_smem_bytes, lib.newton_schulz_cluster,
+                   lib.newton_schulz_cluster_c, lib.ns_cluster, lib.ns_cluster_smem_bytes,
+                   lib.ns_cluster_max_clusters):
             fn.restype = _I
         lib._typed = True
     return lib

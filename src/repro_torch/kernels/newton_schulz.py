@@ -1,5 +1,5 @@
 """Wrappers of the Newton-Schulz kernels (``csrc/newton_schulz.cu``,
-``csrc/newton_schulz_tc.cu``).
+``csrc/newton_schulz_tc.cu``, ``csrc/small_p.cu``).
 
 ``newton_schulz_whole`` and ``newton_schulz_tiled`` replace
 ``repro/kernels/newton_schulz.py:37`` (``_ns_kernel``): one CTA per
@@ -12,6 +12,10 @@ grams summed through distributed shared memory. ``newton_schulz_tc128``
 is its counterpart for 64 < p <= 128 (same source): clusters of up to 16
 CTAs, two 64-column chunks of Y a CTA, the gram reduce-scattered and
 gathered over distributed shared memory, a persistent grid of clusters
+walking the stack. ``newton_schulz_cluster`` (``csrc/small_p.cu``, row
+9cl) replaces it for p < 32 at n % 4 == 0: one matrix a thread block
+cluster of 2, 4 or 8 CTAs, Y held in their shared memory through every
+iteration (IEEE fp32 on the CUDA cores), a persistent grid of clusters
 walking the stack. ``newton_schulz_large``
 (``csrc/large_p.cu``) replaces it for p > 128 (past p = 136 the CUDA-core
 tiled kernel's two (p, p) grams outgrow a block; below, it lost to the
@@ -40,7 +44,7 @@ import ctypes
 import torch
 
 from . import build, large_p, ref
-from .fused_step import check_operand
+from .fused_step import check_operand, cluster_lib
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -181,6 +185,22 @@ def newton_schulz_tc128(x, iters=12, *, out=None, mask=None, dist=None):
     return res
 
 
+def newton_schulz_cluster(x, iters=12, *, out=None, mask=None, dist=None, cluster=None):
+    """Newton-Schulz for p < 32, n % 4 == 0: one matrix a thread block
+    cluster of ``ops.ns_cluster(p, n)`` CTAs (``cluster`` forces 2, 4 or
+    8), each holding its columns of Y in shared memory through every
+    iteration (``ops.ns_cluster_smem_bytes``), as many clusters as the card
+    keeps resident walking the stack."""
+    if cluster:
+        res = _run("newton_schulz_cluster_c", x, iters, out, mask, dist, int(cluster),
+                   lib=cluster_lib)
+    else:
+        res = _run("newton_schulz_cluster", x, iters, out, mask, dist, lib=cluster_lib)
+    if x.device.type == "cuda":
+        newton_schulz_cluster.launches += 1
+    return res
+
+
 def newton_schulz_large(x, iters=12, *, out=None, mask=None, dist=None,
                         runner=None):
     """Newton-Schulz for p > 128 (``csrc/large_p.cu``): each iteration a
@@ -228,5 +248,6 @@ newton_schulz_whole.launches = 0
 newton_schulz_tiled.launches = 0
 newton_schulz_tc.launches = 0
 newton_schulz_tc128.launches = 0
+newton_schulz_cluster.launches = 0
 newton_schulz_large.launches = 0
 newton_schulz_large_tc.launches = 0

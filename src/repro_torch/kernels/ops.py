@@ -16,7 +16,9 @@ route:
 * ``cluster`` otherwise, for the fused step (POGO and Landing) and the
   two-stage POGO update and landing field at p <= ``CLUSTER_MAX_P``, when
   n % 4 == 0 and a thread block cluster of at most 8 CTAs holds the matrix
-  (``csrc/small_p.cu``, ``small_p_cluster``);
+  (``csrc/small_p.cu``, ``small_p_cluster``), and for Newton-Schulz at p <
+  ``NS_TC_MIN_P`` where such a cluster holds Y (the same source's second
+  kernel, ``ns_cluster``);
 * ``tc`` otherwise when ``TC_MIN_P <= p <= TC_MAX_P`` (the tensor-core
   kernels of ``csrc/fused_step_tc.cu``, any n, one CTA per SM: one padded
   64-row ``wgmma`` tile for p <= 64, two 64-row halves up to 128), for
@@ -53,6 +55,8 @@ a CUDA tensor.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -121,6 +125,13 @@ LANDING_FIELD_TC_MIN_P = 25
 # 4.7974 / 2.5269. p = 32 at n = 4096 is a tie within the spread of the
 # readings (tensor-core 4.4949-4.5720, tiled 4.5507-4.6236); it takes the
 # tensor cores with the rest of p = 32, which won clearly at n = 2048.
+# Below it, where a cluster holds Y at n % 4 == 0, csrc/small_p.cu's
+# Newton-Schulz kernel (row 9cl) beat row 9 at every p and n read (on an
+# H100, benchmarks_torch/small_p_readings.py --ns; ms at 1048 x (p, n), row
+# 9 / 9cl): (4, 10000) 14.3743 / 0.9178, (10, 10000) 18.4287 / 3.0378, (24,
+# 4096) 12.7088 / 4.8953, (31, 2048) 8.4403 / 4.0294, (31, 10000) 38.7785 /
+# 24.4383. It beat 9tc at p = 32 too (4.0171 / 7.2896 at n = 2048, 8.7314 /
+# 17.9388 at 4096); p = 32 stays with 9tc here, no configuration has it.
 NS_TC_MIN_P = 32
 NS_TC_MAX_P = 64
 # Above NS_TC_MAX_P and up to TC_MAX_P a route other than the CUDA-core
@@ -136,7 +147,8 @@ NS_TC_MAX_P = 64
 # 22.9319 / 18.7431 / 16.7919, 0.0306 / 0.2134 / 0.0334; p = 96 34.7598
 # / 23.1556 / 16.4663, 0.0391 / 0.2146 / 0.0276; p = 128 (internlm2-1.8b's
 # q/k) 59.5427 / 29.2676 / 17.6470, 0.0325 / 0.2165 / 0.0380. Row 9
-# keeps p < NS_TC_MIN_P and n past 2048. That kernel takes p <= 64 too,
+# keeps n past 2048 there, and p < NS_TC_MIN_P where no cluster holds Y
+# (n % 4 != 0, or n past a cluster of 8). That kernel takes p <= 64 too,
 # but its products keep 128 rows whatever p, so NS_TC_MAX_P stays where
 # the p <= 64 kernel ends. On an H100 (benchmarks_torch/ns_tc_readings.py;
 # ms, p <= 64 kernel / p <= 128 kernel, drift step then idle): 640 x (64,
@@ -379,23 +391,48 @@ def small_p_smem_bytes(p: int, n: int, c: int) -> int:
     return 2 * nbox * sbox + 4 * (7 * pb * pb + _SMALL_P_BOX + 8 * 16 + 16) + 16 * nbox + 1024
 
 
-def small_p_cluster(p: int, n: int) -> int:
-    """``small_p_cluster``: the CTAs of the cluster kernels' cluster for
-    (p, n): the least of 2, 4 and 8 whose CTA leaves its SM room for a
-    second, so that one CTA's loads run under the other's products (on an
-    H100 at 1048 x (10, 10000), ms fused POGO / POGO update, in one run of
-    ``benchmarks_torch/small_p_readings.py``: c = 8, two CTAs an SM, 1.2307
-    / 0.9033; c = 4, one, 1.5050 / 1.0695); else the least whose slices fit
-    a CTA; 0 where none does (or p > ``SMALL_P_MAX_P``, or n % 4 != 0)."""
+def _least_cluster(p: int, n: int, smem_bytes, most: int = 2) -> int:
+    """``sp_least_cluster``: the least of 2, 4 and 8 whose CTA
+    (``smem_bytes(p, n, c)``) leaves its SM room for a second (where the
+    kernel's registers allow ``most`` CTAs an SM, two), else the least whose
+    slices fit a CTA; 0 where none does (or p > ``SMALL_P_MAX_P``, or n % 4
+    != 0)."""
     if not 1 <= p <= SMALL_P_MAX_P or n < 4 or n % 4:
         return 0
-    for ctas in (2, 1):
+    for ctas in range(most, 0, -1):
         for c in _SMALL_P_CLUSTERS:
-            smem = small_p_smem_bytes(p, n, c)
+            smem = smem_bytes(p, n, c)
             if (_small_p_layout(p, n, c)[1] <= _SMALL_P_BOXES and smem <= SMEM_LIMIT_BYTES
                     and ctas * (smem + _BLOCK_RESERVED_BYTES) <= SM_SMEM_BYTES):
                 return c
     return 0
+
+
+def small_p_cluster(p: int, n: int) -> int:
+    """``small_p_cluster``: the CTAs of the cluster kernels' cluster for
+    (p, n) (:func:`_least_cluster`), so that one CTA's loads run under the
+    other's products (on an H100 at 1048 x (10, 10000), ms fused POGO / POGO
+    update, in one run of ``benchmarks_torch/small_p_readings.py``: c = 8,
+    two CTAs an SM, 1.2307 / 0.9033; c = 4, one, 1.5050 / 1.0695)."""
+    return _least_cluster(p, n, small_p_smem_bytes)
+
+
+def ns_cluster_smem_bytes(p: int, n: int, c: int) -> int:
+    """``ns_cluster_smem_bytes``: one CTA of Newton-Schulz's cluster kernel,
+    its slots of Y (p x W floats a box, rounded up to 128 bytes), two sets
+    of published (PB, PB) grams and the summed one, a zero row, the warps'
+    partials, an mbarrier a box and 1 KB to align the slots."""
+    _, nbox, sbox = _small_p_layout(p, n, c)
+    pb = _round4(p)
+    return nbox * sbox + 4 * (3 * pb * pb + _SMALL_P_BOX + 8 * 16) + 8 * nbox + 1024
+
+
+def ns_cluster(p: int, n: int) -> int:
+    """``ns_cluster``: the CTAs of ``newton_schulz_cluster``'s cluster for
+    (p, n), :func:`_least_cluster` on Y's slots alone, with the CTAs an SM
+    that the kernel's registers allow (``ns_ctas_per_sm``: two to p = 12,
+    one past it); 0 where none holds Y."""
+    return _least_cluster(p, n, ns_cluster_smem_bytes, 2 if p <= 12 else 1)
 
 
 def _blocks_per_sm(smem: int, cap: int = _TILED_BLOCKS_PER_SM) -> int:
@@ -452,15 +489,16 @@ def _plan(what: str, p: int, n: int, whole_bytes, tiled_bytes,
 
 def _route(what: str, p: int, n: int, whole_bytes, tiled_bytes, tc_low: int,
            tc_high: int = TC_MAX_P, tiles: tuple[int, ...] = _TILE_NS,
-           fallback: tuple[int, ...] = (), cluster: bool = False) -> tuple[str, int]:
-    """Whole when one matrix fits a block; else, with ``cluster``, the
-    cluster kernel for p <= ``CLUSTER_MAX_P`` where a cluster holds the
-    matrix (:func:`small_p_cluster`); else the tensor-core kernel for ``tc_low <=
-    p <= tc_high``; else the large route for p > ``TC_MAX_P``
+           fallback: tuple[int, ...] = (), cluster=None) -> tuple[str, int]:
+    """Whole when one matrix fits a block; else, with ``cluster`` =
+    ``(capacity, high)``, the cluster kernel for p <= high where a cluster
+    holds the matrix (``capacity(p, n)``: :func:`small_p_cluster` or
+    :func:`ns_cluster`); else the tensor-core kernel for ``tc_low <= p <=
+    tc_high``; else the large route for p > ``TC_MAX_P``
     (:func:`large_kind`); else :func:`_plan`'s tile (every p <=
     ``TC_MAX_P`` has one)."""
     if whole_bytes(p, n) > SMEM_LIMIT_BYTES:
-        if cluster and p <= CLUSTER_MAX_P and small_p_cluster(p, n):
+        if cluster and p <= cluster[1] and cluster[0](p, n):
             return "cluster", 0
         if tc_low <= p <= tc_high:
             return "tc", 0
@@ -486,7 +524,7 @@ def plan(p: int, n: int, method: str = "pogo") -> tuple[str, int]:
     CUDA-core tiled kernel."""
     low = LANDING_TC_MIN_P if method == "landing" else TC_MIN_P
     return _route("fused group step", p, n, whole_smem_bytes, tiled_smem_bytes, low,
-                  tiles=_FUSED_TILE_NS, cluster=True)
+                  tiles=_FUSED_TILE_NS, cluster=(small_p_cluster, CLUSTER_MAX_P))
 
 
 def two_stage_tile_n(p: int, tiled_bytes) -> int | None:
@@ -502,7 +540,8 @@ def plan_pogo_update(p: int, n: int) -> tuple[str, int]:
     tile_n)`` or the large route of the POGO update (:func:`_route`, as
     :func:`plan`'s POGO step)."""
     return _route("pogo update", p, n, pogo_whole_smem_bytes, pogo_tiled_smem_bytes,
-                  TC_MIN_P, fallback=_TWO_STAGE_FALLBACK, cluster=True)
+                  TC_MIN_P, fallback=_TWO_STAGE_FALLBACK,
+                  cluster=(small_p_cluster, CLUSTER_MAX_P))
 
 
 def plan_landing_field(p: int, n: int) -> tuple[str, int]:
@@ -512,7 +551,7 @@ def plan_landing_field(p: int, n: int) -> tuple[str, int]:
     fit a block up to p ~ 160: the readings beside ``NS_TC_MAX_P``)."""
     return _route("landing field", p, n, landing_whole_smem_bytes,
                   landing_tiled_smem_bytes, LANDING_FIELD_TC_MIN_P,
-                  fallback=_TWO_STAGE_FALLBACK, cluster=True)
+                  fallback=_TWO_STAGE_FALLBACK, cluster=(small_p_cluster, CLUSTER_MAX_P))
 
 
 def plan_tp(what: str, p: int, tiled_bytes) -> int:
@@ -531,21 +570,24 @@ def plan_tp(what: str, p: int, tiled_bytes) -> int:
     return tile
 
 
+@functools.cache  # the watchdog's repair asks it on every step, the idle ones too
 def plan_newton_schulz(p: int, n: int) -> tuple[str, int]:
-    """``("whole", 0)``, ``("tc", 0)``, ``("tc128", 0)``, ``("tiled",
-    tile_n)`` or the large route of Newton-Schulz (:func:`_route`): the
-    tensor-core kernel for ``NS_TC_MIN_P <= p <= NS_TC_MAX_P`` when n fits
-    a cluster (``ns_tc_cluster``), its p <= 128 kernel above that up to
-    ``TC_MAX_P`` when n fits one of up to 16 CTAs
+    """``("whole", 0)``, ``("cluster", 0)``, ``("tc", 0)``, ``("tc128",
+    0)``, ``("tiled", tile_n)`` or the large route of Newton-Schulz
+    (:func:`_route`): for p < ``NS_TC_MIN_P`` the cluster kernel of
+    ``csrc/small_p.cu`` where a cluster holds Y (``ns_cluster``: n % 4 ==
+    0); the tensor-core kernel for ``NS_TC_MIN_P <= p <= NS_TC_MAX_P`` when
+    n fits a cluster (``ns_tc_cluster``), its p <= 128 kernel above that up
+    to ``TC_MAX_P`` when n fits one of up to 16 CTAs
     (``ns_tc128_cluster``); past p = 128 the large route, although the
     CUDA-core tiled kernel's grams fit a block up to p = 136 (the readings
     beside ``NS_TC_MAX_P``)."""
-    if (NS_TC_MAX_P < p <= TC_MAX_P and ns_tc128_cluster(n)
-            and ns_whole_smem_bytes(p, n) > SMEM_LIMIT_BYTES):
+    if (ns_whole_smem_bytes(p, n) > SMEM_LIMIT_BYTES and NS_TC_MAX_P < p <= TC_MAX_P
+            and ns_tc128_cluster(n)):
         return "tc128", 0
     tc_high = NS_TC_MAX_P if ns_tc_cluster(n) else 0
     return _route("newton-schulz", p, n, ns_whole_smem_bytes, ns_tiled_smem_bytes,
-                  NS_TC_MIN_P, tc_high)
+                  NS_TC_MIN_P, tc_high, cluster=(ns_cluster, NS_TC_MIN_P - 1))
 
 
 def pogo_update(x, g, eta, lam=0.5, *, find_root: bool = False,
@@ -635,6 +677,8 @@ def _ns_launch(x, iters, out, mask, dist):
         return _ns.newton_schulz_tc(x, iters, out=out, mask=mask, dist=dist)
     if kind == "tc128":
         return _ns.newton_schulz_tc128(x, iters, out=out, mask=mask, dist=dist)
+    if kind == "cluster":
+        return _ns.newton_schulz_cluster(x, iters, out=out, mask=mask, dist=dist)
     if kind == "large":
         return _ns.newton_schulz_large(x, iters, out=out, mask=mask, dist=dist)
     if kind == "large_tc":
@@ -657,7 +701,8 @@ KERNELS = (_fs.fused_step_whole, _fs.fused_step_tiled, _fs.fused_step_cluster,
            _lf.landing_field_tiled_tc,
            _lf.landing_field_tiled_tc128, _lf.landing_field_large,
            _lf.landing_field_large_tc, _ns.newton_schulz_whole, _ns.newton_schulz_tiled,
-           _ns.newton_schulz_tc, _ns.newton_schulz_tc128, _ns.newton_schulz_large,
+           _ns.newton_schulz_tc, _ns.newton_schulz_tc128, _ns.newton_schulz_cluster,
+           _ns.newton_schulz_large,
            _ns.newton_schulz_large_tc,
            _fa.flash_attention_fp32, _fa.flash_attention_tc)
 

@@ -129,6 +129,13 @@ inline float __shfl_xor_sync(unsigned, float v, int o) {
   g_warp_bar[w]->arrive_and_wait();
   return r;
 }
+inline int __shfl_xor_sync(unsigned m, int v, int o) {  // the int's bits through the buffer
+  float f;
+  std::memcpy(&f, &v, sizeof f);
+  f = __shfl_xor_sync(m, f, o);
+  std::memcpy(&v, &f, sizeof v);
+  return v;
+}
 
 // The barriers of block `cta` of `threads` threads: the block's, one per
 // warp and one per whole warpgroup. Call before spawning its threads.

@@ -8,7 +8,11 @@
 // 1 = fused_step_cluster (Landing), 2 = pogo_update_cluster, 3 =
 // landing_field_cluster (the last two: x, g and scal in, x_out out; BASE,
 // NESTEROV and HAS_PV unused). C is the cluster size (0: the launcher's own,
-// small_p_cluster).
+// small_p_cluster). METHOD 4 = newton_schulz_cluster(_c): BASE is the
+// iteration count, NESTEROV whether a distance is asked, HAS_PV whether
+// DIR/mask.bin (1.0 or 0.0 a matrix) masks; x and dist in (and, out of
+// place, out: the output buffer's contents before the launch), x_out and
+// dist_out out; C 0 the launcher's own (ns_cluster).
 #include <cuda_runtime.h>
 #include <hopper.cuh>
 
@@ -55,6 +59,17 @@ static void register_kernel() {
   };
 }
 
+template <int PB>
+static void register_ns_kernel() {
+  g_emu_kernels[reinterpret_cast<const void*>(small_p_ns_kernel<PB>)] = [](void** a) {
+    small_p_ns_kernel<PB>(*static_cast<CUtensorMap*>(a[0]), *static_cast<float**>(a[1]),
+                          *static_cast<const unsigned char**>(a[2]), *static_cast<float**>(a[3]),
+                          *static_cast<int*>(a[4]), *static_cast<int*>(a[5]),
+                          *static_cast<int*>(a[6]), *static_cast<int*>(a[7]),
+                          *static_cast<int*>(a[8]));
+  };
+}
+
 template <int M>
 static void register_kernels() {
   register_kernel<4, M>();
@@ -85,7 +100,32 @@ int main(int argc, char** argv) {
   register_kernels<kSpLanding>();
   register_kernels<kSpUpdate>();
   register_kernels<kSpField>();
+  register_ns_kernel<4>();
+  register_ns_kernel<8>();
+  register_ns_kernel<12>();
+  register_ns_kernel<16>();
+  register_ns_kernel<20>();
+  register_ns_kernel<24>();
+  register_ns_kernel<28>();
+  register_ns_kernel<32>();
   int err;
+  if (method == 4) {
+    auto maskf = read(dir, "mask", B), dist_in = read(dir, "dist", B), out0 = read(dir, "out", total);
+    std::vector<unsigned char> mask(maskf.begin(), maskf.end());
+    if (!inplace) x_out = out0;
+    float* yo = inplace ? x.data() : x_out.data();
+    float* d = nesterov ? dist_in.data() : nullptr;
+    const unsigned char* m = has_pv ? mask.data() : nullptr;
+    err = c ? newton_schulz_cluster_c(x.data(), yo, m, d, B, p, n, base, c, nullptr)
+            : newton_schulz_cluster(x.data(), yo, m, d, B, p, n, base, nullptr);
+    if (err != 0) {
+      fprintf(stderr, "newton_schulz_cluster returned %d\n", err);
+      return 3;
+    }
+    write(dir, "x_out", yo, total);
+    write(dir, "dist_out", dist_in.data(), B);
+    return 0;
+  }
   if (method == kSpUpdate) {
     err = pogo_update_cluster(x.data(), g.data(), scal.data(), xo, B, p, n, c, nullptr);
   } else if (method == kSpField) {

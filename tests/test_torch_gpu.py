@@ -816,11 +816,12 @@ def _ns_wrapper(p, n):
 
 # The planned kernels (the tensor-core one at (64, 960) and (48, 1500), a
 # cluster of 2 and of 4 CTAs, and at (48, 2001), n % 4 != 0: scalar loads;
-# the tiled one at p = 128), and the tensor-core kernel called directly at
-# clusters of 1 and 8 CTAs.
+# the p <= 128 tensor-core one at p = 128 (row 9w), the tiled one at (10,
+# 9998); the cluster kernel of small_p.cu at (16, 4096)), and the
+# tensor-core kernel called directly at clusters of 1 and 8 CTAs.
 NS_CASES = [((64, 64, 960), None), ((256, 16, 256), None), ((7, 10, 250), None),
             ((3, 1, 33), None), ((3, 48, 1500), None), ((3, 48, 2001), None),
-            ((3, 128, 2048), None),
+            ((3, 128, 2048), None), ((5, 10, 9998), None), ((5, 16, 4096), None),
             ((5, 40, 600), tns.newton_schulz_tc), ((2, 64, 4600), tns.newton_schulz_tc)]
 
 
@@ -841,7 +842,7 @@ def test_newton_schulz_kernels_match_plain(cuda, shape, wrapper):
 
 
 @pytest.mark.parametrize("shape", [(64, 64, 960), (256, 16, 256), (7, 10, 250),
-                                   (9, 48, 1500)])
+                                   (9, 48, 1500), (9, 10, 10000)])
 def test_newton_schulz_repair_in_place_with_mask(cuda, shape):
     """The watchdog's repair: every other matrix past the threshold,
     written over the stack; the others keep their bits and distances."""
@@ -938,6 +939,72 @@ def test_newton_schulz_tc128_idle_repair_writes_nothing(cuda):
     torch.cuda.synchronize()
     assert tns.newton_schulz_tc128.launches == before + 1
     assert not bool(rep.any()) and torch.equal(x, x0) and torch.equal(dist, d0)
+
+
+def test_newton_schulz_cluster_planner_matches_the_kernels_smem(cuda):
+    """``ops.ns_cluster`` / ``ns_cluster_smem_bytes`` mirror the C entries
+    of ``csrc/small_p.cu``."""
+    lib = tfs.cluster_lib()
+    for p, n in ((10, 10000), (1, 64), (7, 300), (24, 10000), (31, 2048), (28, 10000),
+                 (16, 4096), (10, 9998), (33, 2048), (31, 60000)):
+        assert lib.ns_cluster(p, n) == tops.ns_cluster(p, n)
+        for c in (2, 4, 8):
+            assert lib.ns_cluster_smem_bytes(p, n, c) == tops.ns_cluster_smem_bytes(p, n, c)
+
+
+# newton_schulz_cluster (p < 32, row 9cl): the paper's unitary-PC (10,
+# 10000) on its own cluster size and on each other, ragged p and n (a last
+# CTA's box cut short), p = 1, p = 24 (rows rolled), p = 31 (one CTA an
+# SM), and a cluster of 8 whose last CTAs hold no box.
+NS_CLUSTER_CASES = [((9, 10, 10000), 0), ((9, 10, 10000), 8), ((9, 10, 10000), 2),
+                    ((7, 7, 300), 4), ((5, 1, 64), 0), ((6, 24, 4096), 0), ((5, 31, 2048), 0),
+                    ((5, 10, 40), 8)]
+
+
+@pytest.mark.parametrize("shape,c", NS_CLUSTER_CASES)
+def test_newton_schulz_cluster_matches_plain(cuda, shape, c):
+    """Unmasked out of place, then masked in place (every other matrix:
+    the others and their distances keep their bits), 12 iterations, against
+    ``ref.newton_schulz_ref`` at atol 1e-6."""
+    x = _drifted(shape, cuda, seed=5)
+    b = shape[0]
+    dist = torch.empty(b, device=cuda)
+    got = tns.newton_schulz_cluster(x, 12, dist=dist, cluster=c or None)
+    torch.cuda.synchronize()
+    want = tref.newton_schulz_ref(x, 12)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+    torch.testing.assert_close(dist, tref.manifold_distance_ref(want), atol=2e-6, rtol=1e-3)
+    mask = torch.arange(b, device=cuda) % 2 == 0
+    dist = torch.full((b,), 7.0, device=cuda)
+    y = x.clone()
+    tns.newton_schulz_cluster(y, 12, out=y, mask=mask, dist=dist, cluster=c or None)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y[mask], want[mask], atol=1e-6, rtol=0)
+    assert torch.equal(y[~mask], x[~mask]) and bool((dist[~mask] == 7.0).all())
+    assert float(dist[mask].max()) < 1e-2
+
+
+def test_newton_schulz_cluster_repair_at_the_paper_sizes(cuda):
+    """The watchdog's repair at the paper's unitary-PC 1048 x (10, 10000):
+    the planned cluster kernel launches once, repairs every other matrix in
+    place, and the idle repair (no matrix past the threshold) changes
+    nothing, bit for bit."""
+    x = _drifted((1048, 10, 10000), cuda, seed=6)
+    dist = torch.where(torch.arange(1048, device=cuda) % 2 == 0, 2.0, 1e-6).float()
+    x0, d0 = x.clone(), dist.clone()
+    assert tops.plan_newton_schulz(10, 10000) == ("cluster", 0)
+    before = tns.newton_schulz_cluster.launches
+    thresh = torch.tensor(0.1, device=cuda)
+    rep = tops.newton_schulz_repair(x, dist, thresh, iters=12)
+    torch.cuda.synchronize()
+    assert tns.newton_schulz_cluster.launches == before + 1
+    assert torch.equal(rep, d0 > 0.1)
+    torch.testing.assert_close(x[rep], tref.newton_schulz_ref(x0[rep], 12), atol=1e-6, rtol=0)
+    assert torch.equal(x[~rep], x0[~rep]) and torch.equal(dist[~rep], d0[~rep])
+    x1, d1 = x.clone(), torch.full((1048,), 1e-6, device=cuda)
+    rep = tops.newton_schulz_repair(x, d1, thresh, iters=12)
+    torch.cuda.synchronize()
+    assert not bool(rep.any()) and torch.equal(x, x1) and bool((d1 == 1e-6).all())
 
 
 # ------------------------------------------------------------- large p

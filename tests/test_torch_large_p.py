@@ -116,12 +116,14 @@ PLANS = [
     (64, 216, ("whole", 0), ("whole", 0), ("whole", 0), ("whole", 0), ("whole", 0)),
     (16, 256, ("whole", 0), ("whole", 0), ("whole", 0), ("whole", 0), ("whole", 0)),
     # the cluster kernel (csrc/small_p.cu) where a cluster holds the matrix
-    # and n % 4 == 0, all four entries up to p = 24 (ops.CLUSTER_MAX_P)
-    (10, 10000, CLUSTER, CLUSTER, CLUSTER, CLUSTER, ("tiled", 64)),
-    (28, 2048, ("tiled", 64), ("tc", 0), ("tiled", 64), ("tc", 0), ("tiled", 64)),
+    # and n % 4 == 0, all four entries up to p = 24 (ops.CLUSTER_MAX_P), and
+    # Newton-Schulz's to p = 31 (ops.NS_TC_MIN_P), where a cluster holds Y
+    # alone (ops.ns_cluster)
+    (10, 10000, CLUSTER, CLUSTER, CLUSTER, CLUSTER, CLUSTER),
+    (28, 2048, ("tiled", 64), ("tc", 0), ("tiled", 64), ("tc", 0), CLUSTER),
     (10, 9998, ("tiled", 64), ("tiled", 64), ("tiled", 64), ("tiled", 64), ("tiled", 64)),
     (32, 4096, ("tc", 0), ("tc", 0), ("tc", 0), ("tc", 0), ("tc", 0)),
-    (24, 10000, ("tiled", 64), ("tiled", 64), ("tiled", 64), ("tiled", 64), ("tiled", 64)),
+    (24, 10000, ("tiled", 64), ("tiled", 64), ("tiled", 64), ("tiled", 64), CLUSTER),
 ]
 
 

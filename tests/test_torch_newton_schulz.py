@@ -127,7 +127,14 @@ def test_mask_requires_in_place():
     (72, 2048, ("tc128", 0)),
     (124, 4096, ("tiled", 64)),  # n past 16 CTAs of two chunks each
     (128, 2049, ("tiled", 64)),
-    (16, 4096, ("tiled", 64)),  # p below NS_TC_MIN_P
+    # p below NS_TC_MIN_P: the cluster kernel of csrc/small_p.cu where a
+    # cluster of at most 8 CTAs holds Y and n % 4 == 0
+    (16, 4096, ("cluster", 0)),
+    (10, 10000, ("cluster", 0)),  # the paper's unitary-PC sizes
+    (31, 2048, ("cluster", 0)),
+    (10, 9998, ("tiled", 64)),  # n % 4 != 0: a row stride TMA cannot take
+    (31, 60000, ("tiled", 64)),  # n past what a cluster of 8 holds
+    (40, 6000, ("tiled", 64)),  # p past the cluster route, n past 9tc's clusters
     (64, 6000, ("tiled", 64)),  # n past eight CTAs' shared memory
 ])
 def test_newton_schulz_planner(p, n, want):
@@ -136,6 +143,7 @@ def test_newton_schulz_planner(p, n, want):
     size = {"whole": lambda: tops.ns_whole_smem_bytes(p, n),
             "tc": lambda: tops.ns_tc_smem_bytes(n),
             "tc128": lambda: tops.ns_tc128_smem_bytes(n),
+            "cluster": lambda: tops.ns_cluster_smem_bytes(p, n, tops.ns_cluster(p, n)),
             "tiled": lambda: tops.ns_tiled_smem_bytes(p, tile_n)}[kind]()
     assert 0 < size <= tops.SMEM_LIMIT_BYTES
 

@@ -64,7 +64,7 @@ def _build(label, path, caps, build, includes=()):
     if res.returncode != 0:
         raise SystemExit(f"nvcc failed on {tag}:\n{res.stderr}")
     regs = [line.strip() for line in res.stderr.splitlines()
-            if "Used" in line or "spill" in line]
+            if "Used" in line or "spill" in line or "C75" in line]
     return tag, so, regs
 
 

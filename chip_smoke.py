@@ -63,7 +63,8 @@ cores at ``LARGE_ODD``) are launched 20 times each on the same inputs,
 half of them beside a copy on another stream, and must repeat bit for
 bit, and so must the tensor-core Newton-Schulz kernels and the cluster
 kernels of ``small_p.cu`` (its four entries and Newton-Schulz's, at the
-paper's 1048 x (10, 10000)). They are timed
+paper's 1048 x (10, 10000)) and the 3xTF32 flash-attention kernel (at
+the prefill's shape). The cluster kernels are timed
 beside rows 2, 6, 2L and 8 at that shape, and at the readings behind the
 cluster route's ends (``phase_cluster_crossovers``: p = 4-28 at n =
 2048-10000, p = 29 and 32 against the tensor-core kernels, and every
@@ -95,18 +96,22 @@ AdamW elsewhere, the feasibility watchdog on), 8 steps, the q/k leaves
 scaled by 1.5 just before step 5 so that the watchdog's Newton-Schulz
 repair fires on all 640 matrices; a resume from the step-4 checkpoint
 must replay steps 5 and 6 bit for bit. Then serving, at SmolLM-360M's
-full width: the two flash-attention kernels against their plain version,
-the tensor-core kernel in bf16 (causal at (B, S, H, KV, hd) = (4, 2048,
-15, 5, 64), at internlm2-1.8b's (1, 2048, 16, 8, 128), windowed at S =
-2000 and at hd 24; one output ulp per element, the error printed in ulps)
-and the CUDA-core kernel in fp32 (the prefill's shape; causal,
-non-causal and windowed at S = 2000; atol 2e-5 / rtol 1e-4), each timed
-at the prefill's shape in turns with its plain version and PyTorch's
+full width: the three flash-attention kernels against their plain
+version, the bf16 tensor-core kernel (causal at (B, S, H, KV, hd) = (4,
+2048, 15, 5, 64), at internlm2-1.8b's (1, 2048, 16, 8, 128), windowed at
+S = 2000 and at hd 24; one output ulp per element, the error printed in
+ulps), the 3xTF32 tensor-core kernel in fp32 (the prefill's shape,
+internlm2-1.8b's heads; causal, non-causal and windowed at S = 2000;
+atol 2e-5 / rtol 1e-4) and the CUDA-core kernel in fp32 at hd 62 (hd % 4
+!= 0, its route since the 3xTF32 kernel), each timed at the prefill's
+shape in turns with its plain version and PyTorch's
 ``scaled_dot_product_attention`` (the library yardstick, never on the
-port's path); ``transformer.prefill`` on 4 x 2048 tokens in bf16 (32
-launches of the tensor-core kernel a call) and in fp32 compute (32 of
-the CUDA-core kernel), its logits against the same call with the plain
-version patched in; ``repro_torch.launch.serve`` with ``benchmarks/
+port's path), the CUDA-core kernel called directly beside the 3xTF32 one
+there; ``transformer.prefill`` on 4 x 2048 tokens in bf16 (32 launches
+of the bf16 kernel a call), in fp32 compute (32 of the 3xTF32 kernel)
+and in fp32 at a synthetic head dimension of 62 (32 of the CUDA-core
+kernel), its logits against the same call with the plain version patched
+in; ``repro_torch.launch.serve`` with ``benchmarks/
 serve_bench.py``'s default geometry (32 requests, prompts of 8-48 tokens,
 16 new tokens, 8 slots, 128 blocks of 16, chunks of 16, folded q/k), every
 request finished, 4 of them against ``generate_reference`` on the card
@@ -213,6 +218,7 @@ KERNELS = {
     "tp_gram": ("tp_step", "src/repro/kernels/fused_step.py:304"),
     "tp_apply": ("tp_step", "src/repro/kernels/fused_step.py:417"),
     "flash_attention": ("flash_attention", "src/repro/kernels/flash_attention.py:88"),
+    "flash_attention_tf32": ("flash_attention_tf32", "src/repro/kernels/flash_attention.py:88"),
     "flash_attention_tc": ("flash_attention_tc", "src/repro/kernels/flash_attention.py:88"),
     "fused_step_large": ("large_p", "src/repro/kernels/fused_step.py:608"),
     "fused_step_large_landing": ("large_p", "src/repro/kernels/fused_step.py:559"),
@@ -272,6 +278,11 @@ FLASH_SHAPE = (PREFILL_BATCH, PREFILL_SEQ, 15, 5, 64)
 FLASH_WIDE_SHAPE = (1, 2048, 16, 8, 128)
 FLASH_F32_SHAPE = (2, 2000, 15, 5, 64)
 FLASH_HD24_SHAPE = (2, 2000, 4, 2, 24)
+# hd % 4 != 0: fp32 rows TMA cannot address, the CUDA-core kernel's route
+# (no model here has such heads; the synthetic fp32 prefill at hd 62 is
+# that kernel's main path).
+PREFILL_ODD_HEAD_DIM = 62
+FLASH_HD62_SHAPE = (PREFILL_BATCH, PREFILL_SEQ, 15, 5, PREFILL_ODD_HEAD_DIM)
 FLASH_TOL = dict(atol=2e-5, rtol=1e-4)
 # bf16 output per element: one output ulp (tests/test_torch_gpu.py's
 # tolerance); 3e-2, tests/test_flash_kernel.py's bf16 tolerance against
@@ -718,7 +729,8 @@ def phase_tc_repeatability(gen, repeats=20):
     the matrices masked off), each
     entry of the large route on the tensor cores at the CNN filters' 3 x
     (256, 2304) (its grams split n into slices there) and O-ViT's 18 x
-    (1024, 1024), and on the CUDA cores at ``LARGE_ODD``, every
+    (1024, 1024), and on the CUDA cores at ``LARGE_ODD``, and the 3xTF32
+    flash-attention kernel at the prefill's shape, every
     other launch beside a 1 GiB copy on a second
     stream that takes SMs and HBM from it: every output must equal the first
     launch's bit for bit. The kernels sum in a fixed order, so a difference
@@ -727,6 +739,7 @@ def phase_tc_repeatability(gen, repeats=20):
     import torch
 
     from repro_torch.core import stiefel
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_step as fs
     from repro_torch.kernels import landing_field as lf
     from repro_torch.kernels import newton_schulz as ns
@@ -810,7 +823,10 @@ def phase_tc_repeatability(gen, repeats=20):
 
         repeat(f"{kernel.__name__} {shape[0]}x{shape[1:]}, half masked", ns_run)
         del x
-    del big, dst
+    q, k, v = _flash_inputs(gen, FLASH_SHAPE, torch.float32)
+    repeat(f"flash_attention_tf32 {FLASH_SHAPE} causal",
+           lambda: (fa.flash_attention_tf32(q, k, v, causal=True, window=None),))
+    del q, k, v, big, dst
 
 
 def _tp_bound(name, b, p, n, base_kind="trace", method="pogo"):
@@ -2064,22 +2080,29 @@ def _flash_pairs(shape, causal):
     return (s * (s + 1) // 2 if causal else s * s) * b * h
 
 
-def _flash_bound(shape, causal, elem_bytes, flop_per_s=FP32_FLOP_PER_S, pv_passes=1):
+def _flash_bound(shape, causal, elem_bytes, flop_per_s=FP32_FLOP_PER_S, pv_passes=1,
+                 qk_passes=1):
     """Bytes: q, k, v read once, the output written once. Operations: a
-    multiply-add per head dimension per kept (query, key) pair for QK^T and
-    ``pv_passes`` for PV (three in the tensor-core kernel, one for each
-    bf16 piece of p), at ``flop_per_s``."""
+    multiply-add per head dimension per kept (query, key) pair, ``qk_passes``
+    times for QK^T and ``pv_passes`` for PV (the bf16 kernel runs PV once
+    for each bf16 piece of p; 3xTF32 runs both three times), at
+    ``flop_per_s``."""
     b, s, h, kvh, hd = shape
     return _bound_ms(elem_bytes * (2 * b * s * h * hd + 2 * b * s * kvh * hd),
-                     2 * hd * (1 + pv_passes) * _flash_pairs(shape, causal), flop_per_s)
+                     2 * hd * (qk_passes + pv_passes) * _flash_pairs(shape, causal),
+                     flop_per_s)
 
 
 def phase_flash_attention(gen, card):
-    """Both flash kernels against their plain version on the card: the
-    tensor-core kernel (bf16) at the prefill's shape, internlm2-1.8b's
-    heads, S = 2000 windowed and hd 24; the CUDA-core kernel (fp32) at the
-    prefill's shape and at S = 2000. Then each timed at the prefill's shape
-    beside the plain version and PyTorch's SDPA, in turns."""
+    """The three flash kernels against their plain version on the card: the
+    bf16 tensor-core kernel at the prefill's shape, internlm2-1.8b's heads,
+    S = 2000 windowed and hd 24; the 3xTF32 kernel (fp32) at the prefill's
+    shape, internlm2-1.8b's heads and S = 2000; the CUDA-core kernel (fp32)
+    at hd 62. Each launched through ``flash_attention_fwd``, which must
+    pick it (``flash_attention.plan``). Then the bf16 kernel timed at the
+    prefill's shape beside the plain version and PyTorch's SDPA, and the
+    3xTF32 kernel beside the CUDA-core kernel called directly, the plain
+    version and SDPA, in turns."""
     import torch
     import torch.nn.functional as F
 
@@ -2093,11 +2116,17 @@ def phase_flash_attention(gen, card):
         (FLASH_F32_SHAPE, bf16, True, 256),
         (FLASH_HD24_SHAPE, bf16, True, None),
         (FLASH_SHAPE, f32, True, None),
+        (FLASH_WIDE_SHAPE, f32, True, None),
         (FLASH_F32_SHAPE, f32, True, None),
         (FLASH_F32_SHAPE, f32, False, None),
         (FLASH_F32_SHAPE, f32, True, 256),
+        (FLASH_HD62_SHAPE, f32, True, None),
     ]
-    records = {"flash_attention_tc": {}, "flash_attention": {}}
+    # wrapper -> its record in the kernels line
+    record_of = {"flash_attention_tc": "flash_attention_tc",
+                 "flash_attention_tf32": "flash_attention_tf32",
+                 "flash_attention_fp32": "flash_attention"}
+    records = {key: {} for key in record_of.values()}
     for shape, dtype, causal, window in cases:
         q, k, v = _flash_inputs(gen, shape, dtype)
         ops.reset_launches()
@@ -2108,7 +2137,7 @@ def phase_flash_attention(gen, card):
         d = (got.float() - want.float()).abs()
         max_abs = float(d.max())
         lim = FLASH_BF16_TOL if dtype == bf16 else FLASH_TOL
-        name = "flash_attention_tc" if dtype == bf16 else "flash_attention_fp32"
+        name = fa.plan(dtype, shape[-1])
         ok = bool(torch.all(d <= lim["atol"] + lim["rtol"] * want.float().abs())
                   and torch.isfinite(got).all()) and launched == {name: 1}
         tol = f"per element atol {lim['atol']} rtol {lim['rtol']:.4g}"
@@ -2119,8 +2148,7 @@ def phase_flash_attention(gen, card):
             tol += (f"; {max_abs / ulp:.2f} bf16 ulp at the largest |output| {top:.3f}, "
                     f"{int((d > 0).sum())} of {d.numel()} elements differ; JAX's bf16 "
                     f"tolerance {FLASH_BF16_REFERENCE}")
-        record = records["flash_attention_tc" if dtype == bf16 else "flash_attention"]
-        record.setdefault("max_abs_err", max_abs)
+        records[record_of[name]].setdefault("max_abs_err", max_abs)
         print(f"kernel {name} {shape} {str(dtype)[6:]} causal {causal} window {window}: "
               f"launches {launched}, max_abs {max_abs:.3e} ({tol}) "
               f"{'ok' if ok else 'MISMATCH'}", flush=True)
@@ -2129,34 +2157,60 @@ def phase_flash_attention(gen, card):
                              f"disagrees with its plain version or did not launch")
         del got, want, d
 
-    b, s, h, _, hd = FLASH_SHAPE
-    for key, dtype in (("flash_attention_tc", bf16), ("flash_attention", f32)):
+    hd = FLASH_SHAPE[-1]
+    pairs = _flash_pairs(FLASH_SHAPE, True)
+    exp_ms = 1e3 * pairs / SFU_EXP2_PER_S
+    for dtype in (bf16, f32):
         q, k, v = _flash_inputs(gen, FLASH_SHAPE, dtype)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))  # SDPA's layout
-        ms, plain_ms, library_ms = _time_rotating([
-            (lambda: fa.flash_attention_fwd(q, k, v, causal=True), 20),
-            (lambda: fa.run_plain(q, k, v, causal=True, window=None), 10),
-            (lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                    enable_gqa=True), 20)])
+        fns = [(lambda: fa.flash_attention_fwd(q, k, v, causal=True), 20),
+               (lambda: fa.run_plain(q, k, v, causal=True, window=None), 10),
+               (lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                       enable_gqa=True), 20)]
+        if dtype == f32:  # the CUDA-core kernel called directly, beside the 3xTF32 one
+            fns.append((lambda: fa.flash_attention_fp32(q, k, v, causal=True, window=None),
+                        10))
+        ms, plain_ms, library_ms, *cc = _time_rotating(fns)
         esize = 2 if dtype == bf16 else 4
         bytes_ms, _ = _flash_bound(FLASH_SHAPE, True, esize, flop_per_s=math.inf)
         fp32_ms, _ = _flash_bound(FLASH_SHAPE, True, esize)
-        tc_ms, _ = _flash_bound(FLASH_SHAPE, True, esize, BF16_TC_FLOP_PER_S)
         if dtype == bf16:
+            key = "flash_attention_tc"
             bound_ms, bound_by = _flash_bound(FLASH_SHAPE, True, 2, BF16_TC_FLOP_PER_S,
                                               pv_passes=3)
             two_ms, _ = _flash_bound(FLASH_SHAPE, True, 2, BF16_TC_FLOP_PER_S, pv_passes=2)
-            exp_ms = 1e3 * _flash_pairs(FLASH_SHAPE, True) / SFU_EXP2_PER_S
+            tc_ms, _ = _flash_bound(FLASH_SHAPE, True, 2, BF16_TC_FLOP_PER_S)
             bounds = (f"split-p tensor work, QK^T and PV for each of p's three bf16 pieces "
                       f"at the bf16 tensor-core rate; {two_ms:.4f} with two pieces, "
                       f"{tc_ms:.4f} with one; exponentials {exp_ms:.4f} on the SFUs; "
                       f"bytes {bytes_ms:.4f}; fp32 CUDA cores {fp32_ms:.4f}")
         else:
-            bound_ms, bound_by = fp32_ms, "operations"
-            bounds = f"fp32 CUDA cores; bytes {bytes_ms:.4f}"
+            key = "flash_attention_tf32"
+            bound_ms, bound_by = _flash_bound(FLASH_SHAPE, True, 4, TF32_TC_FLOP_PER_S,
+                                              pv_passes=3, qk_passes=3)
+            bounds = (f"3xTF32 tensor work, QK^T and PV three times each at the TF32 "
+                      f"tensor-core rate; fp32 CUDA cores {fp32_ms:.4f}; exponentials "
+                      f"{exp_ms:.4f} on the SFUs; bytes {bytes_ms:.4f}")
+            cc_ms = cc[0]
+            got = fa.flash_attention_fp32(q, k, v, causal=True, window=None)
+            want = fa.run_plain(q, k, v, causal=True, window=None)
+            cc_err = float((got - want).abs().max())
+            print(f"  flash_attention (the CUDA-core kernel called directly) {FLASH_SHAPE} "
+                  f"float32 causal: ms {cc_ms:.4f} plain_ms {plain_ms:.4f} sdpa_ms "
+                  f"{library_ms:.4f} bound_ms {fp32_ms:.4f} (operations, fp32 CUDA cores; "
+                  f"bytes {bytes_ms:.4f}); max_abs {cc_err:.3e}; the 3xTF32 kernel "
+                  f"{cc_ms / ms:.2f}x faster [{card}]", flush=True)
+            if not bool(torch.all((got - want).abs() <= FLASH_TOL["atol"]
+                                  + FLASH_TOL["rtol"] * want.abs())):
+                raise SystemExit("flash_attention_fp32 disagrees with its plain version "
+                                 f"at {FLASH_SHAPE}")
+            records["flash_attention"].update(
+                ms=cc_ms, plain_ms=plain_ms, bound_ms=fp32_ms, bound_by="operations",
+                library_ms=library_ms)
+            del got, want
         print(f"  {key} {FLASH_SHAPE} {str(dtype)[6:]} causal: ms {ms:.4f} plain_ms "
               f"{plain_ms:.4f} sdpa_ms {library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}, "
-              f"{bounds}); {1e-9 * 4 * hd * _flash_pairs(FLASH_SHAPE, True) / ms:.1f} "
+              f"{bounds}); {1e-9 * 4 * hd * pairs / ms:.1f} "
               f"TFLOP/s of the function's 4 hd flops a kept pair [{card}]", flush=True)
         records[key].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=library_ms)
@@ -2238,14 +2292,28 @@ def phase_prefill(card):
 
 
 def phase_prefill_fp32(card):
-    """The same prefill in fp32 compute: 32 launches of the CUDA-core kernel."""
+    """The same prefill in fp32 compute: 32 launches of the 3xTF32 kernel."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
     cfg = dataclasses.replace(get_config("smollm-360m"), compute_dtype="float32")
     return _prefill_check(card, cfg, "prefill fp32", PREFILL_F32_REL_TOL,
-                          "flash_attention_fp32")
+                          "flash_attention_tf32")
+
+
+def phase_prefill_fp32_odd_heads(card):
+    """The fp32 prefill at a synthetic head dimension of 62 (hd % 4 != 0,
+    the CUDA-core kernel's route; SmolLM-360M otherwise as published): 32
+    launches of the CUDA-core kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("smollm-360m"), compute_dtype="float32",
+                              head_dim=PREFILL_ODD_HEAD_DIM)
+    return _prefill_check(card, cfg, f"prefill fp32 hd {PREFILL_ODD_HEAD_DIM}",
+                          PREFILL_F32_REL_TOL, "flash_attention_fp32")
 
 
 def _serve(argv, uids=None):
@@ -2433,12 +2501,14 @@ def main() -> int:
     tp.lib()
     fa.lib()
     fa.tc_lib()
+    fa.tf32_lib()
     large_p.lib()
     for name in sources:
         for line in build.PTXAS_LOG.get(name, "").splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"ptxas[{name}] {line.strip()}", flush=True)
-    for name in ("newton_schulz_tc", "small_p"):  # every value kept in registers
+    # every value kept in registers
+    for name in ("newton_schulz_tc", "small_p", "flash_attention_tf32"):
         spills = [line for line in build.PTXAS_LOG[name].splitlines()
                   if "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line]
         if spills:
@@ -2528,7 +2598,8 @@ def main() -> int:
     launches["newton_schulz_tc"] = counts["newton_schulz_tc"]
     records.update(phase_flash_attention(gen, card))
     launches["flash_attention_tc"] = phase_prefill(card)["flash_attention_tc"]
-    launches["flash_attention"] = phase_prefill_fp32(card)["flash_attention_fp32"]
+    launches["flash_attention_tf32"] = phase_prefill_fp32(card)["flash_attention_tf32"]
+    launches["flash_attention"] = phase_prefill_fp32_odd_heads(card)["flash_attention_fp32"]
     phase_serve(card)
 
     kernels = [

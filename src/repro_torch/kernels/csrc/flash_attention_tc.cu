@@ -70,7 +70,7 @@ namespace {
 constexpr int kTcRows = 128;                        // query rows of a CTA
 constexpr int kTcKeys = 128;                        // keys of a K/V tile
 constexpr int kTcBox = 64;                          // hd columns of a box: 128 bytes
-constexpr int kTcBoxBytes = kTcKeys * kTcBox * 2;   // 16 KB, a Q box too
+constexpr int kBf16BoxBytes = kTcKeys * kTcBox * 2;   // 16 KB, a Q box too
 constexpr int kTcStages = 2;
 constexpr int kTcPieces = 3;                        // bf16 pieces of p for PV
 constexpr int kTcConsumers = 256;                   // two warpgroups
@@ -85,7 +85,7 @@ constexpr float kTcNegInf = -1073741824.0f;         // -2^30, models/attention.p
 // Shared memory of one CTA with nb boxes of hd: the tiles, 1024-aligned,
 // then the barriers.
 __host__ __device__ constexpr int tc_tile_bytes(int nb) {
-  return (1 + 2 * kTcStages) * nb * kTcBoxBytes;
+  return (1 + 2 * kTcStages) * nb * kBf16BoxBytes;
 }
 
 template <int NB>  // 64-column boxes of hd: 1 (hd <= 64) or 2
@@ -97,9 +97,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   extern __shared__ unsigned char flash_tc_smem[];
   const uint32_t pad = (1024u - (hopper::smem_u32(flash_tc_smem) & 1023u)) & 1023u;
   unsigned char* sq = flash_tc_smem + pad;               // tiles on 1024-byte boundaries
-  unsigned char* sk = sq + NB * kTcBoxBytes;             // stage s at s * NB boxes
-  unsigned char* sv = sk + kTcStages * NB * kTcBoxBytes;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(sv + kTcStages * NB * kTcBoxBytes);
+  unsigned char* sk = sq + NB * kBf16BoxBytes;             // stage s at s * NB boxes
+  unsigned char* sv = sk + kTcStages * NB * kBf16BoxBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sv + kTcStages * NB * kBf16BoxBytes);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + kTcStages;
 
@@ -128,17 +128,17 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   if (tid >= kTcConsumers) {  // the producer's warpgroup: one lane issues every load
     hopper::reg_dealloc<kTcProducerRegs>();
     if (tid == kTcConsumers) {
-      hopper::mbar_expect_tx(q_full, NB * kTcBoxBytes);
+      hopper::mbar_expect_tx(q_full, NB * kBf16BoxBytes);
       for (int c = 0; c < NB; ++c)
-        hopper::tma_load_4d(sq + c * kTcBoxBytes, &tq, q_full, c * kTcBox, h, q0, b);
+        hopper::tma_load_4d(sq + c * kBf16BoxBytes, &tq, q_full, c * kTcBox, h, q0, b);
       for (int n = 0; n < ntiles; ++n) {
         const int s = n % kTcStages, j0 = t_begin + n * kTcKeys;
         if (n >= kTcStages) hopper::mbar_wait(empty + s, (n / kTcStages - 1) & 1);
-        hopper::mbar_expect_tx(full + s, 2 * NB * kTcBoxBytes);
+        hopper::mbar_expect_tx(full + s, 2 * NB * kBf16BoxBytes);
         for (int c = 0; c < NB; ++c) {
-          hopper::tma_load_4d(sk + (s * NB + c) * kTcBoxBytes, &tk, full + s, c * kTcBox, kh,
+          hopper::tma_load_4d(sk + (s * NB + c) * kBf16BoxBytes, &tk, full + s, c * kTcBox, kh,
                               j0, b);
-          hopper::tma_load_4d(sv + (s * NB + c) * kTcBoxBytes, &tv, full + s, c * kTcBox, kh,
+          hopper::tma_load_4d(sv + (s * NB + c) * kBf16BoxBytes, &tv, full + s, c * kTcBox, kh,
                               j0, b);
         }
       }
@@ -158,15 +158,15 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   hopper::mbar_wait(q_full, 0);
   for (int n = 0; n < ntiles; ++n) {
     const int s = n % kTcStages, j0 = t_begin + n * kTcKeys;
-    const unsigned char* ks = sk + s * NB * kTcBoxBytes;
-    const unsigned char* vs = sv + s * NB * kTcBoxBytes;
+    const unsigned char* ks = sk + s * NB * kBf16BoxBytes;
+    const unsigned char* vs = sv + s * NB * kBf16BoxBytes;
     hopper::mbar_wait(full + s, (n / kTcStages) & 1);
 
     float sc[64];
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < NB * 4; ++kk) {  // whole boxes: zero columns add nothing
-      const int box = kk / 4 * kTcBoxBytes, col = kk % 4 * 32;
+      const int box = kk / 4 * kBf16BoxBytes, col = kk % 4 * 32;
       hopper::wgmma_ss_m64n128(
           sc, hopper::sw128_desc(sq + box + wg * 64 * 128 + col, 16, 1024),
           hopper::sw128_desc(ks + box + col, 16, 1024), kk > 0);
@@ -225,7 +225,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTcKeys / 16; ++kk) {
-      const uint64_t dv = hopper::sw128_desc(vs + kk * 16 * 128, kTcBoxBytes, 1024);
+      const uint64_t dv = hopper::sw128_desc(vs + kk * 16 * 128, kBf16BoxBytes, 1024);
 #pragma unroll
       for (int c = 0; c < kTcPieces; ++c)
         hopper::wgmma_rs_tb(o, pp[c][4 * kk], pp[c][4 * kk + 1], pp[c][4 * kk + 2],

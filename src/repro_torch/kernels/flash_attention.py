@@ -1,15 +1,20 @@
 """Wrappers of the flash-attention forward kernels.
 
 ``flash_attention_fwd`` replaces ``repro/kernels/flash_attention.py:88``
-(``_flash_fwd_kernel``) and picks a kernel by dtype:
+(``_flash_fwd_kernel``) and picks a kernel by dtype and head dimension
+(``plan``):
 
 * bf16: ``flash_attention_tc`` (``csrc/flash_attention_tc.cu``), the bf16
   tensor cores through ``wgmma`` with TMA-fed K/V tiles. p keeps fp32
-  quality: PV runs on p_hi and p_lo, the two bf16 halves of the fp32 p.
-* fp32: ``flash_attention_fp32`` (``csrc/flash_attention.cu``), IEEE fp32
-  on the CUDA cores.
+  quality: PV runs on the three bf16 pieces of the fp32 p.
+* fp32 at hd % 4 == 0: ``flash_attention_tf32``
+  (``csrc/flash_attention_tf32.cu``), 3xTF32 ``wgmma`` with TMA-fed K/V
+  tiles, every product within ~2^-21 of fp32's.
+* fp32 at hd % 4 != 0 (rows whose bytes TMA cannot address; no model here
+  has one): ``flash_attention_fp32`` (``csrc/flash_attention.cu``), IEEE
+  fp32 on the CUDA cores.
 
-Both take the model's layout directly, ``q (B, Sq, H, hd)`` and ``k``,
+All three take the model's layout directly, ``q (B, Sq, H, hd)`` and ``k``,
 ``v`` ``(B, Sk, KV, hd)`` with ``H % KV == 0``, read each query head's KV
 head in place (no repeat, no transpose, no key padding), so ``Sk`` is the
 true key length, and return the output in q's dtype.
@@ -58,6 +63,31 @@ def tc_lib() -> ctypes.CDLL:
         lib_.flash_attention_tc_smem_bytes.restype = _I
         lib_._typed = True
     return lib_
+
+
+def tf32_lib() -> ctypes.CDLL:
+    """The loaded ``flash_attention_tf32.cu`` library (fp32, hd % 4 == 0),
+    built on first use."""
+    lib_ = build.load("flash_attention_tf32")
+    if not getattr(lib_, "_typed", False):
+        lib_.flash_attention_tf32_fwd.argtypes = [_P] * 4 + [_I] * 8 + [ctypes.c_float, _P]
+        lib_.flash_attention_tf32_fwd.restype = _I
+        lib_.flash_attention_tf32_smem_bytes.argtypes = [_I]
+        lib_.flash_attention_tf32_smem_bytes.restype = _I
+        lib_._typed = True
+    return lib_
+
+
+def plan(dtype: torch.dtype, hd: int) -> str:
+    """The kernel wrapper that a CUDA call of ``dtype`` and head dimension
+    ``hd`` launches: the bf16 tensor-core kernel, the 3xTF32 one for fp32
+    rows whose bytes are a multiple of 16 (TMA's rule), the CUDA-core
+    kernel for the other fp32 rows."""
+    if dtype == torch.bfloat16:
+        return "flash_attention_tc"
+    if dtype == torch.float32:
+        return "flash_attention_tf32" if hd % 4 == 0 else "flash_attention_fp32"
+    raise ValueError(f"no flash kernel for {dtype}")
 
 
 def _heads_first(x: torch.Tensor) -> torch.Tensor:
@@ -117,6 +147,25 @@ def _tma_operand(t: torch.Tensor, ld: int) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def flash_attention_tf32(q, k, v, *, causal: bool, window: Optional[int]) -> torch.Tensor:
+    """The 3xTF32 tensor-core kernel on checked fp32 CUDA operands with hd %
+    4 == 0 (rows of a multiple of 16 bytes, as the tensor maps need)."""
+    hd = q.shape[-1]
+    if hd % 4 or k.shape[1] < 1:
+        raise ValueError(f"flash_attention_tf32 needs hd % 4 == 0 and a key: q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    q, k, v = (_tma_operand(t, hd) for t in (q, k, v))
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = tf32_lib().flash_attention_tf32_fwd(
+            *_launch_args(q, k, v, out), hd, int(causal),
+            int(window or 0), float(hd**-0.5), stream)
+    _raise_on(err, "flash_attention_tf32", q, k)
+    flash_attention_tf32.launches += 1
+    return out
+
+
 def flash_attention_tc(q, k, v, *, causal: bool, window: Optional[int]) -> torch.Tensor:
     """The tensor-core kernel on checked bf16 CUDA operands. The tensor maps
     need rows whose bytes are a multiple of 16: a head dimension that is not
@@ -155,17 +204,20 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return run_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    kernels = {torch.float32: flash_attention_fp32, torch.bfloat16: flash_attention_tc}
-    if q.dtype not in kernels or k.dtype != q.dtype or v.dtype != q.dtype:
+    dtypes = (torch.float32, torch.bfloat16)
+    if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: want one of "
-                         f"{list(kernels)} for all three")
+                         f"{list(dtypes)} for all three")
     if not 1 <= hd <= 128:
         raise ValueError(f"head_dim {hd} outside [1, 128]")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {q.device}")
-    return kernels[q.dtype](q, k, v, causal=causal, window=window)
+    return KERNELS[plan(q.dtype, hd)](q, k, v, causal=causal, window=window)
 
 
 flash_attention_fp32.launches = 0
+flash_attention_tf32.launches = 0
 flash_attention_tc.launches = 0
+KERNELS = {k.__name__: k for k in (flash_attention_fp32, flash_attention_tf32,
+                                   flash_attention_tc)}

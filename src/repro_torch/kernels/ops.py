@@ -704,7 +704,7 @@ KERNELS = (_fs.fused_step_whole, _fs.fused_step_tiled, _fs.fused_step_cluster,
            _ns.newton_schulz_tc, _ns.newton_schulz_tc128, _ns.newton_schulz_cluster,
            _ns.newton_schulz_large,
            _ns.newton_schulz_large_tc,
-           _fa.flash_attention_fp32, _fa.flash_attention_tc)
+           _fa.flash_attention_fp32, _fa.flash_attention_tf32, _fa.flash_attention_tc)
 
 
 def launches() -> dict:
@@ -852,10 +852,11 @@ def fused_group_step_tp(x, g, eta, *, method: str, lam, base_kind: str = "none",
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """Flash-attention forward on ``(B, S, H, hd)`` GQA inputs
-    (``repro.kernels.ops.flash_attention``): on a CUDA tensor the
-    tensor-core kernel ``csrc/flash_attention_tc.cu`` for bf16 and the
-    CUDA-core kernel ``csrc/flash_attention.cu`` for fp32, the plain
-    version on a CPU tensor. Forward
+    (``repro.kernels.ops.flash_attention``): on a CUDA tensor the kernel
+    that ``flash_attention.plan`` picks (``csrc/flash_attention_tc.cu`` for
+    bf16, the 3xTF32 ``csrc/flash_attention_tf32.cu`` for fp32 at hd % 4
+    == 0, the CUDA-core ``csrc/flash_attention.cu`` for the rest of fp32),
+    the plain version on a CPU tensor. Forward
     only: the prefill and every no-grad forward use it, training keeps the
     blocked attention of ``models/attention.py``. Unlike the TPU wrapper it
     pads nothing and repeats no KV head: the kernel masks keys past the

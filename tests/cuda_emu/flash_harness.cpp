@@ -1,12 +1,15 @@
 // Runs the flash-attention kernels on the CPU through cuda_runtime.h and
 // hopper.cuh here: fp32 through flash_attention.cu (the CUDA-core kernel,
 // its blocks spawned here), bf16 through flash_attention_tc.cu's launcher
-// (the tensor-core kernel: tensor maps, grid and block as on the card).
-// Usage: flash_harness DIR BF16 B SQ SK H KV HD CAUSAL WINDOW SCALE
+// and fp32 through flash_attention_tf32.cu's (the tensor-core kernels:
+// tensor maps, grid and block as on the card).
+// Usage: flash_harness DIR KIND B SQ SK H KV HD CAUSAL WINDOW SCALE
 // reads DIR/{q,k,v}.bin (float32; q (B, SQ, H, HD), k and v (B, SK, KV, HD))
-// and writes DIR/out.bin (float32). BF16 1 rounds the inputs to bf16 (exact
-// for values that are bf16 already), pads rows to a multiple of 8 columns
-// with zeros as the wrapper does, and widens the bf16 output to float32.
+// and writes DIR/out.bin (float32). KIND 0 runs the CUDA-core kernel; 1 the
+// bf16 kernel: it rounds the inputs to bf16 (exact for values that are bf16
+// already), pads rows to a multiple of 8 columns with zeros as the wrapper
+// does, and widens the bf16 output to float32; 2 the 3xTF32 kernel (HD a
+// multiple of 4).
 #include <cuda_runtime.h>
 #include <hopper.cuh>
 
@@ -19,10 +22,12 @@ namespace {
 // The kernels' `extern __shared__` arrays (one block runs at a time).
 float4 flash_sm[232448 / 16];
 alignas(1024) unsigned char flash_tc_smem[232448];
+unsigned char flash_tf32_smem[1];  // the tf32 kernel's name; smem_align1024 gives the block's
 }  // namespace
 
 #include "flash_attention.cu"
 #include "flash_attention_tc.cu"
+#include "flash_attention_tf32.cu"
 
 static std::vector<float> read(const char* dir, const char* name, size_t count) {
   std::vector<float> v(count);
@@ -88,10 +93,33 @@ static int run_bf16(const std::vector<float>& qf, const std::vector<float>& kf,
   return err;
 }
 
+template <int NB>
+static void register_tf32() {
+  g_emu_kernels[reinterpret_cast<const void*>(flash_tf32_kernel<NB>)] = [](void** a) {
+    auto i = [a](int n) { return *static_cast<int*>(a[n]); };
+    flash_tf32_kernel<NB>(*static_cast<CUtensorMap*>(a[0]), *static_cast<CUtensorMap*>(a[1]),
+                          *static_cast<CUtensorMap*>(a[2]),
+                          static_cast<float*>(*static_cast<void**>(a[3])), i(4), i(5), i(6),
+                          i(7), i(8), i(9), i(10), *static_cast<float*>(a[11]));
+  };
+}
+
+static int run_tf32(const std::vector<float>& q, const std::vector<float>& k,
+                    const std::vector<float>& v, std::vector<float>& out, int B, int Sq,
+                    int Sk, int H, int KV, int hd, int causal, int window, float scale) {
+  g_smem_base = flash_tc_smem;
+  g_smem_size = sizeof flash_tc_smem;
+  register_tf32<1>();
+  register_tf32<2>();
+  register_tf32<4>();
+  return flash_attention_tf32_fwd(q.data(), k.data(), v.data(), out.data(), B, Sq, Sk, H, KV,
+                                  hd, causal, window, scale, nullptr);
+}
+
 int main(int argc, char** argv) {
   if (argc != 12) return 2;
   const char* dir = argv[1];
-  const int bf16 = atoi(argv[2]), B = atoi(argv[3]), Sq = atoi(argv[4]);
+  const int kind = atoi(argv[2]), B = atoi(argv[3]), Sq = atoi(argv[4]);
   const int Sk = atoi(argv[5]), H = atoi(argv[6]), KV = atoi(argv[7]);
   const int hd = atoi(argv[8]), causal = atoi(argv[9]), window = atoi(argv[10]);
   const float scale = static_cast<float>(atof(argv[11]));
@@ -99,10 +127,11 @@ int main(int argc, char** argv) {
   const size_t nk = static_cast<size_t>(B) * Sk * KV * hd;
   auto q = read(dir, "q", nq), k = read(dir, "k", nk), v = read(dir, "v", nk);
   std::vector<float> out(nq, -7.f);
-  if (bf16) {
-    const int err = run_bf16(q, k, v, out, B, Sq, Sk, H, KV, hd, causal, window, scale);
+  if (kind == 1 || kind == 2) {
+    const int err = (kind == 1 ? run_bf16 : run_tf32)(q, k, v, out, B, Sq, Sk, H, KV, hd,
+                                                      causal, window, scale);
     if (err != 0) {
-      fprintf(stderr, "flash_attention_tc_fwd returned %d\n", err);
+      fprintf(stderr, "the launcher of kind %d returned %d\n", kind, err);
       return 3;
     }
   } else {

@@ -164,6 +164,27 @@ def test_wrapper_checks_operands_and_counts_no_cpu_launch():
     assert {"flash_attention_fp32", "flash_attention_tc"} <= set(tops.launches())
 
 
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 64, "flash_attention_tc"),
+    (torch.bfloat16, 5, "flash_attention_tc"),
+    (torch.float32, 64, "flash_attention_tf32"),   # SmolLM-360M's heads
+    (torch.float32, 128, "flash_attention_tf32"),  # internlm2-1.8b's
+    (torch.float32, 4, "flash_attention_tf32"),
+    (torch.float32, 40, "flash_attention_tf32"),
+    (torch.float32, 62, "flash_attention_fp32"),   # rows of 248 bytes: no tensor map
+    (torch.float32, 5, "flash_attention_fp32"),
+    (torch.float32, 127, "flash_attention_fp32"),
+])
+def test_plan_by_dtype_and_head_dim(dtype, hd, want):
+    """fp32 goes to the 3xTF32 kernel where TMA can address its rows (hd %
+    4 == 0), else to the CUDA-core kernel; bf16 always to its own. Each
+    name is a wrapper that counts its launches."""
+    assert tfa.plan(dtype, hd) == want
+    assert tfa.KERNELS[want].__name__ == want and want in tops.launches()
+    with pytest.raises(ValueError):
+        tfa.plan(torch.float16, hd)
+
+
 ULP_TOL = dict(atol=1e-6, rtol=1 / 64)  # one bf16 output ulp per element
 
 

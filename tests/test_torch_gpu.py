@@ -1394,12 +1394,24 @@ def test_two_trainer_steps_on_card_match_cpu(cuda):
 # ------------------------------------------------------------ flash attention
 
 FLASH_CASES = [  # (B, S, H, KV, hd), dtype, causal, window
+    # fp32 at hd % 4 == 0: the 3xTF32 kernel
     ((1, 128, 2, 2, 64), torch.float32, True, None),
     ((2, 256, 4, 2, 32), torch.float32, False, None),
     ((1, 200, 2, 1, 32), torch.float32, False, None),
     ((1, 2000, 3, 1, 40), torch.float32, True, None),
     ((1, 700, 6, 2, 64), torch.float32, True, 256),
     ((1, 300, 2, 2, 128), torch.float32, True, 1),
+    # ... at chip_smoke.py's fp32 shapes: the prefill's, internlm2-1.8b's
+    # heads, S = 2000 causal, non-causal and windowed
+    ((4, 2048, 15, 5, 64), torch.float32, True, None),
+    ((1, 2048, 16, 8, 128), torch.float32, True, None),
+    ((2, 2000, 15, 5, 64), torch.float32, True, None),
+    ((2, 2000, 15, 5, 64), torch.float32, False, None),
+    ((2, 2000, 15, 5, 64), torch.float32, True, 256),
+    ((1, 333, 4, 2, 24), torch.float32, False, 100),
+    # fp32 at hd % 4 != 0: the CUDA-core kernel
+    ((1, 300, 2, 1, 62), torch.float32, True, None),
+    ((1, 130, 2, 2, 5), torch.float32, False, None),
     ((2, 333, 15, 5, 64), torch.bfloat16, True, None),
     ((1, 64, 2, 1, 24), torch.bfloat16, False, 8),
     # the tensor-core kernel at the prefill's shape and more
@@ -1420,7 +1432,7 @@ def test_flash_kernel_matches_plain(cuda, shape, dtype, causal, window):
     q = torch.randn((b, s, h, hd), generator=gen, device=cuda).to(dtype)
     k = torch.randn((b, s, kvh, hd), generator=gen, device=cuda).to(dtype)
     v = torch.randn((b, s, kvh, hd), generator=gen, device=cuda).to(dtype)
-    kernel = tfa.flash_attention_tc if dtype == torch.bfloat16 else tfa.flash_attention_fp32
+    kernel = tfa.KERNELS[tfa.plan(dtype, hd)]
     tops.reset_launches()
     got = tops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -1459,6 +1471,16 @@ def test_flash_kernel_true_length_and_bad_operands(cuda):
     for hd, boxes in ((64, 1), (128, 2)):
         want_bytes = 5 * boxes * 128 * 64 * 2 + 5 * 8 + 1024
         assert tfa.tc_lib().flash_attention_tc_smem_bytes(hd) == want_bytes
+    # 3xTF32: Q's 32-column boxes of 128 rows (and Q_lo's to hd 64), two
+    # stages of five tiles (64 keys up to hd 64, 32 past it), seven
+    # barriers, room to align
+    for hd, boxes, keys, q_tiles in ((64, 2, 64, 2), (128, 4, 32, 1), (24, 1, 64, 2)):
+        want_bytes = (q_tiles * boxes * 128 * 128 + 2 * 5 * boxes * keys * 128 + 7 * 8
+                      + 1024)
+        assert tfa.tf32_lib().flash_attention_tf32_smem_bytes(hd) == want_bytes
+    with pytest.raises(ValueError):  # rows TMA cannot address
+        tfa.flash_attention_tf32(q[..., :14], k[..., :14], k[..., :14], causal=True,
+                                 window=None)
 
 
 def _smoke_model():
@@ -1474,8 +1496,9 @@ def _smoke_model():
 
 
 def test_prefill_on_card_matches_cpu(cuda):
-    """Every layer's attention through the kernel on the card; the CPU runs
-    the plain version. fp32, atol 5e-4 / rtol 1e-3: the card and the CPU
+    """Every layer's attention through the kernel on the card (the 3xTF32
+    one: the smoke model's heads are 40 wide); the CPU runs the plain
+    version. fp32, atol 5e-4 / rtol 1e-3: the card and the CPU
     sum every product of the four layers in other orders (cuBLAS against
     the CPU's BLAS), as ``tests/test_torch_model.py``'s gradients (rtol
     1e-3); the card read 1.8e-4 at most."""
@@ -1488,7 +1511,7 @@ def test_prefill_on_card_matches_cpu(cuda):
     toks = torch.randint(0, cfg.vocab_size, (2, 130), generator=torch.Generator().manual_seed(1))
     ops.reset_launches()
     got = tfm.prefill(dev_params, cfg, toks.to(cuda))
-    assert ops.launches()["flash_attention_fp32"] == cfg.num_layers
+    assert ops.launches()["flash_attention_tf32"] == cfg.num_layers
     want = tfm.prefill(params, cfg, toks)
     torch.testing.assert_close(got.cpu(), want, atol=5e-4, rtol=1e-3)
 

@@ -5,8 +5,9 @@ No ``nvcc`` is needed: ``tests/cuda_emu/harness.cpp`` (POGO) and
 ``ns_harness.cpp`` and ``tp_harness.cpp`` compile
 ``src/repro_torch/kernels/csrc/fused_step.cu``, ``two_stage.cu``,
 ``newton_schulz.cu`` and ``newton_schulz_tc.cu``, ``tp_step.cu`` and
-(``flash_harness.cpp``) ``flash_attention.cu`` (fp32) and
-``flash_attention_tc.cu`` (bf16), (``tc_harness.cpp``)
+(``flash_harness.cpp``) ``flash_attention.cu`` (fp32 at hd % 4 != 0),
+``flash_attention_tc.cu`` (bf16) and ``flash_attention_tf32.cu`` (fp32,
+3xTF32), (``tc_harness.cpp``)
 ``fused_step_tc.cu``, its fused step and its two-stage entries, and
 (``large_p_harness.cpp``, a shared library that the wrappers' own phases
 drive through ``kernels/large_p.py``) ``large_p.cu``, with
@@ -32,9 +33,11 @@ p n squares in another order). The tensor-core fused step takes the
 tiled tolerance (3xTF32 products are within ~2^-21 of fp32's), its
 two-stage entries the two-stage tiled one; the large route's entries
 take their tiled counterparts' (Newton-Schulz its own). The
-flash-attention kernel takes
-``tests/test_flash_kernel.py``'s fp32 tolerance, atol 2e-5 / rtol 1e-4,
-and in bf16 one output ulp (both sides round an fp32 result once).
+flash-attention kernels take
+``tests/test_flash_kernel.py``'s fp32 tolerance, atol 2e-5 / rtol 1e-4
+(the 3xTF32 one against JAX's kernel in interpret mode too, where that
+kernel is right), and in bf16 one output ulp (both sides round an fp32
+result once).
 """
 
 import subprocess
@@ -602,6 +605,49 @@ def test_flash_kernel_emulated(flash_harness, tmp_path, shape, sk, causal, windo
         np.testing.assert_allclose(got, want, atol=1e-6, rtol=1 / 64)
     else:
         np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
+
+
+TF32_FLASH_CASES = [  # (B, S, H, KV, hd), Sk, causal, window, against the JAX kernel
+    ((1, 70, 2, 2, 64), 70, True, None, True),       # one tile
+    ((1, 300, 2, 1, 128), 300, True, None, True),    # hd 128: four boxes, 32-key tiles, N = 128
+    ((1, 50, 2, 1, 24), 90, False, None, False),     # hd 24 in one zero-filled box, Sk > Sq
+    ((1, 333, 3, 1, 40), 333, True, 100, True),      # window across tiles, group 3
+    ((1, 200, 2, 2, 32), 400, False, 60, False),     # Sk > Sq, windowed, non-causal
+    ((1, 600, 2, 1, 64), 600, True, None, True),     # ten tiles: the stage ring reused
+    ((1, 128, 2, 1, 32), 256, False, None, True),    # non-causal, block-aligned keys
+]
+
+
+@pytest.mark.parametrize("shape,sk,causal,window,against_jax", TF32_FLASH_CASES)
+def test_flash_tf32_kernel_emulated(flash_harness, tmp_path, shape, sk, causal, window,
+                                    against_jax):
+    """``flash_attention_tf32.cu`` through its launcher (tensor maps, grid
+    and block as on the card; the emulator's TF32 products drop each
+    operand's low 13 bits) against the plain version at the fp32 flash
+    tolerance, and, where the JAX kernel is right (causal, or the keys a
+    whole number of its blocks: its wrapper masks with the padded key
+    length), against ``repro.kernels.ops.flash_attention`` in interpret mode
+    at the same tolerance."""
+    b, s, h, kvh, hd = shape
+    rng = np.random.default_rng(s + hd)
+    q, k, v = (rng.standard_normal(sh).astype(np.float32)
+               for sh in ((b, s, h, hd), (b, sk, kvh, hd), (b, sk, kvh, hd)))
+    for name, a in (("q", q), ("k", k), ("v", v)):
+        a.tofile(tmp_path / f"{name}.bin")
+    res = subprocess.run(
+        [str(flash_harness), str(tmp_path), "2", str(b), str(s), str(sk), str(h), str(kvh),
+         str(hd), str(int(causal)), str(window or 0), repr(float(hd**-0.5))],
+        capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr
+    got = np.fromfile(tmp_path / "out.bin", np.float32).reshape(b, s, h, hd)
+    t = torch.from_numpy
+    want = tfa.run_plain(t(q), t(k), t(v), causal=causal, window=window).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
+    if against_jax:
+        jax_out = np.asarray(jops.flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, window=window,
+            block_q=128, block_k=128, interpret=True))
+        np.testing.assert_allclose(got, jax_out, atol=2e-5, rtol=1e-4)
 
 
 # ------------------------------------------------------------- large p

@@ -4,7 +4,7 @@ the card: the two kernels where both take p, where an iteration's time
 goes, and copies of the source, in one call.
 
     python3 benchmarks_torch/ns_tc_readings.py [--shape B,P,N ...]
-        [--split] [--source LABEL=PATH ...] [--rounds 3]
+        [--split] [--source LABEL=PATH ...] [--stream] [--rounds 3]
 
 By default, at each ``--shape`` (default the trainer's 640 x (64, 960),
 512 x (32, 2048) and 576 x (64, 2048), where p <= 64 and n fits both
@@ -33,6 +33,15 @@ cluster barriers, the splits, the rest of the exchange and the sweep.
 the checkout's ``csrc``; the label ``checkout`` is the checkout's own)
 times each build's ``newton_schulz_tc128`` at each ``--shape`` (default
 576 x (128, 2048)) in turns instead, each held against the plain version.
+``--stream`` reads row 9s (``newton_schulz_stream``) at each ``--shape``
+(default starcoder2-15b's q/k, 2080 x (128, 6144), 576 x (128, 4096) and
+576 x (65, 2112), the lower edge of its class) beside row 9 (the tiled
+kernel, the route there before): both held against the plain version,
+then timed in turns on the drift step (every matrix repaired) and as the
+idle repair (every matrix masked off), with the bounds and the peak
+device memory: the readings behind the ``"stream"`` route. With
+``--source`` it times each build's ``newton_schulz_stream`` instead, each
+held against the plain version.
 Builds go through ``kernel_variants.py``'s, one ``nvcc`` each, all at
 once. Prints ptxas's lines and the card's name and power limit. Needs one
 CUDA card; exits 2 without one.
@@ -52,8 +61,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (label, [(old, new), ...]) edits, cumulative, each expected in the source.
 _PEER = ("hopper::ld_peer4(hopper::map_peer(at, k))",
          "*reinterpret_cast<const float4*>(at)")
-_PEER128 = [("hopper::ld_peer4(hopper::map_peer(at, j))", "*reinterpret_cast<const float4*>(at)"),
-            ("hopper::ld_peer4(hopper::map_peer(at, owner))",
+_PEER128 = [("hopper::ld_peer4(hopper::map_peer(at, owner))",
              "*reinterpret_cast<const float4*>(at)")]
 SPLITS = [
     ("full", []),
@@ -71,8 +79,8 @@ SPLITS = [
                  ("__float_as_uint(trunc_lo(v))", "__float_as_uint(v)")]),
     ("sweep", [("    if (gram) cluster_gram(u, us, pub + ((it + 1) & 1) * kNtPub, c, rank, g, "
                 "last ? nullptr : gh, gl);", ""),
-               ("      n8_exchange(u, gh, gl, slice, red, c, rank, p, !last, last ? dst : nullptr);",
-                "")]),
+               ("      n8_exchange<false>(u, gh, gl, slice, red, c, rank, p, !last, "
+                "last ? dst : nullptr);", "")]),
 ]
 
 
@@ -106,7 +114,9 @@ def _libs(build, kv, ns, sources):
         for line in regs:
             print(f"ptxas[{label}] {line}", flush=True)
         lib = ctypes.CDLL(so)
-        for entry in ("newton_schulz_tc", "newton_schulz_tc128"):
+        for entry in ("newton_schulz_tc", "newton_schulz_tc128", "newton_schulz_stream"):
+            if not hasattr(lib, entry):  # a source from before the entry
+                continue
             getattr(lib, entry).argtypes = getattr(ns.tc_lib(), entry).argtypes
             getattr(lib, entry).restype = ctypes.c_int
         return label, lib
@@ -151,6 +161,61 @@ def _pair(shape, chip_smoke, gen, rounds, tc_lib):
     return all(ok for _, _, ok in errs.values())
 
 
+STREAM_SHAPES = [(2080, 128, 6144), (576, 128, 4096), (576, 65, 2112)]
+
+
+def _stream(shape, chip_smoke, gen, rounds, tc_lib):
+    """Row 9s beside row 9 at ``shape``: checked, then timed in turns on
+    the drift step and as the idle repair."""
+    import torch
+
+    from repro_torch.core import stiefel
+    from repro_torch.kernels import newton_schulz as ns
+    from repro_torch.kernels import ops
+
+    b, p, n = shape
+    iters = chip_smoke.NS_ITERS
+    torch.cuda.reset_peak_memory_stats()
+    x = 1.5 * stiefel.random_stiefel(gen, shape, device="cuda")
+    x += 0.05 * torch.randn(shape, generator=gen, device="cuda")
+    routes = {"row 9": functools.partial(ns.newton_schulz_tiled, tile_n=ops.ns_tiled_tile_n(p)),
+              "9s": ns.newton_schulz_stream}
+    want = chip_smoke._plain_ns(x)
+    out = torch.empty_like(x)
+    errs = {}
+    for label, fn in routes.items():
+        out.fill_(float("nan"))
+        fn(x, iters, out=out)
+        errs[label] = chip_smoke._errors((out,), (want,), chip_smoke.NS_TOL)
+    del want
+    times = chip_smoke._time_rotating(
+        [(functools.partial(fn, x, iters, out=out), 2 if label == "row 9" else 5)
+         for label, fn in routes.items()], rounds)
+    y, none = x.clone(), torch.zeros(b, dtype=torch.bool, device="cuda")
+    idle = chip_smoke._time_rotating(
+        [(functools.partial(fn, y, iters, out=y, mask=none), 20) for fn in routes.values()],
+        rounds)
+    if not torch.equal(y, x):
+        raise SystemExit(f"ns_tc_readings {shape}: an idle repair wrote a matrix")
+    flops = p * p * n * b * iters
+    tf32 = 1e3 * 10 * flops / chip_smoke.TF32_TC_FLOP_PER_S
+    fp32 = 1e3 * chip_smoke.NS_FLOPS * flops / chip_smoke.FP32_FLOP_PER_S
+    hbm = 1e3 * 4 * b * p * n / chip_smoke.HBM_BYTES_PER_S
+    print(f"9s vs row 9 {b}x({p},{n}), {iters} iterations, planned "
+          f"{ops.plan_newton_schulz(p, n)}; bounds: 3xTF32 tensor work {tf32:.4f} ms, fp32 "
+          f"CUDA cores {fp32:.4f}, 2 HBM passes {2 * hbm:.4f}, {2 * iters + 1} passes "
+          f"{(2 * iters + 1) * hbm:.4f}; 9s's grid {tc_lib.ns_stream_max_clusters()} CTAs; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for k, (label, (max_abs, _, good)) in enumerate(errs.items()):
+        print(f"  {label}: drift step {times[k]:.4f} ms, idle repair {idle[k]:.4f} ms, "
+              f"max_abs {max_abs:.3e} {'ok' if good else 'MISMATCH'}", flush=True)
+    takes = times[1] < times[0] and idle[1] <= idle[0] + 0.1
+    print(f"  the rule (faster drift step, idle within 0.1 ms of row 9's) takes "
+          f"{'9s' if takes else 'row 9'}", flush=True)
+    del x, y, out
+    return all(good for _, _, good in errs.values())
+
+
 def _split(libs, chip_smoke, gen, rounds):
     import torch
 
@@ -183,35 +248,36 @@ def _split(libs, chip_smoke, gen, rounds):
         del x, out
 
 
-def _sources(libs, shapes, chip_smoke, gen, rounds):
-    """Each build's ``newton_schulz_tc128`` at each shape, checked against
-    the plain version, timed in turns."""
+def _sources(libs, shapes, entry, chip_smoke, gen, rounds):
+    """Each build's ``entry`` (``newton_schulz_tc128`` or
+    ``newton_schulz_stream``) at each shape, checked against the plain
+    version, timed in turns."""
     import torch
 
     from repro_torch.core import stiefel
-    from repro_torch.kernels import ref
 
     ok = True
     for shape in shapes:
         x = 1.5 * stiefel.random_stiefel(gen, shape, device="cuda")
         x += 0.05 * torch.randn(shape, generator=gen, device="cuda")
         out = torch.empty_like(x)
-        want = ref.newton_schulz_ref(x, chip_smoke.NS_ITERS)
+        want = chip_smoke._plain_ns(x)
         stream = torch.cuda.current_stream().cuda_stream
 
         def run(lib):
-            err = lib.newton_schulz_tc128(x.data_ptr(), out.data_ptr(), None, None, *shape,
-                                          chip_smoke.NS_ITERS, stream)
+            err = getattr(lib, entry)(x.data_ptr(), out.data_ptr(), None, None, *shape,
+                                      chip_smoke.NS_ITERS, stream)
             if err:
-                raise SystemExit(f"newton_schulz_tc128 build failed: cudaError {err}")
+                raise SystemExit(f"{entry} build failed: cudaError {err}")
 
         errs = {}
         for label, lib in libs.items():
+            out.fill_(float("nan"))
             run(lib)
             errs[label] = chip_smoke._errors((out,), (want,), chip_smoke.NS_TOL)
         times = chip_smoke._time_rotating([(functools.partial(run, lib), 3)
                                            for lib in libs.values()], rounds)
-        print(f"sources {shape[0]}x{shape[1:]}: " + "; ".join(
+        print(f"{entry} sources {shape[0]}x{shape[1:]}: " + "; ".join(
             f"{label} {t:.4f} ms, max_abs {e[0]:.3e} {'ok' if e[2] else 'MISMATCH'}"
             for (label, e), t in zip(errs.items(), times)), flush=True)
         ok &= all(e[2] for e in errs.values())
@@ -229,6 +295,7 @@ def main() -> int:
     ap.add_argument("--split", action="store_true")
     ap.add_argument("--source", action="append", default=[],
                     help="LABEL=PATH of a copy of csrc/newton_schulz_tc.cu (repeatable)")
+    ap.add_argument("--stream", action="store_true")
     ap.add_argument("--rounds", type=int, default=3)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -253,12 +320,19 @@ def main() -> int:
     os.makedirs(kv.OUT, exist_ok=True)
     shapes = [tuple(int(v) for v in s.split(",")) for s in args.shape]
     ok = True
-    if args.split:
+    if args.stream and args.source:
+        srcs = [("checkout", "")] + [s.split("=", 1) for s in args.source]
+        ok = _sources(_libs(build, kv, ns, srcs), shapes or STREAM_SHAPES[:1],
+                      "newton_schulz_stream", chip_smoke, gen, args.rounds)
+    elif args.stream:
+        ok = all([_stream(s, chip_smoke, gen, args.rounds, tc_lib)
+                  for s in shapes or STREAM_SHAPES])
+    elif args.split:
         _split(_libs(build, kv, ns, _split_sources(build, kv)), chip_smoke, gen, args.rounds)
     elif args.source:
         srcs = [("checkout", "")] + [s.split("=", 1) for s in args.source]
         ok = _sources(_libs(build, kv, ns, srcs), shapes or [chip_smoke.WIDE_SHAPE],
-                      chip_smoke, gen, args.rounds)
+                      "newton_schulz_tc128", chip_smoke, gen, args.rounds)
     else:
         ok = all([_pair(s, chip_smoke, gen, args.rounds, tc_lib) for s in
                   shapes or [(640, 64, 960), (512, 32, 2048), (576, 64, 2048)]])

@@ -46,7 +46,10 @@ the CUDA cores, where TMA cannot take the row stride); 3 steps each:
   thread block cluster a matrix), at internlm2-1.8b's (the same source's
   kernel for p <= 128, a persistent grid of clusters of 16 CTAs; the drift
   step timed with it and with row 9's CUDA-core tiled kernel, its route
-  before), at the paper's unitary-PC sizes (the cluster kernel's Landing
+  before), at starcoder2-15b's, one 2080 x (128, 6144) stack (the wide
+  kernel's Landing and the same source's streaming kernel, row 9s, Y
+  streamed through a TMA ring; the drift step timed with it and with row
+  9), at the paper's unitary-PC sizes (the cluster kernel's Landing
   and its Newton-Schulz, row 9cl, one matrix's Y held in a thread block
   cluster; the drift step timed with it and with row 9), at 1048 x (10,
   9998) (the tiled Landing and row 9's tiled repair) and at the CNN
@@ -61,7 +64,8 @@ tensor-core kernels (the wide ones at 576 x (128, 2048)) and the large
 route's entries (on the tensor cores at both paper sizes, on the CUDA
 cores at ``LARGE_ODD``) are launched 20 times each on the same inputs,
 half of them beside a copy on another stream, and must repeat bit for
-bit, and so must the tensor-core Newton-Schulz kernels and the cluster
+bit, and so must the tensor-core Newton-Schulz kernels (row 9s at
+starcoder2-15b's 2080 x (128, 6144)) and the cluster
 kernels of ``small_p.cu`` (its four entries and Newton-Schulz's, at the
 paper's 1048 x (10, 10000)) and the 3xTF32 flash-attention kernel (at
 the prefill's shape). The cluster kernels are timed
@@ -77,7 +81,9 @@ timed beside both (the crossovers behind the planner's rule), and the
 tensor-core large Newton-Schulz and the tensor-core kernel for p <= 128
 beside row 9's tiled kernel at 576 x (p, 2048), p = 72, 96 and 128, on
 the drift step and idle. The Newton-Schulz kernels are
-held against their plain version with half the matrices masked off, and
+held against their plain version with half the matrices masked off
+(row 9s at starcoder2-15b's q/k too, timed in turns with row 9 called
+directly and with the plain version, the peak device memory printed), and
 timed beside the repair launch that finds no matrix past the threshold
 (the CUDA-core large route's also as its Python loop issued it before
 its iterations moved into one C call). The tensor-parallel step: its two kernels against their plain
@@ -164,6 +170,15 @@ MANY = {"w": (2048, 16, 256)}
 # Newton-Schulz kernel's.
 INTERNLM2 = {"q_proj": (24, 16, 128, 2048), "k_proj": (24, 8, 128, 2048)}
 WIDE_SHAPE = (576, 128, 2048)
+# starcoder2-15b's constrained q/k projections (src/repro/configs/
+# starcoder2_15b.py: 40 layers, 48 heads and 4 KV heads of head_dim 128,
+# d_model 6144), one 2080 x (128, 6144) stack, 6.54 GB, full width: past the
+# n of row 9w's clusters, the streaming Newton-Schulz kernel's (row 9s) main
+# path under fused Landing's watchdog (the wide kernel's Landing, row 2Lw).
+STARCODER2 = {"q_proj": (40, 48, 128, 6144), "k_proj": (40, 4, 128, 6144)}
+STREAM_SHAPE = (sum(layers * heads for layers, heads, _, _ in STARCODER2.values()),
+                *STARCODER2["q_proj"][2:])
+PLAIN_SLICE = 520  # matrices a plain Newton-Schulz call takes at the largest stack
 # The paper's squared-unitary-PC sizes (src/repro/configs/pogo_paper.py:10,
 # 1048 matrices of (10, n), n at the top of its 256-10000 range), real-valued
 # (the port refuses complex groups): p < 25, where the planner sends the fused
@@ -207,6 +222,7 @@ KERNELS = {
     "newton_schulz": ("newton_schulz", "src/repro/kernels/newton_schulz.py:37"),
     "newton_schulz_tc": ("newton_schulz_tc", "src/repro/kernels/newton_schulz.py:37"),
     "newton_schulz_tc128": ("newton_schulz_tc", "src/repro/kernels/newton_schulz.py:37"),
+    "newton_schulz_stream": ("newton_schulz_tc", "src/repro/kernels/newton_schulz.py:37"),
     "newton_schulz_cluster": ("small_p", "src/repro/kernels/newton_schulz.py:37"),
     "fused_step_whole_landing": ("fused_step", "src/repro/kernels/fused_step.py:164"),
     "fused_step_tiled_landing": ("fused_step", "src/repro/kernels/fused_step.py:559"),
@@ -723,7 +739,8 @@ def phase_fused_kernels(gen):
 def phase_tc_repeatability(gen, repeats=20):
     """Each tensor-core kernel launched ``repeats`` times on the same inputs
     at 640 x (64, 960) (the wide ones and Newton-Schulz's for p <= 128 at
-    576 x (128, 2048), the cluster kernels of small_p.cu, its four entries
+    576 x (128, 2048), the streaming one, row 9s, at starcoder2-15b's 2080 x
+    (128, 6144), the cluster kernels of small_p.cu, its four entries
     and Newton-Schulz's, at the paper's 1048 x (10, 10000); Newton-Schulz
     on the watchdog's drifted input, half
     the matrices masked off), each
@@ -805,6 +822,7 @@ def phase_tc_repeatability(gen, repeats=20):
         del x, g
     for kernel, shape in ((ns.newton_schulz_tc, (640, 64, 960)),
                           (ns.newton_schulz_tc128, WIDE_SHAPE),
+                          (ns.newton_schulz_stream, STREAM_SHAPE),
                           (ns.newton_schulz_cluster, PAPER_SHAPE),
                           *((ns.newton_schulz_large_tc, shape) for shape in large),
                           (ns.newton_schulz_large, LARGE_ODD)):
@@ -1113,7 +1131,11 @@ def phase_newton_schulz(gen):
     9's through the same entry), internlm2-1.8b's 576 x
     (128, 2048) (the tensor-core kernel for p <= 128, 16 CTAs a matrix, row
     9w; row 9's tiled kernel, its route before, is held against the plain
-    version and timed beside it), 2048 x (16, 256) (whole),
+    version and timed beside it), starcoder2-15b's 2080 x (128, 6144) (row
+    9s, the streaming kernel; row 9's tiled kernel, its route before, is
+    held against the plain version and timed beside it, the idle repair
+    too; the plain version in slices of ``PLAIN_SLICE`` matrices, fewer
+    calls timed, the peak device memory printed), 2048 x (16, 256) (whole),
     ``LARGE_ODD`` (the CUDA cores' large route), the CNN filters' 3 x (256,
     2304) and O-ViT's 18 x (1024, 1024) (the tensor cores' large route)
     and 7 x (10, 250); then timed unmasked at the others, each beside the
@@ -1133,11 +1155,13 @@ def phase_newton_schulz(gen):
 
     records = {}
     counters = (ns.newton_schulz_tc, ns.newton_schulz_tc128, ns.newton_schulz_large,
-                ns.newton_schulz_large_tc, ns.newton_schulz_cluster)
+                ns.newton_schulz_large_tc, ns.newton_schulz_cluster, ns.newton_schulz_stream)
     untimed = ((7, 10, 250),)
-    for shape in ((640, 64, 960), PAPER_ODD_SHAPE, PAPER_SHAPE, WIDE_SHAPE, (2048, 16, 256),
-                  LARGE_ODD, CNN_SHAPE, OVIT_SHAPE, *untimed):
+    for shape in ((640, 64, 960), PAPER_ODD_SHAPE, PAPER_SHAPE, WIDE_SHAPE, STREAM_SHAPE,
+                  (2048, 16, 256), LARGE_ODD, CNN_SHAPE, OVIT_SHAPE, *untimed):
         b, p, n = shape
+        big = shape == STREAM_SHAPE
+        torch.cuda.reset_peak_memory_stats()
         x = 1.5 * stiefel.random_stiefel(gen, shape, device="cuda")
         x += (0.005 if p == n else 0.05) * torch.randn(shape, generator=gen, device="cuda")
         dist = torch.where(torch.arange(b, device="cuda") % 2 == 0, 2.0, 0.0).float()
@@ -1145,16 +1169,17 @@ def phase_newton_schulz(gen):
         kind, tile_n = ops.plan_newton_schulz(p, n)
         name = {"tc": "newton_schulz_tc", "tc128": "newton_schulz_tc128",
                 "large": "newton_schulz_large", "large_tc": "newton_schulz_large_tc",
-                "cluster": "newton_schulz_cluster"}.get(kind, "newton_schulz")
+                "cluster": "newton_schulz_cluster",
+                "stream": "newton_schulz_stream"}.get(kind, "newton_schulz")
         before = [c.launches for c in counters]
         rep = ops.newton_schulz_repair(x, dist, torch.tensor(0.1, device="cuda"),
                                        NS_ITERS)
         torch.cuda.synchronize()
         if [c.launches - k for c, k in zip(counters, before)] != [
                 kind == "tc", kind == "tc128", kind == "large", kind == "large_tc",
-                kind == "cluster"]:
+                kind == "cluster", kind == "stream"]:
             raise SystemExit(f"newton_schulz {shape}: the planned {kind} kernel did not launch")
-        want = ref.newton_schulz_ref(x0[rep], NS_ITERS)
+        want = _plain_ns(x0[rep])
         want_d = ref.manifold_distance_ref(want)
         max_abs, _, ok = _errors((x[rep],), (want,), NS_TOL)
         kept = torch.equal(x[~rep], x0[~rep]) and torch.equal(dist[~rep], d0[~rep])
@@ -1175,16 +1200,17 @@ def phase_newton_schulz(gen):
         wrapper = getattr(ns, f"newton_schulz_{kind}")
         if kind == "tiled":
             wrapper = functools.partial(wrapper, tile_n=tile_n)
-        timed = [(lambda: ref.newton_schulz_ref(x0, NS_ITERS), 10),
-                 (lambda: wrapper(x0, NS_ITERS, out=out), 20)]
-        if kind in ("tc", "tc128", "cluster"):  # row 9's tiled kernel, its route here before
+        del want, want_d
+        calls = 2 if big else 10  # the plain version's and row 9's calls a round
+        timed = [(lambda: _plain_ns(x0), calls),
+                 (lambda: wrapper(x0, NS_ITERS, out=out), 5 if big else 20)]
+        if kind in ("tc", "tc128", "cluster", "stream"):  # row 9's tiled kernel, its route before
             cc_tile = ops.ns_tiled_tile_n(p)
             cc = functools.partial(ns.newton_schulz_tiled, tile_n=cc_tile)
-            max_cc, _, ok_cc = _errors((cc(x0, NS_ITERS),), (ref.newton_schulz_ref(x0, NS_ITERS),),
-                                       NS_TOL)
+            max_cc, _, ok_cc = _errors((cc(x0, NS_ITERS, out=out),), (_plain_ns(x0),), NS_TOL)
             if not ok_cc:
                 raise SystemExit(f"newton_schulz_tiled at {shape} disagrees ({max_cc:.3e})")
-            timed.append((lambda: cc(x0, NS_ITERS, out=out), 20))
+            timed.append((lambda: cc(x0, NS_ITERS, out=out), calls if big else 20))
         elif kind == "large_tc":  # the CUDA-core large route, its route before
             max_cc, _, ok_cc = _errors((ns.newton_schulz_large(x0, NS_ITERS),),
                                        (ref.newton_schulz_ref(x0, NS_ITERS),), NS_TOL)
@@ -1196,7 +1222,7 @@ def phase_newton_schulz(gen):
         # Read X, write Y; NS_FLOPS p^2 n an iteration. On the tensor cores
         # the update takes 3 TF32 products, the symmetric gram 2 (G = U + U^T).
         flops = NS_FLOPS * NS_ITERS * p * p * n * b
-        if kind in ("tc", "tc128"):
+        if kind in ("tc", "tc128", "stream"):
             tc_flops = (2 + 3) * 2 * NS_ITERS * p * p * n * b
             bound_ms, bound_by = _bound_ms(2 * b * p * n * 4, tc_flops, TF32_TC_FLOP_PER_S)
         elif kind == "large_tc":  # every product 3xTF32
@@ -1209,7 +1235,7 @@ def phase_newton_schulz(gen):
             ops.newton_schulz_repair(x0, idle, thresh, NS_ITERS)
 
         extra = ""
-        if kind in ("tc", "tc128", "cluster"):  # row 9's idle repair through the same entry
+        if kind in ("tc", "tc128", "cluster", "stream"):  # row 9's idle repair, the same entry
             ops.reset_launches()
             idle_ms, idle_cc = _idle_in_turns(idle_repair, p)
             if ops.launches()["newton_schulz_tiled"] != 2 + IDLE_CALLS:
@@ -1220,6 +1246,10 @@ def phase_newton_schulz(gen):
                      f"repair with no matrix past the threshold {idle_cc:.4f} ms")
             if kind != "cluster":
                 extra = "; 3xTF32 tensor work (the gram 2 TF32 products, the update 3)" + extra
+            if big:
+                extra += (f"; 2 HBM passes {1e3 * 8 * b * p * n / HBM_BYTES_PER_S:.4f} ms, "
+                          f"{2 * NS_ITERS + 1} passes "
+                          f"{1e3 * (2 * NS_ITERS + 1) * 4 * b * p * n / HBM_BYTES_PER_S:.4f}")
         else:
             idle_ms = _time_ms(idle_repair, 20)
         if kind == "cluster":  # row 9's reading here, the planner's rule, the grid
@@ -1233,15 +1263,17 @@ def phase_newton_schulz(gen):
                 raise SystemExit(f"newton_schulz_cluster at {shape}: {ms:.4f} ms, idle "
                                  f"{idle_ms:.4f}, against row 9's {times[2]:.4f} / "
                                  f"{idle_cc:.4f}: the planner's rule no longer holds")
-        if kind == "tc128":  # row 9's reading here, the planner's rule, the grid
-            c = ops.ns_tc128_cluster(n)
-            extra += (f"; clusters of {c} CTAs, {ns.tc_lib().ns_tc128_max_clusters(n)} "
-                      f"resident at once")
+        if kind in ("tc128", "stream"):  # row 9's reading here, the planner's rule, the grid
+            if kind == "tc128":
+                extra += (f"; clusters of {ops.ns_tc128_cluster(n)} CTAs, "
+                          f"{ns.tc_lib().ns_tc128_max_clusters(n)} resident at once")
+            else:
+                extra += f"; one CTA a matrix, {ns.tc_lib().ns_stream_max_clusters()} at once"
             _record(records, "newton_schulz", shape, dict(
                 max_abs_err=max_cc, ms=times[2], plain_ms=plain_ms, bound_ms=cc_bound[0],
                 bound_by=cc_bound[1]))
             if not (ms < times[2] and idle_ms <= idle_cc + 0.1):
-                raise SystemExit(f"newton_schulz_tc128 at {shape}: {ms:.4f} ms, idle "
+                raise SystemExit(f"newton_schulz_{kind} at {shape}: {ms:.4f} ms, idle "
                                  f"{idle_ms:.4f}, against row 9's {times[2]:.4f} / "
                                  f"{idle_cc:.4f}: the planner's rule no longer holds")
         elif kind in ("large", "large_tc"):  # its launches, the n-slices' sums included
@@ -1262,6 +1294,10 @@ def phase_newton_schulz(gen):
             _record(records, "newton_schulz_large", shape, dict(
                 max_abs_err=max_cc, ms=times[2], plain_ms=plain_ms, bound_ms=cc_bound[0],
                 bound_by=cc_bound[1]))
+        if big:
+            extra += (f"; peak device memory "
+                      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of "
+                      f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}")
         print(f"  newton_schulz_{kind} {b}x({p},{n}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
               f"bound_ms {bound_ms:.4f} ({bound_by}); repair with no matrix past the "
               f"threshold {idle_ms:.4f} ms{extra}", flush=True)
@@ -1270,6 +1306,20 @@ def phase_newton_schulz(gen):
                                                bound_by=bound_by))
         del x, x0, out
     return records
+
+
+def _plain_ns(x):
+    """``ref.newton_schulz_ref`` at ``NS_ITERS``, in slices of ``PLAIN_SLICE``
+    matrices where the stack is as large as starcoder2-15b's (its
+    temporaries at once would take several stacks of device memory)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    if x.numel() < STREAM_SHAPE[1] * STREAM_SHAPE[2] * STREAM_SHAPE[0]:
+        return ref.newton_schulz_ref(x, NS_ITERS)
+    return torch.cat([ref.newton_schulz_ref(x[i:i + PLAIN_SLICE], NS_ITERS)
+                      for i in range(0, x.shape[0], PLAIN_SLICE)])
 
 
 def _ns_python_loop(x, iters, mask):
@@ -1759,16 +1809,19 @@ def phase_landing_watchdog(gen, card):
     is repaired (the fused watchdog only tightens the repair threshold,
     ``repro/core/api.py:1551-1564``): at SmolLM-360M's 640 x (64, 960) (the
     tensor-core repair), at internlm2-1.8b's 576 x (128, 2048) (the wide
-    fused kernel and the tensor-core repair for p <= 128, row 9w), at the
+    fused kernel and the tensor-core repair for p <= 128, row 9w), at
+    starcoder2-15b's 2080 x (128, 6144) (the wide fused kernel and the
+    streaming repair, row 9s; its peak device memory printed), at the
     paper's unitary-PC 1048 x (10, 10000) (the cluster kernel's Landing and
     Newton-Schulz, rows 2Lcl and 9cl), at 1048 x (10, 9998) (the CUDA-core
     tiled Landing and repair, rows 2L and 9, whose main path this is), at
     the paper's CNN filters, 3 x (256, 2304), and O-ViT, 18 x (1024, 1024)
     (the large route's fused Landing and Newton-Schulz), and at
-    ``LARGE_ODD`` (the CUDA-core large route). At internlm2-1.8b's q/k and
-    the paper's 1048 x (10, 10000) the drift step and an undrifted one (the
-    repair's idle launch) are timed first, medians of three on copies of the
-    state, the drift step also with row 9 planned in place of row 9w or 9cl.
+    ``LARGE_ODD`` (the CUDA-core large route). At internlm2-1.8b's and
+    starcoder2-15b's q/k and the paper's 1048 x (10, 10000) the drift step
+    and an undrifted one (the repair's idle launch) are timed first, medians
+    of three on copies of the state, the drift step also with row 9 planned
+    in place of row 9w, 9s or 9cl.
     Returns the repair kernels' launches."""
     import torch
 
@@ -1781,6 +1834,8 @@ def phase_landing_watchdog(gen, card):
                                   "newton_schulz_tc"),
                                  (WIDE_SHAPE, "fused_step_tiled_tc128_landing",
                                   "newton_schulz_tc128"),
+                                 (STREAM_SHAPE, "fused_step_tiled_tc128_landing",
+                                  "newton_schulz_stream"),
                                  (PAPER_SHAPE, "fused_step_cluster_landing",
                                   "newton_schulz_cluster"),
                                  (PAPER_ODD_SHAPE, "fused_step_tiled_landing",
@@ -1790,6 +1845,7 @@ def phase_landing_watchdog(gen, card):
                                  (OVIT_SHAPE, "fused_step_large_tc_landing",
                                   "newton_schulz_large_tc"),
                                  (LARGE_ODD, "fused_step_large_landing", "newton_schulz_large")):
+        torch.cuda.reset_peak_memory_stats()
         opt = make_opt("landing_fused", watchdog=wd)
         cs = api.ConstraintSet.from_tree({"qk": stiefel.random_stiefel(gen, shape,
                                                                        device="cuda")})
@@ -1802,7 +1858,7 @@ def phase_landing_watchdog(gen, card):
 
         for _ in range(2):
             cs, state, _ = step(cs, state, grads())
-        if shape in (WIDE_SHAPE, PAPER_SHAPE):
+        if shape in (WIDE_SHAPE, STREAM_SHAPE, PAPER_SHAPE):
             _time_drift_step(step, cs, state, grads(), card, shape, repair)
         for s in cs.stacks:
             s.mul_(1.5)
@@ -1814,9 +1870,12 @@ def phase_landing_watchdog(gen, card):
         launches = {k: v for k, v in ops.launches().items() if v}
         summary = api.watchdog_summary(state)
         dist = float(api.max_distance(state))
+        peak = ""
+        if shape == STREAM_SHAPE:
+            peak = f", peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
         print(f"landing fused + watchdog, {shape[0]}x{shape[1:]} scaled by 1.5: repairs "
               f"{summary['repairs']}, distance after the step {dist:.3e} (limit "
-              f"{wd.hard / 2}), launches {launches} [{card}]", flush=True)
+              f"{wd.hard / 2}), launches {launches}{peak} [{card}]", flush=True)
         if not (bool(health.finite) and summary["repairs"] == shape[0]
                 and dist < wd.hard / 2 and launches == {fused: 1, repair: 1}):
             raise SystemExit(f"landing fused + watchdog at {shape}: the drift step was not "
@@ -1865,7 +1924,8 @@ def _time_drift_step(step, cs, state, g, card, shape, repair, repeats=3):
     drift = repairs(1.5, repair)
     with _row9_planned(shape[1]):
         drift_row9 = repairs(1.5, "newton_schulz_tiled")
-    row = {"newton_schulz_tc128": "row 9w", "newton_schulz_cluster": "row 9cl"}[repair]
+    row = {"newton_schulz_tc128": "row 9w", "newton_schulz_stream": "row 9s",
+           "newton_schulz_cluster": "row 9cl"}[repair]
     print(f"landing fused + watchdog, {shape[0]}x{shape[1:]}: median step "
           f"{still:.4f} ms undrifted (the repair idle), {drift:.4f} ms on the drift step "
           f"({row} repairs), {drift_row9:.4f} ms with row 9 repairing [{card}]", flush=True)
@@ -2588,6 +2648,7 @@ def main() -> int:
     launches["newton_schulz"] = repairs["newton_schulz_tiled"]
     launches["newton_schulz_cluster"] = repairs["newton_schulz_cluster"]
     launches["newton_schulz_tc128"] = repairs["newton_schulz_tc128"]
+    launches["newton_schulz_stream"] = repairs["newton_schulz_stream"]
     launches["newton_schulz_large"] = repairs["newton_schulz_large"]
     launches["newton_schulz_large_tc"] = repairs["newton_schulz_large_tc"]
     phase_tp_schedule(gen, card)

@@ -1,8 +1,10 @@
 // Batched Newton-Schulz polar projection for Hopper (sm_90a) on the tensor
 // cores: the feasibility watchdog's drift repair for p <= 64 stacks whose
 // matrices do not fit one block whole (the trainer's q/k, 640 x (64, 960)),
-// and, in the second half of this file (ns_tc128_kernel), for 64 < p <= 128
-// (internlm2-1.8b's q/k, 576 x (128, 2048)).
+// and, in the second part of this file (ns_tc128_kernel), for 64 < p <= 128
+// (internlm2-1.8b's q/k, 576 x (128, 2048)), and in the third
+// (ns_stream_kernel) for the same p past n = 2048 (starcoder2-15b's q/k,
+// 2080 x (128, 6144)).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/newton_schulz.py:37
 // (newton_schulz, _ns_kernel :21), reached through kernels/ops.py:700
@@ -475,18 +477,59 @@ __device__ inline int n8_u(int r, int c) {
   return r * kN8P + ((((c >> 2) ^ (r >> 2) ^ ((r & 3) << 1)) & 31) << 2) + (c & 3);
 }
 
-// The warpgroup's chunk updated in place: Y' = 1.5 Y - 0.5 G Y, through d =
-// Y^T G (3xTF32, small terms first in each group of four k8 steps over
-// the first `groups` 32-row slabs), Y^T the register A operand.
-__device__ void n8_update(unsigned char* tile, const unsigned char* gh, const unsigned char* gl,
-                          int groups) {
-  const int t = threadIdx.x & 127, m0 = 16 * (t >> 5) + ((t & 31) >> 2), k0 = t & 3;
-  float d[64];
+// The twelve products of k8 steps 4 h .. 4 h + 3 of d = Y^T G into acc
+// (3xTF32, small terms first; from zero when `zero`), the fragments fh and
+// fl Y^T's hi and lo pieces; waits.
+template <int NR>
+__device__ __forceinline__ void n8_update_issue(float (&acc)[NR], uint32_t (&fh)[4][4],
+                                                uint32_t (&fl)[4][4], const unsigned char* gh,
+                                                const unsigned char* gl, int h, bool zero) {
+  hopper::fence_regs(acc);
 #pragma unroll
-  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+  for (int k4 = 0; k4 < 4; ++k4) {
+    hopper::fence_regs(fh[k4]);
+    hopper::fence_regs(fl[k4]);
+  }
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int k4 = 0; k4 < 4; ++k4) {
+    const int kk = 4 * h + k4;
+    hopper::wgmma_tf32_rs(acc, fh[k4][0], fh[k4][1], fh[k4][2], fh[k4][3], n8_desc(gl, kk),
+                          !zero || k4 > 0);
+    hopper::wgmma_tf32_rs(acc, fl[k4][0], fl[k4][1], fl[k4][2], fl[k4][3], n8_desc(gh, kk), 1);
+  }
+#pragma unroll
+  for (int k4 = 0; k4 < 4; ++k4)
+    hopper::wgmma_tf32_rs(acc, fh[k4][0], fh[k4][1], fh[k4][2], fh[k4][3],
+                          n8_desc(gh, 4 * h + k4), 1);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+#pragma unroll
+  for (int k4 = 0; k4 < 4; ++k4) {
+    hopper::fence_regs(fh[k4]);
+    hopper::fence_regs(fl[k4]);
+  }
+}
+
+// d = Y^T G over the first `groups` 32-row slabs, Y^T the register A
+// operand whose element (m, k) is the tile's (k, m), G's hi and lo rows
+// from gh and gl on (2 NR of them: the product's N); t is the thread's
+// index in its warpgroup. kPartials: each group's products start from zero
+// and are added to fp32 sums in registers (ns_tc128_kernel, where the
+// partials' registers are free); else every product goes into d itself;
+// waits.
+template <int NR, bool kPartials>
+__device__ __forceinline__ void n8_update_product(float (&d)[NR], unsigned char* tile,
+                                                  const unsigned char* gh,
+                                                  const unsigned char* gl, int groups, int t) {
+  const int m0 = 16 * (t >> 5) + ((t & 31) >> 2), k0 = t & 3;
+  if (kPartials) {
+#pragma unroll
+    for (int i = 0; i < NR; ++i) d[i] = 0.f;
+  }
   for (int h = 0; h < groups; ++h) {
     uint32_t fh[4][4], fl[4][4];
-    float pd[64];
 #pragma unroll
     for (int k4 = 0; k4 < 4; ++k4) {
 #pragma unroll
@@ -497,40 +540,80 @@ __device__ void n8_update(unsigned char* tile, const unsigned char* gh, const un
         fl[k4][r] = __float_as_uint(lo);
       }
     }
-    hopper::fence_regs(pd);
+    if constexpr (kPartials) {
+      float pd[NR];
+      n8_update_issue(pd, fh, fl, gh, gl, h, true);
 #pragma unroll
-    for (int k4 = 0; k4 < 4; ++k4) {
-      hopper::fence_regs(fh[k4]);
-      hopper::fence_regs(fl[k4]);
+      for (int i = 0; i < NR; ++i) d[i] += pd[i];
+    } else {
+      n8_update_issue(d, fh, fl, gh, gl, h, h == 0);
     }
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int k4 = 0; k4 < 4; ++k4) {
-      const int kk = 4 * h + k4;
-      hopper::wgmma_tf32_rs(pd, fh[k4][0], fh[k4][1], fh[k4][2], fh[k4][3], n8_desc(gl, kk),
-                            k4 > 0);
-      hopper::wgmma_tf32_rs(pd, fl[k4][0], fl[k4][1], fl[k4][2], fl[k4][3], n8_desc(gh, kk), 1);
-    }
-#pragma unroll
-    for (int k4 = 0; k4 < 4; ++k4)
-      hopper::wgmma_tf32_rs(pd, fh[k4][0], fh[k4][1], fh[k4][2], fh[k4][3],
-                            n8_desc(gh, 4 * h + k4), 1);
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(pd);
-#pragma unroll
-    for (int k4 = 0; k4 < 4; ++k4) {
-      hopper::fence_regs(fh[k4]);
-      hopper::fence_regs(fl[k4]);
-    }
-#pragma unroll
-    for (int i = 0; i < 64; ++i) d[i] += pd[i];
   }
+}
+
+// The warpgroup's chunk updated in place: Y' = 1.5 Y - 0.5 G Y, through d =
+// Y^T G over all 128 columns of G.
+__device__ void n8_update(unsigned char* tile, const unsigned char* gh, const unsigned char* gl,
+                          int groups) {
+  const int t = threadIdx.x & 127;
+  float d[64];
+  n8_update_product<64, true>(d, tile, gh, gl, groups, t);
   hopper::named_sync(kNtGroupBar + (threadIdx.x >> 7), 128);  // every warp has read the tile
 #pragma unroll
   for (int i = 0; i < 64; ++i) {  // d's element (m, row) is (G Y)'s (row, m)
     float& y = n8_at(tile, acc_col(t, i), acc_row(t, i));
     y = 1.5f * y - 0.5f * d[i];
+  }
+}
+
+// u += warpgroup tid / 128's rows of the chunk's share of U, one 64-column
+// half at a time (m64n64k8 against the chunk's rows 64 nh on), each half's
+// products from zero: 32 registers of partial sums, not 64, beside u
+// (ns_stream_kernel keeps u across its chunk loop); waits.
+__device__ __forceinline__ void n8_gram_add(float (&u)[64], unsigned char* tile, int tid) {
+  const int t = tid & 127, m0 = 64 * (tid >> 7) + 16 * (t >> 5) + ((t & 31) >> 2);
+  const int k0 = t & 3;
+#pragma unroll
+  for (int nh = 0; nh < 2; ++nh) {
+    const unsigned char* rows = tile + nh * 64 * 128;
+    float pu[32];
+    for (int h = 0; h < 2; ++h) {
+      uint32_t fh[4][4], fl[4][4];
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float v = n8_at(tile, m0 + 8 * (r & 1), 32 * h + 8 * k4 + k0 + 4 * (r >> 1));
+          fh[k4][r] = __float_as_uint(0.5f * tf32_trunc(v));
+          fl[k4][r] = __float_as_uint(trunc_lo(v));
+        }
+      }
+      hopper::fence_regs(pu);
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4) {
+        hopper::fence_regs(fh[k4]);
+        hopper::fence_regs(fl[k4]);
+      }
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4)
+        hopper::wgmma_tf32_rs(pu, fl[k4][0], fl[k4][1], fl[k4][2], fl[k4][3],
+                              n8_desc(rows, 4 * h + k4), h > 0 || k4 > 0);
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4)
+        hopper::wgmma_tf32_rs(pu, fh[k4][0], fh[k4][1], fh[k4][2], fh[k4][3],
+                              n8_desc(rows, 4 * h + k4), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(pu);
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4) {
+        hopper::fence_regs(fh[k4]);
+        hopper::fence_regs(fl[k4]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) u[32 * nh + i] += pu[i];
   }
 }
 
@@ -587,10 +670,17 @@ __device__ void n8_gram(float (&u)[64], unsigned char* sm, int cnt) {
 // The cluster's gram G = sum_r (U_r + U_r^T) from the warpgroups' rows u
 // of this CTA's U, as the header above says: written hi and lo into gh and
 // gl when `write`, and with `dist` (rank 0 alone) ||G - I||_F over the p x p
-// block into *dist.
-__device__ void n8_exchange(const float (&u)[64], unsigned char* gh, unsigned char* gl,
-                            float* slice, float* red, int c, int rank, int p, bool write,
-                            float* dist) {
+// block into *dist. kStream (ns_stream_kernel, one CTA a matrix, so slice,
+// c and rank go unused) adds two things. P, which is G, goes from its
+// row-major place in gh to gl's swizzled one, from which each thread writes
+// its own quads hi and lo, with no cluster barrier and no DSMEM read. The
+// prescale (`prescale`): u is then the gram of X itself, f = max(sqrt of
+// its trace, 1e-30), and G becomes G / f / f, the gram of X / f. Returns f
+// (1 without the prescale).
+template <bool kStream>
+__device__ float n8_exchange(const float (&u)[64], unsigned char* gh, unsigned char* gl,
+                             float* slice, float* red, int c, int rank, int p, bool write,
+                             float* dist, bool prescale = false) {
   const int tid = threadIdx.x, wt = tid & 127, r0 = 64 * (tid >> 7);
   float* us = reinterpret_cast<float*>(gl);
   float* pub = reinterpret_cast<float*>(gh);
@@ -618,38 +708,59 @@ __device__ void n8_exchange(const float (&u)[64], unsigned char* gh, unsigned ch
       *reinterpret_cast<float4*>(pub + (4 * bi + e) * kN8P + 4 * bj) =
           make_float4(a[e].x + bt[e][0], a[e].y + bt[e][1], a[e].z + bt[e][2], a[e].w + bt[e][3]);
   }
-  hopper::cluster_sync();  // every CTA's P is published
   const int rows = kN8P / c, quads = rows * (kN8P / 4);
-  for (int qi = tid; qi < quads; qi += kThreads) {  // this CTA's slice
-    const float* at = pub + (rank * rows + (qi >> 5)) * kN8P + 4 * (qi & 31);
-    // The partners from (rank + row) mod c on, the same for a warp's
-    // lanes (its loads go to one SM at a time) and different for the warps
-    // and the CTAs; eight loads in flight, then their sum.
-    const int first = rank + (qi >> 5);
-    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+  float tr = 0.f;  // the prescale's trace, this thread's share
+  if (kStream) {
+    __syncthreads();  // every quad of P is written
+    // The quads that this thread gathers below, into gl (U is spent).
 #pragma unroll
-    for (int j0 = 0; j0 < kN8Cluster; j0 += 8) {
-      float4 v[8];
+    for (int s = 0; s < 16; ++s) {
+      const int row = (tid >> 5) + 8 * s, col = 4 * (tid & 31);
+      const float4 v = *reinterpret_cast<const float4*>(pub + row * kN8P + col);
+      *reinterpret_cast<float4*>(gl + n8_off(row, col)) = v;
+      const float e4[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int k = (first + j0 + j) & (c - 1);
-        if (j0 + j < c)
-          v[j] = k == rank ? *reinterpret_cast<const float4*>(at)
-                           : hopper::ld_peer4(hopper::map_peer(at, k));
-      }
+      for (int e = 0; e < 4; ++e)
+        if (row == col + e) tr += e4[e];
+    }
+  } else {
+    hopper::cluster_sync();  // every CTA's P is published
+    for (int qi = tid; qi < quads; qi += kThreads) {  // this CTA's slice
+      const float* at = pub + (rank * rows + (qi >> 5)) * kN8P + 4 * (qi & 31);
+      // The partners from (rank + row) mod c on, the same for a warp's
+      // lanes (its loads go to one SM at a time) and different for the warps
+      // and the CTAs; eight loads in flight, then their sum.
+      const int first = rank + (qi >> 5);
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (j0 + j < c) {
-          sum.x += v[j].x;
-          sum.y += v[j].y;
-          sum.z += v[j].z;
-          sum.w += v[j].w;
+      for (int j0 = 0; j0 < kN8Cluster; j0 += 8) {
+        float4 v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int k = (first + j0 + j) & (c - 1);
+          if (j0 + j < c)
+            v[j] = k == rank ? *reinterpret_cast<const float4*>(at)
+                             : hopper::ld_peer4(hopper::map_peer(at, k));
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (j0 + j < c) {
+            sum.x += v[j].x;
+            sum.y += v[j].y;
+            sum.z += v[j].z;
+            sum.w += v[j].w;
+          }
         }
       }
+      *reinterpret_cast<float4*>(slice + (qi >> 5) * kN8P + 4 * (qi & 31)) = sum;
     }
-    *reinterpret_cast<float4*>(slice + (qi >> 5) * kN8P + 4 * (qi & 31)) = sum;
   }
-  hopper::cluster_sync();  // every slice is summed; no CTA reads P any more
+  float f = 1.f;
+  if (kStream && prescale) f = fmaxf(sqrtf(block_sum(tr, red)), 1e-30f);
+  if (kStream)
+    __syncthreads();  // every quad of P is read: gh takes G's hi pieces
+  else
+    hopper::cluster_sync();  // every slice is summed; no CTA reads P any more
   if (write || dist != nullptr) {
     // Thread t's 16 quads, column 4 (t % 32) of rows t / 32 + 8 s, s in
     // turn from s = t / 32 + rank 16 / c on, so that the warps of a CTA, and
@@ -662,15 +773,24 @@ __device__ void n8_exchange(const float (&u)[64], unsigned char* gh, unsigned ch
       float4 g4[kHalf];
 #pragma unroll
       for (int s = 0; s < kHalf; ++s) {
-        const int row = (tid >> 5) + 8 * ((turn + s + kHalf * h) & 15), owner = row / rows;
-        const float* at = slice + (row - owner * rows) * kN8P + 4 * (tid & 31);
-        g4[s] = owner == rank ? *reinterpret_cast<const float4*>(at)
-                              : hopper::ld_peer4(hopper::map_peer(at, owner));
+        const int row = (tid >> 5) + 8 * ((turn + s + kHalf * h) & 15);
+        if (kStream) {
+          g4[s] = *reinterpret_cast<const float4*>(gl + n8_off(row, 4 * (tid & 31)));
+        } else {
+          const int owner = row / rows;
+          const float* at = slice + (row - owner * rows) * kN8P + 4 * (tid & 31);
+          g4[s] = owner == rank ? *reinterpret_cast<const float4*>(at)
+                                : hopper::ld_peer4(hopper::map_peer(at, owner));
+        }
       }
 #pragma unroll
       for (int s = 0; s < kHalf; ++s) {
         const int row = (tid >> 5) + 8 * ((turn + s + kHalf * h) & 15), col = 4 * (tid & 31);
-        const float v[4] = {g4[s].x, g4[s].y, g4[s].z, g4[s].w};
+        float v[4] = {g4[s].x, g4[s].y, g4[s].z, g4[s].w};
+        if (kStream && prescale) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[e] = v[e] / f / f;
+        }
         if (write) {
           float hi[4], lo[4];
 #pragma unroll
@@ -692,6 +812,7 @@ __device__ void n8_exchange(const float (&u)[64], unsigned char* gh, unsigned ch
   }
   hopper::fence_proxy_async_smem();  // G's tiles are the next sweep's wgmma operands
   __syncthreads();
+  return f;
 }
 
 // A persistent grid of clusters of c CTAs (grid a multiple of c), cluster
@@ -760,7 +881,8 @@ ns_tc128_kernel(const float* x, float* out, const unsigned char* mask, float* di
     float u[64];
     if (iters > 0 || dist != nullptr) {
       n8_gram(u, sm, cnt);
-      n8_exchange(u, gh, gl, slice, red, c, rank, p, iters > 0, iters == 0 ? dst : nullptr);
+      n8_exchange<false>(u, gh, gl, slice, red, c, rank, p, iters > 0,
+                         iters == 0 ? dst : nullptr);
     }
     for (int it = 0; it < iters; ++it) {
       const bool last = it + 1 == iters;
@@ -769,7 +891,7 @@ ns_tc128_kernel(const float* x, float* out, const unsigned char* mask, float* di
       __syncthreads();  // every chunk's Y' is the gram's operand
       if (last && dist == nullptr) break;
       n8_gram(u, sm, cnt);
-      n8_exchange(u, gh, gl, slice, red, c, rank, p, !last, last ? dst : nullptr);
+      n8_exchange<false>(u, gh, gl, slice, red, c, rank, p, !last, last ? dst : nullptr);
     }
 
     for (int u2 = tid; u2 < quads; u2 += kThreads) {
@@ -789,6 +911,240 @@ cudaError_t n8_attributes(const void* kernel, int smem, int c) {
   if (err == cudaSuccess && c > 8)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return err;
+}
+
+// ---------------------------------------------------------------------------
+// Row 9s: the same function for 64 < p <= 128 past n = 2048, at n % 4 ==
+// 0 (starcoder2-15b's, granite-20b's and mixtral-8x22b's q/k, (128, 6144)):
+// ns_stream_kernel. Y is too wide for a cluster to hold (at n = 6144 a CTA of
+// 16 would need 192 KB of it beside G's 128 KB), so it streams: each
+// iteration a CTA reads the matrix's chunks of Y from HBM (or L2) once and
+// writes them back once.
+//
+// Bound at 2080 x (128, 6144), 12 iterations: 10 p^2 n of TF32 work an
+// iteration as counted above, 50.76 ms at 495 TFLOP/s (row 9's fp32 CUDA-
+// core bound 112.50 ms); bytes 3.91 ms for 2 HBM passes, 48.83 ms for the 25
+// that 13 reads and 12 writes of Y make when no sweep hits L2 (one matrix an
+// SM keeps 413 MB in flight, so none does). Operations bound it.
+//
+// Design:
+// * One matrix a CTA, a persistent grid of one CTA an SM walking the stack
+//   (b = blockIdx.x, + gridDim.x, ...). Clusters of 2 to 16 CTAs a matrix,
+//   each streaming a share of the chunks and summing the gram over DSMEM as
+//   ns_tc128_kernel does, read no faster at the configurations' n
+//   (the readings beside ops.NS_STREAM_STAGES).
+// * The chunks stream through a ring of kNsStages 32 KB stages, each a
+//   128 x 64 fp32 chunk TMA-loaded as two 128 x 32 boxes in the 128-byte
+//   swizzle the wgmma descriptors read (rows past p and columns past n
+//   zero-filled), with a full and an empty mbarrier. Thread 0 is the ring's
+//   producer (NsRing): at the start of each chunk it waits until every warp
+//   has released the chunk before (its empty barrier) and that chunk's TMA
+//   store has left the stage, then loads the chunk kNsStages - 1 ahead into
+//   it. (A producer warp of its own would have to join every block barrier
+//   of the exchange; the stage frees no sooner for it.)
+// * Sweeps: a matrix takes iters + 1 (2 at iters = 0). Sweep 0 reads X and
+//   sums its gram alone; the exchange then takes f from the gram's trace
+//   and scales G by 1 / f^2, so that X is not read an extra time for its
+//   norm (as large_p.cu's route does). Sweep 1 reads X again and divides
+//   each chunk by f in place (Y_0 = X / f, as the plain version rounds
+//   it); the sweeps after it read `out`. A sweep from 1 on updates each
+//   chunk in its stage from the previous iterate's complete G, Y' = 1.5 Y
+//   - 0.5 G Y, both warpgroups on every chunk: warpgroup w forms rows 64 w
+//   .. 64 w + 63 of G Y (m64n64k8, Y^T the register operand, G's rows 64 w
+//   on the B side), and after a barrier writes them over the chunk. A TMA
+//   store sends the chunk to `out`, while the warpgroups add its share of
+//   the next gram to their rows of U (n8_gram_add). One read and one write
+//   of Y an iteration, and no second sweep for the gram.
+// * Registers: U's 64 sums a thread stay live through every chunk, so the
+//   chunk's gram is taken one 64-column half at a time (32 partial sums,
+//   not 64), the update's products go straight into its 32 sums (no
+//   partials: 48 products a sum, where 9tc's take 24), and the operand
+//   addresses come from an opaque thread index each chunk rather than being
+//   kept across the loop. On an H100 at 2080 x (128, 6144), without the
+//   three the kernel spilled 1120 bytes and read 164.34 ms; with the last
+//   two 728 bytes, 137.68 ms; with all three it keeps 252 registers, spills
+//   none and reads 111.99 ms.
+// * The exchange after each sweep is ns_tc128_kernel's (n8_exchange), local
+//   to the CTA: no cluster barrier, no DSMEM read.
+// * A load from `out` reads what a TMA store of the sweep before wrote:
+//   thread 0 waits for its stores to complete (cp.async.bulk.wait_group)
+//   before such a load whenever one of them may still be in flight, once
+//   a sweep. The ring must not reach into the next sweep's copy of a chunk
+//   before this sweep has stored it, so a matrix needs at least kNsStages
+//   chunks (n > 128).
+// * The mask: a CTA, and thread 0's loads, skip a matrix that did not trip;
+//   an idle launch reads B mask bytes.
+// Shared memory: the ring, G hi and lo (64 KB each), the reduction scratch
+// and the mbarriers; out may alias x (a chunk is read before it is written,
+// and X is read only in sweeps 0 and 1).
+
+constexpr int kNsStages = 3;
+constexpr int kNsSmemBytes = kNsStages * kN8Tile + 2 * kN8G + 64 + 16 * kNsStages + 1024;
+static_assert(kNsSmemBytes <= kSmemLimit, "the ring, G and the scratch fit a block");
+
+// Where the ring's producer stands: chunk k of sweep s of matrix b, the
+// matrices of this CTA that the mask keeps, in order.
+struct NsCursor {
+  int b, s, k;
+  __device__ void skip(const unsigned char* mask, int B, int stride) {
+    while (b < B && mask != nullptr && mask[b] == 0) b += stride;
+  }
+  __device__ void next(const unsigned char* mask, int B, int stride, int sweeps, int nch) {
+    if (++k < nch) return;
+    k = 0;
+    if (++s < sweeps) return;
+    s = 0;
+    b += stride;
+    skip(mask, B, stride);
+  }
+};
+
+// The ring's producer, thread 0 of a CTA: where its loads stand (ld), and
+// the items whose TMA stores are known complete (those before `stored`).
+struct NsRing {
+  const CUtensorMap* tm_x;
+  const CUtensorMap* tm_out;
+  unsigned char* sm;
+  uint64_t* full;
+  uint64_t* empty;
+  const unsigned char* mask;
+  int B, stride, sweeps, nch;
+  NsCursor ld;
+  int stored;
+
+  // Chunk ld.k of sweep ld.s of matrix ld.b into stage st (sweeps 0 and 1
+  // read X, the later ones out).
+  __device__ void load(int st) {
+    const CUtensorMap* map = ld.s < 2 ? tm_x : tm_out;
+    unsigned char* stage = sm + st * kN8Tile;
+    const int col = ld.k * kNtChunk;
+    hopper::mbar_expect_tx(&full[st], kN8Tile);
+    hopper::tma_load_4d(stage, map, &full[st], col, 0, ld.b, 0);
+    hopper::tma_load_4d(stage + kN8Box, map, &full[st], col + 32, 0, ld.b, 0);
+    ld.next(mask, B, stride, sweeps, nch);
+  }
+
+  __device__ void start() {
+    ld.skip(mask, B, stride);
+    for (int st = 0; st < kNsStages && ld.b < B; ++st) load(st);
+  }
+
+  // At the start of chunk `item` (> 0): the stage of the chunk before takes
+  // the chunk kNsStages - 1 ahead, once every warp has released it and its
+  // TMA store has left it.
+  __device__ void refill(int item) {
+    if (ld.b >= B) return;
+    const int prev = (item - 1) % kNsStages;
+    hopper::mbar_wait(&empty[prev], ((item - 1) / kNsStages) & 1);
+    hopper::bulk_wait_read<0>();
+    // A load from out reads the store of the same chunk a sweep before (nch
+    // items back), which must be complete.
+    if (ld.s >= 2 && item - 1 + kNsStages - nch > stored) {
+      hopper::bulk_wait<0>();
+      hopper::fence_proxy_async();
+      stored = item - 1;
+    }
+    load(prev);
+  }
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+ns_stream_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_out,
+                 const unsigned char* mask, float* dist, int B, int p, int n, int iters) {
+  extern __shared__ unsigned char ns_tc_smem[];
+  unsigned char* sm = hopper::smem_align1024(ns_tc_smem);
+  const int nch = (n + kNtChunk - 1) / kNtChunk;
+  unsigned char* gh = sm + kNsStages * kN8Tile;
+  unsigned char* gl = gh + kN8G;
+  float* red = reinterpret_cast<float*>(gl + kN8G);
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 16);
+  uint64_t* empty = full + kNsStages;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int groups = (p + 31) / 32, stride = gridDim.x;
+  const int sweeps = (iters > 0 ? iters : 1) + 1;
+
+  if (tid == 0) {
+    for (int st = 0; st < kNsStages; ++st) {
+      hopper::mbar_init(&full[st], 1);
+      hopper::mbar_init(&empty[st], kThreads / 32);  // one arrival a warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  NsRing ring{&tm_x, &tm_out, sm, full, empty, mask, B, stride, sweeps, nch,
+              {static_cast<int>(blockIdx.x), 0, 0}, -1};
+  if (tid == 0) ring.start();
+
+  int item = 0;  // the chunks this CTA has taken, over the launch
+  for (int b = blockIdx.x; b < B; b += stride) {
+    if (mask != nullptr && mask[b] == 0) continue;
+    float* dst = dist != nullptr ? dist + b : nullptr;
+    float f = 1.f;
+    for (int s = 0; s < sweeps; ++s) {
+      const bool update = s > 0 && iters > 0;
+      // the gram of this sweep's output: X's (the prescale), then every
+      // iterate's but the last's, unless the distance is asked
+      const bool gram = s == 0 || (update && (s < iters || dist != nullptr));
+      float u[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) u[i] = 0.f;
+      for (int k = 0; k < nch; ++k, ++item) {
+        const int st = item % kNsStages;
+        if (tid == 0 && item > 0) ring.refill(item);
+        hopper::mbar_wait(&full[st], (item / kNsStages) & 1);
+        unsigned char* tile = sm + st * kN8Tile;
+        // the thread's index, opaque: every operand address derived from it
+        // is formed again each chunk, not kept in registers across the loop
+        const int me = hopper::opaque(tid), mt = me & 127;
+        if (s == 0) {
+          n8_gram_add(u, tile, me);
+        } else {
+          if (s == 1) {  // Y_0 = X / f, in place
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int q = me + kThreads * j, row = q >> 4, col = 4 * (q & 15);
+              float4* y = reinterpret_cast<float4*>(tile + n8_off(row, col));
+              const float4 v = *y;
+              *y = make_float4(v.x / f, v.y / f, v.z / f, v.w / f);
+            }
+            __syncthreads();
+          }
+          if (update) {
+            float d[32];  // element (m, r) is (G Y)'s (64 wg + r, m)
+            n8_update_product<32, false>(d, tile, gh + 64 * wg * 128, gl + 64 * wg * 128,
+                                         groups, mt);
+            __syncthreads();  // both warpgroups have read the chunk
+#pragma unroll
+            for (int i = 0; i < 32; ++i) {
+              float& y = n8_at(tile, 64 * wg + acc_col(mt, i), acc_row(mt, i));
+              y = 1.5f * y - 0.5f * d[i];
+            }
+          }
+          hopper::fence_proxy_async_smem();  // Y' is the TMA store's and the gram's operand
+          __syncthreads();
+          if (tid == 0) {
+            const int col = k * kNtChunk;
+            hopper::tma_store_4d(&tm_out, tile, col, 0, b, 0);
+            hopper::tma_store_4d(&tm_out, tile + kN8Box, col + 32, 0, b, 0);
+            hopper::bulk_commit();
+          }
+          if (gram) n8_gram_add(u, tile, me);
+        }
+        __syncwarp();
+        if ((tid & 31) == 0) hopper::mbar_arrive(&empty[st]);
+      }
+      if (gram) {
+        const bool last = s + 1 == sweeps;
+        // G for the next sweep's update; the distance from the last G
+        // (X / f's at iters = 0)
+        const float fs = n8_exchange<true>(u, gh, gl, nullptr, red, 1, 0, p, !last && iters > 0,
+                                           iters == 0 || last ? dst : nullptr, s == 0);
+        if (s == 0) f = fs;
+      }
+    }
+  }
+  if (tid == 0) hopper::bulk_wait<0>();  // every store is complete before the CTA leaves
 }
 
 }  // namespace
@@ -926,6 +1282,54 @@ int newton_schulz_tc128(const float* x, float* out, const unsigned char* mask, f
     const cudaError_t err = cudaLaunchKernelExC(&cfg, kernel, args);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Row 9s's shared memory a CTA (ops.py mirrors it).
+int ns_stream_smem_bytes() { return kNsSmemBytes; }
+
+// The CTAs of newton_schulz_stream the card keeps resident at once, each a
+// cluster of one: one an SM (the ring and G take 225 KB of its 227), the
+// persistent grid's width; or minus the CUDA error of the query.
+int ns_stream_max_clusters() {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return err == cudaSuccess ? sms : -static_cast<int>(err);
+}
+
+// x, out: (B, p, n) fp32, p <= 128, n % 4 == 0 and at least kNsStages
+// chunks (n > 128), both 16-byte aligned (TMA's row stride), out may be x;
+// mask and dist as newton_schulz_tc's. A persistent grid of at most
+// ns_stream_max_clusters CTAs.
+int newton_schulz_stream(const float* x, float* out, const unsigned char* mask, float* dist, int B,
+                         int p, int n, int iters, cudaStream_t stream) {
+  const void* ptrs[2] = {x, out};
+  if (B < 0 || p < 1 || p > kN8P || n < 1 || iters < 0 ||
+      (n + kNtChunk - 1) / kNtChunk < kNsStages || !vector_ok(n, ptrs, 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int sms = ns_stream_max_clusters();
+  if (sms < 0) return -sms;
+  const void* kernel = reinterpret_cast<const void*>(ns_stream_kernel);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kNsSmemBytes);
+  if (err != cudaSuccess || B == 0) return static_cast<int>(err);
+  // 4-D maps over (n, p, B, 1), 128 x 32 boxes: rows past p read as zero
+  // and are not written
+  CUtensorMap maps[2];
+  const uint64_t e = sizeof(float), mat = static_cast<uint64_t>(p) * n;
+  const uint64_t dims[4] = {static_cast<uint64_t>(n), static_cast<uint64_t>(p),
+                            static_cast<uint64_t>(B), 1};
+  const uint64_t strides[3] = {n * e, mat * e, B * mat * e};
+  const uint32_t box[4] = {32, kN8P, 1, 1};
+  for (int i = 0; i < 2; ++i) {
+    const int terr = hopper::make_tma_map_f32(&maps[i], ptrs[i], dims, strides, box);
+    if (terr != 0) return terr;
+  }
+  void* args[] = {&maps[0], &maps[1], &mask, &dist, &B, &p, &n, &iters};
+  err = cudaLaunchKernel(kernel, dim3(B < sms ? B : sms), dim3(kThreads), args, kNsSmemBytes,
+                         stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

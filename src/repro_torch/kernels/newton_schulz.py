@@ -12,7 +12,10 @@ grams summed through distributed shared memory. ``newton_schulz_tc128``
 is its counterpart for 64 < p <= 128 (same source): clusters of up to 16
 CTAs, two 64-column chunks of Y a CTA, the gram reduce-scattered and
 gathered over distributed shared memory, a persistent grid of clusters
-walking the stack. ``newton_schulz_cluster`` (``csrc/small_p.cu``, row
+walking the stack. ``newton_schulz_stream`` (same source, row 9s) takes the
+same p past n = 2048, at n % 4 == 0: Y streams through a TMA ring in the
+shared memory of one CTA a matrix once an iteration (one read and one write
+of Y). ``newton_schulz_cluster`` (``csrc/small_p.cu``, row
 9cl) replaces it for p < 32 at n % 4 == 0: one matrix a thread block
 cluster of 2, 4 or 8 CTAs, Y held in their shared memory through every
 iteration (IEEE fp32 on the CUDA cores), a persistent grid of clusters
@@ -61,9 +64,13 @@ def tc_lib() -> ctypes.CDLL:
         lib_.ns_tc128_cluster.argtypes = [_I]
         lib_.ns_tc128_smem_bytes.argtypes = [_I]
         lib_.ns_tc128_max_clusters.argtypes = [_I]
+        lib_.newton_schulz_stream.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+        lib_.ns_stream_smem_bytes.argtypes = []
+        lib_.ns_stream_max_clusters.argtypes = []
         for fn in (lib_.newton_schulz_tc, lib_.newton_schulz_tc128, lib_.ns_tc_cluster,
                    lib_.ns_tc_smem_bytes, lib_.ns_tc128_cluster, lib_.ns_tc128_smem_bytes,
-                   lib_.ns_tc128_max_clusters):
+                   lib_.ns_tc128_max_clusters, lib_.newton_schulz_stream,
+                   lib_.ns_stream_smem_bytes, lib_.ns_stream_max_clusters):
             fn.restype = _I
         lib_._typed = True
     return lib_
@@ -185,6 +192,19 @@ def newton_schulz_tc128(x, iters=12, *, out=None, mask=None, dist=None):
     return res
 
 
+def newton_schulz_stream(x, iters=12, *, out=None, mask=None, dist=None):
+    """Tensor-core Newton-Schulz for ``64 < p <= 128`` past n = 2048 (any
+    p <= 128 runs), n % 4 == 0 with 16-byte aligned rows and at least
+    ``ops.NS_STREAM_STAGES`` 64-column chunks: one matrix a CTA, streaming
+    its chunks of Y through a ring of TMA stages once an iteration
+    (``ops.ns_stream_smem_bytes``); a persistent grid of one CTA an SM
+    walks the stack."""
+    res = _run("newton_schulz_stream", x, iters, out, mask, dist, lib=tc_lib)
+    if x.device.type == "cuda":
+        newton_schulz_stream.launches += 1
+    return res
+
+
 def newton_schulz_cluster(x, iters=12, *, out=None, mask=None, dist=None, cluster=None):
     """Newton-Schulz for p < 32, n % 4 == 0: one matrix a thread block
     cluster of ``ops.ns_cluster(p, n)`` CTAs (``cluster`` forces 2, 4 or
@@ -248,6 +268,7 @@ newton_schulz_whole.launches = 0
 newton_schulz_tiled.launches = 0
 newton_schulz_tc.launches = 0
 newton_schulz_tc128.launches = 0
+newton_schulz_stream.launches = 0
 newton_schulz_cluster.launches = 0
 newton_schulz_large.launches = 0
 newton_schulz_large_tc.launches = 0

@@ -29,7 +29,9 @@ route:
   memory (``csrc/newton_schulz_tc.cu``, ``ns_tc_cluster``);
 * ``tc128`` for Newton-Schulz at ``NS_TC_MAX_P < p <= TC_MAX_P``
   where n fits a cluster of up to 16 CTAs (the same source's second
-  kernel, ``ns_tc128_cluster``);
+  kernel, ``ns_tc128_cluster``), and ``stream`` past it at n % 4 == 0 (the
+  same source's third kernel, Y streamed through a TMA ring, one CTA a
+  matrix);
 * ``tiled`` otherwise, with the column tile that lets the most blocks
   share an SM (they hide each other's loads and barriers), the widest of
   those: the fused group step's and the two-stage kernels' p below the
@@ -147,7 +149,8 @@ NS_TC_MAX_P = 64
 # 22.9319 / 18.7431 / 16.7919, 0.0306 / 0.2134 / 0.0334; p = 96 34.7598
 # / 23.1556 / 16.4663, 0.0391 / 0.2146 / 0.0276; p = 128 (internlm2-1.8b's
 # q/k) 59.5427 / 29.2676 / 17.6470, 0.0325 / 0.2165 / 0.0380. Row 9
-# keeps n past 2048 there, and p < NS_TC_MIN_P where no cluster holds Y
+# keeps n past 2048 there at n % 4 != 0 (row 9s takes n % 4 == 0, below
+# ns_tc128_smem_bytes), and p < NS_TC_MIN_P where no cluster holds Y
 # (n % 4 != 0, or n past a cluster of 8). That kernel takes p <= 64 too,
 # but its products keep 128 rows whatever p, so NS_TC_MAX_P stays where
 # the p <= 64 kernel ends. On an H100 (benchmarks_torch/ns_tc_readings.py;
@@ -347,6 +350,49 @@ def ns_tc128_smem_bytes(n: int) -> int:
         return 0
     chunks, g = -(-n // 64), 128 * 128 * 4
     return -(-chunks // c) * 128 * 64 * 4 + 2 * g + g // c + 64 + 1024
+
+
+# csrc/newton_schulz_tc.cu's streaming kernel (row 9s): one matrix a CTA,
+# a ring of NS_STREAM_STAGES 128 x 64 fp32 stages beside G hi and lo. Past
+# ns_tc128_cluster's n (2048), at n % 4 == 0, it takes NS_TC_MAX_P < p <=
+# TC_MAX_P (plan_newton_schulz): it won the drift step and kept the idle
+# repair within 0.1 ms of row 9's at every shape read. One CTA a matrix
+# because clusters read no faster at the configurations' n: a version of
+# the kernel that took the cluster size c as a launch parameter (one matrix
+# a cluster of c CTAs, each streaming a share of the chunks, the gram summed
+# over DSMEM) read, on an H100 (benchmarks_torch/ns_tc_readings.py
+# --stream, 12 iterations; ms, drift step then idle repair), at 2080 x
+# (128, 6144) (starcoder2-15b's q/k; granite-20b's and mixtral-8x22b's are
+# (128, 6144) too): row 9 577.0702 / 0.0356, c = 1 109.3400 / 0.0387, c = 2
+# 110.6789 / 0.0413, c = 4 125.3378 / 0.0398, c = 8 132.1726 / 0.0386, c =
+# 16 156.5471 / 0.0447; at 576 x (128, 4096): row 9 119.3244 / 0.0370, c =
+# 1 22.0483 / 0.0375, c = 2 20.7372 / 0.0359, c = 4 24.1201 / 0.0362, c = 8
+# 25.8874 / 0.0357, c = 16 32.1770 / 0.0363. Lower p (read apart; row 9,
+# c = 1, c = 2): 576 x (72, 4096) 45.7272 / 20.5062 / 19.0482, 576 x (96,
+# 4096) 73.6564 / 19.9881 / 18.6436, 2080 x (72, 6144) 191.2246 / 96.5854
+# / 99.6145. c = 2 read best only at 576 matrices of n = 4096 (132 CTAs
+# taking 4.4 matrices each), which no configuration has. The kernel as it
+# stands, one CTA a matrix, read (the same script; row 9 / 9s, drift step
+# then idle repair): 2080 x (128, 6144) 577.0546 / 105.6583, 0.0296 /
+# 0.0278; 576 x (128, 4096) 119.3046 / 21.2136, 0.0306 / 0.0323; and at
+# the class's lower edge, 576 x (65, 2112) (p = 65, 33 chunks), 22.0527 /
+# 10.0763, 0.0294 / 0.0287. The shapes between (p = 66-71, n = 2052-2108)
+# were not read one by one.
+NS_STREAM_STAGES = 3
+
+
+def ns_stream_smem_bytes() -> int:
+    """``newton_schulz_stream``'s shared memory a CTA: the ring, G hi and lo
+    (64 KB each), the reduction scratch, the mbarriers and 1 KB to align the
+    tiles."""
+    return NS_STREAM_STAGES * 128 * 64 * 4 + 2 * 128 * 128 * 4 + 64 + 16 * NS_STREAM_STAGES + 1024
+
+
+def ns_stream_takes(n: int) -> bool:
+    """Whether ``newton_schulz_stream`` takes n: n % 4 == 0 (TMA's row
+    stride) and at least as many 64-column chunks as the ring has stages
+    (so that it never loads a chunk's next sweep before storing this one)."""
+    return n >= 1 and n % 4 == 0 and -(-n // 64) >= NS_STREAM_STAGES
 
 
 def ns_tc_smem_bytes(n: int) -> int:
@@ -573,18 +619,21 @@ def plan_tp(what: str, p: int, tiled_bytes) -> int:
 @functools.cache  # the watchdog's repair asks it on every step, the idle ones too
 def plan_newton_schulz(p: int, n: int) -> tuple[str, int]:
     """``("whole", 0)``, ``("cluster", 0)``, ``("tc", 0)``, ``("tc128",
-    0)``, ``("tiled", tile_n)`` or the large route of Newton-Schulz
-    (:func:`_route`): for p < ``NS_TC_MIN_P`` the cluster kernel of
-    ``csrc/small_p.cu`` where a cluster holds Y (``ns_cluster``: n % 4 ==
-    0); the tensor-core kernel for ``NS_TC_MIN_P <= p <= NS_TC_MAX_P`` when
-    n fits a cluster (``ns_tc_cluster``), its p <= 128 kernel above that up
-    to ``TC_MAX_P`` when n fits one of up to 16 CTAs
-    (``ns_tc128_cluster``); past p = 128 the large route, although the
+    0)``, ``("stream", 0)``, ``("tiled", tile_n)`` or the large route of
+    Newton-Schulz (:func:`_route`): for p < ``NS_TC_MIN_P`` the cluster
+    kernel of ``csrc/small_p.cu`` where a cluster holds Y (``ns_cluster``:
+    n % 4 == 0); the tensor-core kernel for ``NS_TC_MIN_P <= p <=
+    NS_TC_MAX_P`` when n fits a cluster (``ns_tc_cluster``), its p <= 128
+    kernel above that up to ``TC_MAX_P`` when n fits one of up to 16 CTAs
+    (``ns_tc128_cluster``), past that n the streaming kernel at n % 4 == 0
+    (``ns_stream_takes``); past p = 128 the large route, although the
     CUDA-core tiled kernel's grams fit a block up to p = 136 (the readings
     beside ``NS_TC_MAX_P``)."""
-    if (ns_whole_smem_bytes(p, n) > SMEM_LIMIT_BYTES and NS_TC_MAX_P < p <= TC_MAX_P
-            and ns_tc128_cluster(n)):
-        return "tc128", 0
+    if ns_whole_smem_bytes(p, n) > SMEM_LIMIT_BYTES and NS_TC_MAX_P < p <= TC_MAX_P:
+        if ns_tc128_cluster(n):
+            return "tc128", 0
+        if ns_stream_takes(n):
+            return "stream", 0
     tc_high = NS_TC_MAX_P if ns_tc_cluster(n) else 0
     return _route("newton-schulz", p, n, ns_whole_smem_bytes, ns_tiled_smem_bytes,
                   NS_TC_MIN_P, tc_high, cluster=(ns_cluster, NS_TC_MIN_P - 1))
@@ -677,6 +726,8 @@ def _ns_launch(x, iters, out, mask, dist):
         return _ns.newton_schulz_tc(x, iters, out=out, mask=mask, dist=dist)
     if kind == "tc128":
         return _ns.newton_schulz_tc128(x, iters, out=out, mask=mask, dist=dist)
+    if kind == "stream":
+        return _ns.newton_schulz_stream(x, iters, out=out, mask=mask, dist=dist)
     if kind == "cluster":
         return _ns.newton_schulz_cluster(x, iters, out=out, mask=mask, dist=dist)
     if kind == "large":
@@ -701,7 +752,8 @@ KERNELS = (_fs.fused_step_whole, _fs.fused_step_tiled, _fs.fused_step_cluster,
            _lf.landing_field_tiled_tc,
            _lf.landing_field_tiled_tc128, _lf.landing_field_large,
            _lf.landing_field_large_tc, _ns.newton_schulz_whole, _ns.newton_schulz_tiled,
-           _ns.newton_schulz_tc, _ns.newton_schulz_tc128, _ns.newton_schulz_cluster,
+           _ns.newton_schulz_tc, _ns.newton_schulz_tc128, _ns.newton_schulz_stream,
+           _ns.newton_schulz_cluster,
            _ns.newton_schulz_large,
            _ns.newton_schulz_large_tc,
            _fa.flash_attention_fp32, _fa.flash_attention_tf32, _fa.flash_attention_tc)

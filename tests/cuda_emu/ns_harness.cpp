@@ -5,8 +5,11 @@
 // DIR/{out,dist_out}.bin. KIND 0 = whole, 1 = tiled (one block at a time),
 // 2 = the tensor-core kernel through its C launcher (a cluster's blocks at
 // once; TILE_N unused), 3 = the p <= 128 tensor-core kernel through its C
-// launcher (a persistent grid of g_emu_sms clusters; TILE_N unused). INPLACE 1 writes the output over x; MASKED 1 passes
-// the mask (else every matrix runs).
+// launcher (a persistent grid of g_emu_sms clusters; TILE_N unused), 4 =
+// the streaming p <= 128 kernel through its C launcher (a persistent grid
+// of g_emu_sms CTAs, one at a time on ns_stream_sm; TILE_N unused).
+// INPLACE 1 writes the output over x; MASKED 1 passes the mask (else every
+// matrix runs).
 #include <cuda_runtime.h>
 #include <hopper.cuh>
 
@@ -21,6 +24,7 @@ namespace {
 float4 ns_whole_sm[232448 / 16];
 float4 ns_tiled_sm[232448 / 16];
 unsigned char ns_tc_smem[1];
+alignas(1024) unsigned char ns_stream_sm[232448];
 }  // namespace
 
 #include "newton_schulz.cu"
@@ -85,6 +89,25 @@ int main(int argc, char** argv) {
     const int err = newton_schulz_tc128(x.data(), o, m, dist.data(), B, p, n, iters, nullptr);
     if (err != 0) {
       fprintf(stderr, "newton_schulz_tc128 returned %d\n", err);
+      return 3;
+    }
+    write(dir, "out", o, total);
+    write(dir, "dist_out", dist.data(), B);
+    return 0;
+  }
+  if (kind == 4) {
+    g_emu_kernels[reinterpret_cast<const void*>(ns_stream_kernel)] = [](void** a) {
+      auto i = [a](int k) { return *static_cast<int*>(a[k]); };
+      ns_stream_kernel(*static_cast<const CUtensorMap*>(a[0]),
+                       *static_cast<const CUtensorMap*>(a[1]),
+                       *static_cast<const unsigned char**>(a[2]), *static_cast<float**>(a[3]),
+                       i(4), i(5), i(6), i(7));
+    };
+    g_smem_base = ns_stream_sm;
+    g_smem_size = sizeof ns_stream_sm;
+    const int err = newton_schulz_stream(x.data(), o, m, dist.data(), B, p, n, iters, nullptr);
+    if (err != 0) {
+      fprintf(stderr, "newton_schulz_stream returned %d\n", err);
       return 3;
     }
     write(dir, "out", o, total);

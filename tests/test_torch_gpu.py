@@ -941,6 +941,76 @@ def test_newton_schulz_tc128_idle_repair_writes_nothing(cuda):
     assert not bool(rep.any()) and torch.equal(x, x0) and torch.equal(dist, d0)
 
 
+def test_newton_schulz_stream_planner_matches_the_kernels_smem(cuda):
+    """``ops.ns_stream_smem_bytes`` mirrors the C entry, and the persistent
+    grid is one CTA an SM."""
+    tc = tns.tc_lib()
+    assert tc.ns_stream_smem_bytes() == tops.ns_stream_smem_bytes() <= tops.SMEM_LIMIT_BYTES
+    assert tc.ns_stream_max_clusters() == torch.cuda.get_device_properties(0).multi_processor_count
+
+
+# newton_schulz_stream (row 9s): small n that still streams and wraps the
+# ring (11 chunks), a ragged p and n, as many chunks as stages, n just past
+# row 9w's 2048, and starcoder2-15b's (128, 6144).
+NS_STREAM_CASES = [(3, 128, 704), (4, 100, 644), (3, 72, 1000), (3, 128, 132),
+                   (3, 65, 2112), (5, 128, 6144)]
+
+
+@pytest.mark.parametrize("shape", NS_STREAM_CASES)
+def test_newton_schulz_stream_matches_plain(cuda, shape):
+    """Unmasked out of place, then masked in place (every other matrix:
+    the others and their distances keep their bits), against
+    ``ref.newton_schulz_ref`` at atol 1e-6, 12 iterations."""
+    x = _drifted(shape, cuda, seed=5)
+    b = shape[0]
+    dist = torch.empty(b, device=cuda)
+    got = tns.newton_schulz_stream(x, 12, dist=dist)
+    torch.cuda.synchronize()
+    want = tref.newton_schulz_ref(x, 12)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+    torch.testing.assert_close(dist, tref.manifold_distance_ref(want), atol=2e-6, rtol=1e-3)
+    mask = torch.arange(b, device=cuda) % 2 == 0
+    dist = torch.full((b,), 7.0, device=cuda)
+    y = x.clone()
+    tns.newton_schulz_stream(y, 12, out=y, mask=mask, dist=dist)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y[mask], want[mask], atol=1e-6, rtol=0)
+    assert torch.equal(y[~mask], x[~mask]) and bool((dist[~mask] == 7.0).all())
+    assert float(dist[mask].max()) < 1e-2
+
+
+def test_newton_schulz_stream_refuses_what_it_cannot_take(cuda):
+    """n % 4 != 0 (a row stride TMA cannot take) and fewer chunks than
+    the ring's stages raise; nothing falls back."""
+    for shape in ((2, 128, 4098), (2, 128, 128)):
+        x = _drifted(shape, cuda)
+        with pytest.raises(RuntimeError, match="newton_schulz_stream"):
+            tns.newton_schulz_stream(x, 12)
+
+
+def test_newton_schulz_stream_route(cuda):
+    """The route the planner picks at starcoder2-15b's q/k, (128, 6144),
+    through the watchdog's repair: every other matrix past the threshold,
+    then none (the idle repair writes nothing), one launch each."""
+    kind = tops.plan_newton_schulz(128, 6144)[0]
+    wrapper = tns.newton_schulz_stream if kind == "stream" else tns.newton_schulz_tiled
+    x = _drifted((6, 128, 6144), cuda, seed=6)
+    dist = torch.where(torch.arange(6, device=cuda) % 2 == 0, 2.0, 0.01).float()
+    x0, d0 = x.clone(), dist.clone()
+    before = wrapper.launches
+    rep = tops.newton_schulz_repair(x, dist, torch.tensor(0.1, device=cuda), iters=12)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1 and torch.equal(rep, d0 > 0.1)
+    torch.testing.assert_close(x[rep], tref.newton_schulz_ref(x0[rep], 12), atol=1e-6, rtol=0)
+    assert torch.equal(x[~rep], x0[~rep]) and torch.equal(dist[~rep], d0[~rep])
+    x0, d0 = x.clone(), torch.full((6,), 1e-6, device=cuda)
+    dist = d0.clone()
+    rep = tops.newton_schulz_repair(x, dist, torch.tensor(0.1, device=cuda), iters=12)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert not bool(rep.any()) and torch.equal(x, x0) and torch.equal(dist, d0)
+
+
 def test_newton_schulz_cluster_planner_matches_the_kernels_smem(cuda):
     """``ops.ns_cluster`` / ``ns_cluster_smem_bytes`` mirror the C entries
     of ``csrc/small_p.cu``."""

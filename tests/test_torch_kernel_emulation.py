@@ -480,6 +480,24 @@ def test_ns_tc128_kernel_emulated(ns_harness, tmp_path, shape, inplace, masked, 
             against_jax=True)
 
 
+@pytest.mark.parametrize("shape,inplace,masked,iters", [
+    # 11 chunks through a ring of 3 stages, the watchdog's 12 iterations
+    ((3, 128, 704), True, True, 12),
+    ((3, 100, 644), True, True, 4),  # ragged p and a ragged last chunk
+    ((3, 72, 520), False, False, 4),  # three matrices walked by two CTAs
+    ((2, 128, 132), False, False, 4),  # as many chunks as stages, the least
+    ((2, 128, 256), False, False, 0),  # no iteration: X / f, its distance
+])
+def test_ns_stream_kernel_emulated(ns_harness, tmp_path, shape, inplace, masked, iters):
+    """``newton_schulz_stream`` (row 9s) through its launcher: a persistent
+    grid of the stand-in's two CTAs, each matrix's chunks streamed through
+    the TMA ring more times than it has stages, the stores read back a
+    sweep later; at the Newton-Schulz tolerance, masked-off matrices and
+    distances bit-unchanged; against the JAX package's Newton-Schulz too."""
+    _run_ns(ns_harness, tmp_path, 4, shape, inplace=inplace, masked=masked, iters=iters,
+            against_jax=True)
+
+
 @pytest.fixture(scope="module")
 def tp_harness(tmp_path_factory):
     return _compile(tmp_path_factory, "tp_harness.cpp")

@@ -124,6 +124,8 @@ PLANS = [
     (10, 9998, ("tiled", 64), ("tiled", 64), ("tiled", 64), ("tiled", 64), ("tiled", 64)),
     (32, 4096, ("tc", 0), ("tc", 0), ("tc", 0), ("tc", 0), ("tc", 0)),
     (24, 10000, ("tiled", 64), ("tiled", 64), ("tiled", 64), ("tiled", 64), CLUSTER),
+    # starcoder2-15b's q/k: past row 9w's n, Newton-Schulz streams Y (row 9s)
+    (128, 6144, ("tc", 0), ("tc", 0), ("tc", 0), ("tc", 0), ("stream", 0)),
 ]
 
 

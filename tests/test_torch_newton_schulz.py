@@ -125,8 +125,10 @@ def test_mask_requires_in_place():
     (128, 2048, ("tc128", 0)),
     (100, 1500, ("tc128", 0)),  # a ragged p in 65..128
     (72, 2048, ("tc128", 0)),
-    (124, 4096, ("tiled", 64)),  # n past 16 CTAs of two chunks each
-    (128, 2049, ("tiled", 64)),
+    # n past 16 CTAs of two chunks each, at n % 4 == 0: Y streams through a
+    # TMA ring (row 9s)
+    (124, 4096, ("stream", 0)),
+    (128, 2049, ("tiled", 64)),  # n % 4 != 0: a row stride TMA cannot take
     # p below NS_TC_MIN_P: the cluster kernel of csrc/small_p.cu where a
     # cluster of at most 8 CTAs holds Y and n % 4 == 0
     (16, 4096, ("cluster", 0)),
@@ -136,6 +138,7 @@ def test_mask_requires_in_place():
     (31, 60000, ("tiled", 64)),  # n past what a cluster of 8 holds
     (40, 6000, ("tiled", 64)),  # p past the cluster route, n past 9tc's clusters
     (64, 6000, ("tiled", 64)),  # n past eight CTAs' shared memory
+    (128, 6144, ("stream", 0)),  # starcoder2-15b's q/k: row 9s
 ])
 def test_newton_schulz_planner(p, n, want):
     assert tops.plan_newton_schulz(p, n) == want
@@ -143,6 +146,7 @@ def test_newton_schulz_planner(p, n, want):
     size = {"whole": lambda: tops.ns_whole_smem_bytes(p, n),
             "tc": lambda: tops.ns_tc_smem_bytes(n),
             "tc128": lambda: tops.ns_tc128_smem_bytes(n),
+            "stream": tops.ns_stream_smem_bytes,
             "cluster": lambda: tops.ns_cluster_smem_bytes(p, n, tops.ns_cluster(p, n)),
             "tiled": lambda: tops.ns_tiled_smem_bytes(p, tile_n)}[kind]()
     assert 0 < size <= tops.SMEM_LIMIT_BYTES

@@ -86,16 +86,22 @@ held against their plain version with half the matrices masked off
 directly and with the plain version, the peak device memory printed), and
 timed beside the repair launch that finds no matrix past the threshold
 (the CUDA-core large route's also as its Python loop issued it before
-its iterations moved into one C call). The tensor-parallel step: its two kernels against their plain
-versions at a rank's share of the q/k stack at width 2, 640 x (64, 480),
-and of the many-matrices stack, 2048 x (16, 128); its single-device
-schedule (four shards of 640 x (64, 960)) against the unsharded fused
-step; then its main path, two ranks on the one card (``gloo``, a (1, 2)
-mesh, the q/k stack as ``DTensor`` stacks ``Shard(-1)`` on "model", each rank
-a process of its own): three POGO steps over VAdam and three Landing
-steps over trace through ``constraint_step``, one all-reduce per step on
-each rank, every rank's columns equal to the unsharded fused step's, and
-a padded case (n = 962). Then the trainer: SmolLM-360M at full width (32 layers),
+its iterations moved into one C call). The tensor-parallel step: its
+kernels against their plain versions at a rank's share of the q/k stack
+at width 2, 640 x (64, 480) (rows 3tc and 4tc, ``tp_step_tc.cu``, 3xTF32
+``wgmma`` fed by a TMA ring, timed beside rows 3 and 4, ``tp_step.cu``),
+and of the many-matrices stack, 2048 x (16, 128), and the crossover
+behind ``ops.TP_TC_MIN_P``; its single-device schedule (four shards of
+640 x (64, 960)) against the unsharded fused step, timed beside the same
+schedule on rows 3 and 4; then its main path, two ranks on the one card
+(``gloo``, a (1, 2) mesh, the q/k stack as ``DTensor`` stacks
+``Shard(-1)`` on "model", each rank a process of its own): three POGO
+steps over VAdam and three Landing steps over trace through
+``constraint_step`` on the tensor-core kernels, one all-reduce per step
+on each rank, every rank's columns equal to the unsharded fused step's;
+three POGO steps on the many-matrices stack (p = 16: rows 3 and 4), a
+padded case (n = 962), and the main path's POGO steps again on rows 3
+and 4. Then the trainer: SmolLM-360M at full width (32 layers),
 batch 8 x 512 tokens, through ``make_train_step`` and ``train`` as the
 launcher builds them (POGO's fused kernel over VAdam on the q/k group,
 AdamW elsewhere, the feasibility watchdog on), 8 steps, the q/k leaves
@@ -233,6 +239,8 @@ KERNELS = {
     "pogo_update_tiled_tc128": ("fused_step_tc", "src/repro/kernels/pogo_update.py:143"),
     "tp_gram": ("tp_step", "src/repro/kernels/fused_step.py:304"),
     "tp_apply": ("tp_step", "src/repro/kernels/fused_step.py:417"),
+    "tp_gram_tc": ("tp_step_tc", "src/repro/kernels/fused_step.py:304"),
+    "tp_apply_tc": ("tp_step_tc", "src/repro/kernels/fused_step.py:417"),
     "flash_attention": ("flash_attention", "src/repro/kernels/flash_attention.py:88"),
     "flash_attention_tf32": ("flash_attention_tf32", "src/repro/kernels/flash_attention.py:88"),
     "flash_attention_tc": ("flash_attention_tc", "src/repro/kernels/flash_attention.py:88"),
@@ -746,7 +754,9 @@ def phase_tc_repeatability(gen, repeats=20):
     the matrices masked off), each
     entry of the large route on the tensor cores at the CNN filters' 3 x
     (256, 2304) (its grams split n into slices there) and O-ViT's 18 x
-    (1024, 1024), and on the CUDA cores at ``LARGE_ODD``, and the 3xTF32
+    (1024, 1024), and on the CUDA cores at ``LARGE_ODD``, the TP step's
+    tensor-core kernels at a rank's 640 x (64, 480) (trace and POGO,
+    VAdam and Landing), and the 3xTF32
     flash-attention kernel at the prefill's shape, every
     other launch beside a 1 GiB copy on a second
     stream that takes SMs and HBM from it: every output must equal the first
@@ -761,6 +771,7 @@ def phase_tc_repeatability(gen, repeats=20):
     from repro_torch.kernels import landing_field as lf
     from repro_torch.kernels import newton_schulz as ns
     from repro_torch.kernels import pogo_update as pu
+    from repro_torch.kernels import tp_step as tp
 
     side = torch.cuda.Stream()
     big = torch.zeros(256 * 2**20, device="cuda")
@@ -841,92 +852,187 @@ def phase_tc_repeatability(gen, repeats=20):
 
         repeat(f"{kernel.__name__} {shape[0]}x{shape[1:]}, half masked", ns_run)
         del x
+    for base, hyper, method in TP_COMBOS:  # the TP step's tensor-core kernels
+        h, gkw, want, payload, scl, akw = _tp_case(gen, 640, 64, 480, base, hyper, method)
+        repeat(f"tp_gram_tc 640x(64, 480) {base}",
+               lambda: tp.tp_gram_tc(h["x"], h["g"], **gkw))
+        repeat(f"tp_apply_tc 640x(64, 480) {method}",
+               lambda: tp.tp_apply_tc(h["x"], want[1], payload, LR, scl, **akw))
+        del h, want, payload
     q, k, v = _flash_inputs(gen, FLASH_SHAPE, torch.float32)
     repeat(f"flash_attention_tf32 {FLASH_SHAPE} causal",
            lambda: (fa.flash_attention_tf32(q, k, v, causal=True, window=None),))
     del q, k, v, big, dst
 
 
-def _tp_bound(name, b, p, n, base_kind="trace", method="pogo"):
+def _tp_bound(name, b, p, n, base_kind="trace", method="pogo", pieces=0):
     """``tp_gram``: read X, g (and mu), write Gb (and mu'), and the payload
     row; A = X X^T, a symmetric gram (p^2 n flops), and two p x p x n
     products (5 p^2 n flops). ``tp_apply``: read X,
     Gb and the payload, write X'; three p x p x n products (6 p^2 n) and
     the (p, p) algebra, 20 p^3 flops for POGO (10 products) and 26 p^3 for
-    Landing (13)."""
+    Landing (13). In fp32 on the CUDA cores, or (``pieces`` 3) as 3xTF32
+    on the tensor cores."""
     k = 3 * p * p + (base_kind == "vadam")
-    if name == "tp_gram":
+    if name.startswith("tp_gram"):
         passes = 5 if base_kind != "none" else 3
-        return _bound_ms((passes * p * n + k) * b * 4, 5 * p * p * n * b)
-    p3 = 20 if method == "pogo" else 26
-    return _bound_ms((3 * p * n + k) * b * 4, (6 * p * p * n + p3 * p ** 3) * b)
+        bytes_, flops = (passes * p * n + k) * b * 4, 5 * p * p * n * b
+    else:
+        p3 = 20 if method == "pogo" else 26
+        bytes_, flops = (3 * p * n + k) * b * 4, (6 * p * p * n + p3 * p ** 3) * b
+    if pieces:
+        return _bound_ms(bytes_, pieces * flops, TF32_TC_FLOP_PER_S)
+    return _bound_ms(bytes_, flops)
+
+
+TP_COMBOS = (("trace", (0.9, False), "pogo"), ("vadam", (0.9, 0.999, 1e-8), "landing"))
+TP_CROSSOVER = [(2048, p, 480) for p in (16, 18, 19, 20, 24, 29, 32, 48, 64)]
+
+
+def _tp_case(gen, b, p, n, base, hyper, method):
+    """A rank's half of a (B, p, 2 n) stack near the manifold, the payload
+    summed over both halves as the all-reduce makes it, and the keyword
+    arguments of both kernels."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    x, g, mu, nu = _operands(gen, b, p, 2 * n)
+    x += 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
+    h = {k: v[..., :n].contiguous() for k, v in (("x", x), ("g", g), ("mu", mu))}
+    gkw = dict(base_kind=base, hyper=hyper, post_scale=1.0, mu=h["mu"])
+    want = ref.tp_partial_ref(h["x"], h["g"], **gkw)
+    payload = want[0] + ref.tp_partial_ref(x[..., n:], g[..., n:], base_kind=base,
+                                           hyper=hyper, mu=mu[..., n:])[0]
+    scl = None
+    if base == "vadam":
+        scl = ref.tp_scale_ref(payload, p, hyper=hyper, post_scale=1.0, nu=nu,
+                               count=torch.tensor(3, device="cuda"))[0].contiguous()
+    akw = dict(method=method, lam=0.5 if method == "pogo" else 1.0)
+    return h, gkw, want, payload, scl, akw
+
+
+def _tp_direct_distance(gen, limit=1e-6):
+    """``tp_apply_tc`` folds POGO's land into its sweep's operators (X' = X
+    + P' Gb + Q' X) and takes the distance from the gram identity: on one
+    shard holding the whole 640 x (64, 960) stack, the gap between its
+    distance and ||X' X'^T - I||_F formed in fp64 from its own X', beside
+    the plain version's gap (the same from the plain X'), on the main
+    path's operands (a Stiefel draw, gradients of ``GRAD_SCALE``) and
+    1e-2 off the manifold. Both gaps sit at fp32's floor (~3e-6: X' stored
+    in fp32), so the kernel's must stay within ``limit`` of the plain
+    version's."""
+    import torch
+
+    from repro_torch.core import stiefel
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import tp_step as tp
+
+    eye = torch.eye(64, dtype=torch.float64, device="cuda")
+
+    def gap(x2, dist):
+        xd = x2.double()
+        direct = torch.linalg.matrix_norm(xd @ xd.transpose(-1, -2) - eye)
+        return float((dist.double() - direct).abs().max())
+
+    for method, off in (("pogo", 0.0), ("landing", 0.0), ("pogo", 0.01), ("landing", 0.01)):
+        x = stiefel.random_stiefel(gen, (640, 64, 960), device="cuda")
+        x += off * torch.randn(x.shape, generator=gen, device="cuda")
+        g = GRAD_SCALE * torch.randn(x.shape, generator=gen, device="cuda")
+        akw = dict(method=method, lam=0.5 if method == "pogo" else 1.0)
+        payload, gb, _ = tp.tp_gram_tc(x, g)
+        x2, dist = tp.tp_apply_tc(x, gb, payload, LR, **akw)
+        kernel_gap = gap(x2, dist)
+        plain_gap = gap(*ref.tp_apply_ref(x, gb, payload, LR, **akw))
+        ok = kernel_gap <= plain_gap + limit
+        where = f"+ {off} randn" if off else "on the manifold"
+        print(f"tp_apply_tc {method} 640x(64,960) one shard, x {where}: "
+              f"distance {float(dist.max()):.3e}, |distance - ||X' X'^T - I||| {kernel_gap:.3e} "
+              f"(the plain version's {plain_gap:.3e}, limit it + {limit}) "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            raise SystemExit("tp_apply_tc's distance is not its output's")
+        del x, g, payload, gb, x2, dist
 
 
 def phase_tp_kernels(gen):
-    """``tp_gram`` and ``tp_apply`` against their plain versions at a rank's
-    block of the q/k stack at width 2, 640 x (64, 480) (the main path's
-    shape, timed first), and of the many-matrices stack, 2048 x (16, 128).
-    The payload is the sum of both halves' partials, as the all-reduce
-    makes it; ``tp_apply`` runs POGO on the trace payload and Landing on
-    the vadam one (with vadam's scalar)."""
-    import torch
-
+    """The TP step's kernels against their plain versions at a rank's block
+    of the q/k stack at width 2, 640 x (64, 480) (the main path's shape,
+    timed, rows 3 and 4 beside rows 3tc and 4tc in turns), and of the
+    many-matrices stack, 2048 x (16, 128) (rows 3 and 4's share; the
+    tensor-core kernels checked there too). The payload is the sum of both
+    halves' partials, as the all-reduce makes it; ``tp_apply`` runs POGO on
+    the trace payload and Landing on the vadam one (with vadam's scalar).
+    Then the crossover behind ``ops.TP_TC_MIN_P``: at ``TP_CROSSOVER``,
+    POGO over VAdam and Landing over trace, each tensor-core kernel beside
+    its CUDA-core row in turns."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import tp_step as tp
 
     records = {}
     for b, p, n in ((640, 64, 480), (2048, 16, 128)):
-        for base, hyper, method in (("trace", (0.9, False), "pogo"),
-                                    ("vadam", (0.9, 0.999, 1e-8), "landing")):
-            x, g, mu, nu = _operands(gen, b, p, 2 * n)
-            x += 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
-            h = {k: v[..., :n].contiguous() for k, v in (("x", x), ("g", g), ("mu", mu))}
-            other = ref.tp_partial_ref(x[..., n:], g[..., n:], base_kind=base,
-                                       hyper=hyper, mu=mu[..., n:])[0]
-            gkw = dict(base_kind=base, hyper=hyper, post_scale=1.0, mu=h["mu"])
-            gtile = ops.plan_tp("tp_gram", p, ops.tp_gram_smem_bytes)
-            got = tp.tp_gram(h["x"], h["g"], tile_n=gtile, **gkw)
-            torch.cuda.synchronize()
-            want = ref.tp_partial_ref(h["x"], h["g"], **gkw)
-            err_g, _, ok_g = _errors(got, want, TILED_TOL)
-            payload = want[0] + other
-            scl = None
-            if base == "vadam":
-                scl = ref.tp_scale_ref(payload, p, hyper=hyper, post_scale=1.0, nu=nu,
-                                       count=torch.tensor(3, device="cuda"))[0].contiguous()
-            atile = ops.plan_tp("tp_apply", p, ops.tp_apply_smem_bytes)
-            akw = dict(method=method, lam=0.5 if method == "pogo" else 1.0)
-            got_a = tp.tp_apply(h["x"], want[1], payload, LR, scl, tile_n=atile, **akw)
-            torch.cuda.synchronize()
+        for base, hyper, method in TP_COMBOS:
+            h, gkw, want, payload, scl, akw = _tp_case(gen, b, p, n, base, hyper, method)
             want_a = ref.tp_apply_ref(h["x"], want[1], payload, LR, scl, **akw)
-            err_a, _, ok_a = _errors(got_a, want_a, TILED_TOL)
-            print(f"kernel tp_gram {b}x({p},{n}) {base} tile_n {gtile}: max_abs "
-                  f"{err_g:.3e}; tp_apply {method} tile_n {atile}: max_abs {err_a:.3e}, "
-                  f"distance {float(got_a[1].max()):.3e} (atol {TILED_TOL['atol']}, rtol "
-                  f"{TILED_TOL['rtol']}) {'ok' if ok_g and ok_a else 'MISMATCH'}",
-                  flush=True)
-            if not (ok_g and ok_a):
+            gtile = ops.plan_tp("tp_gram", p, ops.tp_gram_smem_bytes)
+            atile = ops.plan_tp("tp_apply", p, ops.tp_apply_smem_bytes)
+            grams = {"tp_gram": lambda: tp.tp_gram(h["x"], h["g"], tile_n=gtile, **gkw),
+                     "tp_gram_tc": lambda: tp.tp_gram_tc(h["x"], h["g"], **gkw)}
+            applies = {
+                "tp_apply": lambda: tp.tp_apply(h["x"], want[1], payload, LR, scl,
+                                                tile_n=atile, **akw),
+                "tp_apply_tc": lambda: tp.tp_apply_tc(h["x"], want[1], payload, LR, scl,
+                                                      **akw)}
+            errs = {}
+            for name, run in (*grams.items(), *applies.items()):
+                errs[name] = _errors(run(), want if "gram" in name else want_a, TILED_TOL)
+            ok = all(e[2] for e in errs.values())
+            print(f"kernel tp {b}x({p},{n}) {method}+{base}: max_abs " + ", ".join(
+                f"{name} {e[0]:.3e}" for name, e in errs.items()) +
+                f"; distance {float(want_a[1].max()):.3e} (atol {TILED_TOL['atol']}, rtol "
+                f"{TILED_TOL['rtol']}) {'ok' if ok else 'MISMATCH'}", flush=True)
+            if not ok:
                 raise SystemExit("a TP kernel disagrees with its plain version")
-            for name, err in (("tp_gram", err_g), ("tp_apply", err_a)):
+            for name, e in errs.items():
                 rec = records.setdefault(name, {})
-                rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+                rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), e[0])
             if "ms" in records["tp_gram"]:
                 continue
-            ms_g, plain_g = _time_in_turns(
-                lambda: tp.tp_gram(h["x"], h["g"], tile_n=gtile, **gkw),
-                lambda: ref.tp_partial_ref(h["x"], h["g"], **gkw))
-            ms_a, plain_a = _time_in_turns(
-                lambda: tp.tp_apply(h["x"], want[1], payload, LR, scl, tile_n=atile,
-                                    **akw),
-                lambda: ref.tp_apply_ref(h["x"], want[1], payload, LR, scl, **akw))
-            bg, byg = _tp_bound("tp_gram", b, p, n, base)
-            ba, bya = _tp_bound("tp_apply", b, p, n, base, method)
-            print(f"  tp_gram {b}x({p},{n}) ms {ms_g:.4f} plain_ms {plain_g:.4f} "
-                  f"bound_ms {bg:.4f} ({byg}); tp_apply {method} ms {ms_a:.4f} "
-                  f"plain_ms {plain_a:.4f} bound_ms {ba:.4f} ({bya})", flush=True)
-            records["tp_gram"].update(ms=ms_g, plain_ms=plain_g, bound_ms=bg, bound_by=byg)
-            records["tp_apply"].update(ms=ms_a, plain_ms=plain_a, bound_ms=ba, bound_by=bya)
-            del x, g, mu, nu, h, got, want, got_a, want_a, payload
+            plain_g, ms_g, ms_gtc = _time_rotating(
+                [(lambda: ref.tp_partial_ref(h["x"], h["g"], **gkw), 10),
+                 (grams["tp_gram"], 20), (grams["tp_gram_tc"], 20)])
+            plain_a, ms_a, ms_atc = _time_rotating(
+                [(lambda: ref.tp_apply_ref(h["x"], want[1], payload, LR, scl, **akw), 10),
+                 (applies["tp_apply"], 20), (applies["tp_apply_tc"], 20)])
+            for name, ms, plain in (("tp_gram", ms_g, plain_g), ("tp_gram_tc", ms_gtc, plain_g),
+                                    ("tp_apply", ms_a, plain_a),
+                                    ("tp_apply_tc", ms_atc, plain_a)):
+                tc = name.endswith("_tc")
+                bound, by = _tp_bound(name, b, p, n, base, method, pieces=3 if tc else 0)
+                extra = ""
+                if tc:
+                    extra = f"; fp32 CUDA cores {_tp_bound(name, b, p, n, base, method)[0]:.4f}"
+                print(f"  {name} {b}x({p},{n}) {method}+{base} ms {ms:.4f} plain_ms "
+                      f"{plain:.4f} bound_ms {bound:.4f} ({by}{extra})", flush=True)
+                records[name].update(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+            del h, want, payload, want_a
+    _tp_direct_distance(gen)
+    for b, p, n in TP_CROSSOVER:
+        for base, hyper, method in (("vadam", (0.9, 0.999, 1e-8), "pogo"),
+                                    ("trace", (0.1, False), "landing")):
+            h, gkw, want, payload, scl, akw = _tp_case(gen, b, p, n, base, hyper, method)
+            gtile = ops.plan_tp("tp_gram", p, ops.tp_gram_smem_bytes)
+            atile = ops.plan_tp("tp_apply", p, ops.tp_apply_smem_bytes)
+            g_tc, g_cc, a_tc, a_cc = _time_rotating([
+                (lambda: tp.tp_gram_tc(h["x"], h["g"], **gkw), 10),
+                (lambda: tp.tp_gram(h["x"], h["g"], tile_n=gtile, **gkw), 10),
+                (lambda: tp.tp_apply_tc(h["x"], want[1], payload, LR, scl, **akw), 10),
+                (lambda: tp.tp_apply(h["x"], want[1], payload, LR, scl, tile_n=atile, **akw),
+                 10)])
+            print(f"crossover tp {b}x({p},{n}) {method}+{base}: tp_gram_tc {g_tc:.4f} / "
+                  f"tp_gram {g_cc:.4f} ms, tp_apply_tc {a_tc:.4f} / tp_apply {a_cc:.4f} ms; "
+                  f"planned {ops.plan_tp_route('tp_gram', p, n)[0]}", flush=True)
+            del h, want, payload
     return records
 
 
@@ -1931,11 +2037,25 @@ def _time_drift_step(step, cs, state, g, card, shape, repair, repeats=3):
           f"({row} repairs), {drift_row9:.4f} ms with row 9 repairing [{card}]", flush=True)
 
 
+def _tp_rows_3_4(fn):
+    """``fn()`` with the TP step routed to rows 3 and 4 (the CUDA-core
+    kernels) at every p: the route before rows 3tc and 4tc."""
+    from repro_torch.kernels import ops
+
+    low = ops.TP_TC_MIN_P
+    ops.TP_TC_MIN_P = 65  # past every p the tensor-core kernels take
+    try:
+        return fn()
+    finally:
+        ops.TP_TC_MIN_P = low
+
+
 def phase_tp_schedule(gen, card):
     """The single-device TP schedule, ``ops.fused_group_step_tp`` with four
     shards of the q/k stack, against the unsharded fused step on the card:
     POGO over VAdam and Landing over trace, each one call (four
-    ``tp_gram`` and one ``tp_apply`` launch)."""
+    ``tp_gram_tc`` and one ``tp_apply_tc`` launch), then timed in turns
+    with the same schedule on rows 3 and 4."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1953,16 +2073,27 @@ def phase_tp_schedule(gen, card):
         want = ops.fused_group_step(x, g, LR, **kw)
         torch.cuda.synchronize()
         max_abs, _, ok = _errors(got, want, TILED_TOL)
+        def schedule():
+            return ops.fused_group_step_tp(x, g, LR, tp_shards=4, **kw)
+
+        tc_ms, cc_ms = _time_rotating([(schedule, 5), (lambda: _tp_rows_3_4(schedule), 5)])
         print(f"tp schedule {method}+{base} 640x(64,960) tp_shards 4 vs the unsharded "
               f"fused step: max_abs {max_abs:.3e}, launches {launches} "
-              f"{'ok' if ok else 'MISMATCH'} [{card}]", flush=True)
-        if not ok or launches != {"tp_gram": 4, "tp_apply": 1}:
+              f"{'ok' if ok else 'MISMATCH'}; {tc_ms:.4f} ms a call, {cc_ms:.4f} on rows 3 "
+              f"and 4 [{card}]", flush=True)
+        if not ok or launches != {"tp_gram_tc": 4, "tp_apply_tc": 1}:
             raise SystemExit("the single-device TP schedule disagrees with the fused step")
         del x, g, mu, nu, got, want
 
 
-def _tp_runs(mesh, seed, n, paths):
-    """One TP run per path on this rank: the stack (640, 64, n) and its
+# The two-rank runs: the main path (POGO, Landing), rows 3 and 4's share,
+# the padded case, and the main path's POGO steps on rows 3 and 4.
+TP_RANK_RUNS = ("pogo+vadam", "landing+trace", "pogo+vadam 2048x(16,256)",
+                "pogo+vadam n=962", "pogo+vadam on rows 3 and 4")
+
+
+def _tp_runs(mesh, seed, shape, paths):
+    """One TP run per path on this rank: the stack ``shape`` and its
     gradients from ``seed``, as DTensors ``Shard(-1)`` on "model",
     ``TP_STEPS`` steps of ``constraint_step``. Returns per path the full
     operands, the local result, its distances, all-reduces per step and
@@ -1977,7 +2108,7 @@ def _tp_runs(mesh, seed, n, paths):
     out = []
     for i, path in enumerate(paths):
         gen = torch.Generator(device="cuda").manual_seed(seed + i)
-        x = stiefel.random_stiefel(gen, (640, 64, n), device="cuda")
+        x = stiefel.random_stiefel(gen, shape, device="cuda")
         grads = [GRAD_SCALE * torch.randn(x.shape, generator=gen, device="cuda")
                  for _ in range(TP_STEPS)]
         opt = make_opt(path)
@@ -2047,11 +2178,17 @@ def tp_rank(rank, workdir):
         sh.set_mesh(mesh)
         rec = {"rank": rank}
         ops.reset_launches()  # the main path: POGO over VAdam, then Landing over trace
-        runs = _tp_runs(mesh, 11, 960, ["tp_pogo", "tp_landing"])
+        runs = _tp_runs(mesh, 11, (640, 64, 960), ["tp_pogo", "tp_landing"])
         torch.cuda.synchronize()
         rec["launches"] = {k: v for k, v in ops.launches().items() if v}
-        runs += _tp_runs(mesh, 21, 962, ["tp_pogo"])  # padded: 481 -> 484 a rank
-        for run, label in zip(runs, ("pogo+vadam", "landing+trace", "pogo+vadam n=962")):
+        ops.reset_launches()  # rows 3 and 4's share: the many-matrices stack, p = 16
+        runs += _tp_runs(mesh, 31, (2048, 16, 256), ["tp_pogo"])
+        torch.cuda.synchronize()
+        rec["launches_small_p"] = {k: v for k, v in ops.launches().items() if v}
+        runs += _tp_runs(mesh, 21, (640, 64, 962), ["tp_pogo"])  # padded: 481 -> 484 a rank
+        # the main path's POGO steps again on rows 3 and 4, the route before
+        runs += _tp_rows_3_4(lambda: _tp_runs(mesh, 11, (640, 64, 960), ["tp_pogo"]))
+        for run, label in zip(runs, TP_RANK_RUNS):
             max_abs, ok, dist_max = _tp_check(rank, run)
             rec[label] = dict(calls=run["calls"], max_abs=max_abs, ok=ok,
                               dist=dist_max, step_ms=statistics.median(run["ms"]),
@@ -2062,11 +2199,9 @@ def tp_rank(rank, workdir):
         x = runs[0]["local"].contiguous()
         g = torch.chunk(runs[0]["grads"][0], 2, dim=-1)[rank].contiguous()
         mu = torch.zeros_like(x)
-        gtile = ops.plan_tp("tp_gram", 64, ops.tp_gram_smem_bytes)
-        atile = ops.plan_tp("tp_apply", 64, ops.tp_apply_smem_bytes)
-        gkw = dict(base_kind="vadam", hyper=(0.9, 0.999, 1e-8), mu=mu, tile_n=gtile)
-        payload, gb, _ = tp.tp_gram(x, g, **gkw)
-        gram_ms = _time_ms(lambda: tp.tp_gram(x, g, **gkw), 20)
+        gkw = dict(base_kind="vadam", hyper=(0.9, 0.999, 1e-8), mu=mu)
+        payload, gb, _ = tp.tp_gram_tc(x, g, **gkw)
+        gram_ms = _time_ms(lambda: tp.tp_gram_tc(x, g, **gkw), 20)
         ar = []
         for _ in range(20):
             buf = payload.clone()
@@ -2076,8 +2211,8 @@ def tp_rank(rank, workdir):
             torch.cuda.synchronize()
             ar.append(1e3 * (time.perf_counter() - t0))
         scl = torch.ones(x.shape[0], device="cuda")
-        apply_ms = _time_ms(lambda: tp.tp_apply(x, gb, payload, LR, scl, method="pogo",
-                                                lam=0.5, tile_n=atile), 20)
+        apply_ms = _time_ms(lambda: tp.tp_apply_tc(x, gb, payload, LR, scl, method="pogo",
+                                                   lam=0.5), 20)
         ar_ms = statistics.median(ar)
         rec["times"] = dict(gram_ms=gram_ms, all_reduce_ms=ar_ms, apply_ms=apply_ms,
                             all_reduce_share=ar_ms / (gram_ms + ar_ms + apply_ms))
@@ -2104,10 +2239,11 @@ def phase_tp_ranks(card, workdir):
         for proc in procs:
             proc.kill()
     steps = [1] * TP_STEPS
-    want = {"tp_gram": 2 * TP_STEPS, "tp_apply": 2 * TP_STEPS}
+    want = {"tp_gram_tc": 2 * TP_STEPS, "tp_apply_tc": 2 * TP_STEPS}
+    want_small = {"tp_gram": TP_STEPS, "tp_apply": TP_STEPS}
     for rec in recs:
         r = rec["rank"]
-        for label in ("pogo+vadam", "landing+trace", "pogo+vadam n=962"):
+        for label in TP_RANK_RUNS:
             v = rec[label]
             limit = 0.5 if label.startswith("landing") else 1e-5
             print(f"tp rank {r} {label}: local {v['local']}, all-reduces per step "
@@ -2117,13 +2253,17 @@ def phase_tp_ranks(card, workdir):
             if v["calls"] != steps or not v["ok"] or not v["dist"] <= limit:
                 raise SystemExit(f"tp rank {r} {label}: {v}")
         t = rec["times"]
-        print(f"tp rank {r} pogo+vadam 640x(64,480) pieces: tp_gram {t['gram_ms']:.4f} ms, "
-              f"all-reduce (gloo) {t['all_reduce_ms']:.4f} ms, tp_apply "
+        print(f"tp rank {r} pogo+vadam 640x(64,480) pieces: tp_gram_tc {t['gram_ms']:.4f} ms, "
+              f"all-reduce (gloo) {t['all_reduce_ms']:.4f} ms, tp_apply_tc "
               f"{t['apply_ms']:.4f} ms, all-reduce share {t['all_reduce_share']:.3f}; "
-              f"main-path launches {rec['launches']} [{card}]", flush=True)
-        if rec["launches"] != want:
-            raise SystemExit(f"tp rank {r}: launches {rec['launches']}, expected {want}")
-    return {k: sum(rec["launches"][k] for rec in recs) for k in want}
+              f"main-path launches {rec['launches']}, at 2048x(16,256) "
+              f"{rec['launches_small_p']} [{card}]", flush=True)
+        if rec["launches"] != want or rec["launches_small_p"] != want_small:
+            raise SystemExit(f"tp rank {r}: launches {rec['launches']}, "
+                             f"{rec['launches_small_p']}, expected {want}, {want_small}")
+    return {k: sum(rec[key][k] for rec in recs)
+            for key, counts in (("launches", want), ("launches_small_p", want_small))
+            for k in counts}
 
 
 def _flash_inputs(gen, shape, dtype):
@@ -2559,6 +2699,7 @@ def main() -> int:
     ns.tc_lib()
     fs.cluster_lib()
     tp.lib()
+    tp.tc_lib()
     fa.lib()
     fa.tc_lib()
     fa.tf32_lib()
@@ -2568,7 +2709,7 @@ def main() -> int:
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"ptxas[{name}] {line.strip()}", flush=True)
     # every value kept in registers
-    for name in ("newton_schulz_tc", "small_p", "flash_attention_tf32"):
+    for name in ("newton_schulz_tc", "small_p", "flash_attention_tf32", "tp_step_tc"):
         spills = [line for line in build.PTXAS_LOG[name].splitlines()
                   if "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line]
         if spills:

@@ -395,6 +395,20 @@ __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t a, uint64
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 64) (+)= -A B^T: A negated by the product's imm-scale-a.
+__device__ __forceinline__ void wgmma_tf32_ss_neg(float (&d)[32], uint64_t a, uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" HOPPER_R32 "}, "
+      "%32, %33, p, -1, 1;\n"
+      "}\n"
+      : HOPPER_D32
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // The same at N = 32 (d[16]) and N = 128 (d[64]): B's rows are the N side.
 __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t a, uint64_t b,
                                               int accumulate) {

@@ -8,6 +8,7 @@ flash-attention forward (``:729-763``). The TPU planner's
 VMEM budget and live-buffer counts become the per-block shared-memory
 footprint of each CUDA kernel, mirrored here from ``csrc/fused_step.cu``,
 ``csrc/fused_step_tc.cu``, ``csrc/small_p.cu``, ``csrc/tp_step.cu``,
+``csrc/tp_step_tc.cu``,
 ``csrc/two_stage.cu`` and ``csrc/newton_schulz.cu``, and past it the large
 route:
 
@@ -47,9 +48,11 @@ route:
 * ``large`` the same shapes at n % 4 != 0, a row stride TMA cannot take:
   the same launches on the CUDA cores (IEEE fp32).
 
-The TP kernels always sweep n in tiles (a shard of a wide matrix rarely
-fits one block whole), with the tile that lets the most blocks share an
-SM; they have no large route, and ``plan_tp`` refuses p whose grams do
+The TP kernels always sweep n (a shard of a wide matrix rarely fits one
+block whole): for ``TP_TC_MIN_P <= p <= 64`` at n % 4 == 0 on the tensor
+cores (``csrc/tp_step_tc.cu``, one persistent CTA per SM; ``plan_tp_route``),
+else on the CUDA cores in the column tile that lets the most blocks share
+an SM; they have no large route, and ``plan_tp`` refuses p whose grams do
 not fit (ROADMAP: "sharded schedules (large p)"). The ragged n-edge is
 masked inside the kernels, so no operand is padded. Each entry point runs
 the plain version on a CPU tensor and the planned kernel, or an error, on
@@ -205,6 +208,23 @@ NS_TC_MAX_P = 64
 # (29, 2048) 1.4227 / 1.5058; 1.1224 / 1.0819, (32, 2048) 1.4722 /
 # 1.5149; 1.1458 / 1.0825, on shapes no configuration has.
 CLUSTER_MAX_P = 24
+# The TP step's kernels (tp_gram, tp_apply) take csrc/tp_step_tc.cu for
+# TP_TC_MIN_P <= p <= 64 at n % 4 == 0, csrc/tp_step.cu below (and at any
+# other shape plan_tp takes). The tensor-core kernels' work a chunk does not
+# shrink with p (64-row tiles), the CUDA-core ones' does. On an H100
+# (benchmarks_torch/tp_tc_readings.py, 2048 x (p, 480) rank blocks; ms,
+# tensor-core / CUDA-core: tp_gram, then tp_apply, for POGO over VAdam;
+# Landing over trace): p = 16 0.3389 / 0.3312, 0.3746 / 0.2545; 0.3316 /
+# 0.3317, 0.3614 / 0.2705; 17 0.3393 / 0.3562, 0.3761 / 0.3310; 0.3313 /
+# 0.3548, 0.3615 / 0.3541; 18 0.3393 / 0.3699, 0.3770 / 0.3491; 0.3318 /
+# 0.3685, 0.3624 / 0.3718; 19 0.3401 / 0.3786, 0.3778 / 0.3536; 0.3329 /
+# 0.3768, 0.3620 / 0.3769; 20 0.3413 / 0.3978, 0.3778 / 0.3742; 0.3322 /
+# 0.3952, 0.3618 / 0.3948; 21 0.3421 / 0.4562, 0.3784 / 0.4123; 0.3343 /
+# 0.4549, 0.3632 / 0.4363; 24 0.3454 / 0.4722, 0.3808 / 0.4483; 64 0.6185
+# / 1.4461, 0.5205 / 2.4259. A step runs one of each: from p = 19 the pair
+# is faster on the tensor cores in both methods (POGO 0.7179 / 0.7322);
+# at 18 POGO's pair ties (0.7163 / 0.7190), at 17 the CUDA cores' wins.
+TP_TC_MIN_P = 19
 # Blocks per SM the tiled kernel's register cap allows (kTiledBlocksPerSm),
 # and the TP kernels' (kTpBlocksPerSm).
 _TILED_BLOCKS_PER_SM = 3
@@ -268,6 +288,28 @@ def tp_apply_smem_bytes(p: int, tile_n: int) -> int:
     """``tp_apply``: A, B, S (then C or A^2) and two scratch (p, p)
     products, the X, Gb and M tiles, and the reduction scratch."""
     return _tiled_bytes(p, tile_n, 5, 3, _THREADS // 32)
+
+
+_TC_TILE_BYTES = 64 * 64 * 4  # a 64 x 64 fp32 operand tile of the tensor-core kernels
+
+
+def tp_gram_tc_smem_bytes() -> int:
+    """``tp_gram_tc``, whatever p and n: a ring of nine operand tiles, each
+    consumer warpgroup's lo tiles of X and Gb, the reduction scratch, 18
+    mbarriers and 1 KB to align the tiles."""
+    return 13 * _TC_TILE_BYTES + 64 + 8 * 18 + 1024
+
+
+def tp_apply_tc_smem_bytes() -> int:
+    """``tp_apply_tc``'s sweep: a ring of ten operand tiles, the hi and lo
+    tiles of its operators P' and Q', 20 mbarriers and 1 KB to align."""
+    return 14 * _TC_TILE_BYTES + 8 * 20 + 1024
+
+
+def tp_alg_smem_bytes() -> int:
+    """``tp_apply_tc``'s algebra: seven (p, p) tiles and 1 KB to align (two
+    blocks share an SM at the most shared memory it gives)."""
+    return 7 * _TC_TILE_BYTES + 1024
 
 
 def pogo_whole_smem_bytes(p: int, n: int) -> int:
@@ -616,6 +658,18 @@ def plan_tp(what: str, p: int, tiled_bytes) -> int:
     return tile
 
 
+def plan_tp_route(what: str, p: int, n: int) -> tuple[str, int]:
+    """``("tc", 0)``: the tensor-core kernel of ``csrc/tp_step_tc.cu`` for
+    ``TP_TC_MIN_P <= p <= 64`` at n % 4 == 0 (a row stride TMA takes);
+    else ``("tiled", tile_n)``, the CUDA-core kernel of ``csrc/tp_step.cu``
+    in :func:`plan_tp`'s tile (``what`` is ``"tp_gram"`` or
+    ``"tp_apply"``)."""
+    if TP_TC_MIN_P <= p <= _tp.TC_P and n % 4 == 0:
+        return "tc", 0
+    tiled = tp_gram_smem_bytes if what == "tp_gram" else tp_apply_smem_bytes
+    return "tiled", plan_tp(what, p, tiled)
+
+
 @functools.cache  # the watchdog's repair asks it on every step, the idle ones too
 def plan_newton_schulz(p: int, n: int) -> tuple[str, int]:
     """``("whole", 0)``, ``("cluster", 0)``, ``("tc", 0)``, ``("tc128",
@@ -745,7 +799,8 @@ KERNELS = (_fs.fused_step_whole, _fs.fused_step_tiled, _fs.fused_step_cluster,
            _fs.fused_step_tiled_tc128, _fs.fused_step_tiled_tc128_landing,
            _fs.fused_step_large, _fs.fused_step_large_landing,
            _fs.fused_step_large_tc, _fs.fused_step_large_tc_landing,
-           _tp.tp_gram, _tp.tp_apply, _pu.pogo_update_whole,
+           _tp.tp_gram, _tp.tp_apply, _tp.tp_gram_tc, _tp.tp_apply_tc,
+           _pu.pogo_update_whole,
            _pu.pogo_update_tiled, _pu.pogo_update_cluster, _pu.pogo_update_tiled_tc,
            _pu.pogo_update_tiled_tc128, _pu.pogo_update_large, _pu.pogo_update_large_tc,
            _lf.landing_field, _lf.landing_field_tiled, _lf.landing_field_cluster,
@@ -836,11 +891,14 @@ def fused_group_step_tp_partial(x, g, *, base_kind: str = "none",
     ``inplace=True`` writes mu' over ``mu``."""
     if x.is_complex():
         raise ValueError("the TP group step is real-only (caller must gate)")
-    tile_n = 0 if x.device.type == "cpu" else \
-        plan_tp("tp_gram", x.shape[1], tp_gram_smem_bytes)
-    return _tp.tp_gram(x, g, base_kind=base_kind, hyper=tuple(hyper),
-                       post_scale=float(post_scale), mu=mu, inplace=inplace,
-                       tile_n=tile_n)
+    kw = dict(base_kind=base_kind, hyper=tuple(hyper), post_scale=float(post_scale),
+              mu=mu, inplace=inplace)
+    if x.device.type == "cpu":
+        return _tp.tp_gram(x, g, **kw)
+    kind, tile_n = plan_tp_route("tp_gram", x.shape[1], x.shape[2])
+    if kind == "tc":
+        return _tp.tp_gram_tc(x, g, **kw)
+    return _tp.tp_gram(x, g, tile_n=tile_n, **kw)
 
 
 def fused_group_step_tp_finish(x, gbase, payload, eta, *, method: str, lam,
@@ -859,10 +917,13 @@ def fused_group_step_tp_finish(x, gbase, payload, eta, *, method: str, lam,
                                        post_scale=float(post_scale), nu=nu,
                                        count=count)
         scl = scl.contiguous()
-    tile_n = 0 if x.device.type == "cpu" else \
-        plan_tp("tp_apply", x.shape[1], tp_apply_smem_bytes)
-    x2, dist = _tp.tp_apply(x, gbase, payload, eta, scl, method=method, lam=lam,
-                            pv=pv, inplace=inplace, tile_n=tile_n)
+    kw = dict(method=method, lam=lam, pv=pv, inplace=inplace)
+    kind, tile_n = ("tiled", 0) if x.device.type == "cpu" else \
+        plan_tp_route("tp_apply", x.shape[1], x.shape[2])
+    if kind == "tc":
+        x2, dist = _tp.tp_apply_tc(x, gbase, payload, eta, scl, **kw)
+    else:
+        x2, dist = _tp.tp_apply(x, gbase, payload, eta, scl, tile_n=tile_n, **kw)
     return x2, nu_out, dist, torch.isfinite(dist)
 
 

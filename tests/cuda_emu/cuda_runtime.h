@@ -73,6 +73,9 @@ inline uint32_t __float_as_uint(float f) {
   return u;
 }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+// A load through the read-only data cache: a plain load here.
+template <typename T>
+inline T __ldg(const T* p) { return *p; }
 struct uint3 { unsigned x, y, z; };
 inline thread_local uint3 threadIdx;
 inline uint3 gridDim;
@@ -165,8 +168,10 @@ typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute {
   cudaFuncAttributeMaxDynamicSharedMemorySize,
-  cudaFuncAttributeNonPortableClusterSizeAllowed
+  cudaFuncAttributeNonPortableClusterSizeAllowed,
+  cudaFuncAttributePreferredSharedMemoryCarveout
 };
+enum { cudaSharedmemCarveoutMaxShared = 100 };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
 // SMs of the emulated card: few, so that a persistent grid walks several
 // matrices per block.
@@ -219,6 +224,12 @@ inline cudaError_t cudaLaunchKernel(const void* f, dim3 grid, dim3 block, void**
   return 0;
 }
 inline cudaError_t cudaGetLastError() { return 0; }
+// Blocks of `smem` bytes an SM of 228 KB holds, each reserving 1 KB.
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, const void*, int,
+                                                                 size_t smem) {
+  *blocks = static_cast<int>(233472 / (smem + 1024));
+  return 0;
+}
 
 // cudaLaunchKernelExC with a cluster dimension: the grid runs one cluster
 // at a time, its blocks at once, each on its own 1024-byte aligned shared

@@ -513,6 +513,106 @@ def test_tp_planner_matches_the_kernels_smem(cuda):
             assert lib.tp_apply_smem_bytes(p, tile_n) == tops.tp_apply_smem_bytes(p, tile_n)
 
 
+# Rows 3tc and 4tc (csrc/tp_step_tc.cu): p <= 64 at n % 4 == 0; a ragged
+# n-edge chunk, rows past p, and SmolLM's rank block at width 2.
+TP_TC_SHAPES = [(16, 64, 480), (7, 40, 132), (3, 33, 100), (5, 24, 240)]
+
+
+@pytest.mark.parametrize("shape", TP_TC_SHAPES)
+@pytest.mark.parametrize("base_kind,hyper", BASES)
+def test_tp_gram_tc_matches_plain(cuda, shape, base_kind, hyper):
+    x, g, mu, _ = _operands(shape, cuda, seed=9)
+    before = ttp.tp_gram_tc.launches
+    got = ttp.tp_gram_tc(x, g, base_kind=base_kind, hyper=hyper, post_scale=0.7,
+                         mu=mu if base_kind != "none" else None)
+    torch.cuda.synchronize()
+    assert ttp.tp_gram_tc.launches == before + 1
+    want = tref.tp_partial_ref(x, g, base_kind=base_kind, hyper=hyper, post_scale=0.7,
+                               mu=mu if base_kind != "none" else None)
+    _close(got, want, dict(atol=3e-5, rtol=1e-4))
+
+
+@pytest.mark.parametrize("shape", TP_TC_SHAPES)
+@pytest.mark.parametrize("method", ["pogo", "landing"])
+@pytest.mark.parametrize("vadam", [False, True])
+def test_tp_apply_tc_matches_plain(cuda, shape, method, vadam):
+    x, g = _off_manifold_operands(shape, cuda, seed=10)
+    payload, gb, _ = tref.tp_partial_ref(x, g)
+    scl = torch.rand(shape[0], device=cuda) + 0.5 if vadam else None
+    before = ttp.tp_apply_tc.launches
+    got = ttp.tp_apply_tc(x, gb, payload, 0.1, scl, method=method, lam=0.7)
+    torch.cuda.synchronize()
+    assert ttp.tp_apply_tc.launches == before + 1
+    want = tref.tp_apply_ref(x, gb, payload, 0.1, scl, method=method, lam=0.7)
+    _close(got, want, dict(atol=3e-5, rtol=1e-4))
+
+
+@pytest.mark.parametrize("method", ["pogo", "landing"])
+def test_tp_tc_kernels_in_place_and_masked(cuda, method):
+    """mu' over mu, X' over X, and rows past pv masked out of the distance."""
+    shape = (4, 40, 200)
+    x, g = _off_manifold_operands(shape, cuda, seed=11)
+    _, _, mu, nu = _operands(shape, cuda, seed=12)
+    pv = torch.tensor([40, 38, 1, 0], dtype=torch.int32, device=cuda)
+    rows = torch.arange(40, device=cuda)[None, :, None] < pv[:, None, None]
+    x, g, mu = (torch.where(rows, a, 0.0) for a in (x, g, mu))
+    hyper = (0.9, 0.999, 1e-8)
+    want_p = tref.tp_partial_ref(x, g, base_kind="vadam", hyper=hyper, mu=mu)
+    pay, gb, mu2 = ttp.tp_gram_tc(x, g, base_kind="vadam", hyper=hyper, mu=mu, inplace=True)
+    assert mu2 is mu
+    _close((pay, gb, mu2), want_p, dict(atol=3e-5, rtol=1e-4))
+    scl, _ = tref.tp_scale_ref(pay, 40, hyper=hyper, post_scale=1.0, nu=nu,
+                               count=torch.tensor(3, device=cuda))
+    want = tref.tp_apply_ref(x, gb, pay, 0.1, scl, method=method, lam=0.7, pv=pv)
+    got = ttp.tp_apply_tc(x, gb, pay, 0.1, scl.contiguous(), method=method, lam=0.7,
+                          pv=pv, inplace=True)
+    torch.cuda.synchronize()
+    assert got[0] is x
+    _close(got, want, dict(atol=3e-5, rtol=1e-4))
+
+
+def test_tp_tc_planner_matches_the_kernels_smem(cuda):
+    lib = ttp.tc_lib()
+    assert lib.tp_gram_tc_smem_bytes() == tops.tp_gram_tc_smem_bytes()
+    assert lib.tp_apply_tc_smem_bytes() == tops.tp_apply_tc_smem_bytes()
+    assert lib.tp_alg_smem_bytes() == tops.tp_alg_smem_bytes()
+
+
+def test_tp_tc_kernels_refuse_what_they_do_not_take(cuda):
+    """p > 64, a row stride TMA cannot take (n % 4 != 0), or an operand off
+    a 16-byte boundary: a ValueError, no launch."""
+    for shape in ((2, 65, 64), (2, 32, 62)):
+        x, g = (torch.randn(shape, device=cuda) for _ in range(2))
+        with pytest.raises(ValueError, match="tensor-core TP"):
+            ttp.tp_gram_tc(x, g)
+    flat = torch.randn(2 * 8 * 64 + 1, device=cuda)
+    off_x = flat[1:].view(2, 8, 64)  # 4 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        ttp.tp_gram_tc(off_x, torch.randn(2, 8, 64, device=cuda))
+
+
+@pytest.mark.parametrize("shape,kernels", [
+    ((8, 64, 960), ("tp_gram_tc", "tp_apply_tc")),
+    ((8, 16, 256), ("tp_gram", "tp_apply")),  # p below TP_TC_MIN_P
+    # 482 columns a shard (n % 4 != 0) for the partials; the finish runs on
+    # the whole 964 columns
+    ((8, 64, 964), ("tp_gram", "tp_apply_tc")),
+])
+def test_tp_schedule_takes_the_planned_route(cuda, shape, kernels):
+    x, g, mu, nu = _operands(shape, cuda, seed=14)
+    kw = dict(method="pogo", lam=0.5, base_kind="vadam", hyper=(0.9, 0.999, 1e-8),
+              mu=mu, nu=nu, count=torch.tensor(3, dtype=torch.int32, device=cuda))
+    tops.reset_launches()
+    got = tops.fused_group_step_tp(x, g, 0.1, tp_shards=2, **kw)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in tops.launches().items() if v} == {kernels[0]: 2, kernels[1]: 1}
+    want = tops.fused_group_step_tp(x.cpu(), g.cpu(), 0.1, tp_shards=2, **{
+        k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in kw.items()})
+    for a, b in zip(got, want):
+        if b is not None:
+            torch.testing.assert_close(a.cpu(), b, atol=3e-5, rtol=1e-4)
+
+
 def test_tp_kernels_reject_bad_operands(cuda):
     x, g, mu, _ = _operands((2, 4, 16), cuda)
     with pytest.raises(ValueError, match="dtype"):

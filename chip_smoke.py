@@ -11,7 +11,11 @@ projections (one 640 x (64, 960) stack: the tensor-core kernels of
 ``fused_step_tc.cu``, 3xTF32 ``wgmma`` on TMA-fed tiles, after a one-
 ``wgmma`` probe of the card's TF32 reading, for the fused step and the
 two-stage POGO update and landing field), at the many-matrices shape
-2048 x (16, 256) (the whole kernels), at internlm2-1.8b's q/k, one 576 x
+2048 x (16, 256) (the whole kernels), at the paper's 218,624 orthogonal
+CNN kernels of 3 x 3 (the batched whole-matrix kernels of
+``batched_whole.cu`` for the fused step and the POGO update, persistent
+CTAs fed by 1-D bulk copies, a thread a matrix; the landing field's whole
+kernel), at internlm2-1.8b's q/k, one 576 x
 (128, 2048) stack (p > 64: the wide tensor-core kernel of the same source
 for the fused step, the POGO update and the landing field; 3 steps each),
 and at the paper's squared-unitary-PC sizes, 1048 x (10, 10000) (p < 25:
@@ -21,7 +25,7 @@ and the landing field; 3 steps each) and 1048 x (10, 9998) (n % 4 != 0:
 the CUDA-core tiled kernels of all four, rows 2, 6, 2L and 8), and at the
 paper's own sizes for p > 128
 (``src/repro/configs/pogo_paper.py``): its six orthogonal CNN filters, as
-(1, p, n) leaves (a step runs the whole kernel at (64, 216), the
+(1, p, n) leaves (a step runs the old whole kernels at (64, 216), the
 tensor-core kernel at (64, 576), its wide form at (128, 1152) and the
 large route of ``large_p.cu``, gram-then-apply launches on the tensor
 cores, at the three (256, 2304) filters), O-ViT's 18 x (1024, 1024) (the
@@ -68,7 +72,13 @@ bit, and so must the tensor-core Newton-Schulz kernels (row 9s at
 starcoder2-15b's 2080 x (128, 6144)) and the cluster
 kernels of ``small_p.cu`` (its four entries and Newton-Schulz's, at the
 paper's 1048 x (10, 10000)) and the 3xTF32 flash-attention kernel (at
-the prefill's shape). The cluster kernels are timed
+the prefill's shape), and the batched whole-matrix kernels at 218,624 x
+(3, 3). The batched kernels are held against their plain versions and
+timed beside the old whole kernels (rows 1, 1L and 5, the route at 3 x 3
+before them) there (rotating through copies of the inputs past L2, and
+warm; device times and event times), and checked at tail groups, every p
+<= n <= 4, a misaligned view, in place, ragged rows and a learning rate
+held on the card (``phase_batched_whole``). The cluster kernels are timed
 beside rows 2, 6, 2L and 8 at that shape, and at the readings behind the
 cluster route's ends (``phase_cluster_crossovers``: p = 4-28 at n =
 2048-10000, p = 29 and 32 against the tensor-core kernels, and every
@@ -168,6 +178,17 @@ LR = 0.1
 GRAD_SCALE = 5e-4  # per-entry gradient std: keeps eta ||R|| near 1e-2
 SMOLLM_STEPS = 10
 MANY = {"w": (2048, 16, 256)}
+# The paper's orthogonal CNN kernels (src/repro/configs/pogo_paper.py:9), the
+# stack of its scalability figure: 218,624 matrices of 3 x 3, the full count,
+# synthetic; 7.87 MB a tensor. The fused step (POGO and Landing) and the
+# POGO update take the batched kernel's thread unit there (csrc/
+# batched_whole.cu), the landing field its whole kernel (row 7).
+CNN_KERNELS = {"k": (218624, 3, 3)}
+CNN_KERNELS_SHAPE = CNN_KERNELS["k"]
+# An H100's L2 (50 MB): the 3 x 3 rows are timed warm and again rotating
+# through copies of their inputs that together exceed it twice over.
+L2_BYTES = 50e6
+DEVICE_CALLS = 20  # calls a device time is read over (torch.profiler)
 # internlm2-1.8b's constrained q/k projections (src/repro/configs/
 # internlm2_1_8b.py: 24 layers, 16 heads and 8 KV heads of head_dim 128,
 # d_model 2048), one 576 x (128, 2048) stack: the wide tensor-core kernel's
@@ -213,6 +234,9 @@ LARGE_TC_RAGGED = (5, 200, 904)
 # kernel -> (its source, the TPU kernel it replaces)
 KERNELS = {
     "fused_step_whole": ("fused_step", "src/repro/kernels/fused_step.py:175"),
+    "fused_step_batched": ("batched_whole", "src/repro/kernels/fused_step.py:175"),
+    "fused_step_batched_landing": ("batched_whole", "src/repro/kernels/fused_step.py:164"),
+    "pogo_update_batched": ("batched_whole", "src/repro/kernels/pogo_update.py:64"),
     "fused_step_tiled": ("fused_step", "src/repro/kernels/fused_step.py:608"),
     "fused_step_cluster": ("small_p", "src/repro/kernels/fused_step.py:608"),
     "pogo_update_whole": ("two_stage", "src/repro/kernels/pogo_update.py:64"),
@@ -507,12 +531,21 @@ def _record(records, name, shape, rec):
         old.setdefault("by_shape", {})["{}x({},{})".format(*shape)] = rec
 
 
+def _random_stiefel(gen, shape):
+    """``stiefel.random_stiefel`` on the card; a stack of tiny matrices (p n
+    <= 16: the paper's 218,624 CNN kernels) takes its QR on the CPU, 0.1 s
+    there against ~15 s for the card's batched QR."""
+    from repro_torch.core import stiefel
+
+    if shape[-2] * shape[-1] > 16:
+        return stiefel.random_stiefel(gen, shape, device="cuda")
+    return stiefel.random_stiefel(gen, shape, device="cpu").to("cuda")
+
+
 def _operands(gen, b, p, n):
     import torch
 
-    from repro_torch.core import stiefel
-
-    x = stiefel.random_stiefel(gen, (b, p, n), device="cuda")
+    x = _random_stiefel(gen, (b, p, n))
     g = 0.2 * torch.randn((b, p, n), generator=gen, device="cuda")
     mu = 0.1 * torch.randn((b, p, n), generator=gen, device="cuda")
     nu = torch.rand((b,), generator=gen, device="cuda")
@@ -648,7 +681,7 @@ def phase_fused_kernels(gen):
         tol = WHOLE_TOL if "whole" in name else TILED_TOL
         kind, tile_n = ops.plan(p, n, method)  # the kernel and tile the main path runs
         entry = name.removesuffix("_landing")
-        planned = {"whole": "fused_step_whole",
+        planned = {"whole": "fused_step_whole", "batched": "fused_step_batched",
                    "tc": "fused_step_tiled_tc" if p <= 64 else "fused_step_tiled_tc128",
                    "tiled": "fused_step_tiled", "cluster": "fused_step_cluster",
                    "large": "fused_step_large", "large_tc": "fused_step_large_tc"}[kind]
@@ -754,7 +787,9 @@ def phase_tc_repeatability(gen, repeats=20):
     the matrices masked off), each
     entry of the large route on the tensor cores at the CNN filters' 3 x
     (256, 2304) (its grams split n into slices there) and O-ViT's 18 x
-    (1024, 1024), and on the CUDA cores at ``LARGE_ODD``, the TP step's
+    (1024, 1024), and on the CUDA cores at ``LARGE_ODD``, the batched
+    whole-matrix kernels (``batched_whole.cu``, its three entries) at the
+    paper's 218,624 x (3, 3), the TP step's
     tensor-core kernels at a rank's 640 x (64, 480) (trace and POGO,
     VAdam and Landing), and the 3xTF32
     flash-attention kernel at the prefill's shape, every
@@ -802,6 +837,8 @@ def phase_tc_repeatability(gen, repeats=20):
             ("fused_step_tiled_tc128_landing", "trace", (0.1, False), WIDE_SHAPE),
             ("fused_step_cluster", "vadam", (0.9, 0.999, 1e-8), PAPER_SHAPE),
             ("fused_step_cluster_landing", "vadam", (0.9, 0.999, 1e-8), PAPER_SHAPE),
+            ("fused_step_batched", "vadam", (0.9, 0.999, 1e-8), CNN_KERNELS_SHAPE),
+            ("fused_step_batched_landing", "vadam", (0.9, 0.999, 1e-8), CNN_KERNELS_SHAPE),
             *((name, "vadam", (0.9, 0.999, 1e-8), shape) for shape in large
               for name in ("fused_step_large_tc", "fused_step_large_tc_landing")),
             ("fused_step_large", "vadam", (0.9, 0.999, 1e-8), LARGE_ODD),
@@ -821,6 +858,7 @@ def phase_tc_repeatability(gen, repeats=20):
                            (WIDE_SHAPE, (pu.pogo_update_tiled_tc128,
                                          lf.landing_field_tiled_tc128)),
                            (PAPER_SHAPE, (pu.pogo_update_cluster, lf.landing_field_cluster)),
+                           (CNN_KERNELS_SHAPE, (pu.pogo_update_batched,)),
                            *((shape, (pu.pogo_update_large_tc, lf.landing_field_large_tc))
                              for shape in large),
                            (LARGE_ODD, (pu.pogo_update_large, lf.landing_field_large))):
@@ -1098,6 +1136,7 @@ def phase_two_stage_kernels(gen):
         kind, tile_n = (ops.plan_pogo_update if pogo else ops.plan_landing_field)(p, n)
         stem = "pogo_update" if pogo else "landing_field"
         planned = {"whole": "pogo_update_whole" if pogo else "landing_field",
+                   "batched": f"{stem}_batched",
                    "tc": f"{stem}_tiled_tc" + ("128" if p > 64 else ""),
                    "tiled": f"{stem}_tiled", "cluster": f"{stem}_cluster",
                    "large": f"{stem}_large", "large_tc": f"{stem}_large_tc"}[kind]
@@ -1221,6 +1260,249 @@ def phase_two_stage_kernels(gen):
                                            bound_ms=bound_ms, bound_by=bound_by))
         del x, g, got, want, without
     return records
+
+
+def _misaligned(t):
+    """``t``'s values in a contiguous view one float past a 16-byte
+    boundary: the batched kernel's plain loads."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _batched_entry(name, x, g, mu, nu, base, hyper, pv=None):
+    """``(run(x, g, mu, nu, wrapper=..., eta=..., inplace=...), plain(),
+    tolerance)`` of a batched entry on these operands: the fused step's
+    (POGO or Landing) or the POGO update's."""
+    import torch
+
+    from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import pogo_update as pu
+    from repro_torch.kernels import ref
+
+    if name == "pogo_update_batched":
+        def run(x, g, mu=None, nu=None, wrapper=pu.pogo_update_batched, eta=LR, inplace=False):
+            return (wrapper(x, g, eta, 0.5, inplace=inplace),)
+
+        return run, lambda: (ref.pogo_update_ref(x, g, LR, 0.5),), TWO_STAGE_WHOLE_TOL
+    landing = name.endswith("_landing")
+    kw = dict(method="landing" if landing else "pogo", lam=1.0 if landing else 0.5,
+              base_kind=base, hyper=hyper, count=torch.tensor(3, dtype=torch.int32,
+                                                              device="cuda"), pv=pv)
+
+    def moments(mu, nu):
+        return dict(mu=mu if base != "none" else None, nu=nu if base == "vadam" else None)
+
+    def run(x, g, mu, nu, wrapper=fs.fused_step_batched, eta=LR, inplace=False):
+        return wrapper(x, g, eta, inplace=inplace, **moments(mu, nu), **kw)[:4]
+
+    return (run, lambda: ref.fused_group_step_ref(x, g, LR, **moments(mu, nu), **kw)[:4],
+            WHOLE_TOL)
+
+
+def _batched_old(name):
+    """The old whole kernel's wrapper that row ``name`` replaces on the
+    planner's route (rows 1 and 1L: ``fused_step_whole``; row 5:
+    ``pogo_update_whole``)."""
+    from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import pogo_update as pu
+
+    return pu.pogo_update_whole if name == "pogo_update_batched" else fs.fused_step_whole
+
+
+def _device_us(fn, calls=DEVICE_CALLS, tries=3):
+    """Device microseconds a launch of the port's whole or batched kernel
+    that ``fn`` makes (``torch.profiler`` over ``calls`` calls after one
+    warm-up, the kernels' device time over the launches it recorded; it
+    does not always record every one, and a try that recorded none is
+    taken again): the event timings hold the wrappers' host work too, which
+    at 218,624 x (3, 3) is most of them. None where no try recorded one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if "whole" in e.key or "batched" in e.key]
+        launches = sum(e.count for e in kernels)
+        if launches:
+            return sum(e.device_time_total for e in kernels) / launches
+    return None
+
+
+def _ms(us):
+    return None if us is None else us / 1e3
+
+
+def _us(us):
+    return "not measured" if us is None else f"{us:.2f} us"
+
+
+def phase_batched_whole(gen, card, records=None, timed=True):
+    """The batched whole-matrix kernels (``csrc/batched_whole.cu``: the fused
+    step, POGO and Landing, and the two-stage POGO update, rows 1b, 1Lb and
+    5b, a thread a matrix) against their plain versions and beside the old
+    whole kernels (rows 1, 1L and 5, ``fused_step.cu`` and ``two_stage.cu``,
+    checked in the same call) at the paper's 218,624 CNN kernels of 3 x 3,
+    their main path. Timed rotating through copies of the inputs that exceed
+    the 50 MB L2 twice over, the row's ``ms`` the kernel's device time there
+    (``_device_us``: the event times hold the wrappers' host work, most of
+    them at this size), and warm, the same inputs each launch (23.6 MB,
+    which stay in L2), in turns with the plain version. Then the edge cases:
+    tail groups (1000 x (3, 3), 1031 x (4, 4)), every p <= n <= 4 but 3 x 3
+    once, ragged rows, a misaligned view (plain loads), in place, a learning
+    rate held on the card, every base and both methods. X lies off the
+    manifold, so that lam's term shows. The old rows' times go under their
+    ``records``' ``by_shape``. ``timed=False`` checks alone."""
+    import torch
+
+    from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pogo_update as pu
+
+    records = {} if records is None else records
+    names = ("fused_step_batched", "fused_step_batched_landing", "pogo_update_batched")
+    old = {name: _batched_old(name) for name in names}
+    row = {"fused_step_batched": "1", "fused_step_batched_landing": "1L",
+           "pogo_update_batched": "5"}
+    base_of = {"fused_step_batched": ("trace", (0.9, False)),
+               "fused_step_batched_landing": ("trace", (0.1, False)),
+               "pogo_update_batched": ("none", ())}
+    new_records = {}
+
+    def operands(shape):
+        x, g, mu, nu = _operands(gen, *shape)
+        x += 0.01 * torch.randn(shape, generator=gen, device="cuda")
+        return x, g, mu, nu
+
+    def check(label, got, want, tol):
+        max_abs, max_rel, ok = _errors(got, want, tol)
+        print(f"kernel {label}: max_abs {max_abs:.3e} max_rel {max_rel:.3e} (atol "
+              f"{tol['atol']}, rtol {tol['rtol']}) {'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            raise SystemExit(f"{label} disagrees with its plain version")
+        return max_abs
+
+    b, p, n = shape = CNN_KERNELS_SHAPE
+    for name in names:
+        update = name == "pogo_update_batched"
+        method = "landing" if name.endswith("_landing") else "pogo"
+        old_name = old[name].__name__ + ("_landing" if method == "landing" else "")
+        planned = (ops.plan_pogo_update(p, n) if update else ops.plan(p, n, method))[0]
+        if planned != "batched":
+            raise SystemExit(f"the planner picks {planned} for ({p}, {n}), not {name}")
+        base, hyper = base_of[name]
+        x, g, mu, nu = operands(shape)
+        run, plain, tol = _batched_entry(name, x, g, mu, nu, base, hyper)
+        counter = getattr(pu if update else fs, name)
+        before = counter.launches
+        want = plain()
+        got = run(x, g, mu, nu)
+        torch.cuda.synchronize()
+        if counter.launches != before + 1:
+            raise SystemExit(f"{name} did not count its launch")
+        err = check(f"{name} {b}x({p},{n}) {base}{hyper}", got, want, tol)
+        old_err = check(f"{old_name} {b}x({p},{n}), row {row[name]}",
+                        run(x, g, mu, nu, wrapper=old[name]), want, tol)
+        del got, want
+        if not timed:
+            new_records[name] = dict(max_abs_err=err)
+            del x, g, mu, nu
+            continue
+        if update:
+            bound_ms, bound_by = _bound_ms(3 * b * p * n * 4,
+                                           TWO_STAGE_FLOPS["pogo_update"] * p * p * n * b)
+        else:
+            bound_ms, bound_by = _bound(b, p, n, base, method)
+        # past L2: copies of the inputs in other memory, taken in turn
+        per_set = (3 if base != "none" else 2) * b * p * n * 4
+        sets = [tuple(t.roll(k, 0) for t in (x, g, mu, nu))
+                for k in range(1, 1 + max(2, math.ceil(2 * L2_BYTES / per_set)))]
+        turn = {"new": 0, "old": 0}
+
+        def rotating(which, wrapper=None):
+            turn[which] = (turn[which] + 1) % len(sets)
+            xs, gs, ms_, ns_ = sets[turn[which]]
+            return run(xs, gs, ms_, ns_, **({} if wrapper is None else {"wrapper": wrapper}))
+
+        plain_ms, cold_ms, old_cold_ms, ms, old_ms = _time_rotating([
+            (plain, 10), (lambda: rotating("new"), 20), (lambda: rotating("old", old[name]), 20),
+            (lambda: run(x, g, mu, nu), 20), (lambda: run(x, g, mu, nu, wrapper=old[name]), 20)])
+        cold_us = _device_us(lambda: rotating("new"))
+        old_cold_us = _device_us(lambda: rotating("old", old[name]))
+        warm_us = _device_us(lambda: run(x, g, mu, nu))
+        old_warm_us = _device_us(lambda: run(x, g, mu, nu, wrapper=old[name]))
+        del sets
+
+        def rec(err, cold_us, cold_ms, warm_us, ms):
+            return dict(max_abs_err=err, ms=cold_ms if cold_us is None else cold_us / 1e3,
+                        ms_is="events" if cold_us is None else "device",
+                        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                        cold_event_ms=cold_ms, warm_device_ms=_ms(warm_us), warm_event_ms=ms)
+
+        print(f"  {name} {b}x({p},{n}) planned {planned}: rotating through copies of the "
+              f"inputs past L2, device {_us(cold_us)} (events {cold_ms:.4f} ms); warm L2, "
+              f"device {_us(warm_us)} (events {ms:.4f} ms); plain_ms {plain_ms:.4f} bound_ms "
+              f"{bound_ms:.4f} ({bound_by}); row {row[name]} ({old_name}) in this call past "
+              f"L2 device {_us(old_cold_us)} (events {old_cold_ms:.4f} ms), warm L2 device "
+              f"{_us(old_warm_us)} (events {old_ms:.4f} ms) [{card}]", flush=True)
+        new_records[name] = rec(err, cold_us, cold_ms, warm_us, ms)
+        _record(records, old_name, shape, rec(old_err, old_cold_us, old_cold_ms, old_warm_us,
+                                              old_ms))
+        del x, g, mu, nu
+
+    # edge cases, every base and both methods: held against the plain version
+    bases = (("none", ()), ("trace", (0.9, False)), ("trace", (0.5, True)),
+             ("vadam", (0.9, 0.999, 1e-8)))
+    cases = [(name, (1000, 3, 3), base, hyper, "") for name in names[:2]
+             for base, hyper in bases]
+    for name in names[:2]:
+        cases += [(name, (515, 1, 1), "trace", (0.9, False), ""),
+                  (name, (300, 1, 4), "none", (), ""),
+                  (name, (600, 2, 3), "trace", (0.5, True), ""),
+                  (name, (777, 2, 4), "vadam", (0.9, 0.999, 1e-8), "ragged"),
+                  (name, (1031, 3, 4), "trace", (0.9, False), "misaligned"),
+                  (name, (1031, 4, 4), "vadam", (0.9, 0.999, 1e-8), "in place"),
+                  (name, (1000, 3, 3), "vadam", (0.9, 0.999, 1e-8), "misaligned"),
+                  (name, CNN_KERNELS_SHAPE, "trace", (0.9, False), "in place"),
+                  (name, CNN_KERNELS_SHAPE, "vadam", (0.9, 0.999, 1e-8), "device eta")]
+    cases += [("pogo_update_batched", shape, "none", (), variant) for shape, variant in (
+        ((1000, 3, 3), ""), ((515, 1, 2), ""), ((1031, 4, 4), ""), ((600, 2, 3), "misaligned"),
+        ((1000, 3, 3), "misaligned"), ((1031, 4, 4), "in place"),
+        (CNN_KERNELS_SHAPE, "in place"), (CNN_KERNELS_SHAPE, "device eta"))]
+    for name, shape, base, hyper, variant in cases:
+        x, g, mu, nu = operands(shape)
+        pv = None
+        if variant == "ragged":
+            pv, x, g, mu = _ragged(gen, x, g, mu, shape[1])
+        run, plain, tol = _batched_entry(name, x, g, mu, nu, base, hyper, pv)
+        want = plain()
+        if variant == "misaligned":
+            x, g, mu, nu = (_misaligned(t) for t in (x, g, mu, nu))
+        if variant == "in place":
+            got = run(x, g, mu, nu, inplace=True)
+            if got[0] is not x or (len(got) > 1 and base != "none" and got[1] is not mu):
+                raise SystemExit(f"{name} in place returned new tensors")
+        elif variant == "device eta":
+            got = run(x, g, mu, nu, eta=torch.tensor(LR, device="cuda"))
+            if not all(torch.equal(a, h) for a, h in zip(got, run(x, g, mu, nu))
+                       if a is not None):
+                raise SystemExit(f"{name}: a device-held eta changed the result")
+        else:
+            got = run(x, g, mu, nu)
+        torch.cuda.synchronize()
+        err = check(f"{name} {shape[0]}x{shape[1:]} {base}{hyper}"
+                    f"{' ' + variant if variant else ''}", got, want, tol)
+        new_records[name]["max_abs_err"] = max(new_records[name]["max_abs_err"], err)
+        del x, g, mu, nu, got, want
+    return new_records
 
 
 def phase_newton_schulz(gen):
@@ -1840,10 +2122,10 @@ def drive_main_path(gen, shapes, label, steps, card, make_opt, max_dist):
     kernel during the counted steps."""
     import torch
 
-    from repro_torch.core import api, stiefel
+    from repro_torch.core import api
     from repro_torch.kernels import ops
 
-    params = {k: stiefel.random_stiefel(gen, s, device="cuda") for k, s in shapes.items()}
+    params = {k: _random_stiefel(gen, s) for k, s in shapes.items()}
     cs = api.ConstraintSet.from_tree(params)
     del params
     opt = make_opt(True)
@@ -2651,6 +2933,7 @@ def planned_kernels(path, shapes):
             kind = (ops.plan_pogo_update if stem == "pogo_update" else ops.plan_landing_field)(
                 p, n)[0]
         name = {"whole": "landing_field" if stem == "landing_field" else f"{stem}_whole",
+                "batched": f"{stem}_batched",
                 "tc": f"{stem}_tiled_tc" + ("128" if p > 64 else ""),
                 "tiled": f"{stem}_tiled", "cluster": f"{stem}_cluster",
                 "large": f"{stem}_large", "large_tc": f"{stem}_large_tc"}[kind] + suffix
@@ -2693,6 +2976,7 @@ def main() -> int:
     with ThreadPoolExecutor(len(sources)) as ex:  # one nvcc per source, together
         list(ex.map(build.compile_source, sources))
     fs._lib()
+    fs.batched_lib()
     fs.tc_lib()
     pu.lib()
     ns.lib()
@@ -2709,7 +2993,8 @@ def main() -> int:
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"ptxas[{name}] {line.strip()}", flush=True)
     # every value kept in registers
-    for name in ("newton_schulz_tc", "small_p", "flash_attention_tf32", "tp_step_tc"):
+    for name in ("newton_schulz_tc", "small_p", "flash_attention_tf32", "tp_step_tc",
+                 "batched_whole"):
         spills = [line for line in build.PTXAS_LOG[name].splitlines()
                   if "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line]
         if spills:
@@ -2720,6 +3005,7 @@ def main() -> int:
     records = phase_fused_kernels(gen)
     phase_tc_repeatability(gen)
     records.update(phase_two_stage_kernels(gen))
+    records.update(phase_batched_whole(gen, card, records))
     records.update(phase_newton_schulz(gen))
     phase_large_crossovers(gen)
     phase_cluster_crossovers(gen)
@@ -2730,6 +3016,7 @@ def main() -> int:
         ("fused smollm-360m q/k", smollm, SMOLLM_STEPS, "fused", 1e-5,
          "fused_step_tiled_tc"),
         ("fused 2048x(16,256)", MANY, 10, "fused", 1e-5, "fused_step_whole"),
+        ("fused paper CNN kernels", CNN_KERNELS, 10, "fused", 1e-5, "fused_step_batched"),
         ("fused internlm2-1.8b q/k", INTERNLM2, 3, "fused", 1e-5, "fused_step_tiled_tc128"),
         ("fused paper unitary-PC sizes", PAPER_PC, 3, "fused", 1e-5, "fused_step_cluster"),
         ("fused paper unitary-PC sizes, n = 9998", PAPER_PC_ODD, 3, "fused", 1e-5,
@@ -2737,6 +3024,8 @@ def main() -> int:
         ("pogo+adam smollm-360m q/k", smollm, 10, "pogo_adam", 1e-5,
          "pogo_update_tiled_tc"),
         ("pogo+adam 2048x(16,256)", MANY, 10, "pogo_adam", 1e-5, "pogo_update_whole"),
+        ("pogo+adam paper CNN kernels", CNN_KERNELS, 10, "pogo_adam", 1e-5,
+         "pogo_update_batched"),
         ("pogo+adam internlm2-1.8b q/k", INTERNLM2, 3, "pogo_adam", 1e-5,
          "pogo_update_tiled_tc128"),
         ("pogo+adam paper unitary-PC sizes", PAPER_PC, 3, "pogo_adam", 1e-5,
@@ -2745,6 +3034,7 @@ def main() -> int:
          "pogo_update_tiled"),
         ("landing smollm-360m q/k", smollm, 10, "landing", 0.5, "landing_field_tiled_tc"),
         ("landing 2048x(16,256)", MANY, 10, "landing", 0.5, "landing_field"),
+        ("landing paper CNN kernels", CNN_KERNELS, 10, "landing", 0.5, "landing_field"),
         ("landing internlm2-1.8b q/k", INTERNLM2, 3, "landing", 0.5,
          "landing_field_tiled_tc128"),
         ("landing paper unitary-PC sizes", PAPER_PC, 3, "landing", 0.5,
@@ -2755,6 +3045,8 @@ def main() -> int:
          "fused_step_tiled_tc_landing"),
         ("landing fused 2048x(16,256)", MANY, 10, "landing_fused", 0.5,
          "fused_step_whole_landing"),
+        ("landing fused paper CNN kernels", CNN_KERNELS, 10, "landing_fused", 0.5,
+         "fused_step_batched_landing"),
         ("landing fused internlm2-1.8b q/k", INTERNLM2, 3, "landing_fused", 0.5,
          "fused_step_tiled_tc128_landing"),
         ("landing fused paper unitary-PC sizes", PAPER_PC, 3, "landing_fused", 0.5,

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels: the
-// TMA tensor map and load, mbarriers, wgmma matrix descriptors and the
+// TMA tensor map and load, 1-D bulk copies, mbarriers, wgmma matrix descriptors and the
 // wgmma products, and a thread block cluster's rank, barrier and
 // distributed shared memory, each as one small function over inline PTX.
 //
@@ -267,6 +267,24 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
       ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// 1-D bulk copies, no tensor map: `bytes` (a multiple of 16) from `src` to
+// `dst`, both 16-byte aligned. The load completes its bytes on `bar`; the
+// store joins the thread's bulk group (commit, then wait as for
+// tma_store_4d). One thread issues each.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(reinterpret_cast<uint64_t>(dst)), "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
 }
 
 __device__ __forceinline__ void bulk_commit() {

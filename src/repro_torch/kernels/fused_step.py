@@ -38,6 +38,12 @@ run where n % 4 != 0. ``fused_step_large_tc`` and
 ``fused_step_large_tc_landing`` are the same phases on the tensor cores
 (3xTF32 ``wgmma`` fed by TMA, ``large_p.fused_tc``), the route for p > 128
 at n % 4 == 0.
+``fused_step_batched`` (``csrc/batched_whole.cu``) replaces the same TPU
+kernel as ``fused_step_whole`` for stacks of many small matrices (the
+planner's ``"batched"``, p <= n <= 4): a thread a matrix, persistent CTAs
+walking groups of consecutive matrices fed by 1-D bulk async copies into a
+ring of stages (IEEE fp32 on the CUDA cores); ``fused_step_batched_landing``
+is its Landing branch.
 
 The wrappers take the arguments of ``ref.fused_group_step_ref`` and return
 its ``(x', mu', nu', dist, finite)``. On a CPU tensor they run that plain
@@ -92,6 +98,20 @@ def tc_lib() -> ctypes.CDLL:
         lib.tf32_probe.argtypes = [_P] * 3 + [_I, _P]
         for fn in (lib.fused_step_tc, lib.pogo_update_tc, lib.landing_field_tc,
                    lib.fused_tc_smem_bytes, lib.fused_tc_park_floats, lib.tf32_probe):
+            fn.restype = _I
+        lib._typed = True
+    return lib
+
+
+def batched_lib() -> ctypes.CDLL:
+    """The loaded ``batched_whole.cu`` library (the fused step, POGO and
+    Landing, and the two-stage POGO update over many matrices), built on
+    first use."""
+    lib = build.load("batched_whole")
+    if not getattr(lib, "_typed", False):
+        lib.fused_step_batched.argtypes = [_P] * 10 + [_I] * 6 + [_P]
+        lib.pogo_update_batched.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+        for fn in (lib.fused_step_batched, lib.pogo_update_batched):
             fn.restype = _I
         lib._typed = True
     return lib
@@ -308,6 +328,18 @@ def fused_step_whole(x, g, eta, *, method="pogo", lam, base_kind="none",
                 nu=nu, count=count, pv=pv, inplace=inplace)
 
 
+def fused_step_batched(x, g, eta, *, method="pogo", lam, base_kind="none",
+                       hyper=(), post_scale=1.0, mu=None, nu=None, count=None,
+                       pv=None, inplace=False):
+    """The whole-matrix fused step over many matrices of p <= n <= 4
+    (``csrc/batched_whole.cu``): a thread a matrix, persistent CTAs walking
+    groups of consecutive matrices fed by 1-D bulk copies through a ring of
+    stages; ``method="landing"`` runs ``fused_step_batched_landing``."""
+    return _run("fused_step_batched", x, g, eta, lib=batched_lib, method=method, lam=lam,
+                base_kind=base_kind, hyper=hyper, post_scale=post_scale, mu=mu, nu=nu,
+                count=count, pv=pv, inplace=inplace)
+
+
 def fused_step_tiled(x, g, eta, *, method="pogo", lam, base_kind="none",
                      hyper=(), post_scale=1.0, mu=None, nu=None, count=None,
                      pv=None, inplace=False, tile_n=64):
@@ -432,6 +464,11 @@ def fused_step_whole_landing(x, g, eta, **kw):
     return fused_step_whole(x, g, eta, method="landing", **kw)
 
 
+def fused_step_batched_landing(x, g, eta, **kw):
+    """``fused_step_batched(method="landing")``."""
+    return fused_step_batched(x, g, eta, method="landing", **kw)
+
+
 def fused_step_tiled_landing(x, g, eta, **kw):
     """``fused_step_tiled(method="landing")``."""
     return fused_step_tiled(x, g, eta, method="landing", **kw)
@@ -466,6 +503,8 @@ _COUNTERS = {
     ("fused_step_whole", "pogo"): fused_step_whole,
     ("fused_step_tiled", "pogo"): fused_step_tiled,
     ("fused_step_whole", "landing"): fused_step_whole_landing,
+    ("fused_step_batched", "pogo"): fused_step_batched,
+    ("fused_step_batched", "landing"): fused_step_batched_landing,
     ("fused_step_tiled", "landing"): fused_step_tiled_landing,
     ("fused_step_tc", "pogo"): fused_step_tiled_tc,
     ("fused_step_tc", "landing"): fused_step_tiled_tc_landing,

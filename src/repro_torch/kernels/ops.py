@@ -12,6 +12,10 @@ footprint of each CUDA kernel, mirrored here from ``csrc/fused_step.cu``,
 ``csrc/two_stage.cu`` and ``csrc/newton_schulz.cu``, and past it the large
 route:
 
+* ``batched`` for the fused step (POGO and Landing) and the two-stage
+  POGO update at p <= n <= ``BATCHED_MAX_N``: ``csrc/batched_whole.cu``, a
+  thread a matrix, persistent CTAs walking groups of consecutive matrices
+  fed by 1-D bulk copies;
 * ``whole`` when X and the (transformed) gradient of one matrix plus the
   kernel's (p, p) grams fit in one block's 227 KB;
 * ``cluster`` otherwise, for the fused step (POGO and Landing) and the
@@ -225,6 +229,19 @@ CLUSTER_MAX_P = 24
 # is faster on the tensor cores in both methods (POGO 0.7179 / 0.7322);
 # at 18 POGO's pair ties (0.7163 / 0.7190), at 17 the CUDA cores' wins.
 TP_TC_MIN_P = 19
+# The fused step (POGO and Landing) and the two-stage POGO update take
+# csrc/batched_whole.cu, a thread a matrix with every operand in registers,
+# at p <= n <= BATCHED_MAX_N; fused_step.cu's and two_stage.cu's whole
+# kernels (a CTA a matrix) keep every larger matrix that fits a block. On
+# an H100 (benchmarks_torch/batched_readings.py --shapes, device us a
+# launch with the inputs warm in L2, batched / whole at 218,624 x (p, n),
+# fused POGO over trace): (1, 1) 3.96 / 2741.93, (1, 2) 4.71 / 2754.98, (2,
+# 2) 7.86 / 2771.25, (1, 3) 4.43 / 2766.25, (2, 3) 7.36 / 2789.53, (3, 3)
+# 12.42 / 2887.11, (1, 4) 6.30 / 2688.77, (2, 4) 14.23 / 2773.23, (3, 4)
+# 21.23 / 2790.77, (4, 4) 53.27 / 2868.24; fused Landing 54-712x and the
+# update 86-872x faster at the same shapes. Past 4 the operands outgrow a
+# thread's registers.
+BATCHED_MAX_N = 4
 # Blocks per SM the tiled kernel's register cap allows (kTiledBlocksPerSm),
 # and the TP kernels' (kTpBlocksPerSm).
 _TILED_BLOCKS_PER_SM = 3
@@ -577,14 +594,18 @@ def _plan(what: str, p: int, n: int, whole_bytes, tiled_bytes,
 
 def _route(what: str, p: int, n: int, whole_bytes, tiled_bytes, tc_low: int,
            tc_high: int = TC_MAX_P, tiles: tuple[int, ...] = _TILE_NS,
-           fallback: tuple[int, ...] = (), cluster=None) -> tuple[str, int]:
-    """Whole when one matrix fits a block; else, with ``cluster`` =
+           fallback: tuple[int, ...] = (), cluster=None,
+           batched: bool = False) -> tuple[str, int]:
+    """With ``batched``, ``"batched"`` at p <= n <= ``BATCHED_MAX_N``;
+    whole when one matrix fits a block; else, with ``cluster`` =
     ``(capacity, high)``, the cluster kernel for p <= high where a cluster
     holds the matrix (``capacity(p, n)``: :func:`small_p_cluster` or
     :func:`ns_cluster`); else the tensor-core kernel for ``tc_low <= p <=
     tc_high``; else the large route for p > ``TC_MAX_P``
     (:func:`large_kind`); else :func:`_plan`'s tile (every p <=
     ``TC_MAX_P`` has one)."""
+    if batched and p <= n <= BATCHED_MAX_N:
+        return "batched", 0
     if whole_bytes(p, n) > SMEM_LIMIT_BYTES:
         if cluster and p <= cluster[1] and cluster[0](p, n):
             return "cluster", 0
@@ -603,16 +624,19 @@ def large_kind(n: int) -> str:
 
 
 def plan(p: int, n: int, method: str = "pogo") -> tuple[str, int]:
-    """``("whole", 0)``, ``("cluster", 0)``, ``("tc", 0)``, ``("tiled",
-    tile_n)`` or the large route of the fused group step: whole when one
-    matrix fits a block, else (p <= ``CLUSTER_MAX_P``) the cluster kernel
+    """``("batched", 0)``, ``("whole", 0)``, ``("cluster", 0)``, ``("tc",
+    0)``, ``("tiled", tile_n)`` or the large route of the fused group step:
+    the batched kernel at p <= n <= ``BATCHED_MAX_N``; else the whole
+    kernel where one matrix fits a block; else (p <= ``CLUSTER_MAX_P``) the
+    cluster kernel
     where a cluster holds the matrix, else the tensor-core kernel for
     ``TC_MIN_P`` (``LANDING_TC_MIN_P`` for ``method="landing"``) ``<= p <=
     TC_MAX_P``, else the large route for p > ``TC_MAX_P``, else the
     CUDA-core tiled kernel."""
     low = LANDING_TC_MIN_P if method == "landing" else TC_MIN_P
     return _route("fused group step", p, n, whole_smem_bytes, tiled_smem_bytes, low,
-                  tiles=_FUSED_TILE_NS, cluster=(small_p_cluster, CLUSTER_MAX_P))
+                  tiles=_FUSED_TILE_NS, cluster=(small_p_cluster, CLUSTER_MAX_P),
+                  batched=True)
 
 
 def two_stage_tile_n(p: int, tiled_bytes) -> int | None:
@@ -624,12 +648,12 @@ def two_stage_tile_n(p: int, tiled_bytes) -> int | None:
 
 
 def plan_pogo_update(p: int, n: int) -> tuple[str, int]:
-    """``("whole", 0)``, ``("cluster", 0)``, ``("tc", 0)``, ``("tiled",
-    tile_n)`` or the large route of the POGO update (:func:`_route`, as
-    :func:`plan`'s POGO step)."""
+    """``("batched", 0)``, ``("whole", 0)``, ``("cluster", 0)``, ``("tc",
+    0)``, ``("tiled", tile_n)`` or the large route of the POGO update
+    (:func:`_route`, as :func:`plan`'s POGO step)."""
     return _route("pogo update", p, n, pogo_whole_smem_bytes, pogo_tiled_smem_bytes,
                   TC_MIN_P, fallback=_TWO_STAGE_FALLBACK,
-                  cluster=(small_p_cluster, CLUSTER_MAX_P))
+                  cluster=(small_p_cluster, CLUSTER_MAX_P), batched=True)
 
 
 def plan_landing_field(p: int, n: int) -> tuple[str, int]:
@@ -712,6 +736,8 @@ def pogo_update(x, g, eta, lam=0.5, *, find_root: bool = False,
     if x.device.type == "cpu":  # the wrappers' plain version, any p
         return _pu.pogo_update_whole(x, g, eta, lam, inplace=inplace)
     kind, tile_n = plan_pogo_update(*x.shape[-2:])
+    if kind == "batched":
+        return _pu.pogo_update_batched(x, g, eta, lam, inplace=inplace)
     if kind == "whole":
         return _pu.pogo_update_whole(x, g, eta, lam, inplace=inplace)
     if kind == "cluster":
@@ -793,6 +819,7 @@ def _ns_launch(x, iters, out, mask, dist):
 
 
 KERNELS = (_fs.fused_step_whole, _fs.fused_step_tiled, _fs.fused_step_cluster,
+           _fs.fused_step_batched, _fs.fused_step_batched_landing,
            _fs.fused_step_whole_landing, _fs.fused_step_tiled_landing,
            _fs.fused_step_cluster_landing,
            _fs.fused_step_tiled_tc, _fs.fused_step_tiled_tc_landing,
@@ -800,7 +827,7 @@ KERNELS = (_fs.fused_step_whole, _fs.fused_step_tiled, _fs.fused_step_cluster,
            _fs.fused_step_large, _fs.fused_step_large_landing,
            _fs.fused_step_large_tc, _fs.fused_step_large_tc_landing,
            _tp.tp_gram, _tp.tp_apply, _tp.tp_gram_tc, _tp.tp_apply_tc,
-           _pu.pogo_update_whole,
+           _pu.pogo_update_whole, _pu.pogo_update_batched,
            _pu.pogo_update_tiled, _pu.pogo_update_cluster, _pu.pogo_update_tiled_tc,
            _pu.pogo_update_tiled_tc128, _pu.pogo_update_large, _pu.pogo_update_large_tc,
            _lf.landing_field, _lf.landing_field_tiled, _lf.landing_field_cluster,
@@ -864,6 +891,8 @@ def fused_group_step(
         raise ValueError(f"no fused group step for device {x.device}")
     _, p, n = x.shape
     kind, tile_n = plan(p, n, method)
+    if kind == "batched":
+        return _fs.fused_step_batched(x, g, eta, **kw)
     if kind == "whole":
         return _fs.fused_step_whole(x, g, eta, **kw)
     if kind == "cluster":

@@ -1,5 +1,6 @@
 """Wrappers of the two-stage POGO update kernels (``csrc/two_stage.cu``,
-``csrc/fused_step_tc.cu``, ``csrc/small_p.cu``, ``csrc/large_p.cu``).
+``csrc/fused_step_tc.cu``, ``csrc/small_p.cu``, ``csrc/large_p.cu``,
+``csrc/batched_whole.cu``).
 
 ``pogo_update_whole`` replaces ``repro/kernels/pogo_update.py:64``
 (``_pogo_whole_kernel``): one CTA per matrix with X and G resident in
@@ -23,6 +24,10 @@ one matrix's (p, p) grams outgrow a block: the TPU's three phases as
 gram-then-apply launches, the grams between them in HBM and L2, on the
 CUDA cores where n % 4 != 0; ``pogo_update_large_tc`` is the same on the
 tensor cores (3xTF32 ``wgmma`` fed by TMA), the route at n % 4 == 0.
+``pogo_update_batched`` (``csrc/batched_whole.cu``) replaces the TPU kernel
+of ``pogo_update_whole`` for stacks of many matrices of p <= n <= 4: a
+thread a matrix, persistent CTAs walking groups of consecutive matrices
+fed by 1-D bulk copies.
 
 All of them take a ``(B, p, n)`` fp32 stack ``x`` and transformed gradient ``g``
 and return ``X' = (1 + lam) M - lam (M M^T) M`` with ``M = X - eta/2
@@ -140,6 +145,17 @@ def pogo_update_whole(x, g, eta, lam, *, inplace=False):
     return out
 
 
+def pogo_update_batched(x, g, eta, lam, *, inplace=False):
+    """The whole-matrix POGO update over many matrices of p <= n <= 4: a
+    thread a matrix, persistent CTAs walking groups of consecutive
+    matrices, each group's X and G one 1-D bulk copy a tensor into a ring
+    of stages, X' written back the same way."""
+    out = _update("pogo_update_batched", x, g, eta, lam, inplace, lib=fused_step.batched_lib)
+    if x.device.type == "cuda":
+        pogo_update_batched.launches += 1
+    return out
+
+
 def pogo_update_tiled(x, g, eta, lam, *, tile_n=64, inplace=False):
     """Tiled POGO update: one CTA per matrix sweeping ``tile_n``-wide column
     tiles (A, B; then M and C; then X'), grams in shared memory
@@ -229,6 +245,7 @@ def pogo_update_large_tc(x, g, eta, lam, *, inplace=False, runner=None):
 
 
 pogo_update_whole.launches = 0
+pogo_update_batched.launches = 0
 pogo_update_tiled.launches = 0
 pogo_update_tiled_tc.launches = 0
 pogo_update_tiled_tc128.launches = 0

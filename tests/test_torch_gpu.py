@@ -92,6 +92,38 @@ def test_whole_kernel_matches_plain(cuda, shape, base_kind, hyper):
            dict(atol=2e-5, rtol=1e-4))
 
 
+@pytest.mark.parametrize("shape", [(1031, 4, 4), (515, 2, 3), (1000, 3, 3), (37, 3, 3)])
+@pytest.mark.parametrize("method", ["pogo", "landing"])
+@pytest.mark.parametrize("base_kind,hyper", BASES)
+def test_batched_kernel_matches_plain(cuda, shape, method, base_kind, hyper):
+    """``csrc/batched_whole.cu``'s fused step (a thread a matrix; tail
+    groups, and a short group at 37) against the plain version, the whole
+    kernels' tolerance."""
+    x, g, mu, nu = _operands(shape, cuda, seed=11)
+    kw = dict(_kwargs(base_kind, hyper, mu, nu, cuda), method=method)
+    wrapper = tfs.fused_step_batched if method == "pogo" else tfs.fused_step_batched_landing
+    before = wrapper.launches
+    got = tfs.fused_step_batched(x, g, 0.1, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    _close(got, tref.fused_group_step_ref(x, g, 0.1, **kw), dict(atol=2e-5, rtol=1e-4))
+
+
+@pytest.mark.parametrize("shape", [(4, 5, 5), (4, 1, 5), (8, 16, 256)])
+def test_batched_kernels_refuse_shapes_outside_their_range(cuda, shape):
+    """Past p <= n <= 4 the batched entries raise and count no launch."""
+    x, g, mu, nu = _operands(shape, cuda, seed=3)
+    kw = _kwargs("trace", (0.9, False), mu, nu, cuda)
+    for wrapper, call in ((tfs.fused_step_batched, lambda: tfs.fused_step_batched(x, g, 0.1,
+                                                                                  **kw)),
+                          (tpu.pogo_update_batched,
+                           lambda: tpu.pogo_update_batched(x, g, 0.1, 0.5))):
+        before = wrapper.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            call()
+        assert wrapper.launches == before
+
+
 @pytest.mark.parametrize("shape,tile_n", [((16, 64, 960), 32), ((16, 64, 960), 64),
                                           ((5, 10, 250), 32), ((2, 120, 300), 32),
                                           ((4, 128, 2048), 16)])
@@ -107,12 +139,14 @@ def test_tiled_kernel_matches_plain(cuda, shape, tile_n, base_kind, hyper):
            dict(atol=3e-5, rtol=1e-4))
 
 
-@pytest.mark.parametrize("wrapper", [tfs.fused_step_whole, tfs.fused_step_tiled])
+@pytest.mark.parametrize("wrapper", [tfs.fused_step_whole, tfs.fused_step_tiled,
+                                     tfs.fused_step_batched])
 def test_kernels_in_place_and_ragged(cuda, wrapper):
-    shape = (4, 8, 200)
+    shape = (4, 4, 4) if wrapper is tfs.fused_step_batched else (4, 8, 200)
+    p = shape[1]
     x, g, mu, nu = _operands(shape, cuda, seed=2)
-    pv = torch.tensor([8, 5, 1, 0], dtype=torch.int32, device=cuda)
-    rows = torch.arange(8, device=cuda)[None, :, None] < pv[:, None, None]
+    pv = torch.tensor([p, p // 2 + 1, 1, 0], dtype=torch.int32, device=cuda)
+    rows = torch.arange(p, device=cuda)[None, :, None] < pv[:, None, None]
     x, g, mu = (torch.where(rows, a, 0.0) for a in (x, g, mu))
     kw = _kwargs("vadam", (0.9, 0.999, 1e-8), mu, nu, cuda, pv=pv)
     want = tref.fused_group_step_ref(x, g, 0.1, **kw)
@@ -196,13 +230,15 @@ def test_landing_kernels_match_plain(cuda, shape, wrapper, tile_n, tol, base_kin
 
 
 @pytest.mark.parametrize("wrapper", [tfs.fused_step_whole_landing,
-                                     tfs.fused_step_tiled_landing])
+                                     tfs.fused_step_tiled_landing,
+                                     tfs.fused_step_batched_landing])
 def test_landing_kernels_in_place_and_ragged(cuda, wrapper):
-    shape = (4, 8, 200)
+    shape = (4, 4, 4) if wrapper is tfs.fused_step_batched_landing else (4, 8, 200)
+    p = shape[1]
     x, g = _off_manifold_operands(shape, cuda, seed=6)
     _, _, mu, nu = _operands(shape, cuda, seed=7)
-    pv = torch.tensor([8, 5, 1, 0], dtype=torch.int32, device=cuda)
-    rows = torch.arange(8, device=cuda)[None, :, None] < pv[:, None, None]
+    pv = torch.tensor([p, p // 2 + 1, 1, 0], dtype=torch.int32, device=cuda)
+    rows = torch.arange(p, device=cuda)[None, :, None] < pv[:, None, None]
     x, g, mu = (torch.where(rows, a, 0.0) for a in (x, g, mu))
     kw = dict(_kwargs("vadam", (0.9, 0.999, 1e-8), mu, nu, cuda, pv=pv), lam=1.0)
     kw.pop("method")
@@ -653,7 +689,8 @@ TWO_STAGE = [(tpu.pogo_update_whole, 0), (tpu.pogo_update_tiled, 32),
              (tlf.landing_field_tiled, 64)]
 
 
-POGO_UPDATES = (tpu.pogo_update_whole, tpu.pogo_update_tiled, tpu.pogo_update_tiled_tc)
+POGO_UPDATES = (tpu.pogo_update_whole, tpu.pogo_update_tiled, tpu.pogo_update_tiled_tc,
+                tpu.pogo_update_batched)
 
 
 def _two_stage_call(wrapper, tile_n, x, g, **kw):
@@ -694,6 +731,24 @@ def test_two_stage_kernels_match_plain(cuda, shape, wrapper, tile_n):
     tol = dict(atol=2e-5, rtol=1e-4) if tile_n else dict(atol=1e-6, rtol=1e-5)
     want = _two_stage_plain(wrapper, x, g)
     assert not torch.allclose(_two_stage_plain(wrapper, x, g, lam=0.0), want, **tol)
+    torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.parametrize("shape", [(1031, 4, 4), (515, 2, 3), (3, 1, 4), (1000, 3, 3)])
+@pytest.mark.parametrize("inplace", [False, True])
+def test_batched_pogo_update_matches_plain(cuda, shape, inplace):
+    """``csrc/batched_whole.cu``'s update, the whole kernel's tolerance; X
+    off the manifold, so that a dropped lam term fails."""
+    x, g = _off_manifold_operands(shape, cuda, seed=6)
+    want = _two_stage_plain(tpu.pogo_update_batched, x, g)
+    before = tpu.pogo_update_batched.launches
+    got = _two_stage_call(tpu.pogo_update_batched, 0, x, g, inplace=inplace)
+    torch.cuda.synchronize()
+    assert tpu.pogo_update_batched.launches == before + 1
+    assert (got is x) == inplace
+    tol = dict(atol=1e-6, rtol=1e-5)
+    assert not torch.allclose(_two_stage_plain(tpu.pogo_update_batched, x, g, lam=0.0), want,
+                              **tol)
     torch.testing.assert_close(got, want, **tol)
 
 

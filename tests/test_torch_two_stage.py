@@ -202,15 +202,16 @@ def test_two_stage_planners_keep_their_plans_outside_the_tc_range(pogo):
     on the CUDA cores elsewhere (``ops.large_kind``). The cluster kernel
     (``csrc/small_p.cu``) takes over a tiled plan, and only that,
     where a cluster holds the matrix, p <= ``CLUSTER_MAX_P`` and n % 4 ==
-    0."""
+    0; the batched kernel (``csrc/batched_whole.cu``) takes over POGO's
+    whole plan, and only that, at p <= n <= ``BATCHED_MAX_N``."""
     whole = tops.pogo_whole_smem_bytes if pogo else tops.landing_whole_smem_bytes
     tiled = tops.pogo_tiled_smem_bytes if pogo else tops.landing_tiled_smem_bytes
     plan = tops.plan_pogo_update if pogo else tops.plan_landing_field
     low = tops.TC_MIN_P if pogo else tops.LANDING_FIELD_TC_MIN_P
     high = tops.TC_MAX_P
-    moved = clustered = 0
+    moved = clustered = batched = 0
     for p in range(1, 161):
-        for n in (16, 100, 256, 960, 2048, 4096, 8192):
+        for n in (4, 16, 100, 256, 960, 2048, 4096, 8192):
             try:
                 old = tops._plan("old", p, n, whole, tiled)
             except ValueError:
@@ -219,7 +220,11 @@ def test_two_stage_planners_keep_their_plans_outside_the_tc_range(pogo):
                 new = plan(p, n)
             except ValueError:
                 new = None
-            if new == ("cluster", 0):
+            if new == ("batched", 0):
+                assert pogo and old == ("whole", 0), (p, n, old)
+                assert p <= n <= tops.BATCHED_MAX_N
+                batched += 1
+            elif new == ("cluster", 0):
                 assert old is not None and old[0] == "tiled", (p, n, old)
                 assert p <= tops.CLUSTER_MAX_P and n % 4 == 0
                 assert tops.small_p_cluster(p, n) > 0
@@ -237,6 +242,7 @@ def test_two_stage_planners_keep_their_plans_outside_the_tc_range(pogo):
                 assert new == old, (p, n, old, new)
     assert moved > 0
     assert clustered > 0
+    assert (batched > 0) == pogo
     assert plan(128, 2048) == ("tc", 0)
     # the CUDA-core kernel's tile there, which the card times beside it
     assert tops.two_stage_tile_n(128, tiled) == (16 if pogo else 64)
